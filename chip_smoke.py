@@ -1,0 +1,614 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port of ProMIPS on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit code and no result
+line):
+  1. setup: versions, the card's name and power limit, TF32 off, and the
+     build of every kernel from src/repro_torch/kernels/csrc/;
+  2. each kernel against its plain PyTorch version on the card, at the main
+     path's shapes on the n=1M index (B=64, k=10): block_mips on a sparse
+     pow2 tile with padding slots, on the dense tile of all 125,000 slots,
+     on a round-2 tile with a carried top-k, and on a tile with carried
+     hits at c_half where the Condition-A stop fires; sketch_scores at
+     NB=125,000; each with its time, the plain version's, the library
+     call's and the bound;
+  3. the main path (`ProMIPS.search`, two-phase fused search with the sketch
+     prefilter) at n=100,000 with the LARGE_N recipe, held against the same
+     search on the plain versions (sketch estimates within tolerance, each
+     prefilter cut flip with its distance to the cut), against an exact
+     top-k and against the Theorem-2 floor;
+  4. the same at n=1,000,000, plus the time per batch, the launches of each
+     kernel, the peak memory, and a torch.profiler trace of one batch
+     (device time per kernel, the device's idle share).
+The last line is {"ok": true, "device": {...}}; the line before it holds
+the kernels' numbers as JSON.
+"""
+from __future__ import annotations
+
+import gc
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+# the LARGE_N recipe (benchmarks/paper_figures.py), shipped search knobs
+RECIPE = dict(d=128, rank=16, decay=0.5, norm_tail=0.6)
+BUILD = dict(m=16, c=0.9, p=0.6, k_p=8, k_sp=8, norm_strata=8, seed=0)
+SEARCH = dict(k=10, prefilter=True, prefilter_eps=0.1, dense_frac=0.8)
+N_QUERIES = 64
+JAX_CPU_RECORD_100K = dict(pages_mean=1386.14, pages_frac=0.111, recall=0.9984)
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
+PEAK_BYTES = 3.35e12
+PEAK_FP32 = 67e12
+# kernel vs plain version: |difference| <= REL * ||q|| * ||row|| + ABS
+REL, ABS = 1e-5, 1e-6
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+# ---------------------------------------------------------------- timing
+
+class Timer:
+    """Per-call CUDA-event timing with the L2 cache flushed before each call
+    (the main path finds its inputs cold).
+
+    ``hold=True`` (device time) first parks the card in a spin kernel long
+    enough for the host to enqueue the whole call, so the events bracket the
+    call's device work only; ``hold=False`` leaves the card waiting on the
+    host, so the time includes the wrapper's host-side cost."""
+
+    HOLD_CYCLES = 10_000_000  # ~5 ms at the H100's clock, above any enqueue
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def ms(self, fn, warm=2, iters=10, hold=True):
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        total = 0.0
+        for _ in range(iters):
+            self.flush.zero_()
+            if hold:
+                torch.cuda._sleep(self.HOLD_CYCLES)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            total += a.elapsed_time(b)
+        return total / iters
+
+
+# ---------------------------------------------------------------- phase 1
+
+def phase_setup():
+    import torch
+    log(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    log(smi.splitlines()[0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    path, build_log = build.build()
+    build.library()
+    log(f"[build] {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    for line in build_log.splitlines():
+        if "Compiling entry" in line:
+            log("[build] " + line.split("'")[1][:90])
+        elif "registers" in line:
+            log("[build]   " + line.split(":", 1)[1].strip())
+    return smi.splitlines()[0]
+
+
+# ---------------------------------------------------------------- data
+
+def build_size(n, seed_queries=1):
+    import torch
+    from repro_torch.core.promips import ProMIPS
+    from repro_torch.data.synthetic import mf_factors
+    t0 = time.perf_counter()
+    x = mf_factors(n, RECIPE["d"], RECIPE["rank"], decay=RECIPE["decay"],
+                   norm_tail=RECIPE["norm_tail"], seed=0)
+    q = mf_factors(N_QUERIES, RECIPE["d"], RECIPE["rank"],
+                   decay=RECIPE["decay"], seed=seed_queries)
+    pm = ProMIPS.build(x, device="cuda", **BUILD)
+    log(f"[build n={n}] host index build {time.perf_counter() - t0:.1f} s: "
+        f"NB={pm.meta.n_blocks} G={pm.meta.n_groups} S={pm.meta.n_subparts} "
+        f"page_rows={pm.meta.page_rows} sketch M={pm.meta.sk_subspaces} "
+        f"K={pm.meta.sk_codewords}")
+    return pm, torch.from_numpy(x).cuda(), torch.from_numpy(q).cuda()
+
+
+# ---------------------------------------------------------------- phase 2
+
+def _row_tol(x_rows, qv):
+    return REL * x_rows.double().norm(dim=-1) * qv.double().norm() + ABS
+
+
+def check_block_mips(args, k, page_rows, got, want):
+    """Hold a kernel round against the plain round. Equal except where a
+    flip is explained: a cnt difference needs a valid row of that slot whose
+    exact score lies within tolerance of c_half (that query's later
+    accounting is then not compared); a top-k row difference needs the two
+    rows' exact scores within tolerance. Returns (max |score diff|, flips)."""
+    import torch
+    x, valid, q, slots, sel, init_s, init_r, c_half = args
+    g = [t.cpu() for t in got]
+    w = [t.cpu() for t in want]
+    slots_c, c_half_c = slots.cpu().long(), c_half.cpu().double()
+    flipped = set()
+    worst = 0.0
+    for b, j in (g[2] != w[2]).nonzero().tolist():
+        rows = slots_c[j] * page_rows + torch.arange(page_rows)
+        xr = x[rows.cuda()]
+        s64 = (xr.double() @ q[b].double()).cpu()
+        near = ((s64 - c_half_c[b]).abs() / _row_tol(xr, q[b]).cpu())
+        near = near[valid[rows.cuda()].cpu()]
+        require(near.numel() and float(near.min()) <= 1.0,
+                f"block_mips cnt[{b},{j}] {int(g[2][b, j])} != {int(w[2][b, j])} "
+                "with no row near c_half")
+        worst = max(worst, float(near.min()))
+        flipped.add(b)
+    keep = torch.tensor([b not in flipped for b in range(q.shape[0])])
+    require(torch.equal(g[3][keep], w[3][keep]), "block_mips pages differ")
+    require(torch.equal(g[4][keep], w[4][keep]), "block_mips cand differ")
+    tie_flips, max_err = 0, 0.0
+    for b in keep.nonzero().flatten().tolist():
+        for i in range(k):
+            rg, rw = int(g[1][b, i]), int(w[1][b, i])
+            sg, sw = float(g[0][b, i]), float(w[0][b, i])
+            if rg == rw:
+                if math.isinf(sw) or math.isinf(sg):
+                    require(sg == sw, f"block_mips top_s[{b},{i}] {sg} != {sw}")
+                    continue
+                err = abs(sg - sw)
+                tol = float(_row_tol(x[rg], q[b]))
+                require(err <= tol, f"block_mips top_s[{b},{i}] off by {err} > {tol}")
+                max_err = max(max_err, err)
+                continue
+            require(rg >= 0 and rw >= 0, f"block_mips top_r[{b},{i}] {rg} vs {rw}")
+            e = (x[[rg, rw]].double() @ q[b].double()).cpu()
+            tol = float(_row_tol(x[rg], q[b]))
+            require(abs(float(e[0] - e[1])) <= tol,
+                    f"block_mips top_r[{b},{i}] {rg} vs {rw}: exact scores "
+                    f"{float(e[0])} vs {float(e[1])} are not a tie")
+            tie_flips += 1
+    return max_err, dict(cnt_flip_queries=len(flipped), tie_flips=tie_flips,
+                         worst_cnt_margin=worst)
+
+
+def block_mips_bound_ms(args, k, page_rows):
+    """Least time for one round: bytes (selected pages, flags, queries,
+    carried and written top-k, cnt) over HBM rate vs fp32 operations (every
+    selected (query, page) pair scored once) over the fp32 rate."""
+    x, valid, q, slots, sel, init_s, init_r, c_half = args
+    b, d = q.shape
+    n_slots = slots.shape[0]
+    pages_read = int(sel.any(dim=0).sum())
+    nbytes = (pages_read * page_rows * (d * 4 + 1) + b * d * 4 + n_slots * 4
+              + b * n_slots + 2 * b * k * 8 + b * 4 + b * n_slots * 4 + b * 8)
+    ops = 2.0 * d * page_rows * float(sel.sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def sketch_bound_ms(q, codebooks, codes):
+    b, d = q.shape
+    m, kcw, sub_d = codebooks.shape
+    nb = codes.shape[0]
+    nbytes = nb * m * 4 + m * kcw * sub_d * 4 + b * d * 4 + b * nb * 4
+    ops = 2.0 * b * m * kcw * sub_d + float(b) * nb * m
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels(pm, q, timer):
+    """Each kernel against its plain version at the n=1M main path's shapes.
+    Returns the records of the kernel line (launches filled in later)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.search_fused import _plan_tile
+    from repro_torch.kernels import ops
+    arrays, meta = pm.arrays, pm.meta
+    k, pr, nb = SEARCH["k"], meta.page_rows, meta.n_blocks
+    valid = arrays.ids >= 0
+    *_, c_half, mask0 = sd.select_frontend(arrays, meta, q)
+
+    # -- sketch_scores
+    sk = (q, arrays.sk_mu, arrays.sk_codebooks, arrays.sk_codes)
+    est_k = ops.sketch_scores(*sk, use_kernels=True)
+    est_p = ops.sketch_scores(*sk, use_kernels=False)
+    torch.cuda.synchronize()
+    tol = REL * q.norm(dim=1)[:, None] * arrays.sk_mu.norm(dim=1)[None, :] + ABS
+    diff = (est_k - est_p).abs()
+    require(bool((diff <= tol).all()),
+            f"sketch_scores exceeds |d| <= 1e-5*|q||mu|+1e-6: max excess "
+            f"{float((diff - tol).max())}")
+    sk_rec = dict(
+        name="sketch_scores", route="cuda",
+        source="src/repro_torch/kernels/csrc/sketch_scores.cu",
+        replaces="src/repro/kernels/block_mips.py:140",
+        max_abs_err=float(diff.max()),
+        ms=timer.ms(lambda: ops.sketch_scores(*sk, use_kernels=True)),
+        call_ms=timer.ms(lambda: ops.sketch_scores(*sk, use_kernels=True),
+                         hold=False),
+        plain_ms=timer.ms(lambda: ops.sketch_scores(*sk, use_kernels=False)),
+        library_ms=timer.ms(lambda: torch.matmul(q, arrays.sk_mu.T)))
+    sk_rec["bound_ms"], sk_rec["bound_by"] = sketch_bound_ms(
+        q, arrays.sk_codebooks, arrays.sk_codes)
+    log(f"[kernel sketch_scores] B={q.shape[0]} NB={nb} M={meta.sk_subspaces} "
+        f"K={meta.sk_codewords}: max|d|={sk_rec['max_abs_err']:.3g} "
+        f"(tol 1e-5*|q||mu|+1e-6)  device {sk_rec['ms']:.4f} ms (call with "
+        f"host {sk_rec['call_ms']:.4f} ms)  plain "
+        f"{sk_rec['plain_ms']:.4f} ms  torch.matmul {sk_rec['library_ms']:.4f} ms"
+        f"  bound {sk_rec['bound_ms']:.4f} ms ({sk_rec['bound_by']})")
+
+    # -- block_mips on the main path's round-1 selection and two variants
+    mask_r1 = sd.prefilter_round1(arrays, q, mask0, k, pr,
+                                  SEARCH["prefilter_eps"], True)[0]
+    mask_np = mask_r1.cpu().numpy()
+    union = np.nonzero(mask_np.any(axis=0))[0]
+    n_sub = min(3000, len(union) // 3)       # 3000 union blocks -> 4096 slots
+    n_sub -= n_sub > 1 and (n_sub & (n_sub - 1)) == 0   # never a power of 2
+    sub = np.zeros(nb, bool)
+    sub[union[:n_sub]] = True
+    empty = (torch.full((q.shape[0], k), float("-inf"), device=q.device),
+             torch.full((q.shape[0], k), -1, dtype=torch.int32, device=q.device))
+    main_plan = _plan_tile(mask_np, nb, nb, SEARCH["dense_frac"])
+
+    def as_args(plan, init, c=c_half):
+        slots, sel = plan[0], plan[1]
+        return (arrays.x, valid, q, torch.from_numpy(slots).cuda(),
+                torch.from_numpy(np.ascontiguousarray(sel)).cuda(), init[0],
+                init[1], c)
+
+    dense_args = as_args((np.arange(nb, dtype=np.int32), mask_np), empty)
+    cases = [("main path round 1", as_args(main_plan, empty), main_plan[3]),
+             ("sparse pow2 tile", as_args(_plan_tile(mask_np & sub[None], nb, nb,
+                                                     SEARCH["dense_frac"]), empty),
+              False),
+             ("dense tile", dense_args, True)]
+    top1 = ops.block_mips(*dense_args, k=k, page_rows=pr, use_kernels=False)
+    round2 = (mask0 & ~mask_r1).cpu().numpy()     # blocks the prefilter cut
+    plan2 = _plan_tile(round2, nb, nb, SEARCH["dense_frac"])
+    cases.append(("round 2, carried top-k", as_args(plan2, top1[:2]), None))
+    # The Condition-A stop: carry the top-k of the blocks the prefilter cut
+    # into the round-1 tile, with c_half at each query's 5th carried score,
+    # so 5 hits are carried and the scan stops at the 5th hit in the tile.
+    top2 = ops.block_mips(*as_args(plan2, empty), k=k, page_rows=pr,
+                          dense=bool(plan2[3]), use_kernels=False)
+    c_stop = top2[0][:, 4].contiguous()
+    require(bool(torch.isfinite(c_stop).all()),
+            "the stop case needs 5 carried scores per query")
+    cases.append(("round 1 after a carried top-k, Condition-A stop",
+                  as_args(main_plan, top2[:2], c_stop), main_plan[3]))
+    bm_rec = None
+    for label, args, dense in cases:
+        slots = args[3]
+        got = ops.block_mips(*args, k=k, page_rows=pr, use_kernels=True)
+        want = ops.block_mips(*args, k=k, page_rows=pr, dense=bool(dense),
+                              use_kernels=False)
+        torch.cuda.synchronize()
+        err, flips = check_block_mips(args, k, pr, got, want)
+        n0 = int((args[5] >= args[7][:, None]).sum())
+        stopped = int((got[3] < args[4].sum(dim=1)).sum())
+        if "stop" in label:
+            require(stopped > 0, f"block_mips {label}: the stop fired for no "
+                    "query (pages == selected slots for every query)")
+        rec = dict(
+            name="block_mips", route="cuda",
+            source="src/repro_torch/kernels/csrc/block_mips.cu",
+            replaces="src/repro/kernels/block_mips.py:181",
+            max_abs_err=err,
+            ms=timer.ms(lambda: ops.block_mips(*args, k=k, page_rows=pr,
+                                               use_kernels=True)),
+            call_ms=timer.ms(lambda: ops.block_mips(*args, k=k, page_rows=pr,
+                                                    use_kernels=True), hold=False),
+            plain_ms=timer.ms(lambda: ops.block_mips(
+                *args, k=k, page_rows=pr, dense=bool(dense), use_kernels=False)),
+            library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = block_mips_bound_ms(args, k, pr)
+        log(f"[kernel block_mips: {label}] NS={slots.shape[0]} "
+            f"selected pairs={int(args[4].sum())} carried hits={n0} "
+            f"stopped queries={stopped} "
+            f"pages={float(got[3].float().mean()):.1f}/query: max|d score|={err:.3g} "
+            f"(tol 1e-5*|q||x|+1e-6) flips={flips}  device {rec['ms']:.4f} ms "
+            f"(call with host {rec['call_ms']:.4f} ms)  plain "
+            f"{rec['plain_ms']:.4f} ms  bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+        if bm_rec is None:
+            bm_rec = rec                       # the main path's own tile
+    return [bm_rec, sk_rec]
+
+
+# ---------------------------------------------------------------- phases 3-4
+
+def exact_topk(x, q, k):
+    """Exact top-k ids and scores on the card: torch.matmul + stable sort."""
+    import torch
+    s = q @ x.T
+    top, idx = torch.sort(s, dim=1, descending=True, stable=True)
+    return idx[:, :k], top[:, :k]
+
+
+def success_rate(scores, exact_scores, c):
+    """Theorem-2 success: every rank of the top-k meets <o_i,q> >= c<o_i*,q>
+    (ranks with a non-positive exact score hold vacuously)."""
+    s, e = scores.double(), exact_scores.double()
+    ok = (s >= c * e - 1e-5) | (e <= 0.0)
+    return float(ok.all(dim=1).double().mean())
+
+
+def compare_paths(x, q, ids_k, st_k, ids_p, st_p, flips, row_of_id, page_rows):
+    """Kernel path vs plain path on the card: ids equal, or each difference
+    explained by an exact-score tie or by a prefilter cut flip in a block
+    that holds one of the rows that differ."""
+    differ = (ids_k != ids_p).any(dim=1).nonzero().flatten().tolist()
+    notes = []
+    for b in differ:
+        a, p = ids_k[b], ids_p[b]
+        sa = (x[a.clamp(min=0).long()].double() @ q[b].double())
+        sp = (x[p.clamp(min=0).long()].double() @ q[b].double())
+        gap = float((sa - sp).abs().max())
+        tol = float(_row_tol(x[a.clamp(min=0).long()], q[b]).max())
+        rows = set((a[a != p].tolist())) | set(p[a != p].tolist())
+        blocks = {int(row_of_id[r]) // page_rows for r in rows if r >= 0}
+        flipped = flips.get(b, {})
+        reached = sorted(blocks & set(flipped))
+        require(gap <= tol or reached,
+                f"query {b}: ids differ between kernel and plain path with "
+                f"score gap {gap} > {tol}, and no prefilter flip in the "
+                f"blocks of the rows that differ (flipped blocks: {flipped})")
+        notes.append(f"q{b}: gap {gap:.3g} (tol {tol:.3g}); prefilter flips in "
+                     f"the blocks of its differing rows: "
+                     f"{ {n: flipped[n] for n in reached} }")
+    pages_diff = int((st_k.pages != st_p.pages).sum())
+    return differ, notes, pages_diff
+
+
+def prefilter_flips(arrays, q, mask0, est_bnd, k):
+    """Hold the kernel's round-1 sketch estimates against the plain ones
+    (|d| <= 1e-5*|q||mu|+1e-6) and compare the two survivor masks. A block
+    that survives under one and not the other is a cut flip only if the
+    plain estimate lies within tolerance of the cut: |est + bnd - tau| <=
+    tol of the block + the largest tol of the query's candidates (how far
+    tau, a k-th largest of est - bnd, can move). Returns {query: {block:
+    (est + bnd - tau) under the plain estimate}}."""
+    import torch
+    from repro_torch.core import search_common as sc
+    from repro_torch.kernels import ops
+    _, _, bnd, bvalid = est_bnd
+    sk = (q, arrays.sk_mu, arrays.sk_codebooks, arrays.sk_codes)
+    est_k = ops.sketch_scores(*sk, use_kernels=True)
+    est_p = ops.sketch_scores(*sk, use_kernels=False)
+    tol = REL * q.norm(dim=1)[:, None] * arrays.sk_mu.norm(dim=1)[None, :] + ABS
+    diff = (est_k - est_p).abs()
+    require(bool((diff <= tol).all()),
+            f"sketch_scores exceeds |d| <= 1e-5*|q||mu|+1e-6 on the main "
+            f"path's input: max excess {float((diff - tol).max())}")
+    mk = sc.sketch_survivors_round1(mask0, est_k, bnd, bvalid, k)
+    mp = sc.sketch_survivors_round1(mask0, est_p, bnd, bvalid, k)
+    out = {}
+    for b in (mk != mp).any(dim=1).nonzero().flatten().tolist():
+        cand = mask0[b] & bvalid
+        lb = torch.where(cand, est_p[b] - bnd[b], torch.full_like(est_p[b],
+                                                                  float("-inf")))
+        g = min(2 * k, lb.numel())
+        lb = torch.cat([lb, lb.new_full(((-lb.numel()) % g,), float("-inf"))])
+        tau = torch.sort(lb.view(-1, g).amax(dim=0)).values[g - k]
+        tol_tau = float(tol[b][cand].max())
+        out[b] = {}
+        for n in (mk[b] != mp[b]).nonzero().flatten().tolist():
+            margin = float(est_p[b, n] + bnd[b, n] - tau)
+            require(abs(margin) <= float(tol[b, n]) + tol_tau,
+                    f"query {b} block {n}: the survivor masks differ, but the "
+                    f"plain estimate is {margin} from the cut, beyond "
+                    f"{float(tol[b, n]) + tol_tau}")
+            out[b][n] = margin
+    return out, float(diff.max())
+
+
+def phase_main_path(label, pm, x, q):
+    """One counted search through `ProMIPS.search`, held against the plain
+    path, an exact top-k and the Theorem-2 floor. Returns the launches."""
+    import torch
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.runtime import search as runtime_search
+    from repro_torch.core import search_device as sd
+    from repro_torch.kernels import ops
+    meta = pm.meta
+    k = SEARCH["k"]
+    # -- the main path, counted
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    ids, scores, st = pm.search(q, **SEARCH)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{label}] main path launches {launches}; first search {first_s:.3f} s; "
+        f"peak memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB "
+        f"allocated before the search, +{(peak - resident) / 2**20:.1f} MiB "
+        f"during it)")
+    require(all(v > 0 for v in launches.values()),
+            f"a kernel of the main path was not launched: {launches}")
+    require(ids.shape == (q.shape[0], k) and bool(torch.isfinite(scores).all()),
+            "main path output has the wrong shape or non-finite scores")
+
+    # -- the same search on the plain versions, on the card
+    cfg = RuntimeConfig(use_kernels=False, **SEARCH)
+    ids_p, _, st_p = runtime_search(pm.arrays, meta, q, cfg)
+    mask0 = sd.select_frontend(pm.arrays, meta, q)[-1]
+    est_bnd = sd.prefilter_round1(pm.arrays, q, mask0, k, meta.page_rows,
+                                  SEARCH["prefilter_eps"], False)
+    flips, sk_err = prefilter_flips(pm.arrays, q, mask0, est_bnd, k)
+    row_of_id = torch.full((x.shape[0],), -1, dtype=torch.long, device=x.device)
+    live = pm.arrays.ids >= 0
+    row_of_id[pm.arrays.ids[live].long()] = live.nonzero().flatten()
+    differ, notes, pages_diff = compare_paths(
+        x, q, ids, st, ids_p, st_p, flips, row_of_id.cpu(), meta.page_rows)
+    log(f"[{label}] sketch_scores on this input: max|d|={sk_err:.3g} "
+        f"(tol 1e-5*|q||mu|+1e-6)")
+    log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} queries "
+        f"differ in ids; {pages_diff} differ in pages; prefilter cut flips "
+        f"(query: {{block: est+bnd-tau}}) {flips if flips else 'none'}")
+    for note in notes:
+        log(f"[{label}]   {note}")
+
+    # -- quality against the exact top-k
+    eids, escores = exact_topk(x, q, k)
+    inter = [len(set(ids[b].tolist()) & set(eids[b].tolist())) / k
+             for b in range(q.shape[0])]
+    recall = sum(inter) / len(inter)
+    pages_mean = float(st.pages.double().mean())
+    pages_frac = pages_mean / meta.n_blocks
+    rate = success_rate(scores, escores, meta.c)
+    p0 = meta.p
+    floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
+    log(f"[{label}] pages_mean {pages_mean:.2f} pages_frac {pages_frac:.4f} "
+        f"recall {recall:.4f} theorem-2 success {rate:.4f} (floor {floor:.4f}) "
+        f"used_round2 {int(st.used_round2.sum())} exhausted "
+        f"{int(st.exhausted.sum())}")
+    require(rate >= floor, f"Theorem-2 floor missed: {rate} < {floor}")
+    return launches
+
+
+def time_batches(pm, n_batches=5):
+    """Median time of one search batch (CUDA events around the whole call,
+    which synchronizes with the host each round), after one warm-up."""
+    import torch
+    from repro_torch.data.synthetic import mf_factors
+    times = []
+    for i in range(n_batches + 1):
+        qb = torch.from_numpy(mf_factors(N_QUERIES, RECIPE["d"], RECIPE["rank"],
+                                         decay=RECIPE["decay"], seed=2 + i)).cuda()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        pm.search(qb, **SEARCH)
+        b.record()
+        b.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2], times
+
+
+def phase_profile(pm, q):
+    """Where one n=1M batch's time goes: device time per kernel from a
+    torch.profiler trace of one search, and the device's idle share of the
+    wall time under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    pm.search(q, **SEARCH)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pm.search(q, **SEARCH)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name[5:] if name.startswith("void ") else name
+        total, count = by_name.get(name[:70], (0.0, 0))
+        by_name[name[:70]] = (total + e.time_range.end - e.time_range.start,
+                              count + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    if busy_ms == 0:
+        log("[profile n=1M] device time not measured: the trace holds no "
+            "CUDA events")
+        return
+    log(f"[profile n=1M] one batch: wall {wall_ms:.3f} ms under the profiler, "
+        f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
+        log(f"[profile n=1M]   {t / 1e3:8.3f} ms  x{c:<3d} {name}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the card",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        print(f"chip_smoke: {SRC}/repro_torch not found; run from a checkout",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, SRC)
+    t_start = time.perf_counter()
+
+    card = phase_setup()
+    timer = Timer(torch)
+
+    pm1m, x1m, q1m = build_size(1_000_000)
+    records = phase_kernels(pm1m, q1m, timer)
+
+    pm100k, x100k, q100k = build_size(100_000)
+    phase_main_path("n=100k", pm100k, x100k, q100k)
+    log(f"[n=100k] JAX CPU record (not the port's): pages_mean "
+        f"{JAX_CPU_RECORD_100K['pages_mean']} pages_frac "
+        f"{JAX_CPU_RECORD_100K['pages_frac']} recall {JAX_CPU_RECORD_100K['recall']}")
+    del pm100k, x100k
+
+    launches = phase_main_path("n=1M", pm1m, x1m, q1m)
+    med, times = time_batches(pm1m)
+    log(f"[n=1M] search time per batch of {N_QUERIES}: median {med:.3f} ms over "
+        f"{len(times)} batches {['%.3f' % t for t in times]}")
+    phase_profile(pm1m, q1m)
+
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
+    print(json.dumps({"kernels": [{key: rec[key] for key in keys}
+                                  for rec in records]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,9 @@
+"""PyTorch + CUDA port of the ProMIPS search (see `src/repro/` for the JAX
+reference it mirrors module by module).
+
+The main path is the guaranteed c-k-AMIP batch search:
+`core.promips.ProMIPS` -> `core.runtime.search` (two-phase, fused
+verification, sketch prefilter) -> `core.search_fused.search_batch_fused`,
+whose two hot kernels (`kernels.block_mips`, `kernels.sketch_scores`) are
+CUDA C++ for Hopper, built from `kernels/csrc/` at first use.
+"""

@@ -1,0 +1,86 @@
+"""Wrapper of the CUDA `block_mips` kernel (`csrc/block_mips.cu`): one fused
+verification round over a slot list of pages, the port of
+`repro.kernels.block_mips.block_mips`. Its plain version is
+`ref.block_mips_ref`; `ops.block_mips` picks between them by device.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+MAX_K = 1024      # the merge pass's buffer (KMAX in the source)
+TILE_ROWS = 64    # rows per block tile (RT in the source); page_rows <= it
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"block_mips: {name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"block_mips: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"block_mips: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"block_mips: {name} must be contiguous")
+
+
+def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
+               k: int, page_rows: int):
+    """Launch the kernel on CUDA tensors.
+
+    x (n_pad, d) f32; valid (n_pad,) bool; q (B, d) f32; slots (NS,) i32,
+    ascending block ids (padding slots have an all-False ``sel`` column);
+    sel (B, NS) bool; init_scores (B, k) f32; init_rows (B, k) i32;
+    c_half (B,) f32. Returns (top_s (B, k) f32, top_r (B, k) i32,
+    cnt (B, NS) i32, pages (B,) i32, cand (B,) i32).
+    """
+    if not x.is_cuda:
+        raise ValueError(f"block_mips kernel needs CUDA tensors, got {x.device}")
+    dev = x.device
+    n_pad, d = x.shape
+    b = q.shape[0]
+    n_slots = slots.shape[0]
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"block_mips kernel supports 1 <= k <= {MAX_K}, got {k}")
+    if not 1 <= page_rows <= TILE_ROWS or n_pad % page_rows:
+        raise ValueError(f"block_mips kernel needs 1 <= page_rows <= {TILE_ROWS}"
+                         f" dividing n_pad={n_pad}, got {page_rows}")
+    if b < 1 or n_slots < 1:
+        raise ValueError(f"block_mips kernel needs B >= 1 and NS >= 1, got "
+                         f"B={b}, NS={n_slots}")
+    _require(x, "x", torch.float32, (n_pad, d), dev)
+    _require(valid, "valid", torch.bool, (n_pad,), dev)
+    _require(q, "q", torch.float32, (b, d), dev)
+    _require(slots, "slots", torch.int32, (n_slots,), dev)
+    _require(sel, "sel", torch.bool, (b, n_slots), dev)
+    _require(init_scores, "init_scores", torch.float32, (b, k), dev)
+    _require(init_rows, "init_rows", torch.int32, (b, k), dev)
+    _require(c_half, "c_half", torch.float32, (b,), dev)
+
+    spc = TILE_ROWS // page_rows
+    n_chunks = -(-n_slots // spc)
+    kc = min(k, spc * page_rows)
+    i32 = dict(dtype=torch.int32, device=dev)
+    top_s = torch.empty((b, k), dtype=torch.float32, device=dev)
+    top_r = torch.empty((b, k), **i32)
+    cnt = torch.empty((b, n_slots), **i32)
+    pages = torch.empty((b,), **i32)
+    cand = torch.empty((b,), **i32)
+    live = torch.empty((b, n_slots), dtype=torch.uint8, device=dev)
+    part_s = torch.empty((b, n_chunks, kc), dtype=torch.float32, device=dev)
+    part_p = torch.empty((b, n_chunks, kc), **i32)
+    part_n = torch.empty((b, n_chunks), **i32)
+    lib = build.library()
+    with torch.cuda.device(dev):
+        err = lib.block_mips_launch(
+            x.data_ptr(), valid.data_ptr(), q.data_ptr(), slots.data_ptr(),
+            sel.data_ptr(), init_scores.data_ptr(), init_rows.data_ptr(),
+            c_half.data_ptr(), top_s.data_ptr(), top_r.data_ptr(),
+            cnt.data_ptr(), pages.data_ptr(), cand.data_ptr(), live.data_ptr(),
+            part_s.data_ptr(), part_p.data_ptr(), part_n.data_ptr(),
+            b, d, n_slots, k, page_rows, spc, kc, n_chunks,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "block_mips")
+    build.LAUNCHES["block_mips"] += 1
+    return top_s, top_r, cnt, pages, cand

@@ -1,0 +1,103 @@
+"""Plain PyTorch versions of the port's kernels (port of
+`repro.kernels.ref`). They are the CPU path of `ops` and what the CUDA
+kernels are held against on the card.
+
+Ties follow `jax.lax.top_k`: the lower index wins, and in a merge the
+carried entries come first. `torch.topk` promises no order among ties, so
+the top-k here is a stable descending sort.
+"""
+from __future__ import annotations
+
+import torch
+
+NEG_INF = float("-inf")
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """Top-k along dim 1, descending, ties to the lower index."""
+    s, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return s[:, :k].contiguous(), idx[:, :k].contiguous()
+
+
+def block_mips_ref(x, valid, q, slots, sel, init_scores, init_rows, c_half,
+                   *, k: int, page_rows: int, dense: bool = False):
+    """One fused verification round (the `block_mips` contract).
+
+    x (n_pad, d) f32; valid (n_pad,) bool; q (B, d); slots (NS,) int block
+    ids, ascending, padding slots allowed (their ``sel`` column is False);
+    sel (B, NS) bool; init_scores/init_rows (B, k) carried top-k; c_half (B,)
+    Condition-A thresholds. ``dense=True`` promises ``slots ==
+    arange(n_blocks)``, so ``x`` is scored in place without a gather.
+
+    Returns (top_s (B, k) f32, top_r (B, k) i32, cnt (B, NS) i32,
+    pages (B,) i32, cand (B,) i32).
+    """
+    n_slots = sel.shape[1]
+    d = x.shape[1]
+    if dense:
+        xt, rvalid = x, valid.bool()
+        rows_flat = torch.arange(n_slots * page_rows, dtype=torch.int32,
+                                 device=x.device)
+    else:
+        sl = slots.long()
+        rows_flat = (sl[:, None] * page_rows
+                     + torch.arange(page_rows, device=x.device)).reshape(-1).int()
+        xt = x.view(-1, page_rows, d)[sl].reshape(-1, d)
+        rvalid = valid.view(-1, page_rows)[sl].reshape(-1).bool()
+    scores = (xt.float() @ q.float().T).T                        # (B, R)
+    return _verify_core(scores, rvalid, sel, init_scores, init_rows, c_half,
+                        rows_flat, k=k, page_rows=page_rows)
+
+
+def block_mips_cached_ref(scores_full, valid, slots, sel, init_scores,
+                          init_rows, c_half, *, k: int, page_rows: int):
+    """Compensation round over CACHED scores: the previous round scored the
+    whole corpus in place (dense tile), so this round's slots are a subset
+    of the (B, n_pad) matrix ``scores_full``; no new dot products."""
+    sl = slots.long()
+    rows_flat = (sl[:, None] * page_rows
+                 + torch.arange(page_rows, device=sl.device)).reshape(-1)
+    scores = scores_full[:, rows_flat]                           # (B, R)
+    rvalid = valid.view(-1, page_rows)[sl].reshape(-1).bool()
+    return _verify_core(scores, rvalid, sel, init_scores, init_rows, c_half,
+                        rows_flat.int(), k=k, page_rows=page_rows)
+
+
+def _verify_core(scores, rvalid, sel, init_scores, init_rows, c_half,
+                 rows_flat, *, k: int, page_rows: int):
+    """Condition-A accounting + top-k merge over a (B, R) score tile.
+
+    A slot is live iff it is selected and the carried hits ``n0`` plus the
+    hits of earlier selected slots are still below k (the sequential-scan
+    stop); pages/candidates count live slots; the top-k keeps live valid
+    rows merged after the carried entries."""
+    b, r = scores.shape
+    n_slots = r // page_rows
+    sel = sel.bool()
+    ge = (scores >= c_half[:, None]) & rvalid[None, :]           # (B, R)
+    cnt = (ge.view(b, n_slots, page_rows).sum(dim=2) * sel).int()  # (B, NS)
+    n0 = (init_scores >= c_half[:, None]).sum(dim=1)             # carried hits
+    ex_cum = torch.cumsum(cnt.long(), dim=1) - cnt               # exclusive
+    live = sel & ((n0[:, None] + ex_cum) < k)
+    pages = live.sum(dim=1).int()
+    vcnt = rvalid.view(n_slots, page_rows).sum(dim=1)
+    cand = (live.long() * vcnt[None, :]).sum(dim=1).int()
+
+    row_live = live[:, :, None] & rvalid.view(1, n_slots, page_rows)
+    masked = torch.where(row_live.reshape(b, -1), scores,
+                         torch.full_like(scores, NEG_INF))
+    tile_s, idx = topk_stable(masked, min(k, r))
+    tile_r = torch.where(tile_s > NEG_INF, rows_flat.long()[idx],
+                         torch.full_like(idx, -1)).int()
+    merged_s = torch.cat([init_scores.float(), tile_s], dim=1)
+    merged_r = torch.cat([init_rows.int(), tile_r], dim=1)
+    top_s, pos = topk_stable(merged_s, k)
+    return top_s, merged_r.gather(1, pos), cnt, pages, cand
+
+
+def sketch_scores_ref(q: torch.Tensor, sk_mu: torch.Tensor) -> torch.Tensor:
+    """Estimated block scores from the DECODED sketch centroids:
+    q (B, d), sk_mu (NB, d) -> (B, NB). One GEMM; the kernel sums the same
+    subspace products through a LUT in another order, so the two agree to
+    float tolerance, not bitwise."""
+    return q.float() @ sk_mu.float().T

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and skip without one (the decision is made
+inside the fixture). Run them on a machine with an H100:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
+
+`block_mips` is held on integer-valued data, where every dot product is
+exact in f32 whatever the summation order, so kernel and plain version must
+agree bit for bit, ties included. `sketch_scores` sums in another order
+than its GEMM plain version and is held to the stated tolerance.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _round_inputs(rng, nb, p, d, b, k, ns, dense):
+    """Integer-valued round inputs: padding slots, invalid rows, duplicate
+    rows, a carried top-k with hits and empty (-inf, -1) tails."""
+    n = nb * p
+    x = rng.randint(-3, 4, (n, d)).astype(np.float32)
+    dup = rng.choice(n, n // 8, replace=False)
+    x[dup] = x[rng.choice(n, len(dup))]                      # exact ties
+    valid = rng.rand(n) > 0.15
+    q = rng.randint(-3, 4, (b, d)).astype(np.float32)
+    if dense:
+        slots = np.arange(nb, dtype=np.int32)
+        sel = rng.rand(b, nb) > 0.3
+    else:
+        blocks = np.sort(rng.choice(nb, ns - 2, replace=False))
+        slots = np.concatenate([blocks, [0, 0]]).astype(np.int32)
+        sel = rng.rand(b, ns) > 0.4
+        sel[:, ns - 2:] = False
+    scores = q @ x.T
+    c_half = (np.quantile(scores, 0.97, axis=1) + 0.5).astype(np.float32)
+    init_s = np.sort(rng.randint(-10, 60, (b, k)).astype(np.float32),
+                     axis=1)[:, ::-1].copy()
+    init_r = rng.randint(0, n, (b, k)).astype(np.int32)
+    tail = rng.randint(0, k + 1, b)
+    for i in range(b):
+        init_s[i, k - tail[i]:] = -np.inf
+        init_r[i, k - tail[i]:] = -1
+    return (x, valid, q, slots, sel, init_s, init_r, c_half)
+
+
+@pytest.mark.parametrize("nb,p,d,b,k,ns,dense", [
+    (12, 8, 32, 5, 4, 8, False),
+    (30, 16, 64, 9, 10, 16, False),
+    (64, 21, 48, 70, 32, 40, False),    # page_rows 21, two query tiles
+    (20, 8, 128, 17, 1, 4, False),
+    (100, 1, 300, 3, 5, 64, False),     # page_rows 1, depth in 10 slices
+    (40, 64, 16, 2, 100, 40, True),     # page_rows = tile rows
+    (50, 32, 32, 5, 128, 50, True),
+    (300, 8, 128, 64, 10, 300, True),   # the main path's widths
+    (30, 8, 128, 4, 700, 30, True),     # k above one chunk's rows
+])
+def test_block_mips_kernel_bitwise_on_integer_data(cuda, nb, p, d, b, k, ns,
+                                                   dense):
+    rng = np.random.RandomState(nb * 1000 + k)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _round_inputs(rng, nb, p, d, b, k, ns, dense)]
+    got = ops.block_mips(*args, k=k, page_rows=p, use_kernels=True)
+    want = ops.block_mips(*args, k=k, page_rows=p, dense=dense,
+                          use_kernels=False)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("top_s", "top_r", "cnt", "pages", "cand"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=name)
+
+
+def test_block_mips_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.RandomState(0)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _round_inputs(rng, 12, 8, 32, 5, 4, 8, False)]
+    with pytest.raises(ValueError):
+        ops.block_mips(*args, k=4, page_rows=80, use_kernels=True)
+    bad = list(args)
+    bad[4] = bad[4].int()                                     # sel not bool
+    with pytest.raises(ValueError):
+        ops.block_mips(*bad, k=4, page_rows=8, use_kernels=True)
+
+
+@pytest.mark.parametrize("b,nb,m,kcw,sub_d", [
+    (64, 5000, 16, 256, 8), (5, 1000, 16, 191, 3), (13, 777, 8, 64, 4),
+    (3, 500, 3, 32, 5)])                # M not a multiple of 4
+def test_sketch_scores_kernel_within_tolerance(cuda, b, nb, m, kcw, sub_d):
+    rng = np.random.RandomState(b + nb)
+    q = torch.from_numpy(rng.standard_normal((b, m * sub_d)).astype(np.float32)).to(cuda)
+    cb = torch.from_numpy(rng.standard_normal((m, kcw, sub_d)).astype(np.float32)).to(cuda)
+    codes = torch.from_numpy(rng.randint(0, kcw, (nb, m)).astype(np.int32)).to(cuda)
+    sk_mu = torch.cat([cb[s][codes[:, s].long()] for s in range(m)], dim=1)
+    got = ops.sketch_scores(q, sk_mu, cb, codes, use_kernels=True)
+    want = ops.sketch_scores(q, sk_mu, cb, codes, use_kernels=False)
+    tol = (1e-5 * q.norm(dim=1)[:, None] * sk_mu.norm(dim=1)[None, :] + 1e-6)
+    assert bool(((got - want).abs() <= tol).all())
