@@ -10,10 +10,12 @@ line):
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes on the n=1M index (B=64, k=10): block_mips on a sparse
      pow2 tile with padding slots, on the dense tile of all 125,000 slots,
-     on a round-2 tile with a carried top-k, and on a tile with carried
-     hits at c_half where the Condition-A stop fires; sketch_scores at
-     NB=125,000; each with its time, the plain version's, the library
-     call's and the bound;
+     on a round-2 tile with a carried top-k, on a tile with carried hits at
+     c_half where the Condition-A stop fires, and on the round-1 tile at the
+     streaming over-fetch's k = 2,058 and at k = 16,394 (the device-memory
+     merge); sketch_scores at NB=125,000; mips_score on a 131,072-row delta
+     with 1% of rows invalid; each with its time, the plain version's, the
+     library call's and the bound;
   3. the main path (`ProMIPS.search`, two-phase fused search with the sketch
      prefilter) at n=100,000 with the LARGE_N recipe, held against the same
      search on the plain versions (sketch estimates within tolerance, each
@@ -21,7 +23,19 @@ line):
      top-k and against the Theorem-2 floor;
   4. the same at n=1,000,000, plus the time per batch, the launches of each
      kernel, the peak memory, and a torch.profiler trace of one batch
-     (device time per kernel, the device's idle share).
+     (device time per kernel, the device's idle share);
+  5. the streaming index (`MutableProMIPS`: insert / delete / update ->
+     snapshot -> base search with the over-fetched k + the delta scored by
+     mips_score -> merge; compaction), in two cells:
+     compact-100k: a stream over the n=100k index with 11,112 inserts,
+       200 deletes and 200 updates, compacted synchronously and searched,
+       then a background compaction with 1,000 inserts and searches landing
+       while it runs, after which the inserted rows are found;
+     stream-1M: a stream over the n=1M index with 111,112 inserts (state A,
+       a 10% delta) and then 2,000 base deletes or updates and 1,112 delta
+       deletes (state B, k_base = 2,058); each state held like the main
+       path (plain path, exact top-k over the live rows, Theorem-2 floor),
+       timed, and state B profiled.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -178,27 +192,31 @@ def check_block_mips(args, k, page_rows, got, want):
     keep = torch.tensor([b not in flipped for b in range(q.shape[0])])
     require(torch.equal(g[3][keep], w[3][keep]), "block_mips pages differ")
     require(torch.equal(g[4][keep], w[4][keep]), "block_mips cand differ")
-    tie_flips, max_err = 0, 0.0
-    for b in keep.nonzero().flatten().tolist():
-        for i in range(k):
-            rg, rw = int(g[1][b, i]), int(w[1][b, i])
-            sg, sw = float(g[0][b, i]), float(w[0][b, i])
-            if rg == rw:
-                if math.isinf(sw) or math.isinf(sg):
-                    require(sg == sw, f"block_mips top_s[{b},{i}] {sg} != {sw}")
-                    continue
-                err = abs(sg - sw)
-                tol = float(_row_tol(x[rg], q[b]))
-                require(err <= tol, f"block_mips top_s[{b},{i}] off by {err} > {tol}")
-                max_err = max(max_err, err)
-                continue
-            require(rg >= 0 and rw >= 0, f"block_mips top_r[{b},{i}] {rg} vs {rw}")
-            e = (x[[rg, rw]].double() @ q[b].double()).cpu()
-            tol = float(_row_tol(x[rg], q[b]))
-            require(abs(float(e[0] - e[1])) <= tol,
-                    f"block_mips top_r[{b},{i}] {rg} vs {rw}: exact scores "
-                    f"{float(e[0])} vs {float(e[1])} are not a tie")
-            tie_flips += 1
+    kq = keep.nonzero().flatten()
+    gs, ws, gr, wr = g[0][kq], w[0][kq], g[1][kq], w[1][kq]
+    same = gr == wr
+    inf = torch.isinf(gs) | torch.isinf(ws)
+    require(bool((gs[same & inf] == ws[same & inf]).all()),
+            "block_mips: an infinite top_s differs on the same row")
+    fin = same & ~inf
+    x_norm = x.norm(dim=1).double().cpu()
+    tol = (REL * x_norm[gr.clamp(min=0).long()]
+           * q.double().norm(dim=1).cpu()[kq][:, None] + ABS)
+    err = (gs.double() - ws.double()).abs()
+    require(bool((err[fin] <= tol[fin]).all()),
+            f"block_mips top_s beyond tolerance by "
+            f"{float((err - tol)[fin].max()) if fin.any() else 0.0}")
+    max_err = float(err[fin].max()) if bool(fin.any()) else 0.0
+    tie_flips = 0
+    for i, j in (~same).nonzero().tolist():   # a row difference is a tie
+        b, rg, rw = int(kq[i]), int(gr[i, j]), int(wr[i, j])
+        require(rg >= 0 and rw >= 0, f"block_mips top_r[{b},{j}] {rg} vs {rw}")
+        e = (x[[rg, rw]].double() @ q[b].double()).cpu()
+        t = float(_row_tol(x[rg], q[b]))
+        require(abs(float(e[0] - e[1])) <= t,
+                f"block_mips top_r[{b},{j}] {rg} vs {rw}: exact scores "
+                f"{float(e[0])} vs {float(e[1])} are not a tie")
+        tie_flips += 1
     return max_err, dict(cnt_flip_queries=len(flipped), tie_flips=tie_flips,
                          worst_cnt_margin=worst)
 
@@ -214,6 +232,17 @@ def block_mips_bound_ms(args, k, page_rows):
     nbytes = (pages_read * page_rows * (d * 4 + 1) + b * d * 4 + n_slots * 4
               + b * n_slots + 2 * b * k * 8 + b * 4 + b * n_slots * 4 + b * 8)
     ops = 2.0 * d * page_rows * float(sel.sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mips_score_bound_ms(x, q):
+    """Rows read once, scores written once, over the HBM rate, against
+    2 R B d fp32 operations over the fp32 rate."""
+    r, d = x.shape
+    b = q.shape[0]
+    nbytes = r * d * 4 + b * d * 4 + r + r * b * 4
+    ops = 2.0 * r * b * d
     t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -270,6 +299,45 @@ def phase_kernels(pm, q, timer):
         f"{sk_rec['plain_ms']:.4f} ms  torch.matmul {sk_rec['library_ms']:.4f} ms"
         f"  bound {sk_rec['bound_ms']:.4f} ms ({sk_rec['bound_by']})")
 
+    # -- mips_score on a delta of the stream-1M cell's shape
+    from repro_torch.data.synthetic import mf_factors
+    r_delta = 131_072
+    xd = torch.from_numpy(mf_factors(r_delta, RECIPE["d"], RECIPE["rank"],
+                                     decay=RECIPE["decay"],
+                                     norm_tail=RECIPE["norm_tail"],
+                                     seed=3)).cuda()
+    vd = torch.from_numpy(np.random.RandomState(7).rand(r_delta) > 0.01).cuda()
+    ms_k = ops.mips_score(xd, q, vd, use_kernels=True)
+    ms_p = ops.mips_score(xd, q, vd, use_kernels=False)
+    torch.cuda.synchronize()
+    tol = REL * xd.norm(dim=1)[:, None] * q.norm(dim=1)[None, :] + ABS
+    diff = (ms_k - ms_p).abs()
+    require(bool((diff <= tol).all()),
+            f"mips_score exceeds |d| <= 1e-5*|q||x|+1e-6: max excess "
+            f"{float((diff - tol).max())}")
+    require(bool((ms_k[~vd] == -1e30).all()),
+            "mips_score: an invalid row is not exactly -1e30")
+    ms_rec = dict(
+        name="mips_score", route="cuda",
+        source="src/repro_torch/kernels/csrc/mips_score.cu",
+        replaces="src/repro/kernels/mips_topk.py:45",
+        max_abs_err=float(diff.max()),
+        ms=timer.ms(lambda: ops.mips_score(xd, q, vd, use_kernels=True)),
+        call_ms=timer.ms(lambda: ops.mips_score(xd, q, vd, use_kernels=True),
+                         hold=False),
+        plain_ms=timer.ms(lambda: ops.mips_score(xd, q, vd, use_kernels=False)),
+        library_ms=timer.ms(lambda: torch.matmul(xd, q.T).masked_fill_(
+            ~vd[:, None], -1e30)))
+    ms_rec["bound_ms"], ms_rec["bound_by"] = mips_score_bound_ms(xd, q)
+    log(f"[kernel mips_score] R={r_delta} B={q.shape[0]} d={RECIPE['d']} "
+        f"invalid rows={int((~vd).sum())}: max|d|={ms_rec['max_abs_err']:.3g} "
+        f"(tol 1e-5*|q||x|+1e-6), invalid rows exactly -1e30  device "
+        f"{ms_rec['ms']:.4f} ms (call with host {ms_rec['call_ms']:.4f} ms)  "
+        f"plain {ms_rec['plain_ms']:.4f} ms  torch.matmul+masked_fill "
+        f"{ms_rec['library_ms']:.4f} ms  bound {ms_rec['bound_ms']:.4f} ms "
+        f"({ms_rec['bound_by']})")
+    del xd, vd, ms_k, ms_p, diff, tol
+
     # -- block_mips on the main path's round-1 selection and two variants
     mask_r1 = sd.prefilter_round1(arrays, q, mask0, k, pr,
                                   SEARCH["prefilter_eps"], True)[0]
@@ -279,8 +347,12 @@ def phase_kernels(pm, q, timer):
     n_sub -= n_sub > 1 and (n_sub & (n_sub - 1)) == 0   # never a power of 2
     sub = np.zeros(nb, bool)
     sub[union[:n_sub]] = True
-    empty = (torch.full((q.shape[0], k), float("-inf"), device=q.device),
-             torch.full((q.shape[0], k), -1, dtype=torch.int32, device=q.device))
+    def empty_top(kk):
+        return (torch.full((q.shape[0], kk), float("-inf"), device=q.device),
+                torch.full((q.shape[0], kk), -1, dtype=torch.int32,
+                           device=q.device))
+
+    empty = empty_top(k)
     main_plan = _plan_tile(mask_np, nb, nb, SEARCH["dense_frac"])
 
     def as_args(plan, init, c=c_half):
@@ -290,15 +362,15 @@ def phase_kernels(pm, q, timer):
                 init[1], c)
 
     dense_args = as_args((np.arange(nb, dtype=np.int32), mask_np), empty)
-    cases = [("main path round 1", as_args(main_plan, empty), main_plan[3]),
+    cases = [("main path round 1", as_args(main_plan, empty), main_plan[3], k),
              ("sparse pow2 tile", as_args(_plan_tile(mask_np & sub[None], nb, nb,
                                                      SEARCH["dense_frac"]), empty),
-              False),
-             ("dense tile", dense_args, True)]
+              False, k),
+             ("dense tile", dense_args, True, k)]
     top1 = ops.block_mips(*dense_args, k=k, page_rows=pr, use_kernels=False)
     round2 = (mask0 & ~mask_r1).cpu().numpy()     # blocks the prefilter cut
     plan2 = _plan_tile(round2, nb, nb, SEARCH["dense_frac"])
-    cases.append(("round 2, carried top-k", as_args(plan2, top1[:2]), None))
+    cases.append(("round 2, carried top-k", as_args(plan2, top1[:2]), None, k))
     # The Condition-A stop: carry the top-k of the blocks the prefilter cut
     # into the round-1 tile, with c_half at each query's 5th carried score,
     # so 5 hits are carried and the scan stops at the 5th hit in the tile.
@@ -308,9 +380,14 @@ def phase_kernels(pm, q, timer):
     require(bool(torch.isfinite(c_stop).all()),
             "the stop case needs 5 carried scores per query")
     cases.append(("round 1 after a carried top-k, Condition-A stop",
-                  as_args(main_plan, top2[:2], c_stop), main_plan[3]))
+                  as_args(main_plan, top2[:2], c_stop), main_plan[3], k))
+    # the streaming over-fetch: k_base = 10 + next_pow2(2,000 tombstones),
+    # and a k far above the shared-memory merge
+    for kk in (2_058, 16_394):
+        cases.append((f"main path round 1 at k={kk} (device-memory merge)",
+                      as_args(main_plan, empty_top(kk)), main_plan[3], kk))
     bm_rec = None
-    for label, args, dense in cases:
+    for label, args, dense, k in cases:
         slots = args[3]
         got = ops.block_mips(*args, k=k, page_rows=pr, use_kernels=True)
         want = ops.block_mips(*args, k=k, page_rows=pr, dense=bool(dense),
@@ -345,7 +422,7 @@ def phase_kernels(pm, q, timer):
             f"({rec['bound_by']})")
         if bm_rec is None:
             bm_rec = rec                       # the main path's own tile
-    return [bm_rec, sk_rec]
+    return [bm_rec, sk_rec, ms_rec]
 
 
 # ---------------------------------------------------------------- phases 3-4
@@ -366,20 +443,22 @@ def success_rate(scores, exact_scores, c):
     return float(ok.all(dim=1).double().mean())
 
 
-def compare_paths(x, q, ids_k, st_k, ids_p, st_p, flips, row_of_id, page_rows):
+def compare_paths(q, ids_k, st_k, ids_p, st_p, flips, rows_of, block_of):
     """Kernel path vs plain path on the card: ids equal, or each difference
     explained by an exact-score tie or by a prefilter cut flip in a block
-    that holds one of the rows that differ."""
+    that holds one of the rows that differ. ``rows_of(ids)`` gives the rows
+    of ids on the card, ``block_of(id)`` the base block of an id (-1 for a
+    row outside the base)."""
     differ = (ids_k != ids_p).any(dim=1).nonzero().flatten().tolist()
     notes = []
     for b in differ:
         a, p = ids_k[b], ids_p[b]
-        sa = (x[a.clamp(min=0).long()].double() @ q[b].double())
-        sp = (x[p.clamp(min=0).long()].double() @ q[b].double())
+        sa = rows_of(a).double() @ q[b].double()
+        sp = rows_of(p).double() @ q[b].double()
         gap = float((sa - sp).abs().max())
-        tol = float(_row_tol(x[a.clamp(min=0).long()], q[b]).max())
+        tol = float(_row_tol(rows_of(a), q[b]).max())
         rows = set((a[a != p].tolist())) | set(p[a != p].tolist())
-        blocks = {int(row_of_id[r]) // page_rows for r in rows if r >= 0}
+        blocks = {block_of(r) for r in rows if r >= 0} - {-1}
         flipped = flips.get(b, {})
         reached = sorted(blocks & set(flipped))
         require(gap <= tol or reached,
@@ -462,7 +541,7 @@ def phase_main_path(label, pm, x, q):
         f"peak memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB "
         f"allocated before the search, +{(peak - resident) / 2**20:.1f} MiB "
         f"during it)")
-    require(all(v > 0 for v in launches.values()),
+    require(launches["block_mips"] > 0 and launches["sketch_scores"] > 0,
             f"a kernel of the main path was not launched: {launches}")
     require(ids.shape == (q.shape[0], k) and bool(torch.isfinite(scores).all()),
             "main path output has the wrong shape or non-finite scores")
@@ -477,8 +556,10 @@ def phase_main_path(label, pm, x, q):
     row_of_id = torch.full((x.shape[0],), -1, dtype=torch.long, device=x.device)
     live = pm.arrays.ids >= 0
     row_of_id[pm.arrays.ids[live].long()] = live.nonzero().flatten()
+    row_of_id = row_of_id.cpu()
     differ, notes, pages_diff = compare_paths(
-        x, q, ids, st, ids_p, st_p, flips, row_of_id.cpu(), meta.page_rows)
+        q, ids, st, ids_p, st_p, flips, lambda i: x[i.clamp(min=0).long()],
+        lambda r: int(row_of_id[r]) // meta.page_rows)
     log(f"[{label}] sketch_scores on this input: max|d|={sk_err:.3g} "
         f"(tol 1e-5*|q||mu|+1e-6)")
     log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} queries "
@@ -505,9 +586,10 @@ def phase_main_path(label, pm, x, q):
     return launches
 
 
-def time_batches(pm, n_batches=5):
-    """Median time of one search batch (CUDA events around the whole call,
-    which synchronizes with the host each round), after one warm-up."""
+def time_batches(search, n_batches=5):
+    """Median time of one search batch (CUDA events around the whole call
+    ``search(queries)``, which synchronizes with the host each round), after
+    one warm-up."""
     import torch
     from repro_torch.data.synthetic import mf_factors
     times = []
@@ -518,7 +600,7 @@ def time_batches(pm, n_batches=5):
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         a.record()
-        pm.search(qb, **SEARCH)
+        search(qb)
         b.record()
         b.synchronize()
         if i:
@@ -527,18 +609,18 @@ def time_batches(pm, n_batches=5):
     return times[len(times) // 2], times
 
 
-def phase_profile(pm, q):
-    """Where one n=1M batch's time goes: device time per kernel from a
-    torch.profiler trace of one search, and the device's idle share of the
-    wall time under the profiler."""
+def phase_profile(search, q, label):
+    """Where one batch's time goes: device time per kernel from a
+    torch.profiler trace of one ``search(q)``, and the device's idle share of
+    the wall time under the profiler."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    pm.search(q, **SEARCH)
+    search(q)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pm.search(q, **SEARCH)
+        search(q)
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     by_name = {}
@@ -552,13 +634,249 @@ def phase_profile(pm, q):
                               count + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     if busy_ms == 0:
-        log("[profile n=1M] device time not measured: the trace holds no "
+        log(f"[profile {label}] device time not measured: the trace holds no "
             "CUDA events")
         return
-    log(f"[profile n=1M] one batch: wall {wall_ms:.3f} ms under the profiler, "
+    log(f"[profile {label}] one batch: wall {wall_ms:.3f} ms under the profiler, "
         f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
-        log(f"[profile n=1M]   {t / 1e3:8.3f} ms  x{c:<3d} {name}")
+        log(f"[profile {label}]   {t / 1e3:8.3f} ms  x{c:<3d} {name}")
+
+# ---------------------------------------------------------------- phase 5
+
+def stream_from_index(pm):
+    """A `MutableProMIPS` on the card over an index already built (no second
+    build), through `from_state`: empty delta of the default n // 2 rows,
+    `BUILD` as the rebuild kwargs."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.core.index import IndexArrays
+    from repro_torch.stream import MutableProMIPS
+    host = pm.index.arrays
+    arrays = {f"base_{f}": np.asarray(getattr(host, f))
+              for f in IndexArrays._fields}
+    arrays.update(base_alive=np.asarray(host.ids) >= 0,
+                  delta_x=np.zeros((0, pm.meta.d), np.float32),
+                  delta_gids=np.zeros(0, np.int64),
+                  delta_alive=np.zeros(0, bool))
+    meta = dict(meta=dataclasses.asdict(pm.meta), build_kwargs=dict(BUILD),
+                delta_capacity=pm.meta.n // 2, next_id=pm.meta.n, wal_seq=0,
+                auto_compact=False)
+    return MutableProMIPS.from_state(arrays, meta, device="cuda")
+
+
+def stream_search(st, use_kernels=None):
+    """``search(queries)`` of the stream with the shipped knobs."""
+    from repro_torch.core.runtime import RuntimeConfig
+    cfg = RuntimeConfig(use_kernels=use_kernels,
+                        **{key: v for key, v in SEARCH.items() if key != "k"})
+    return lambda qb: st.search(qb, k=SEARCH["k"], runtime=cfg)
+
+
+def corpus_rows(n, seed):
+    from repro_torch.data.synthetic import mf_factors
+    return mf_factors(n, RECIPE["d"], RECIPE["rank"], decay=RECIPE["decay"],
+                      norm_tail=RECIPE["norm_tail"], seed=seed)
+
+
+def phase_stream_state(label, st, q, path_kernels, profile=False):
+    """One state of a stream: its snapshot, one counted search through
+    `MutableProMIPS.search`, held against the plain path, an exact top-k
+    over `alive_items()` and the Theorem-2 floor; then the time per batch
+    and, if asked, a profile. Returns the launches of the counted search."""
+    import torch
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.search_common import next_pow2
+    from repro_torch.kernels import ops
+    k = SEARCH["k"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snap = st.snapshot()
+    torch.cuda.synchronize()
+    snap_s = time.perf_counter() - t0
+    arrays, meta = snap.arrays, snap.meta
+    k_base = min(k + (next_pow2(snap.n_base_dead) if snap.n_base_dead else 0),
+                 meta.n_pad)
+    log(f"[{label}] snapshot {snap_s:.3f} s: base n={meta.n} "
+        f"(dead {snap.n_base_dead}), delta {snap.delta_count} filled, "
+        f"{int(snap.delta_valid.sum())} live, cap_q {snap.delta_x.shape[0]} "
+        f"({snap.delta_x.numel() * 4 / 2**20:.1f} MiB copied); k_base {k_base}; "
+        f"clean {snap.clean}")
+    search = stream_search(st)
+    # -- the stream path, counted
+    gc.collect()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    t0 = time.perf_counter()
+    ids, scores, sst = search(q)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{label}] stream path launches {launches}; first search "
+        f"{first_s:.3f} s; peak memory {peak / 2**20:.1f} MiB "
+        f"({resident / 2**20:.1f} MiB allocated before the search, "
+        f"+{(peak - resident) / 2**20:.1f} MiB during it)")
+    require(all(launches[name] > 0 for name in path_kernels),
+            f"[{label}] a kernel of the path was not launched: {launches}")
+    require(ids.shape == (q.shape[0], k) and bool((ids >= 0).all())
+            and bool(torch.isfinite(scores).all()),
+            f"[{label}] wrong shape, an empty slot or a non-finite score")
+
+    # -- the live rows on the card, by global id
+    gids, rows = st.alive_items()
+    x_alive = torch.from_numpy(rows).cuda()
+    gids_t = torch.from_numpy(gids).cuda()
+    pos_of = torch.full((int(gids.max()) + 1,), -1, dtype=torch.long,
+                        device="cuda")
+    pos_of[gids_t] = torch.arange(len(gids), device="cuda")
+    live_rows = snap.base_alive.nonzero().flatten()
+    block_of = torch.full_like(pos_of, -1)
+    block_of[arrays.ids[live_rows].long()] = live_rows // meta.page_rows
+    block_of = block_of.cpu()
+
+    # -- the same search on the plain versions
+    ids_p, _, sst_p = stream_search(st, use_kernels=False)(q)
+    mask0 = sd.select_frontend(arrays, meta, q)[-1]
+    est_bnd = sd.prefilter_round1(arrays, q, mask0, k_base, meta.page_rows,
+                                  SEARCH["prefilter_eps"], False)
+    flips, _ = prefilter_flips(arrays, q, mask0, est_bnd, k_base)
+    differ, notes, pages_diff = compare_paths(
+        q, ids, sst, ids_p, sst_p, flips,
+        lambda i: x_alive[pos_of[i.clamp(min=0).long()]],
+        lambda r: int(block_of[r]) if r < len(block_of) else -1)
+    log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} "
+        f"queries differ in ids; {pages_diff} differ in pages; prefilter cut "
+        f"flips at k_base (query: {{block: est+bnd-tau}}) "
+        f"{flips if flips else 'none'}")
+    for note in notes:
+        log(f"[{label}]   {note}")
+
+    # -- quality against the exact top-k over the live rows
+    eidx, escores = exact_topk(x_alive, q, k)
+    eids = gids_t[eidx].cpu()
+    ids_c = ids.cpu()
+    recall = sum(len(set(ids_c[b].tolist()) & set(eids[b].tolist())) / k
+                 for b in range(q.shape[0])) / q.shape[0]
+    rate = success_rate(scores, escores, meta.c)
+    p0 = meta.p
+    floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
+    log(f"[{label}] pages_mean {float(sst.pages.double().mean()):.2f} (base "
+        f"{float(sst.base.pages.double().mean()):.2f} + delta sweep) recall@10 "
+        f"{recall:.4f} over {len(gids)} live rows; theorem-2 success {rate:.4f} "
+        f"(floor {floor:.4f}); exhausted {int(sst.exhausted.sum())}")
+    require(rate >= floor, f"[{label}] Theorem-2 floor missed: {rate} < {floor}")
+    require(recall >= 0.99, f"[{label}] recall@10 {recall} < 0.99")
+    del x_alive, gids_t, pos_of
+
+    med, times = time_batches(search)
+    log(f"[{label}] search time per batch of {N_QUERIES}: median {med:.3f} ms "
+        f"over {len(times)} batches {['%.3f' % t for t in times]}")
+    if profile:
+        phase_profile(search, q, label)
+    return launches
+
+
+def phase_compact_100k(pm, q):
+    """Cell compact-100k: churn, a synchronous compaction and its search,
+    then a background compaction with inserts and searches landing while
+    it runs."""
+    import numpy as np
+    import torch
+    from repro_torch.stream import Compactor
+    st = stream_from_index(pm)
+    n = pm.meta.n
+    n_ins = -(-n // 9)                  # a 10% delta: 11,112 at n = 100k
+    t0 = time.perf_counter()
+    st.insert(np.arange(n, n + n_ins), corpus_rows(n_ins, seed=3))
+    victims = np.random.RandomState(6).choice(n, 400, replace=False)
+    st.delete(victims[:200])
+    st.update(victims[200:], corpus_rows(200, seed=4))
+    log(f"[compact-100k] {n_ins} inserts, 200 deletes, 200 updates in "
+        f"{time.perf_counter() - t0:.3f} s (host); churn "
+        f"{st.churn_fraction:.4f}")
+    phase_stream_state("compact-100k before compaction", st, q,
+                       ("block_mips", "sketch_scores", "mips_score"))
+    t0 = time.perf_counter()
+    st.compact()
+    log(f"[compact-100k] compact() {time.perf_counter() - t0:.1f} s (host "
+        f"rebuild over {st.meta.n} rows); churn {st.churn_fraction}")
+    phase_stream_state("compact-100k after compact()", st, q,
+                       ("block_mips", "sketch_scores"))
+
+    # -- a background compaction with writes and searches landing meanwhile
+    st.compactor = Compactor()
+    more = corpus_rows(1_000, seed=5)
+    more_ids = np.arange(n + 20_000, n + 21_000)
+    search = stream_search(st)
+    t0 = time.perf_counter()
+    st.compactor.start(st)
+    in_flight = 0
+    for i in range(10):
+        in_flight += st.compactor.in_flight
+        st.insert(more_ids[100 * i:100 * (i + 1)], more[100 * i:100 * (i + 1)])
+        _, scores, _ = search(q)
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(scores).all()),
+                "[compact-100k] a search during the rebuild gave a non-finite score")
+    writes_s = time.perf_counter() - t0
+    st.join_compaction(timeout=600)
+    log(f"[compact-100k] background compaction: {in_flight} of 10 insert "
+        f"batches (100 rows each, a search on the card after each) landed "
+        f"while the rebuild was in flight ({writes_s:.2f} s of writes and "
+        f"searches); host rebuild {st.compactor.last_rebuild_s:.1f} s; "
+        f"{time.perf_counter() - t0:.1f} s to join; runs {st.compactor.runs}")
+    require(in_flight > 0 and st.compactor.runs == 1,
+            "[compact-100k] no write landed during the background rebuild")
+    gids, rows = st.alive_items()
+    require(set(more_ids.tolist()) <= set(gids.tolist()),
+            "[compact-100k] a row inserted during the rebuild is not alive")
+    # the inserted rows as queries: each one that is in its own exact top-10
+    # over the live rows must be found by the search
+    qi = torch.from_numpy(more[:N_QUERIES]).cuda()
+    ids, _, _ = search(qi)
+    eidx, _ = exact_topk(torch.from_numpy(rows).cuda(), qi, SEARCH["k"])
+    eids = torch.from_numpy(gids)[eidx.cpu()]
+    own = [int(g) for g in more_ids[:N_QUERIES]]
+    expected = [b for b in range(N_QUERIES) if own[b] in eids[b].tolist()]
+    found = [b for b in expected if own[b] in ids[b].tolist()]
+    recall = sum(len(set(ids[b].tolist()) & set(eids[b].tolist()))
+                 for b in range(N_QUERIES)) / (N_QUERIES * SEARCH["k"])
+    log(f"[compact-100k] after join: {len(found)} of {len(expected)} inserted "
+        f"rows that are in their own exact top-10 are found; recall@10 of "
+        f"those {N_QUERIES} queries {recall:.4f}")
+    require(len(found) == len(expected) and recall >= 0.99,
+            "[compact-100k] an inserted row was not found after the join")
+    phase_stream_state("compact-100k after the background compaction", st, q,
+                       ("block_mips", "sketch_scores", "mips_score"))
+
+
+def phase_stream_1m(pm, q):
+    """Cell stream-1M: state A (a 10% delta) and state B (2,000 base
+    tombstones, k_base = 2,058). Returns state B's launches."""
+    import numpy as np
+    st = stream_from_index(pm)
+    n = pm.meta.n
+    n_ins = -(-n // 9)          # frac / (1 - frac) * n at frac 0.1: 111,112
+    t0 = time.perf_counter()
+    st.insert(np.arange(n, n + n_ins), corpus_rows(n_ins, seed=3))
+    log(f"[stream-1M] state A: {n_ins} inserts in {time.perf_counter() - t0:.2f} s "
+        f"(host); delta fraction {st.delta_fraction:.4f}")
+    kernels = ("block_mips", "sketch_scores", "mips_score")
+    phase_stream_state("stream-1M state A", st, q, kernels)
+    rng = np.random.RandomState(5)
+    base_ids = rng.choice(n, 2_000, replace=False)
+    t0 = time.perf_counter()
+    st.delete(base_ids[:1_000])
+    st.update(base_ids[1_000:], corpus_rows(1_000, seed=4))
+    st.delete(rng.choice(np.arange(n, n + n_ins), 1_112, replace=False))
+    log(f"[stream-1M] state B: 1,000 base deletes, 1,000 base updates, "
+        f"1,112 delta deletes in {time.perf_counter() - t0:.2f} s (host)")
+    return phase_stream_state("stream-1M state B", st, q, kernels, profile=True)
+
 
 
 def main() -> int:
@@ -589,14 +907,21 @@ def main() -> int:
     log(f"[n=100k] JAX CPU record (not the port's): pages_mean "
         f"{JAX_CPU_RECORD_100K['pages_mean']} pages_frac "
         f"{JAX_CPU_RECORD_100K['pages_frac']} recall {JAX_CPU_RECORD_100K['recall']}")
+    phase_compact_100k(pm100k, q100k)
     del pm100k, x100k
 
     launches = phase_main_path("n=1M", pm1m, x1m, q1m)
-    med, times = time_batches(pm1m)
+    search_1m = lambda qb: pm1m.search(qb, **SEARCH)  # noqa: E731
+    med, times = time_batches(search_1m)
     log(f"[n=1M] search time per batch of {N_QUERIES}: median {med:.3f} ms over "
         f"{len(times)} batches {['%.3f' % t for t in times]}")
-    phase_profile(pm1m, q1m)
+    phase_profile(search_1m, q1m, "n=1M")
+    del x1m
+    stream_launches = phase_stream_1m(pm1m, q1m)
 
+    # the static main path's counts for its kernels, the stream path's for
+    # the kernel only it runs
+    launches["mips_score"] = stream_launches["mips_score"]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -5,5 +5,8 @@ The main path is the guaranteed c-k-AMIP batch search:
 `core.promips.ProMIPS` -> `core.runtime.search` (two-phase, fused
 verification, sketch prefilter) -> `core.search_fused.search_batch_fused`,
 whose two hot kernels (`kernels.block_mips`, `kernels.sketch_scores`) are
-CUDA C++ for Hopper, built from `kernels/csrc/` at first use.
+CUDA C++ for Hopper, built from `kernels/csrc/` at first use. The streaming
+index, `stream.MutableProMIPS` -> `core.runtime.search_segments`, runs the
+same search over its base and scores its delta with a third kernel,
+`kernels.mips_score`.
 """

@@ -1,21 +1,25 @@
 """Two-phase search runtime; port of `repro.core.runtime` for the fused
-path.
+path and the streaming index.
 
 `search` validates a `RuntimeConfig`, clamps the budgets to the index,
 runs `search_fused.search_batch_fused` and rescores the k winners exactly
-(`_rescore`). It runs on the card unless the caller passes
+(`_rescore`). `search_segments` runs it over a streaming snapshot's base
+with an over-fetched k and merges in the delta segment's exact scores
+(`_merge_segments`). Both run on the card unless the caller passes
 ``device="cpu"``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..kernels import ops, ref
 from .index import IndexArrays, IndexMeta, resolve_device
-from .search_common import DENSE_FRAC
+from .search_common import DENSE_FRAC, next_pow2
 from .search_device import SearchStats
 from .search_fused import search_batch_fused
 
@@ -108,6 +112,14 @@ class RuntimeConfig:
                              f"{tc!r}")
 
 
+def _queries(queries, meta: IndexMeta, dev) -> torch.Tensor:
+    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
+    q = torch.atleast_2d(q).contiguous()
+    if q.dim() != 2 or q.shape[1] != meta.d:
+        raise ValueError(f"queries must be (B, {meta.d}), got {tuple(q.shape)}")
+    return q
+
+
 def search(arrays: IndexArrays, meta: IndexMeta, queries,
            cfg: RuntimeConfig = RuntimeConfig(), *, device="cuda"):
     """Run one batched c-k-AMIP search under ``cfg`` on ``device``.
@@ -128,10 +140,7 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
     budget2 = int(min(cfg.budget2 if cfg.budget2 is not None else budget,
                       meta.n_blocks))
     dense_frac = DENSE_FRAC if cfg.dense_frac is None else cfg.dense_frac
-    q = torch.as_tensor(queries, dtype=torch.float32, device=dev)
-    q = torch.atleast_2d(q).contiguous()
-    if q.dim() != 2 or q.shape[1] != meta.d:
-        raise ValueError(f"queries must be (B, {meta.d}), got {tuple(q.shape)}")
+    q = _queries(queries, meta, dev)
     ids, _, stats = search_batch_fused(
         arrays, meta, q, k=cfg.k, budget=budget, budget2=budget2,
         norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
@@ -142,4 +151,73 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
     return ids, scores, stats
 
 
-__all__ = ["RuntimeConfig", "SearchStats", "search"]
+# ---------------------------------------------------------------------------
+# Segment-aware entry (streaming index)
+# ---------------------------------------------------------------------------
+
+def _merge_segments(base_alive, rows, base_ids, base_scores, delta_x,
+                    delta_gids, delta_valid, queries, k: int, use_kernels):
+    """Merge the base top-k_base with the exact-scored delta segment.
+
+    ``base_scores`` are the `_rescore`d inner products `search` returned;
+    tombstoned base rows go to -inf. Every delta row is scored in one
+    `ops.mips_score` call (invalid rows to -inf after it). One stable top-k
+    over the concatenation keeps `lax.top_k`'s rule: a tie goes to the
+    lower index, so base entries first."""
+    alive = (rows >= 0) & base_alive[torch.clamp(rows, min=0).long()]
+    neg_inf = torch.tensor(float("-inf"), device=base_scores.device)
+    b_scores = torch.where(alive, base_scores, neg_inf)
+    b_ids = torch.where(alive, base_ids, torch.full_like(base_ids, -1))
+    d_scores = ops.mips_score(delta_x, queries, delta_valid,
+                              use_kernels=use_kernels).T       # (B, cap)
+    d_scores = torch.where(delta_valid[None, :], d_scores, neg_inf)
+    d_ids = torch.where(delta_valid, delta_gids,
+                        torch.full_like(delta_gids, -1)).expand_as(d_scores)
+    merged_s = torch.cat([b_scores, d_scores], dim=1)
+    merged_i = torch.cat([b_ids.int(), d_ids], dim=1)
+    best_s, pos = ref.topk_stable(merged_s, k)
+    return merged_i.gather(1, pos), best_s
+
+
+def search_segments(snap, queries, cfg: RuntimeConfig = RuntimeConfig(), *,
+                    device="cuda"):
+    """Batched c-k-AMIP search over a streaming `stream.segments.Snapshot`
+    whose tensors live on ``device``.
+
+    The base search over-fetches ``k + next_pow2(n_base_dead)`` results
+    (clamped to n_pad) so tombstoned rows cannot crowd live ones out of the
+    top-k, then the delta's exact scores are merged in. A ``clean`` snapshot
+    (no tombstones, empty delta) is `search` on the base unchanged.
+
+    Returns (global ids (B, k), scores (B, k), StreamStats).
+    """
+    from ..stream.segments import StreamStats  # stream imports this module
+
+    cfg.validate()
+    dev = resolve_device(device)
+    meta = snap.meta
+    q = _queries(queries, meta, dev)
+    if snap.clean:
+        ids, scores, stats = search(snap.arrays, meta, q, cfg, device=dev)
+        return ids, scores, StreamStats(pages=stats.pages,
+                                        candidates=stats.candidates,
+                                        exhausted=stats.exhausted, base=stats)
+    k_base = min(cfg.k + (next_pow2(snap.n_base_dead) if snap.n_base_dead
+                          else 0), meta.n_pad)
+    ids_b, scores_b, stats = search(snap.arrays, meta, q,
+                                    dataclasses.replace(cfg, k=k_base),
+                                    device=dev)
+    ids, scores = _merge_segments(snap.base_alive, stats.rows, ids_b,
+                                  scores_b, snap.delta_x, snap.delta_gids,
+                                  snap.delta_valid, q, cfg.k, cfg.use_kernels)
+    delta_pages = -(-snap.delta_count // meta.page_rows)  # logical delta sweep
+    return ids, scores, StreamStats(
+        pages=stats.pages + delta_pages,
+        candidates=stats.candidates + snap.delta_valid.sum(dtype=torch.int32),
+        exhausted=stats.exhausted,
+        base=stats,
+    )
+
+
+__all__ = ["RuntimeConfig", "SearchStats", "next_pow2", "search",
+           "search_segments"]

@@ -8,21 +8,10 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .build import require
 
-MAX_K = 1024      # the merge pass's buffer (KMAX in the source)
 TILE_ROWS = 64    # rows per block tile (RT in the source); page_rows <= it
-
-
-def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"block_mips: {name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"block_mips: {name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"block_mips: {name} must have shape {tuple(shape)}, "
-                         f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"block_mips: {name} must be contiguous")
+SHARED_MERGE_K = 1024  # larger k merge in device memory (KMAX in the source)
 
 
 def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
@@ -41,26 +30,29 @@ def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
     n_pad, d = x.shape
     b = q.shape[0]
     n_slots = slots.shape[0]
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"block_mips kernel supports 1 <= k <= {MAX_K}, got {k}")
+    if k < 1:
+        raise ValueError(f"block_mips kernel needs k >= 1, got {k}")
     if not 1 <= page_rows <= TILE_ROWS or n_pad % page_rows:
         raise ValueError(f"block_mips kernel needs 1 <= page_rows <= {TILE_ROWS}"
                          f" dividing n_pad={n_pad}, got {page_rows}")
     if b < 1 or n_slots < 1:
         raise ValueError(f"block_mips kernel needs B >= 1 and NS >= 1, got "
                          f"B={b}, NS={n_slots}")
-    _require(x, "x", torch.float32, (n_pad, d), dev)
-    _require(valid, "valid", torch.bool, (n_pad,), dev)
-    _require(q, "q", torch.float32, (b, d), dev)
-    _require(slots, "slots", torch.int32, (n_slots,), dev)
-    _require(sel, "sel", torch.bool, (b, n_slots), dev)
-    _require(init_scores, "init_scores", torch.float32, (b, k), dev)
-    _require(init_rows, "init_rows", torch.int32, (b, k), dev)
-    _require(c_half, "c_half", torch.float32, (b,), dev)
+    for name, t, dtype, shape in (
+            ("x", x, torch.float32, (n_pad, d)),
+            ("valid", valid, torch.bool, (n_pad,)),
+            ("q", q, torch.float32, (b, d)),
+            ("slots", slots, torch.int32, (n_slots,)),
+            ("sel", sel, torch.bool, (b, n_slots)),
+            ("init_scores", init_scores, torch.float32, (b, k)),
+            ("init_rows", init_rows, torch.int32, (b, k)),
+            ("c_half", c_half, torch.float32, (b,))):
+        require("block_mips", name, t, dtype, shape, dev)
 
     spc = TILE_ROWS // page_rows
     n_chunks = -(-n_slots // spc)
     kc = min(k, spc * page_rows)
+    kp2 = 1 << (k - 1).bit_length()     # the large-k merge's sort width
     i32 = dict(dtype=torch.int32, device=dev)
     top_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     top_r = torch.empty((b, k), **i32)
@@ -71,6 +63,8 @@ def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
     part_s = torch.empty((b, n_chunks, kc), dtype=torch.float32, device=dev)
     part_p = torch.empty((b, n_chunks, kc), **i32)
     part_n = torch.empty((b, n_chunks), **i32)
+    keys = torch.empty((b, kp2) if k > SHARED_MERGE_K else (1,),
+                       dtype=torch.int64, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.block_mips_launch(
@@ -79,7 +73,8 @@ def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
             c_half.data_ptr(), top_s.data_ptr(), top_r.data_ptr(),
             cnt.data_ptr(), pages.data_ptr(), cand.data_ptr(), live.data_ptr(),
             part_s.data_ptr(), part_p.data_ptr(), part_n.data_ptr(),
-            b, d, n_slots, k, page_rows, spc, kc, n_chunks,
+            keys.data_ptr(), b, d, n_slots, k, page_rows, spc, kc, n_chunks,
+            kp2,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "block_mips")
     build.LAUNCHES["block_mips"] += 1

@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel wrapper, counted where the wrapper launches its kernel
 # (one per call); `ops.LAUNCHES` is this dict.
-LAUNCHES = {"block_mips": 0, "sketch_scores": 0}
+LAUNCHES = {"block_mips": 0, "mips_score": 0, "sketch_scores": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -96,14 +96,30 @@ def library() -> ctypes.CDLL:
             except OSError as e:
                 raise RuntimeError(f"loading {path} failed: {e}") from e
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.block_mips_launch.argtypes = [ptr] * 17 + [i32] * 8 + [ptr]
+            lib.block_mips_launch.argtypes = [ptr] * 18 + [i32] * 9 + [ptr]
             lib.block_mips_launch.restype = i32
+            lib.mips_score_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+            lib.mips_score_launch.restype = i32
             lib.sketch_scores_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
             lib.sketch_scores_launch.restype = i32
             lib.kernels_error_string.argtypes = [i32]
             lib.kernels_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def require(kernel: str, name: str, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: the kernels index their inputs unchecked."""
+    if t.device != device:
+        raise ValueError(f"{kernel}: {name} is on {t.device}, not {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{kernel}: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{kernel}: {name} must have shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
 def check(err: int, name: str) -> None:

@@ -18,7 +18,12 @@
 //             carried entries under the key (score desc, position asc), where
 //             carried entries take positions 0..k-1 and tile row t takes k + t
 //             (slots ascend, so that is ascending row order) -- the
-//             `lax.top_k` tie rule of the TPU kernel.
+//             `lax.top_k` tie rule of the TPU kernel. For k <= KMAX the pool
+//             is rank-selected in shared memory; above it (the streaming
+//             index's over-fetch) the merge runs in device memory: a radix
+//             select on a 64-bit key that encodes the same order finds the
+//             k-th entry, the entries at or above it are compacted, and a
+//             bitonic network sorts them.
 // The (B, R) score matrix never exists in device memory: pages are scored
 // twice (passes 1 and 3) instead.
 //
@@ -47,8 +52,9 @@ constexpr int DK = 32;             // depth slice staged in shared memory
 constexpr int THREADS = 256;       // 16 x 16 threads, 4 x 4 register tiles
 constexpr int SCAN_THREADS = 1024;
 constexpr int MERGE_THREADS = 256;
+constexpr int LARGE_THREADS = 1024;
 constexpr int QCAP = 2048;         // merge queue entries per round
-constexpr int KMAX = 1024;         // largest k the merge buffer holds
+constexpr int KMAX = 1024;         // largest k the shared-memory merge holds
 constexpr unsigned FULL = 0xffffffffu;
 
 // Per-thread 4 x 4 tile of <x[row], q[query]> over rows tr + 16 i and
@@ -163,11 +169,13 @@ __global__ void __launch_bounds__(SCAN_THREADS) bm_scan_kernel(
   __shared__ int red_p[32], red_c[32];
   __shared__ int n0_s;
   const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid == 0) {
+  if (tid == 0) n0_s = 0;
+  __syncthreads();
+  {
     const float ch = c_half[b];
     int n0 = 0;
-    for (int i = 0; i < k; ++i) n0 += init_s[(size_t)b * k + i] >= ch;
-    n0_s = n0;
+    for (int i = tid; i < k; i += SCAN_THREADS) n0 += init_s[(size_t)b * k + i] >= ch;
+    if (n0) atomicAdd(&n0_s, n0);
   }
   __syncthreads();
   int carry = min(n0_s, k);  // saturates at k: only "carry + prefix < k" matters
@@ -394,9 +402,147 @@ __global__ void __launch_bounds__(MERGE_THREADS) bm_merge_kernel(
   }
 }
 
+// The merge order as one 64-bit key, larger = better: the score's bits mapped
+// to an unsigned order (-0 counted as +0, as a float compare does), then the
+// position inverted, so the lower position wins a tie. Real keys are never 0.
+__device__ __forceinline__ unsigned long long merge_key(float s, int p) {
+  unsigned u = __float_as_uint(s == 0.f ? 0.f : s);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (0xffffffffu - (unsigned)p);
+}
+
+__device__ __forceinline__ float key_score(unsigned long long key) {
+  unsigned u = (unsigned)(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
+__device__ __forceinline__ int key_pos(unsigned long long key) {
+  return (int)(0xffffffffu - (unsigned)key);
+}
+
+// Calls f(ok, key) for every entry of query b's pool, 32 entries per call of
+// a whole warp (ok = false on the lanes past the end, whose key is 0): the
+// k carried entries, then each chunk's partial (one warp per chunk). The
+// loop bounds are uniform across a warp, so f may use warp intrinsics.
+template <class F>
+__device__ __forceinline__ void for_each_key(
+    const float* __restrict__ init_s, const float* __restrict__ part_s,
+    const int* __restrict__ part_p, const int* __restrict__ part_n,
+    int b, int k, int kc, int NC, F f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i0 = warp * 32; i0 < k; i0 += LARGE_THREADS) {
+    const int i = i0 + lane;
+    f(i < k, i < k ? merge_key(init_s[(size_t)b * k + i], i) : 0ull);
+  }
+  for (int c = warp; c < NC; c += LARGE_THREADS / 32) {
+    const size_t at = (size_t)b * NC + c;
+    const int n = part_n[at];
+    for (int e0 = 0; e0 < n; e0 += 32) {
+      const int e = e0 + lane;
+      f(e < n, e < n ? merge_key(part_s[at * kc + e], part_p[at * kc + e] + k)
+                     : 0ull);
+    }
+  }
+}
+
+// Merge for k > KMAX, in device memory (one block per query). A radix select
+// over the keys, 8 bits a pass from the top, fixes the digits of the k-th
+// best key and stops once every key that shares the prefix found so far is
+// taken; the keys at or above that prefix (exactly k, the keys are unique)
+// are compacted into keys[b] (kp2 = next power of two >= k, the rest
+// zero-filled), sorted ascending by a bitonic network and read out from the
+// top.
+__global__ void __launch_bounds__(LARGE_THREADS) bm_merge_large_kernel(
+    const float* __restrict__ init_s, const int* __restrict__ init_r,
+    const int* __restrict__ slots, const float* __restrict__ part_s,
+    const int* __restrict__ part_p, const int* __restrict__ part_n,
+    float* __restrict__ top_s, int* __restrict__ top_r,
+    unsigned long long* keys, int k, int kc, int NC, int page_rows, int kp2) {
+  __shared__ unsigned hist[256];
+  __shared__ unsigned long long prefix_s;
+  __shared__ int rem_s, shift_s, done_s, n_out;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  if (tid == 0) {
+    prefix_s = 0ull;
+    rem_s = k;
+    n_out = 0;
+  }
+  for (int shift = 56; shift >= 0; shift -= 8) {
+    if (tid < 256) hist[tid] = 0u;
+    __syncthreads();
+    const unsigned long long prefix = prefix_s;
+    const unsigned long long hi = shift == 56 ? 0ull : ~0ull << (shift + 8);
+    for_each_key(init_s, part_s, part_p, part_n, b, k, kc, NC,
+                 [&](bool ok, unsigned long long key) {
+                   // lanes of one digit add their count once (the top
+                   // digits of near scores are shared by most entries)
+                   const unsigned digit = ok && (key & hi) == prefix
+                                              ? (unsigned)(key >> shift) & 255u
+                                              : 256u;
+                   const unsigned same = __match_any_sync(FULL, digit);
+                   if (digit < 256u && (threadIdx.x & 31) == __ffs(same) - 1)
+                     atomicAdd(&hist[digit], (unsigned)__popc(same));
+                 });
+    __syncthreads();
+    if (tid == 0) {
+      const unsigned rem = (unsigned)rem_s;
+      unsigned above = 0;
+      int digit = 255;
+      for (; digit > 0 && above + hist[digit] < rem; --digit) above += hist[digit];
+      prefix_s = prefix | ((unsigned long long)digit << shift);
+      rem_s = (int)(rem - above);
+      shift_s = shift;
+      done_s = hist[digit] == rem - above;
+    }
+    __syncthreads();
+    if (done_s) break;
+  }
+  const int shift = shift_s;
+  const unsigned long long cut = prefix_s >> shift;
+  unsigned long long* kb = keys + (size_t)b * kp2;
+  for_each_key(init_s, part_s, part_p, part_n, b, k, kc, NC,
+               [&](bool ok, unsigned long long key) {
+                 if (ok && (key >> shift) >= cut) {
+                   const int at = atomicAdd(&n_out, 1);
+                   if (at < k) kb[at] = key;
+                 }
+               });
+  for (int i = k + tid; i < kp2; i += LARGE_THREADS) kb[i] = 0ull;
+  __syncthreads();
+  for (int size = 2; size <= kp2; size <<= 1) {
+    for (int stride = size >> 1; stride > 0; stride >>= 1) {
+      for (int i = tid; i < kp2 / 2; i += LARGE_THREADS) {
+        const int lo = 2 * i - (i & (stride - 1)), hi = lo + stride;
+        const unsigned long long a = kb[lo], c = kb[hi];
+        if ((a > c) == ((lo & size) == 0)) {
+          kb[lo] = c;
+          kb[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < k; i += LARGE_THREADS) {
+    const unsigned long long key = kb[kp2 - 1 - i];
+    const int p = key_pos(key);
+    float s;
+    int row;
+    if (p < k) {  // carried: its own bits (a -0 stays -0)
+      s = init_s[(size_t)b * k + p];
+      row = init_r[(size_t)b * k + p];
+    } else {
+      const int t = p - k;
+      s = key_score(key);
+      row = slots[t / page_rows] * page_rows + t % page_rows;
+    }
+    top_s[(size_t)b * k + i] = s;
+    top_r[(size_t)b * k + i] = row;
+  }
+}
+
 }  // namespace
 
-extern "C" int block_mips_max_k() { return KMAX; }
 extern "C" int block_mips_tile_rows() { return RT; }
 
 extern "C" const char* kernels_error_string(int err) {
@@ -406,17 +552,21 @@ extern "C" const char* kernels_error_string(int err) {
 // Launches the four passes on `stream`. Scratch: live (B, NS) u8,
 // part_s (B, NC, kc) f32, part_p (B, NC, kc) i32, part_n (B, NC) i32 with
 // spc = RT / page_rows slots per chunk, NC = ceil(NS / spc),
-// kc = min(k, spc * page_rows). Returns the first launch error, or 0.
+// kc = min(k, spc * page_rows), and keys (B, kp2) u64 with kp2 the next
+// power of two >= k (used when k > KMAX). Returns the first launch error,
+// or 0.
 extern "C" int block_mips_launch(
     const float* x, const uint8_t* valid, const float* q, const int* slots,
     const uint8_t* sel, const float* init_s, const int* init_r,
     const float* c_half, float* top_s, int* top_r, int* cnt, int* pages,
     int* cand, uint8_t* live, float* part_s, int* part_p, int* part_n,
-    int B, int d, int NS, int k, int page_rows, int spc, int kc, int NC,
-    void* stream_handle) {
-  if (B < 1 || d < 1 || NS < 1 || k < 1 || k > KMAX || page_rows < 1 ||
+    unsigned long long* keys, int B, int d, int NS, int k, int page_rows,
+    int spc, int kc, int NC, int kp2, void* stream_handle) {
+  if (B < 1 || d < 1 || NS < 1 || k < 1 || page_rows < 1 ||
       page_rows > RT || spc != RT / page_rows || kc != min(k, spc * page_rows) ||
-      NC != (NS + spc - 1) / spc || B > 65535 * QT)
+      NC != (NS + spc - 1) / spc || B > 65535 * QT || kp2 < k ||
+      (kp2 & (kp2 - 1)) != 0 || kp2 >= 2 * k ||
+      (long long)NS * page_rows + k > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const dim3 grid(NC, (B + QT - 1) / QT);
@@ -434,8 +584,13 @@ extern "C" int block_mips_launch(
                                                page_rows, spc, kc, NC);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  bm_merge_kernel<<<B, MERGE_THREADS, 0, stream>>>(init_s, init_r, slots, part_s,
-                                                   part_p, part_n, top_s, top_r,
-                                                   k, kc, NC, page_rows);
+  if (k <= KMAX)
+    bm_merge_kernel<<<B, MERGE_THREADS, 0, stream>>>(init_s, init_r, slots, part_s,
+                                                     part_p, part_n, top_s, top_r,
+                                                     k, kc, NC, page_rows);
+  else
+    bm_merge_large_kernel<<<B, LARGE_THREADS, 0, stream>>>(
+        init_s, init_r, slots, part_s, part_p, part_n, top_s, top_r, keys, k,
+        kc, NC, page_rows, kp2);
   return static_cast<int>(cudaGetLastError());
 }

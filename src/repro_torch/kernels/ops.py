@@ -12,11 +12,13 @@ from __future__ import annotations
 from typing import Optional
 
 from . import block_mips as _block_mips
+from . import mips_score as _mips_score
 from . import ref
 from . import sketch_scores as _sketch_scores
 from .build import LAUNCHES
 
-__all__ = ["LAUNCHES", "block_mips", "block_mips_cached", "sketch_scores"]
+__all__ = ["LAUNCHES", "block_mips", "block_mips_cached", "mips_score",
+           "sketch_scores"]
 
 
 def _use_kernel(t, use_kernels: Optional[bool], name: str) -> bool:
@@ -26,6 +28,14 @@ def _use_kernel(t, use_kernels: Optional[bool], name: str) -> bool:
         raise ValueError(f"{name}: use_kernels=True needs CUDA tensors, got "
                          f"{t.device}")
     return bool(use_kernels)
+
+
+def mips_score(x, q, valid, *, use_kernels: Optional[bool] = None):
+    """(R, B) scores <x[r], q[b]>, exactly -1e30 on invalid rows; see
+    `ref.mips_score_ref`."""
+    if _use_kernel(x, use_kernels, "mips_score"):
+        return _mips_score.mips_score(x, q, valid)
+    return ref.mips_score_ref(x, q, valid)
 
 
 def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,

@@ -11,12 +11,21 @@ from __future__ import annotations
 import torch
 
 NEG_INF = float("-inf")
+MASKED = -1e30   # what `mips_score` writes on invalid rows (not -inf)
 
 
 def topk_stable(x: torch.Tensor, k: int):
     """Top-k along dim 1, descending, ties to the lower index."""
     s, idx = torch.sort(x, dim=1, descending=True, stable=True)
     return s[:, :k].contiguous(), idx[:, :k].contiguous()
+
+
+def mips_score_ref(x, q, valid):
+    """scores = x @ q.T, exactly -1e30 on invalid rows: x (R, d), q (B, d),
+    valid (R,) -> (R, B) f32."""
+    scores = x.float() @ q.float().T
+    return torch.where(valid.bool()[:, None], scores,
+                       torch.full_like(scores, MASKED))
 
 
 def block_mips_ref(x, valid, q, slots, sel, init_scores, init_rows, c_half,

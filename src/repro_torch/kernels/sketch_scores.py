@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 
 from . import build
+from .build import require
 
 
 def sketch_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
@@ -33,11 +34,7 @@ def sketch_scores(q, codebooks, codes):
             ("q", q, torch.float32, (b, d)),
             ("codebooks", codebooks, torch.float32, (m, n_codewords, sub_d)),
             ("codes", codes, torch.int32, (nb, m))):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"sketch_scores: {name} must be a contiguous "
-                             f"{dtype} {shape} tensor on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        require("sketch_scores", name, t, dtype, shape, dev)
     if m * sub_d != d or b < 1 or nb < 1:
         raise ValueError(f"sketch_scores: d={d} != M*sub_d={m}*{sub_d}, or "
                          f"an empty batch (B={b}, NB={nb})")

@@ -13,6 +13,11 @@ if SRC not in sys.path:
     sys.path.insert(0, SRC)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips inside a fixture without one")
+
+
 @pytest.fixture(scope="session")
 def rng():
     return np.random.RandomState(0)

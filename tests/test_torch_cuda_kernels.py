@@ -5,16 +5,20 @@ inside the fixture). Run them on a machine with an H100:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda_kernels.py
 
-`block_mips` is held on integer-valued data, where every dot product is
-exact in f32 whatever the summation order, so kernel and plain version must
-agree bit for bit, ties included. `sketch_scores` sums in another order
-than its GEMM plain version and is held to the stated tolerance.
+`block_mips` and `mips_score` are held on integer-valued data, where every
+dot product is exact in f32 whatever the summation order, so kernel and
+plain version must agree bit for bit, ties included; `block_mips` at every
+k up to n_pad, past the 1,024 where its merge moves to device memory.
+`mips_score` on float data and `sketch_scores` sum in another order than
+their GEMM plain versions and are held to |d| <= 1e-5 * |q| |x| + 1e-6.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.cuda
 
 
 @pytest.fixture
@@ -26,9 +30,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _round_inputs(rng, nb, p, d, b, k, ns, dense):
+def _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q=0.97):
     """Integer-valued round inputs: padding slots, invalid rows, duplicate
-    rows, a carried top-k with hits and empty (-inf, -1) tails."""
+    rows, a carried top-k with hits and empty (-inf, -1) tails; c_half at
+    the ``hit_q`` quantile of each query's scores."""
     n = nb * p
     x = rng.randint(-3, 4, (n, d)).astype(np.float32)
     dup = rng.choice(n, n // 8, replace=False)
@@ -44,7 +49,7 @@ def _round_inputs(rng, nb, p, d, b, k, ns, dense):
         sel = rng.rand(b, ns) > 0.4
         sel[:, ns - 2:] = False
     scores = q @ x.T
-    c_half = (np.quantile(scores, 0.97, axis=1) + 0.5).astype(np.float32)
+    c_half = (np.quantile(scores, hit_q, axis=1) + 0.5).astype(np.float32)
     init_s = np.sort(rng.randint(-10, 60, (b, k)).astype(np.float32),
                      axis=1)[:, ::-1].copy()
     init_r = rng.randint(0, n, (b, k)).astype(np.int32)
@@ -81,12 +86,40 @@ def test_block_mips_kernel_bitwise_on_integer_data(cuda, nb, p, d, b, k, ns,
                                       err_msg=name)
 
 
+@pytest.mark.parametrize("nb,p,d,b,k,ns,dense,hit_q", [
+    (600, 8, 32, 5, 1025, 400, False, 0.97),
+    (600, 8, 64, 9, 4096, 600, True, 0.97),
+    (300, 8, 16, 3, 2400, 300, True, 0.97),     # k = n_pad
+    (100, 21, 48, 4, 2100, 100, True, 0.97),    # k = n_pad, page_rows 21
+    (512, 8, 32, 66, 1025, 500, False, 0.5),    # the Condition-A stop fires
+])
+def test_block_mips_kernel_large_k_bitwise(cuda, nb, p, d, b, k, ns, dense,
+                                           hit_q):
+    """k above the shared-memory merge: the device-memory merge gives the
+    plain version's rows and scores, ties (duplicate rows, carried against
+    tile) included."""
+    rng = np.random.RandomState(nb + k)
+    args = [torch.from_numpy(a).to(cuda)
+            for a in _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q)]
+    got = ops.block_mips(*args, k=k, page_rows=p, use_kernels=True)
+    want = ops.block_mips(*args, k=k, page_rows=p, dense=dense,
+                          use_kernels=False)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("top_s", "top_r", "cnt", "pages", "cand"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=name)
+    if hit_q < 0.9:
+        assert bool((got[3] < args[4].sum(dim=1)).any()), "no stop fired"
+
+
 def test_block_mips_kernel_rejects_what_it_does_not_take(cuda):
     rng = np.random.RandomState(0)
     args = [torch.from_numpy(a).to(cuda)
             for a in _round_inputs(rng, 12, 8, 32, 5, 4, 8, False)]
     with pytest.raises(ValueError):
         ops.block_mips(*args, k=4, page_rows=80, use_kernels=True)
+    with pytest.raises(ValueError):
+        ops.block_mips(*args, k=5, page_rows=8, use_kernels=True)  # init (B, 4)
     bad = list(args)
     bad[4] = bad[4].int()                                     # sel not bool
     with pytest.raises(ValueError):
@@ -106,3 +139,42 @@ def test_sketch_scores_kernel_within_tolerance(cuda, b, nb, m, kcw, sub_d):
     want = ops.sketch_scores(q, sk_mu, cb, codes, use_kernels=False)
     tol = (1e-5 * q.norm(dim=1)[:, None] * sk_mu.norm(dim=1)[None, :] + 1e-6)
     assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("r,b,d", [(1, 1, 1), (131, 7, 33), (1000, 64, 128),
+                                   (300, 70, 300), (129, 65, 17)])
+def test_mips_score_kernel_bitwise_on_integer_data(cuda, r, b, d):
+    rng = np.random.RandomState(r + b + d)
+    x = torch.from_numpy(rng.randint(-3, 4, (r, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.randint(-3, 4, (b, d)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(r) > 0.2).to(cuda)
+    got = ops.mips_score(x, q, valid, use_kernels=True)
+    want = ops.mips_score(x, q, valid, use_kernels=False)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert bool((got[~valid] == -1e30).all())
+
+
+@pytest.mark.parametrize("r,b,d", [(131_072, 64, 128), (777, 5, 48)])
+def test_mips_score_kernel_within_tolerance(cuda, r, b, d):
+    rng = np.random.RandomState(r)
+    x = torch.from_numpy(rng.standard_normal((r, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(r) > 0.01).to(cuda)
+    got = ops.mips_score(x, q, valid, use_kernels=True)
+    want = ops.mips_score(x, q, valid, use_kernels=False)
+    tol = 1e-5 * x.norm(dim=1)[:, None] * q.norm(dim=1)[None, :] + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+    assert bool((got[~valid] == -1e30).all())
+
+
+def test_mips_score_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((8, 4), device=cuda)
+    q = torch.zeros((2, 4), device=cuda)
+    valid = torch.ones(8, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        ops.mips_score(x, q, valid.int(), use_kernels=True)
+    with pytest.raises(ValueError):
+        ops.mips_score(x, q[:, :3].contiguous(), valid, use_kernels=True)
+    with pytest.raises(ValueError):
+        ops.mips_score(x.T, q, valid, use_kernels=True)

@@ -17,10 +17,12 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch.convert import stream_from_state
 from repro_torch.core.promips import ProMIPS
 from repro_torch.core.runtime import RuntimeConfig, search
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.kernels import ops
+from repro_torch.stream import MutableProMIPS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
@@ -78,6 +80,24 @@ def test_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert torch.equal(ids, ids2)
 
 
+def test_stream_entry_points_default_to_the_card_and_raise_without_it(no_card):
+    x = mf_factors(600, 32, 8, seed=0)
+    q = mf_factors(4, 32, 8, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MutableProMIPS(x, m=6, seed=0)
+    st = MutableProMIPS(x, m=6, seed=0, device="cpu")
+    st.insert([1000], x[:1] * 2)
+    state = st.state_dict()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MutableProMIPS.from_state(*state)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stream_from_state(*state)
+    ids, scores, stats = stream_from_state(*state, device="cpu").search(q)
+    assert ids.shape == (4, 10) and ids.device.type == "cpu"
+    assert torch.equal(ids, st.search(q)[0])
+    assert st.snapshot().delta_x.device.type == "cpu"
+
+
 def test_runtime_config_rejects_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RuntimeConfig(mode="progressive")
@@ -107,7 +127,10 @@ def test_use_kernels_true_on_cpu_tensors_raises():
     codes = torch.zeros((2, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         ops.sketch_scores(q, x[:2], codebooks, codes, use_kernels=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mips_score(x, q, valid, use_kernels=True)
     before = dict(ops.LAUNCHES)
     ops.block_mips(x, valid, q, slots, sel, init_s, init_r, c_half, k=3,
                    page_rows=8)                       # CPU: plain, no launch
+    ops.mips_score(x, q, valid)
     assert ops.LAUNCHES == before

@@ -17,7 +17,9 @@ import torch
 
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
+from repro.kernels.mips_topk import mips_score as jax_mips_score_pallas
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 
 REL = 1e-5
 # one compile per shape instead of one per eager op
@@ -124,6 +126,20 @@ def test_block_mips_plain_matches_pallas_interpret(case):
     _assert_round_equal(got, want, args)
 
 
+@pytest.mark.parametrize("k", [1025, 4096])
+def test_block_mips_plain_large_k_matches_jax_oracle(k):
+    """The streaming over-fetch's k (above the CUDA kernel's shared-memory
+    merge), on integer data with ties: equal rows, counts and scores."""
+    nb, p = 300, 8 if k < 4096 else 16
+    args = _round(11 + k, nb, p, 32, 4, k, 200, k >= 4096, integer=True)
+    got = ops.block_mips(*[torch.from_numpy(a) for a in args], k=k, page_rows=p,
+                         dense=k >= 4096)
+    want = _jax_block_mips_ref(*[jnp.asarray(a) for a in args], k=k,
+                               page_rows=p, dense=k >= 4096)
+    _assert_round_equal(got, want, args)
+    assert int(got[4].max()) > 0
+
+
 def test_block_mips_fewer_valid_rows_than_k():
     """Two slots of 8 rows, most invalid, k = 32: the tail is (-inf, -1)."""
     args = _round(7, 6, 8, 32, 3, 32, 4, False, integer=False, valid_frac=0.4)
@@ -190,3 +206,44 @@ def test_sketch_scores_plain_matches_pallas_interpret(sketch_inputs):
         jnp.asarray(q), jnp.asarray(sk_mu), jnp.asarray(codebooks),
         jnp.asarray(codes), use_pallas=True))
     assert (np.abs(got.numpy() - want) <= 1e-5 * scale + 1e-6).all()
+
+
+MIPS_SHAPES = [(1, 1, 1), (37, 5, 19), (300, 9, 128), (513, 130, 200)]
+
+
+@pytest.mark.parametrize("r,b,d", MIPS_SHAPES,
+                         ids=[f"R{r}-B{b}-d{d}" for r, b, d in MIPS_SHAPES])
+def test_mips_score_plain_matches_jax(r, b, d):
+    """The plain `mips_score` against the JAX Pallas kernel in interpret
+    mode and the JAX oracle at ragged R, B and d: within 1e-5 relative to
+    |q||x| on float data, and invalid rows exactly -1e30 (not -inf)."""
+    rng = np.random.RandomState(r * 7 + b + d)
+    x = rng.standard_normal((r, d)).astype(np.float32)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    valid = rng.rand(r) > 0.3
+    valid[0] = False
+    got = ops.mips_score(torch.from_numpy(x), torch.from_numpy(q),
+                         torch.from_numpy(valid))
+    assert got.shape == (r, b) and got.dtype == torch.float32
+    assert bool((got[torch.from_numpy(~valid)] == ref.MASKED).all())
+    scale = (np.linalg.norm(x, axis=1)[:, None]
+             * np.linalg.norm(q, axis=1)[None, :])
+    for want in (jax_mips_score_pallas(jnp.asarray(x), jnp.asarray(q),
+                                       jnp.asarray(valid), interpret=True),
+                 jax_ref.mips_score_ref(jnp.asarray(x), jnp.asarray(q),
+                                        jnp.asarray(valid))):
+        want = np.asarray(want)
+        np.testing.assert_array_equal(want[~valid], got.numpy()[~valid])
+        assert (np.abs(got.numpy() - want) <= REL * scale + 1e-6).all()
+
+
+def test_mips_score_plain_integer_data_is_exact():
+    rng = np.random.RandomState(1)
+    x = rng.randint(-3, 4, (70, 33)).astype(np.float32)
+    q = rng.randint(-3, 4, (6, 33)).astype(np.float32)
+    valid = rng.rand(70) > 0.2
+    got = ops.mips_score(torch.from_numpy(x), torch.from_numpy(q),
+                         torch.from_numpy(valid))
+    want = jax_ops.mips_score(jnp.asarray(x), jnp.asarray(q),
+                              jnp.asarray(valid), use_pallas=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
