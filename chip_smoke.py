@@ -36,6 +36,27 @@ line):
        deletes (state B, k_base = 2,058); each state held like the main
        path (plain path, exact top-k over the live rows, Theorem-2 floor),
        timed, and state B profiled.
+     Every search of phases 3-5 also runs binary_probe_lb (the Quick-Probe
+     group bounds of the frontend); each choice of group that differs
+     between the kernel and the plain path is reported with its margin;
+  6. the serve path (`serve.DecodeEngine`) at the full width of
+     tinyllama-1.1b (22 layers, d_model 2048, 32 heads, 4 KV heads, vocab
+     32,000 padded to 32,256), random f32 weights from a seeded generator,
+     4 batch slots, max_len 512, 16 requests with prompts of 24 and 40
+     tokens and 16 new tokens each: exact and ProMIPS logits, each on the
+     kernels (decode_attention in every layer of every step; the vocab
+     search's binary_probe_lb and mips_score) and on the plain versions,
+     tokens held kernel against plain (each difference explained by a logit
+     margin below LOGIT_TOL), the c-approximation of every searched row
+     against the exact top-1 over the live vocab (the Theorem-2 floor), the
+     hot-query cache (hits, tokens equal to a cache-off run), deletes and an
+     update of vocab rows; step times, tokens/s, pages, launches per step,
+     peak memory, and a torch.profiler trace of one decode step.
+Phase 2 also holds binary_probe_lb (at the vocab index's and the n=1M
+index's shapes) and decode_attention (at the serve shape and at the
+decode_32k shape, B=8, S=32,768) against their plain versions, with the
+same four times, and mips_score at the serve search's tile (R=32,000,
+B=4, d=2,048).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -59,6 +80,10 @@ SEARCH = dict(k=10, prefilter=True, prefilter_eps=0.1, dense_frac=0.8)
 N_QUERIES = 64
 JAX_CPU_RECORD_100K = dict(pages_mean=1386.14, pages_frac=0.111, recall=0.9984)
 
+# the device the smoke run drives (a CPU rehearsal of the serve phase with
+# the kernels' plain versions may set it to "cpu"; the run itself needs the
+# card)
+DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
@@ -257,6 +282,167 @@ def sketch_bound_ms(q, codebooks, codes):
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def binary_probe_bound_ms(b, g, m):
+    """Codes (int64), query codes and projections read once, bounds
+    written once, against one multiply-add per bit and the scale."""
+    nbytes = g * 8 + b * 8 + b * m * 4 + b * g * 4
+    ops = float(b) * g * (2 * m + 1)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def decode_attention_bound_ms(q, k, cache_len):
+    """The cache rows each sequence needs (cache_len of them, all S when it
+    is 0) read once for K and V, q read and the output written once, against
+    2 dh operations for the score and 2 dh for P.V per (position, query
+    row)."""
+    b, kh, g, dh = q.shape
+    s = k.shape[1]
+    n = cache_len.clamp(max=s)
+    rows = int(n.masked_fill(n <= 0, s).sum())
+    nbytes = 2 * rows * kh * dh * 4 + 2 * q.numel() * 4 + b * 4
+    ops = float(rows) * kh * g * 4 * dh
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_binary_probe(timer, label, codes, q_proj):
+    """binary_probe_lb against its plain version (|d| <= 1e-6 |lb| + 1e-7),
+    timed. Returns the kernel line's record."""
+    import torch
+    from repro_torch.core.quick_probe import pack_codes
+    from repro_torch.kernels import ops
+    q_code = pack_codes(q_proj)
+    args = (codes, q_code, q_proj)
+    got = ops.binary_probe_lb(*args, use_kernels=True)
+    want = ops.binary_probe_lb(*args, use_kernels=False)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = 1e-6 * want.abs() + 1e-7
+    require(bool((diff <= tol).all()),
+            f"binary_probe_lb {label}: |d| beyond 1e-6|lb|+1e-7 by "
+            f"{float((diff - tol).max())}")
+    b, m = q_proj.shape
+    g = codes.shape[0]
+    shifts = torch.arange(m, device=codes.device)
+    bits = (((codes[None, :] ^ q_code[:, None])[..., None] >> shifts) & 1).float()
+    qabs = q_proj.abs()[..., None]
+    rec = dict(
+        name="binary_probe_lb", route="cuda",
+        source="src/repro_torch/kernels/csrc/binary_probe.cu",
+        replaces="src/repro/kernels/binary_probe.py:30",
+        max_abs_err=float(diff.max()),
+        ms=timer.ms(lambda: ops.binary_probe_lb(*args, use_kernels=True)),
+        call_ms=timer.ms(lambda: ops.binary_probe_lb(*args, use_kernels=True),
+                         hold=False),
+        plain_ms=timer.ms(lambda: ops.binary_probe_lb(*args, use_kernels=False)),
+        library_ms=timer.ms(lambda: torch.matmul(bits, qabs)))
+    rec["bound_ms"], rec["bound_by"] = binary_probe_bound_ms(b, g, m)
+    log(f"[kernel binary_probe_lb: {label}] B={b} G={g} m={m}: "
+        f"max|d|={rec['max_abs_err']:.3g} (tol 1e-6|lb|+1e-7)  device "
+        f"{rec['ms']:.4f} ms (call with host {rec['call_ms']:.4f} ms)  plain "
+        f"{rec['plain_ms']:.4f} ms  torch.matmul of the unpacked bits "
+        f"{rec['library_ms']:.4f} ms  bound {rec['bound_ms']:.6f} ms "
+        f"({rec['bound_by']})")
+    return rec
+
+
+def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
+    """decode_attention against its plain version on seeded normal inputs
+    (|d| <= 1e-5 max|v| + 1e-6), timed, with scaled_dot_product_attention
+    (length mask, enable_gqa) as the library yardstick. Returns the kernel
+    line's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    q = torch.randn((b, kh, g, dh), generator=gen, device=DEVICE)
+    k = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE)
+    v = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE)
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+    args = (q, k, v, cache_len)
+    got = ops.decode_attention(*args, use_kernels=True)
+    want = ops.decode_attention(*args, use_kernels=False)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    tol = 1e-5 * v.abs().amax(dim=(1, 2, 3))[:, None, None, None] + 1e-6
+    require(bool((diff <= tol).all()),
+            f"decode_attention {label}: |d| beyond 1e-5 max|v|+1e-6 by "
+            f"{float((diff - tol).max())}")
+    qs = q.reshape(b, kh * g, 1, dh)
+    ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    mask = (torch.arange(s, device=DEVICE)[None, :]
+            < cache_len[:, None].long())[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = float((sdpa().reshape(b, kh, g, dh) - want).abs().max())
+    rec = dict(
+        name="decode_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:66",
+        max_abs_err=float(diff.max()),
+        ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=True)),
+        call_ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=True),
+                         hold=False),
+        plain_ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=False)),
+        library_ms=timer.ms(sdpa))
+    rec["bound_ms"], rec["bound_by"] = decode_attention_bound_ms(q, k, cache_len)
+    log(f"[kernel decode_attention: {label}] B={b} S={s} KH={kh} G={g} dh={dh} "
+        f"cache_len={lens if len(lens) <= 8 else '...'}: max|d|="
+        f"{rec['max_abs_err']:.3g} (tol 1e-5 max|v|+1e-6)  device "
+        f"{rec['ms']:.4f} ms (call with host {rec['call_ms']:.4f} ms)  plain "
+        f"{rec['plain_ms']:.4f} ms  scaled_dot_product_attention "
+        f"{rec['library_ms']:.4f} ms (max|d| to plain {lib_err:.3g})  bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    return rec
+
+
+def phase_kernels_serve(pm, q, timer):
+    """The slice-3 kernels against their plain versions: binary_probe_lb at
+    the vocab index's shape (every one of the 256 sign codes of m = 8,
+    B = 4) and at the n=1M index's (its group table, the batch's
+    projections); decode_attention at the serve shape and at the
+    decode_32k shape; mips_score at the serve search's union tile. Returns
+    the records of the kernel line (the serve shapes)."""
+    import torch
+    from repro_torch.data.synthetic import mf_factors
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(11)
+    vocab_codes = torch.arange(256, dtype=torch.int64, device=DEVICE)
+    bp_rec = check_binary_probe(timer, "vocab index shape", vocab_codes,
+                                torch.randn((4, 8), generator=gen, device=DEVICE))
+    check_binary_probe(timer, "n=1M index", pm.arrays.g_code, q @ pm.arrays.a)
+    da_rec = check_decode_attention(timer, "serve shape", 4, 512,
+                                    [1, 37, 300, 512], seed=12)
+    lens = [32768, 1, 20000, 4097, 64, 31000, 12345, 27000]
+    check_decode_attention(timer, "decode_32k shape", 8, 32768, lens, seed=13)
+    # mips_score at the serve search's tile: every vocab row at full budget
+    xt = torch.from_numpy(mf_factors(32_000, 2048, 64, decay=0.5,
+                                     seed=14)).to(DEVICE)
+    qt = torch.randn((4, 2048), generator=gen, device=DEVICE)
+    vt = torch.ones(32_000, dtype=torch.bool, device=DEVICE)
+    got = ops.mips_score(xt, qt, vt, use_kernels=True)
+    want = ops.mips_score(xt, qt, vt, use_kernels=False)
+    torch.cuda.synchronize()
+    tol = REL * xt.norm(dim=1)[:, None] * qt.norm(dim=1)[None, :] + ABS
+    require(bool(((got - want).abs() <= tol).all()),
+            "mips_score at the serve tile exceeds |d| <= 1e-5*|q||x|+1e-6")
+    t_k = timer.ms(lambda: ops.mips_score(xt, qt, vt, use_kernels=True))
+    t_p = timer.ms(lambda: ops.mips_score(xt, qt, vt, use_kernels=False))
+    t_l = timer.ms(lambda: torch.matmul(xt, qt.T).masked_fill_(~vt[:, None], -1e30))
+    bound, by = mips_score_bound_ms(xt, qt)
+    log(f"[kernel mips_score: serve tile] R=32000 B=4 d=2048: max|d|="
+        f"{float((got - want).abs().max()):.3g}  device {t_k:.4f} ms  plain "
+        f"{t_p:.4f} ms  torch.matmul+masked_fill {t_l:.4f} ms  bound "
+        f"{bound:.4f} ms ({by})")
+    return [bp_rec, da_rec]
+
+
 def phase_kernels(pm, q, timer):
     """Each kernel against its plain version at the n=1M main path's shapes.
     Returns the records of the kernel line (launches filled in later)."""
@@ -443,12 +629,15 @@ def success_rate(scores, exact_scores, c):
     return float(ok.all(dim=1).double().mean())
 
 
-def compare_paths(q, ids_k, st_k, ids_p, st_p, flips, rows_of, block_of):
+def compare_paths(q, ids_k, st_k, ids_p, st_p, flips, rows_of, block_of,
+                  probe=None):
     """Kernel path vs plain path on the card: ids equal, or each difference
-    explained by an exact-score tie or by a prefilter cut flip in a block
-    that holds one of the rows that differ. ``rows_of(ids)`` gives the rows
-    of ids on the card, ``block_of(id)`` the base block of an id (-1 for a
-    row outside the base)."""
+    explained by an exact-score tie, by a prefilter cut flip in a block
+    that holds one of the rows that differ, or by a Quick-Probe group flip
+    of that query (``probe``, from `probe_flips`). ``rows_of(ids)`` gives
+    the rows of ids on the card, ``block_of(id)`` the base block of an id
+    (-1 for a row outside the base)."""
+    probe = probe or {}
     differ = (ids_k != ids_p).any(dim=1).nonzero().flatten().tolist()
     notes = []
     for b in differ:
@@ -461,13 +650,15 @@ def compare_paths(q, ids_k, st_k, ids_p, st_p, flips, rows_of, block_of):
         blocks = {block_of(r) for r in rows if r >= 0} - {-1}
         flipped = flips.get(b, {})
         reached = sorted(blocks & set(flipped))
-        require(gap <= tol or reached,
+        require(gap <= tol or reached or b in probe,
                 f"query {b}: ids differ between kernel and plain path with "
-                f"score gap {gap} > {tol}, and no prefilter flip in the "
-                f"blocks of the rows that differ (flipped blocks: {flipped})")
+                f"score gap {gap} > {tol}, no prefilter flip in the blocks of "
+                f"the rows that differ (flipped blocks: {flipped}) and no "
+                f"Quick-Probe group flip")
         notes.append(f"q{b}: gap {gap:.3g} (tol {tol:.3g}); prefilter flips in "
                      f"the blocks of its differing rows: "
-                     f"{ {n: flipped[n] for n in reached} }")
+                     f"{ {n: flipped[n] for n in reached} }; Quick-Probe flip "
+                     f"margin {probe.get(b)}")
     pages_diff = int((st_k.pages != st_p.pages).sum())
     return differ, notes, pages_diff
 
@@ -514,6 +705,49 @@ def prefilter_flips(arrays, q, mask0, est_bnd, k):
     return out, float(diff.max())
 
 
+def probe_flips(arrays, meta, q):
+    """Hold the frontend's Quick-Probe on the kernel against the plain one:
+    the bounds within 1e-6 |lb| + 1e-7, and the chosen group (its
+    representative row and Test A) equal. A query whose choice differs is
+    a flip only if the plain bounds put the two groups within tolerance of
+    each other, or one of them within tolerance of the Test-A threshold.
+    Returns ({query: normalized margin}, max |d lb|)."""
+    import torch
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.quick_probe import pack_codes, quick_probe_batch
+    from repro_torch.kernels import ops
+    table = sd._group_table(arrays)
+    q_proj = q @ arrays.a
+    q_l1 = q.abs().sum(dim=1)
+    q_code = pack_codes(q_proj)
+    lb_k = ops.binary_probe_lb(table.code, q_code, q_proj, use_kernels=True)
+    lb_p = ops.binary_probe_lb(table.code, q_code, q_proj, use_kernels=False)
+    tol = 1e-6 * lb_p.abs() + 1e-7
+    diff = (lb_k - lb_p).abs()
+    require(bool((diff <= tol).all()),
+            f"binary_probe_lb on the main path's input: |d| beyond tolerance "
+            f"by {float((diff - tol).max())}")
+    rk, _, ok_k = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p, True)
+    rp, _, ok_p = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p, False)
+    denom = meta.c * (table.min_l1[None, :] + q_l1[:, None]) ** 2
+    val = lb_p * lb_p / denom.clamp(min=1e-30)
+    tol_val = 2.0 * tol * lb_p / denom.clamp(min=1e-30) + 1e-12
+    out = {}
+    for b in ((rk != rp) | (ok_k != ok_p)).nonzero().flatten().tolist():
+        gk = int((table.rep_row == rk[b]).nonzero()[0])
+        gp = int((table.rep_row == rp[b]).nonzero()[0])
+        margins = [float((lb_p[b, gk] - lb_p[b, gp]).abs()
+                         / (tol[b, gk] + tol[b, gp]))]
+        margins += [float((val[b, g] - meta.x_p).abs() / tol_val[b, g])
+                    for g in (gk, gp)]
+        require(min(margins) <= 1.0,
+                f"query {b}: the Quick-Probe group differs between kernel "
+                f"(group {gk}) and plain (group {gp}) with no bound within "
+                f"tolerance (normalized margins {margins})")
+        out[b] = min(margins)
+    return out, float(diff.max())
+
+
 def phase_main_path(label, pm, x, q):
     """One counted search through `ProMIPS.search`, held against the plain
     path, an exact top-k and the Theorem-2 floor. Returns the launches."""
@@ -541,7 +775,8 @@ def phase_main_path(label, pm, x, q):
         f"peak memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} MiB "
         f"allocated before the search, +{(peak - resident) / 2**20:.1f} MiB "
         f"during it)")
-    require(launches["block_mips"] > 0 and launches["sketch_scores"] > 0,
+    require(launches["block_mips"] > 0 and launches["sketch_scores"] > 0
+            and launches["binary_probe_lb"] > 0,
             f"a kernel of the main path was not launched: {launches}")
     require(ids.shape == (q.shape[0], k) and bool(torch.isfinite(scores).all()),
             "main path output has the wrong shape or non-finite scores")
@@ -553,15 +788,18 @@ def phase_main_path(label, pm, x, q):
     est_bnd = sd.prefilter_round1(pm.arrays, q, mask0, k, meta.page_rows,
                                   SEARCH["prefilter_eps"], False)
     flips, sk_err = prefilter_flips(pm.arrays, q, mask0, est_bnd, k)
+    probe, lb_err = probe_flips(pm.arrays, meta, q)
     row_of_id = torch.full((x.shape[0],), -1, dtype=torch.long, device=x.device)
     live = pm.arrays.ids >= 0
     row_of_id[pm.arrays.ids[live].long()] = live.nonzero().flatten()
     row_of_id = row_of_id.cpu()
     differ, notes, pages_diff = compare_paths(
         q, ids, st, ids_p, st_p, flips, lambda i: x[i.clamp(min=0).long()],
-        lambda r: int(row_of_id[r]) // meta.page_rows)
+        lambda r: int(row_of_id[r]) // meta.page_rows, probe)
     log(f"[{label}] sketch_scores on this input: max|d|={sk_err:.3g} "
-        f"(tol 1e-5*|q||mu|+1e-6)")
+        f"(tol 1e-5*|q||mu|+1e-6); binary_probe_lb max|d|={lb_err:.3g} (tol "
+        f"1e-6|lb|+1e-7); Quick-Probe group flips (query: normalized "
+        f"margin) {probe if probe else 'none'}")
     log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} queries "
         f"differ in ids; {pages_diff} differ in pages; prefilter cut flips "
         f"(query: {{block: est+bnd-tau}}) {flips if flips else 'none'}")
@@ -744,14 +982,16 @@ def phase_stream_state(label, st, q, path_kernels, profile=False):
     est_bnd = sd.prefilter_round1(arrays, q, mask0, k_base, meta.page_rows,
                                   SEARCH["prefilter_eps"], False)
     flips, _ = prefilter_flips(arrays, q, mask0, est_bnd, k_base)
+    probe, _ = probe_flips(arrays, meta, q)
     differ, notes, pages_diff = compare_paths(
         q, ids, sst, ids_p, sst_p, flips,
         lambda i: x_alive[pos_of[i.clamp(min=0).long()]],
-        lambda r: int(block_of[r]) if r < len(block_of) else -1)
+        lambda r: int(block_of[r]) if r < len(block_of) else -1, probe)
     log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} "
         f"queries differ in ids; {pages_diff} differ in pages; prefilter cut "
         f"flips at k_base (query: {{block: est+bnd-tau}}) "
-        f"{flips if flips else 'none'}")
+        f"{flips if flips else 'none'}; Quick-Probe group flips "
+        f"{probe if probe else 'none'}")
     for note in notes:
         log(f"[{label}]   {note}")
 
@@ -799,13 +1039,14 @@ def phase_compact_100k(pm, q):
         f"{time.perf_counter() - t0:.3f} s (host); churn "
         f"{st.churn_fraction:.4f}")
     phase_stream_state("compact-100k before compaction", st, q,
-                       ("block_mips", "sketch_scores", "mips_score"))
+                       ("binary_probe_lb", "block_mips", "sketch_scores",
+                        "mips_score"))
     t0 = time.perf_counter()
     st.compact()
     log(f"[compact-100k] compact() {time.perf_counter() - t0:.1f} s (host "
         f"rebuild over {st.meta.n} rows); churn {st.churn_fraction}")
     phase_stream_state("compact-100k after compact()", st, q,
-                       ("block_mips", "sketch_scores"))
+                       ("binary_probe_lb", "block_mips", "sketch_scores"))
 
     # -- a background compaction with writes and searches landing meanwhile
     st.compactor = Compactor()
@@ -851,7 +1092,8 @@ def phase_compact_100k(pm, q):
     require(len(found) == len(expected) and recall >= 0.99,
             "[compact-100k] an inserted row was not found after the join")
     phase_stream_state("compact-100k after the background compaction", st, q,
-                       ("block_mips", "sketch_scores", "mips_score"))
+                       ("binary_probe_lb", "block_mips", "sketch_scores",
+                        "mips_score"))
 
 
 def phase_stream_1m(pm, q):
@@ -865,7 +1107,7 @@ def phase_stream_1m(pm, q):
     st.insert(np.arange(n, n + n_ins), corpus_rows(n_ins, seed=3))
     log(f"[stream-1M] state A: {n_ins} inserts in {time.perf_counter() - t0:.2f} s "
         f"(host); delta fraction {st.delta_fraction:.4f}")
-    kernels = ("block_mips", "sketch_scores", "mips_score")
+    kernels = ("binary_probe_lb", "block_mips", "sketch_scores", "mips_score")
     phase_stream_state("stream-1M state A", st, q, kernels)
     rng = np.random.RandomState(5)
     base_ids = rng.choice(n, 2_000, replace=False)
@@ -877,6 +1119,313 @@ def phase_stream_1m(pm, q):
         f"1,112 delta deletes in {time.perf_counter() - t0:.2f} s (host)")
     return phase_stream_state("stream-1M state B", st, q, kernels, profile=True)
 
+
+
+# ---------------------------------------------------------------- phase 6
+
+# the serve cell: tinyllama-1.1b at full width, the engine's own defaults
+SERVE = dict(arch="tinyllama-1.1b", batch_slots=4, max_len=512, n_requests=16,
+             prompt_lens=(24, 40), max_new_tokens=16, param_seed=0,
+             traffic_seed=3)
+VOCAB_INDEX = dict(m=8, c=0.9, p=0.9, norm_strata=4, seed=0)
+# a token of the kernel path that differs from the plain path's must be a
+# near-tie: the two tokens' logits (exact f32 logits of the shared context)
+# within this of each other
+LOGIT_TOL = 1e-4
+
+
+def serve_prompts(vocab, n, lens, seed):
+    rng = __import__("numpy").random.RandomState(seed)
+    return [rng.randint(1, vocab, size=lens[i % len(lens)]).astype("int32")
+            for i in range(n)]
+
+
+def run_traffic(engine, prompts, max_new):
+    """Submit every prompt and step the engine until it is idle. Returns
+    (requests, step seconds, wall seconds); each step ends in a sync."""
+    import torch
+    reqs = [engine.submit(p, max_new_tokens=max_new) for p in prompts]
+    times = []
+    t0 = time.perf_counter()
+    while engine.queue or engine.active.any():
+        ts = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+    return reqs, times, time.perf_counter() - t0
+
+
+class SearchLog:
+    """Wraps an index's `search` to keep each searched batch's queries and
+    returned top-1 (id, score), for the guarantee check."""
+
+    def __init__(self, index):
+        self.rows = []
+        inner = index.search
+
+        def search(queries, k=None, **opts):
+            res = inner(queries, k=k, **opts)
+            self.rows.append((queries.detach().clone(), res.ids[:, 0].copy(),
+                              res.scores[:, 0].copy()))
+            return res
+
+        index.search = search
+
+    def guarantee(self, live, c):
+        """(rows searched, rows whose top-1 score >= c * the exact top-1
+        over ``live`` (n_live, d) on the card)."""
+        import torch
+        n = ok = 0
+        for qs, _, s1 in self.rows:
+            exact = (qs.float() @ live.T).amax(dim=1).double().cpu()
+            s1 = torch.from_numpy(s1).double()
+            ok += int(((s1 >= c * exact - 1e-5) | (exact <= 0)).sum())
+            n += len(s1)
+        self.rows.clear()
+        return n, ok
+
+
+def explain_token_diffs(label, params, cfg, reqs_a, reqs_b):
+    """Each request's tokens on two paths: equal, or the first position
+    where they part is a near-tie of the exact logits of the shared context
+    (|l[a] - l[b]| <= LOGIT_TOL). Returns the notes of the differences."""
+    import torch
+    from repro_torch.models import transformer as T
+    notes = []
+    for i, (ra, rb) in enumerate(zip(reqs_a, reqs_b)):
+        if ra.out_tokens == rb.out_tokens:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(ra.out_tokens, rb.out_tokens))
+                 if x != y)
+        require(t > 0, f"[{label}] request {i}: the prefill tokens differ "
+                "(prefill runs no kernel)")
+        ctx = list(ra.prompt) + ra.out_tokens[:t]
+        tokens = torch.tensor([ctx], device=DEVICE)
+        _, lg = T.prefill(params, cfg, {"tokens": tokens}, len(ctx))
+        a, b = ra.out_tokens[t], rb.out_tokens[t]
+        margin = float((lg[0, a] - lg[0, b]).abs())
+        require(margin <= LOGIT_TOL,
+                f"[{label}] request {i} parts at token {t}: {a} vs {b} with "
+                f"logit margin {margin} > {LOGIT_TOL}")
+        notes.append(f"request {i} token {t}: {a} vs {b}, logit margin "
+                     f"{margin:.3g} (tol {LOGIT_TOL})")
+    return notes
+
+
+def profile_step(engine, prompts):
+    """Device time by kernel and the device's idle share over one promips
+    decode step with every slot active (torch.profiler)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts[:engine.b]:
+        engine.submit(p, max_new_tokens=64)
+    for _ in range(3):
+        engine.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name[5:] if name.startswith("void ") else name
+        total, count = by_name.get(name[:70], (0.0, 0))
+        by_name[name[:70]] = (total + e.time_range.end - e.time_range.start,
+                              count + 1)
+    busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+    if busy_ms == 0:
+        log("[profile serve] device time not measured: the trace holds no "
+            "CUDA events")
+    else:
+        log(f"[profile serve] one promips decode step, 4 active slots: wall "
+            f"{wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} "
+            f"ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:18]:
+            log(f"[profile serve]   {t / 1e3:8.3f} ms  x{c:<4d} {name}")
+    while engine.queue or engine.active.any():
+        engine.step()
+
+
+def phase_serve():
+    """The serve cell. Returns the launches of the counted promips run."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import DecodeEngine
+    cfg = get_config(SERVE["arch"])
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["param_seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} (padded {cfg.vocab_padded}); {n_params} f32 parameters "
+        f"({n_params * 4 / 1e9:.2f} GB) made on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    emb = params["embed"][: cfg.vocab].cpu().numpy()
+    kw = dict(VOCAB_INDEX)
+    t0 = time.perf_counter()
+    index = api.build(emb, backend="promips-stream",
+                      guarantee=api.GuaranteeConfig(c=kw.pop("c"), p0=kw.pop("p")),
+                      auto_compact=True, seed=kw.pop("seed"), device=DEVICE, **kw)
+    meta = index.inner.meta
+    log(f"[serve] vocab index (promips-stream over embed[:{cfg.vocab}], "
+        f"{VOCAB_INDEX}): host build {time.perf_counter() - t0:.1f} s; "
+        f"page_rows={meta.page_rows} NB={meta.n_blocks} G={meta.n_groups} "
+        f"S={meta.n_subparts}")
+    searches = SearchLog(index)
+    prompts = serve_prompts(cfg.vocab, SERVE["n_requests"], SERVE["prompt_lens"],
+                            SERVE["traffic_seed"])
+    eng_kw = dict(batch_slots=SERVE["batch_slots"], max_len=SERVE["max_len"],
+                  result_cache=0, device=DEVICE)
+    new = SERVE["max_new_tokens"]
+    live = torch.from_numpy(emb).to(DEVICE)
+    runs, launches = {}, None
+    for mode in ("exact", "promips"):
+        for path, use in (("kernels", None), ("plain", False)):
+            engine = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=use,
+                                  index=index if mode == "promips" else None,
+                                  **eng_kw)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            for name in ops.LAUNCHES:
+                ops.LAUNCHES[name] = 0
+            reqs, times, wall = run_traffic(engine, prompts, new)
+            counts = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            n_search = len(searches.rows)
+            rows_searched, ok = searches.guarantee(live, meta.c)
+            decoded = sum(len(r.out_tokens) - 1 for r in reqs)
+            require(all(len(r.out_tokens) >= 1 and 0 <= min(r.out_tokens)
+                        and max(r.out_tokens) < cfg.vocab for r in reqs),
+                    f"[serve {mode}/{path}] a request emitted no token or an "
+                    "id outside the vocab")
+            times_ms = sorted(1e3 * t for t in times)
+            log(f"[serve {mode}/{path}] {len(reqs)} requests, {engine.steps} "
+                f"steps, {engine.prefill_calls} prefills, {decoded} decoded "
+                f"tokens in {wall:.3f} s = {decoded / wall:.1f} tokens/s; step "
+                f"median {times_ms[len(times_ms) // 2]:.3f} ms (range "
+                f"{times_ms[0]:.3f}-{times_ms[-1]:.3f}); launches {counts}; "
+                f"peak memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} "
+                f"before + {(peak - resident) / 2**20:.1f})")
+            steps = engine.steps
+            if path == "kernels":
+                require(counts["decode_attention"] == cfg.n_layers * steps,
+                        f"[serve {mode}] decode_attention launched "
+                        f"{counts['decode_attention']} times in {steps} steps "
+                        f"of {cfg.n_layers} layers")
+            else:
+                require(not any(counts.values()),
+                        f"[serve {mode}/plain] a kernel was launched: {counts}")
+            if mode == "promips":
+                pages_row = engine.pages / max(engine.searched_rows, 1)
+                dense = cfg.vocab_padded * cfg.d_model * 4 // 4096
+                log(f"[serve {mode}/{path}] {n_search} searches over "
+                    f"{engine.searched_rows} rows: {pages_row:.1f} blocks per "
+                    f"row of {meta.page_rows} x {cfg.d_model} f32 "
+                    f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f}"
+                    f" 4-KB pages) against the exact mode's dense scan of "
+                    f"{dense} 4-KB pages; per search binary_probe_lb "
+                    f"{counts['binary_probe_lb'] / max(n_search, 1):.2f}, "
+                    f"mips_score {counts['mips_score'] / max(n_search, 1):.2f} "
+                    f"launches")
+                p0 = meta.p
+                floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / max(rows_searched, 1))
+                share = ok / max(rows_searched, 1)
+                log(f"[serve {mode}/{path}] guarantee: {ok} of {rows_searched} "
+                    f"searched rows have a top-1 score >= c={meta.c} x the "
+                    f"exact top-1 over the live vocab: {share:.4f} (floor "
+                    f"{floor:.4f})")
+                require(rows_searched > 0 and share >= floor,
+                        f"[serve {mode}/{path}] guarantee share {share} < {floor}")
+                if path == "kernels":
+                    require(counts["binary_probe_lb"] == n_search
+                            and counts["mips_score"] >= n_search,
+                            f"[serve promips] a search kernel was not launched "
+                            f"once per search ({n_search}): {counts}")
+                    launches = dict(counts, steps=steps, searches=n_search)
+            runs[mode, path] = (engine, reqs)
+        notes = explain_token_diffs(f"serve {mode}", params, cfg,
+                                    runs[mode, "kernels"][1],
+                                    runs[mode, "plain"][1])
+        log(f"[serve {mode}] kernel vs plain path: "
+            f"{len(notes)} of {len(prompts)} requests differ in tokens"
+            + "".join(f"; {n}" for n in notes))
+    same = sum(a.out_tokens == b.out_tokens for a, b in
+               zip(runs["exact", "kernels"][1], runs["promips", "kernels"][1]))
+    tok_eq = sum(x == y for a, b in zip(runs["exact", "kernels"][1],
+                                        runs["promips", "kernels"][1])
+                 for x, y in zip(a.out_tokens, b.out_tokens))
+    tok_n = sum(min(len(a.out_tokens), len(b.out_tokens)) for a, b in
+                zip(runs["exact", "kernels"][1], runs["promips", "kernels"][1]))
+    log(f"[serve] exact vs promips (kernel paths, not gated): {same} of "
+        f"{len(prompts)} requests emit the same tokens; {tok_eq} of {tok_n} "
+        f"token positions agree")
+    profile_step(runs["promips", "kernels"][0], prompts)
+    searches.rows.clear()
+
+    # -- the hot-query cache on repeated prompts, against the cache off
+    repeated = prompts[:8] * 2
+    outs = {}
+    for cap in (0, 256):
+        engine = DecodeEngine(params, cfg, logits_mode="promips", index=index,
+                              **dict(eng_kw, result_cache=cap))
+        reqs, _, wall = run_traffic(engine, repeated, new)
+        outs[cap] = [r.out_tokens for r in reqs]
+        st = engine.qcache.stats()
+        log(f"[serve cache {cap}] {len(repeated)} requests (8 prompts twice): "
+            f"{engine.searched_rows} rows searched, cache {st}, {wall:.3f} s")
+    searches.rows.clear()
+    require(st["hits"] > 0, "[serve cache] no hit on repeated prompts")
+    require(outs[0] == outs[256], "[serve cache] tokens differ with the cache on")
+
+    # -- mutation: retire three emitted ids, then refresh one row
+    engine = runs["promips", "kernels"][0]
+    emitted = [t for r in runs["promips", "kernels"][1] for t in r.out_tokens[1:]
+               if t != engine.eos_id]
+    retired = [int(t) for t, _ in
+               sorted(((t, emitted.count(t)) for t in set(emitted)),
+                      key=lambda tc: (-tc[1], tc[0]))[:3]]
+    engine.delete(retired)
+    reqs, _, wall = run_traffic(engine, prompts, new)
+    hit = sorted({t for r in reqs for t in r.out_tokens} & set(retired))
+    gids, rows = index.alive_items()
+    n_rows, ok = searches.guarantee(torch.from_numpy(rows).to(DEVICE), meta.c)
+    log(f"[serve mutation] deleted ids {retired} (the most emitted); the same "
+        f"traffic again in {wall:.3f} s: retired ids emitted {hit or 'none'}; "
+        f"guarantee {ok} of {n_rows} rows over {len(gids)} live rows")
+    require(not hit, f"[serve mutation] a deleted id was emitted: {hit}")
+    upd = int(next(t for t in range(1, cfg.vocab) if t not in retired))
+    row = (params["embed"][upd] * 1.5).cpu().numpy()
+    engine.update([upd], row[None])
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    reqs, _, wall = run_traffic(engine, prompts[:4], new)
+    hit = sorted({t for r in reqs for t in r.out_tokens} & set(retired))
+    log(f"[serve mutation] updated id {upd} (its row x 1.5, now in the delta "
+        f"segment); 4 requests in {wall:.3f} s, launches {dict(ops.LAUNCHES)}; "
+        f"retired ids emitted {hit or 'none'}")
+    require(not hit, f"[serve mutation] a deleted id was emitted: {hit}")
+    engine.join_compaction(timeout=600)
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 def main() -> int:
@@ -898,18 +1447,27 @@ def main() -> int:
 
     card = phase_setup()
     timer = Timer(torch)
+    log(f"[phase 1] {time.perf_counter() - t_start:.1f} s")
 
+    t0 = time.perf_counter()
     pm1m, x1m, q1m = build_size(1_000_000)
-    records = phase_kernels(pm1m, q1m, timer)
+    records = phase_kernels(pm1m, q1m, timer) + phase_kernels_serve(pm1m, q1m,
+                                                                    timer)
+    log(f"[phase 2] {time.perf_counter() - t0:.1f} s (with the n=1M build)")
 
+    t0 = time.perf_counter()
     pm100k, x100k, q100k = build_size(100_000)
     phase_main_path("n=100k", pm100k, x100k, q100k)
     log(f"[n=100k] JAX CPU record (not the port's): pages_mean "
         f"{JAX_CPU_RECORD_100K['pages_mean']} pages_frac "
         f"{JAX_CPU_RECORD_100K['pages_frac']} recall {JAX_CPU_RECORD_100K['recall']}")
+    log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     phase_compact_100k(pm100k, q100k)
     del pm100k, x100k
+    log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
 
+    t0 = time.perf_counter()
     launches = phase_main_path("n=1M", pm1m, x1m, q1m)
     search_1m = lambda qb: pm1m.search(qb, **SEARCH)  # noqa: E731
     med, times = time_batches(search_1m)
@@ -917,11 +1475,24 @@ def main() -> int:
         f"{len(times)} batches {['%.3f' % t for t in times]}")
     phase_profile(search_1m, q1m, "n=1M")
     del x1m
+    log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     stream_launches = phase_stream_1m(pm1m, q1m)
+    del pm1m, q1m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
 
-    # the static main path's counts for its kernels, the stream path's for
-    # the kernel only it runs
+    t0 = time.perf_counter()
+    serve_launches = phase_serve()
+    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+
+    # each kernel's count from the path whose shapes its record was timed
+    # at: the static main path for block_mips and sketch_scores, the stream
+    # for mips_score, the serve run for binary_probe_lb and decode_attention
     launches["mips_score"] = stream_launches["mips_score"]
+    for name in ("binary_probe_lb", "decode_attention"):
+        launches[name] = serve_launches[name]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

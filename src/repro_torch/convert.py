@@ -11,6 +11,10 @@ A streaming index's state is the JAX `MutableProMIPS.state_dict()` pair:
 `stream_from_state` restores it as the port's `MutableProMIPS`, and
 `stream_from_dir` reads a ``promips-stream`` save directory (the same
 arrays in ``arrays.npz``, the state meta under ``backend_meta``).
+
+A model's state is its parameter pytree: `params_from_jax` takes the JAX
+`models.transformer.init_params` tree (numpy or JAX arrays) as the port's
+parameters, which keep the JAX layouts, so every leaf is copied bit for bit.
 """
 from __future__ import annotations
 
@@ -20,8 +24,10 @@ import os
 from typing import Mapping
 
 import numpy as np
+import torch
 
-from .core.index import IndexArrays, IndexMeta, to_device
+from .core.index import IndexArrays, IndexMeta, resolve_device, to_device
+from .models.transformer import check_supported
 from .stream.mutable import MutableProMIPS
 
 _FORMAT_NAME = "repro.api-index"
@@ -72,3 +78,46 @@ def stream_from_dir(path: str, device="cuda") -> MutableProMIPS:
     save directory (its runtime settings are not carried)."""
     arrays, backend_meta = _read_dir(path, "promips-stream")
     return stream_from_state(arrays, backend_meta, device)
+
+
+def _param_keys(cfg) -> dict:
+    """The parameter tree of a dense decoder, as nested key sets."""
+    attn = {"wq", "wk", "wv", "wo"} | ({"q_norm", "k_norm"} if cfg.qk_norm
+                                       else set())
+    keys = {"embed": None, "final_norm": None,
+            "blocks": {"ln1": None, "ln2": None,
+                       "attn": dict.fromkeys(attn),
+                       "mlp": dict.fromkeys(("w_gate", "w_up", "w_down"))}}
+    if not cfg.tie_embeddings:
+        keys["unembed"] = None
+    return keys
+
+
+def params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
+    """The port's parameters on ``device`` from the JAX package's
+    `init_params(key, cfg)` tree: the same nested dict, every leaf copied
+    bit for bit (the ``blocks`` leaves keep their leading layer axis). Raises
+    on a tree that is not a dense decoder's."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+
+    def convert(node, keys, path):
+        if keys is None:
+            arr = np.array(node, copy=True)
+            return torch.from_numpy(arr).to(dev)
+        if not isinstance(node, Mapping) or set(node) != set(keys):
+            got = sorted(node) if isinstance(node, Mapping) else type(node)
+            raise ValueError(f"params{path}: expected keys {sorted(keys)}, "
+                             f"got {got}")
+        return {k: convert(node[k], keys[k], f"{path}[{k!r}]") for k in keys}
+
+    params = convert(tree, _param_keys(cfg), "")
+    if params["embed"].shape != (cfg.vocab_padded, cfg.d_model):
+        raise ValueError(f"params['embed'] has shape "
+                         f"{tuple(params['embed'].shape)}, the config "
+                         f"({cfg.name}) needs {(cfg.vocab_padded, cfg.d_model)}")
+    if params["blocks"]["ln1"].shape != (cfg.n_layers, cfg.d_model):
+        raise ValueError(f"params['blocks'] hold "
+                         f"{params['blocks']['ln1'].shape[0]} layers, the "
+                         f"config ({cfg.name}) {cfg.n_layers}")
+    return params

@@ -12,10 +12,12 @@ shifts on torch uint32 are thin, especially on CUDA.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..kernels import ops
 
 
 def pack_codes_np(p_pts: np.ndarray) -> np.ndarray:
@@ -34,12 +36,6 @@ def pack_codes(p_pts: torch.Tensor) -> torch.Tensor:
     weights = torch.ones((), dtype=torch.int64, device=p_pts.device) << torch.arange(
         m, dtype=torch.int64, device=p_pts.device)
     return ((p_pts >= 0.0).to(torch.int64) * weights).sum(dim=-1)
-
-
-def unpack_bits(codes: torch.Tensor, m: int) -> torch.Tensor:
-    """int64 codes -> (..., m) float32 bits."""
-    shifts = torch.arange(m, dtype=torch.int64, device=codes.device)
-    return ((codes[..., None] >> shifts) & 1).to(torch.float32)
 
 
 class GroupTable(NamedTuple):
@@ -100,21 +96,22 @@ def build_group_table(codes: np.ndarray, l1: np.ndarray, p_pts: np.ndarray,
 
 
 def quick_probe_batch(table: GroupTable, q_proj: torch.Tensor,
-                      q_l1: torch.Tensor, c: float, x_p: float):
+                      q_l1: torch.Tensor, c: float, x_p: float,
+                      use_kernels: Optional[bool] = None):
     """Batch-native Algorithm 2 for a (B, m) query batch.
 
-    Test A: LB^2 >= x_p * c * (min_l1 + ||q||_1)^2. Among passing groups the
-    smallest LB wins (`torch.argmin` returns the first minimum, as `jnp`
-    does); with none passing, the largest tested value.
+    The (B, G) Theorem-3 lower bounds come from `ops.binary_probe_lb` (the
+    CUDA kernel on CUDA tensors, its plain version elsewhere, as
+    ``use_kernels`` says). Test A: LB^2 >= x_p * c * (min_l1 + ||q||_1)^2.
+    Among passing groups the smallest LB wins (`torch.argmin` returns the
+    first minimum, as `jnp` does); with none passing, the largest tested
+    value.
 
     Returns (rep_row (B,), radius (B,), test_a_passed (B,)).
     """
     q_code = pack_codes(q_proj)                                      # (B,)
-    m = q_proj.shape[-1]
-    xor_bits = unpack_bits(table.code[None, :] ^ q_code[:, None], m)  # (B,G,m)
-    sqrt_m = torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
-                                     device=q_proj.device))
-    lb = torch.einsum("bgm,bm->bg", xor_bits, q_proj.abs()) / sqrt_m  # (B, G)
+    lb = ops.binary_probe_lb(table.code, q_code, q_proj,
+                             use_kernels=use_kernels)                # (B, G)
     valid = table.count > 0
     denom = c * (table.min_l1[None, :] + q_l1[:, None]) ** 2
     val = lb * lb / torch.clamp(denom, min=1e-30)

@@ -1,10 +1,12 @@
-"""Two-phase search runtime; port of `repro.core.runtime` for the fused
-path and the streaming index.
+"""Two-phase search runtime; port of `repro.core.runtime` for the fused and
+batched verification backends and the streaming index.
 
 `search` validates a `RuntimeConfig`, clamps the budgets to the index,
-runs `search_fused.search_batch_fused` and rescores the k winners exactly
-(`_rescore`). `search_segments` runs it over a streaming snapshot's base
-with an over-fetched k and merges in the delta segment's exact scores
+runs `search_fused.search_batch_fused` (``verification="fused"``) or
+`search_device._search_batch_batched` (``"batched"``, the serve engine's
+default) and rescores the k winners exactly (`_rescore`).
+`search_segments` runs it over a streaming snapshot's base with an
+over-fetched k and merges in the delta segment's exact scores
 (`_merge_segments`). Both run on the card unless the caller passes
 ``device="cpu"``.
 """
@@ -20,7 +22,7 @@ import torch
 from ..kernels import ops, ref
 from .index import IndexArrays, IndexMeta, resolve_device
 from .search_common import DENSE_FRAC, next_pow2
-from .search_device import SearchStats
+from .search_device import SearchStats, _search_batch_batched
 from .search_fused import search_batch_fused
 
 
@@ -43,6 +45,7 @@ class RuntimeConfig:
     ``use_kernels``: None runs the CUDA kernels on CUDA tensors and the plain
     versions on CPU tensors; False asks for the plain versions on the card;
     True on the CPU raises. ``dense_frac`` None resolves to `DENSE_FRAC`.
+    ``obs=True`` (per-call spans) raises until `obs/trace.py` is ported.
     """
 
     k: int = 10
@@ -57,6 +60,7 @@ class RuntimeConfig:
     prefilter_eps: float = 1.0         # sketch-bound scale; 1.0 = lossless
     dense_frac: Optional[float] = None  # dense-tile threshold
     tile_cap: Optional[int] = None      # extra clamp on both rounds' tiles
+    obs: bool = False                   # per-call span instrumentation
 
     def __post_init__(self):
         for field_name in ("prefilter_eps", "dense_frac"):
@@ -76,10 +80,10 @@ class RuntimeConfig:
         if self.mode == "progressive":
             raise NotImplementedError(
                 "mode='progressive' is not ported yet (ROADMAP Queue 1 item 5)")
-        if self.verification != "fused":
+        if self.verification == "scan":
             raise NotImplementedError(
-                f"verification={self.verification!r} is not ported yet "
-                "(ROADMAP Queue 1 item 5)")
+                "verification='scan' is not ported yet (ROADMAP Queue 1 "
+                "item 5)")
         if not isinstance(self.k, (int, np.integer)) or self.k < 1:
             raise ValueError(f"k must be a positive int, got {self.k!r}")
         for field_name in ("budget", "budget2"):
@@ -87,10 +91,14 @@ class RuntimeConfig:
             if v is not None and (not isinstance(v, (int, np.integer)) or v < 1):
                 raise ValueError(f"{field_name} must be None (= all blocks) "
                                  f"or a positive int, got {v!r}")
-        for field_name in ("prefilter", "norm_adaptive", "cs_prune"):
+        for field_name in ("prefilter", "norm_adaptive", "cs_prune", "obs"):
             if not isinstance(getattr(self, field_name), bool):
                 raise ValueError(f"{field_name} must be a bool, got "
                                  f"{getattr(self, field_name)!r}")
+        if self.obs:
+            raise NotImplementedError(
+                "obs=True needs the span tracer, which is not ported yet "
+                "(ROADMAP Queue 1 item 8)")
         if self.use_kernels is not None and not isinstance(self.use_kernels, bool):
             raise ValueError(f"use_kernels must be None or a bool, got "
                              f"{self.use_kernels!r}")
@@ -141,12 +149,17 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
                       meta.n_blocks))
     dense_frac = DENSE_FRAC if cfg.dense_frac is None else cfg.dense_frac
     q = _queries(queries, meta, dev)
-    ids, _, stats = search_batch_fused(
-        arrays, meta, q, k=cfg.k, budget=budget, budget2=budget2,
-        norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
-        use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
-        prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
-        tile_cap=cfg.tile_cap)
+    if cfg.verification == "batched":
+        ids, _, stats = _search_batch_batched(
+            arrays, meta, q, cfg.k, budget, budget2, cfg.norm_adaptive,
+            cfg.cs_prune, cfg.use_kernels, cfg.prefilter, cfg.prefilter_eps)
+    else:
+        ids, _, stats = search_batch_fused(
+            arrays, meta, q, k=cfg.k, budget=budget, budget2=budget2,
+            norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
+            use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
+            prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
+            tile_cap=cfg.tile_cap)
     scores = _rescore(arrays.x, stats.rows, q)
     return ids, scores, stats
 

@@ -130,7 +130,7 @@ def search_batch_fused(
     valid = arrays.ids >= 0
 
     q_proj, q_l2sq, d_sp, r0, probe_ok, c_half, mask0 = select_frontend(
-        arrays, meta, queries)
+        arrays, meta, queries, use_kernels)
     prio_np = (block_priority(arrays, q_proj).cpu().numpy()
                if min(cap, cap2) < n_blocks else None)
     mask_r1 = mask0

@@ -29,7 +29,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # Launches per kernel wrapper, counted where the wrapper launches its kernel
 # (one per call); `ops.LAUNCHES` is this dict.
-LAUNCHES = {"block_mips": 0, "mips_score": 0, "sketch_scores": 0}
+LAUNCHES = {"binary_probe_lb": 0, "block_mips": 0, "decode_attention": 0,
+            "mips_score": 0, "sketch_scores": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -96,8 +97,13 @@ def library() -> ctypes.CDLL:
             except OSError as e:
                 raise RuntimeError(f"loading {path} failed: {e}") from e
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.binary_probe_lb_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+            lib.binary_probe_lb_launch.restype = i32
             lib.block_mips_launch.argtypes = [ptr] * 18 + [i32] * 9 + [ptr]
             lib.block_mips_launch.restype = i32
+            lib.decode_attention_launch.argtypes = (
+                [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr])
+            lib.decode_attention_launch.restype = i32
             lib.mips_score_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
             lib.mips_score_launch.restype = i32
             lib.sketch_scores_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]

@@ -11,14 +11,18 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
+from . import binary_probe as _binary_probe
 from . import block_mips as _block_mips
+from . import decode_attention as _decode_attention
 from . import mips_score as _mips_score
 from . import ref
 from . import sketch_scores as _sketch_scores
 from .build import LAUNCHES
 
-__all__ = ["LAUNCHES", "block_mips", "block_mips_cached", "mips_score",
-           "sketch_scores"]
+__all__ = ["LAUNCHES", "binary_probe_lb", "block_mips", "block_mips_cached",
+           "decode_attention", "mips_score", "sketch_scores"]
 
 
 def _use_kernel(t, use_kernels: Optional[bool], name: str) -> bool:
@@ -69,3 +73,26 @@ def block_mips_cached(scores_full, valid, slots, sel, init_scores, init_rows,
     return ref.block_mips_cached_ref(scores_full, valid, slots, sel,
                                      init_scores, init_rows, c_half,
                                      k=k, page_rows=page_rows)
+
+
+def binary_probe_lb(codes, q_code, q_proj, *,
+                    use_kernels: Optional[bool] = None):
+    """(B, G) Theorem-3 group lower bounds for a query batch: codes (G,)
+    int64, q_code (B,) int64, q_proj (B, m) f32; see
+    `ref.binary_probe_lb_ref`. The batched form of the JAX package's
+    per-query ``binary_probe_lb(codes, q_code, q_proj)``."""
+    if _use_kernel(q_proj, use_kernels, "binary_probe_lb"):
+        return _binary_probe.binary_probe_lb(codes, q_code, q_proj)
+    return ref.binary_probe_lb_ref(codes, q_code, q_proj)
+
+
+def decode_attention(q, k, v, cache_len, *,
+                     use_kernels: Optional[bool] = None):
+    """One-token GQA attention against a KV cache: q (B, KH, G, dh), k and v
+    (B, S, KH, dh), cache_len (B,) -> (B, KH, G, dh); see
+    `ref.decode_attention_ref`. The kernel takes f32 and dh in
+    {32, 64, 128}."""
+    if _use_kernel(q, use_kernels, "decode_attention"):
+        return _decode_attention.decode_attention(
+            q, k, v, cache_len.to(torch.int32).contiguous())
+    return ref.decode_attention_ref(q, k, v, cache_len)

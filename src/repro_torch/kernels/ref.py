@@ -110,3 +110,53 @@ def sketch_scores_ref(q: torch.Tensor, sk_mu: torch.Tensor) -> torch.Tensor:
     subspace products through a LUT in another order, so the two agree to
     float tolerance, not bitwise."""
     return q.float() @ sk_mu.float().T
+
+
+def binary_probe_lb_ref(codes, q_code, q_proj):
+    """Theorem-3 group lower bounds for a query batch:
+    lb[b, g] = sum_i bit_i(codes[g] ^ q_code[b]) |q_proj[b, i]| / sqrt(m).
+    codes (G,) int64, q_code (B,) int64, q_proj (B, m) f32 -> (B, G) f32.
+    One (B, G, m) x (B, m) product over the unpacked bits; the kernel sums
+    the same terms in bit order, so the two agree to float tolerance."""
+    m = q_proj.shape[-1]
+    shifts = torch.arange(m, dtype=torch.int64, device=q_proj.device)
+    bits = (((codes[None, :] ^ q_code[:, None])[..., None] >> shifts) & 1
+            ).to(torch.float32)                                  # (B, G, m)
+    sqrt_m = torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
+                                     device=q_proj.device))
+    return torch.einsum("bgm,bm->bg", bits, q_proj.abs()) / sqrt_m
+
+
+def decode_attention_ref(q, k, v, cache_len, block: int = 1024):
+    """One-token GQA attention against a KV cache, the arithmetic of the
+    JAX package's `models/attention.py::flash_decode`: q scaled by
+    1/sqrt(dh) before the dot, online softmax over blocks of ``block``
+    positions, positions at or past ``cache_len[b]`` masked with -1e30.
+
+    q (B, KH, G, dh); k, v (B, S, KH, dh); cache_len (B,) -> (B, KH, G, dh)
+    in q's dtype. The cache has S positions and no more: with cache_len = 0
+    every score is -1e30 and the result is the mean of V over S, as
+    `repro.kernels.ref.decode_attention_ref` gives (`flash_decode` pads S to
+    its block and would divide by the padded length instead)."""
+    b, kh, g, dh = q.shape
+    s = k.shape[1]
+    qg = q.float() * dh ** -0.5
+    lens = cache_len.to(device=q.device)
+    m = torch.full((b, kh, g), MASKED, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, kh, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, kh, g, dh), dtype=torch.float32, device=q.device)
+    for t0 in range(0, s, block):
+        kb = k[:, t0:t0 + block].float()
+        vb = v[:, t0:t0 + block].float()
+        pos = torch.arange(t0, t0 + kb.shape[1], device=q.device)
+        scores = torch.einsum("bkgd,btkd->bkgt", qg, kb)
+        mask = pos[None, :] < lens[:, None]
+        scores = torch.where(mask[:, None, None, :], scores,
+                             torch.full_like(scores, MASKED))
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgt,btkd->bkgd", p, vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)

@@ -23,6 +23,8 @@ from typing import Optional
 import numpy as np
 
 from ..core.index import ProMIPSIndex, build_index
+from ..obs import metrics as _metrics
+from ..robust.faultpoints import fault
 
 
 @dataclass(frozen=True)
@@ -45,7 +47,9 @@ class CompactionConfig:
 def rebuild_base(gids: np.ndarray, rows: np.ndarray, build_kwargs: dict) -> ProMIPSIndex:
     """Fresh base over the surviving rows, ids stamped GLOBAL. Rows are put
     in ascending-gid order first, so two rebuilds over the same survivors
-    (in any order) are bit-identical."""
+    (in any order) are bit-identical. The fault point
+    ``compaction.rebuild`` fires here when armed."""
+    fault.at("compaction.rebuild")
     order = np.argsort(gids, kind="stable")
     g = np.asarray(gids)[order]
     idx = build_index(np.ascontiguousarray(rows[order], np.float32), **build_kwargs)
@@ -110,8 +114,12 @@ class Compactor:
                 except Exception as e:  # noqa: BLE001 - latched for join()
                     self.failures += 1
                     self.last_error = f"{type(e).__name__}: {e}"
+                    if _metrics.enabled():
+                        _metrics.counter("stream.compaction_errors").inc()
                     if attempt < cfg.max_retries:
                         self.retries += 1
+                        if _metrics.enabled():
+                            _metrics.counter("stream.compaction_retries").inc()
                         delay = cfg.backoff_s * cfg.backoff_mult ** attempt
                         time.sleep(delay * (1.0 + cfg.jitter * jit.rand()))
                         continue
@@ -123,6 +131,16 @@ class Compactor:
         self._thread = threading.Thread(target=run, name="promips-compaction",
                                         daemon=True)
         self._thread.start()
+
+    def status(self) -> dict:
+        """Compaction health for `maintenance_status()` and the serve
+        engine's `health()`: the latched error is shown, not cleared
+        (`join()` clears it), and ``last_error`` stays after a successful
+        retry."""
+        return {"in_flight": self.in_flight, "runs": self.runs,
+                "failures": self.failures, "retries": self.retries,
+                "error_latched": self.error is not None,
+                "last_error": self.last_error}
 
     def join(self, timeout: Optional[float] = None) -> None:
         """Wait for the rebuild; raise its latched error (and clear it).

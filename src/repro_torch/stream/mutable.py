@@ -31,6 +31,7 @@ import torch
 from ..core.index import (IndexArrays, IndexMeta, ProMIPSIndex, resolve_device,
                           to_device)
 from ..core.runtime import RuntimeConfig, next_pow2, search_segments
+from ..obs import metrics as _metrics
 from .compaction import CompactionConfig, Compactor, rebuild_base
 from .segments import DeltaSegment, Snapshot
 
@@ -206,6 +207,8 @@ class MutableProMIPS:
                     self._next_id = max(self._next_id, int(gids.max()) + 1)
                     self._log(("insert", gids.copy(), rows.copy()))
                     self._dirty()
+                    if _metrics.enabled():
+                        _metrics.counter("stream.delta_appends").inc(len(gids))
                     return
             if not _wait_ok or self.compactor is None:
                 raise RuntimeError("delta full while compaction in flight")
@@ -247,6 +250,8 @@ class MutableProMIPS:
                     self._n_base_dead += 1
             self._log(("delete", gids.copy()))
             self._dirty()
+            if _metrics.enabled():
+                _metrics.counter("stream.deletes").inc(len(gids))
 
     def update(self, ids, rows) -> None:
         """Replace the rows of live ids (tombstone the old, append the new).
@@ -356,6 +361,9 @@ class MutableProMIPS:
                         self.delete(op[1])
             finally:
                 self._wal_suspended = prev
+        # counted here, so that background installs and compact() count alike
+        if _metrics.enabled():
+            _metrics.counter("stream.compactions").inc()
 
     def _abandon_compaction(self) -> None:
         """Close the op log without a swap (failed or empty rebuild)."""

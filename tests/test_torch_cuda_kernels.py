@@ -11,6 +11,12 @@ plain version must agree bit for bit, ties included; `block_mips` at every
 k up to n_pad, past the 1,024 where its merge moves to device memory.
 `mips_score` on float data and `sketch_scores` sum in another order than
 their GEMM plain versions and are held to |d| <= 1e-5 * |q| |x| + 1e-6.
+`binary_probe_lb` is bit for bit on integer-valued projections (every
+partial sum is exact) and within 1e-6 relative on float ones.
+`decode_attention` sums scores, the softmax and P.V in another order than
+its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
+(the output is a convex combination of V rows), with cache_len = 0 giving
+the mean of V.
 """
 import numpy as np
 import pytest
@@ -178,3 +184,82 @@ def test_mips_score_kernel_rejects_what_it_does_not_take(cuda):
         ops.mips_score(x, q[:, :3].contiguous(), valid, use_kernels=True)
     with pytest.raises(ValueError):
         ops.mips_score(x.T, q, valid, use_kernels=True)
+
+
+@pytest.mark.parametrize("b,g,m,integer", [
+    (4, 256, 8, False), (64, 4493, 16, False), (3, 1000, 30, False),
+    (5, 300, 1, False), (7, 2049, 12, True)])
+def test_binary_probe_lb_kernel(cuda, b, g, m, integer):
+    rng = np.random.RandomState(b * g + m)
+    codes = torch.from_numpy(rng.randint(0, 2 ** m, g).astype(np.int64)).to(cuda)
+    q_proj = (rng.randint(-4, 5, (b, m)) if integer
+              else rng.standard_normal((b, m))).astype(np.float32)
+    q_proj = torch.from_numpy(q_proj).to(cuda)
+    q_code = torch.from_numpy(rng.randint(0, 2 ** m, b).astype(np.int64)).to(cuda)
+    before = ops.LAUNCHES["binary_probe_lb"]
+    got = ops.binary_probe_lb(codes, q_code, q_proj, use_kernels=True)
+    want = ops.binary_probe_lb(codes, q_code, q_proj, use_kernels=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["binary_probe_lb"] == before + 1
+    assert got.shape == (b, g) and got.dtype == torch.float32
+    if integer:
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=1e-6, atol=0)
+
+
+def test_binary_probe_lb_kernel_rejects_what_it_does_not_take(cuda):
+    codes = torch.zeros(8, dtype=torch.int64, device=cuda)
+    q_code = torch.zeros(2, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):      # m > 30
+        ops.binary_probe_lb(codes, q_code, torch.zeros((2, 31), device=cuda),
+                            use_kernels=True)
+    with pytest.raises(ValueError):      # int32 codes
+        ops.binary_probe_lb(codes.int(), q_code, torch.zeros((2, 4), device=cuda),
+                            use_kernels=True)
+
+
+def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
+    def t(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    return (t((b, kh, g, dh)), t((b, s, kh, dh)), t((b, s, kh, dh)),
+            torch.tensor(lens, dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("b,kh,g,dh,s,lens", [
+    (4, 4, 8, 64, 512, [1, 37, 300, 512]),        # the serve shape
+    (3, 2, 4, 32, 700, [0, 5, 700]),              # cache_len 0, S % 64 != 0
+    (2, 1, 1, 128, 1, [1, 3]),                    # cache_len past S
+    (2, 2, 32, 64, 3000, [2999, 1025]),
+    (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+])
+def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
+    rng = np.random.RandomState(b * s + g)
+    q, k, v, cache_len = _attention_inputs(rng, b, kh, g, dh, s, lens, cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    want = ops.decode_attention(q, k, v, cache_len, use_kernels=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert got.shape == q.shape and got.dtype == q.dtype
+    vmax = v.abs().amax(dim=(1, 3))                     # (B, dh) -> per row
+    tol = 1e-5 * vmax.amax(dim=1)[:, None, None, None] + 1e-6
+    assert bool(((got - want).abs() <= tol).all()), float((got - want).abs().max())
+    for i, n in enumerate(lens):
+        if n == 0:                          # every position masked alike
+            mean = v[i].mean(dim=0)         # (KH, dh)
+            assert bool(((got[i] - mean[:, None]).abs() <= tol[i]).all())
+
+
+def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.RandomState(0)
+    q, k, v, cache_len = _attention_inputs(rng, 2, 2, 4, 48, 10, [3, 4], cuda)
+    with pytest.raises(ValueError):      # dh 48
+        ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    q, k, v, cache_len = _attention_inputs(rng, 2, 2, 4, 32, 10, [3, 4], cuda)
+    with pytest.raises(ValueError):      # not contiguous
+        ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                             v, cache_len, use_kernels=True)
+    with pytest.raises(ValueError):      # bf16
+        ops.decode_attention(q.bfloat16(), k, v, cache_len, use_kernels=True)

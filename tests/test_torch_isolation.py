@@ -2,10 +2,13 @@
 
 - `repro_torch` imports neither `jax` nor any `repro` module (checked in a
   fresh interpreter, and by reading the sources and `chip_smoke.py`);
-- its entry points run on the card by default and raise without one
-  instead of falling back to the CPU;
-- asking for the kernels on CPU tensors raises.
+- its entry points (search, stream, `api.build`, the model and the serve
+  engine) run on the card by default and raise without one instead of
+  falling back to the CPU;
+- asking for the kernels on CPU tensors raises;
+- what is not ported yet raises, naming its ROADMAP item.
 """
+import dataclasses
 import os
 import pkgutil
 import re
@@ -17,11 +20,15 @@ import pytest
 import torch
 
 import repro_torch
+from repro_torch import api
+from repro_torch.configs import MoECfg, get_config
 from repro_torch.convert import stream_from_state
 from repro_torch.core.promips import ProMIPS
 from repro_torch.core.runtime import RuntimeConfig, search
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.kernels import ops
+from repro_torch.models import transformer as T
+from repro_torch.serve import DecodeEngine
 from repro_torch.stream import MutableProMIPS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +52,7 @@ def test_import_pulls_in_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert len(_modules()) >= 15
+    assert len(_modules()) >= 40
 
 
 def test_sources_do_not_name_jax_or_repro():
@@ -98,12 +105,45 @@ def test_stream_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert st.snapshot().delta_x.device.type == "cpu"
 
 
+def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
+    cfg = get_config("tinyllama-1.1b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        T.init_params(cfg)
+    params = T.init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DecodeEngine(params, cfg)
+    with pytest.raises(ValueError, match="use_kernels"):
+        DecodeEngine(params, cfg, device="cpu", use_kernels=True)
+    x = mf_factors(600, 32, 8, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.build(x, backend="promips-stream")
+    s = api.build(x, backend="promips-stream", device="cpu", m=6)
+    assert s.search(x[:2], k=3).ids.shape == (2, 3)
+    eng = DecodeEngine(params, cfg, device="cpu", batch_slots=2, max_len=16)
+    eng.submit(np.arange(1, 5), max_new_tokens=2)
+    eng.run()
+    assert eng.cache["k"].device.type == "cpu" and eng.steps == 2
+
+
+def test_unported_configs_and_backends_name_the_roadmap():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config("qwen3-32b")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        api.build(mf_factors(100, 8, 4, seed=0), backend="promips", device="cpu")
+    moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              moe=MoECfg(4, 2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.init_params(moe, device="cpu")
+
+
 def test_runtime_config_rejects_what_is_not_ported():
+    assert RuntimeConfig(verification="batched").verification == "batched"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RuntimeConfig(mode="progressive")
-    for verification in ("batched", "scan"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RuntimeConfig(verification=verification)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RuntimeConfig(verification="scan")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        RuntimeConfig(obs=True)
     with pytest.raises(ValueError):
         RuntimeConfig(verification="nope")
     with pytest.raises(ValueError):
@@ -129,8 +169,19 @@ def test_use_kernels_true_on_cpu_tensors_raises():
         ops.sketch_scores(q, x[:2], codebooks, codes, use_kernels=True)
     with pytest.raises(ValueError, match="CUDA"):
         ops.mips_score(x, q, valid, use_kernels=True)
+    codes = torch.arange(4, dtype=torch.int64)
+    q_code = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.binary_probe_lb(codes, q_code, q[:, :2], use_kernels=True)
+    kv = torch.zeros((2, 5, 1, 32))
+    lens = torch.tensor([1, 5], dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.decode_attention(torch.zeros((2, 1, 2, 32)), kv, kv, lens,
+                             use_kernels=True)
     before = dict(ops.LAUNCHES)
     ops.block_mips(x, valid, q, slots, sel, init_s, init_r, c_half, k=3,
                    page_rows=8)                       # CPU: plain, no launch
     ops.mips_score(x, q, valid)
+    ops.binary_probe_lb(codes, q_code, q[:, :2])
+    ops.decode_attention(torch.zeros((2, 1, 2, 32)), kv, kv, lens)
     assert ops.LAUNCHES == before
