@@ -6,7 +6,8 @@
 Phases (any failure ends the run with a non-zero exit code and no result
 line):
   1. setup: versions, the card's name and power limit, TF32 off, and the
-     build of every kernel from src/repro_torch/kernels/csrc/;
+     build of every kernel from src/repro_torch/kernels/csrc/, with each
+     kernel's registers and spills from ptxas (a spill fails the run);
   2. each kernel against its plain PyTorch version on the card, at the main
      path's shapes on the n=1M index (B=64, k=10): block_mips on a sparse
      pow2 tile with padding slots, on the dense tile of all 125,000 slots,
@@ -56,7 +57,15 @@ Phase 2 also holds binary_probe_lb (at the vocab index's and the n=1M
 index's shapes) and decode_attention (at the serve shape and at the
 decode_32k shape, B=8, S=32,768) against their plain versions, with the
 same four times, and mips_score at the serve search's tile (R=32,000,
-B=4, d=2,048).
+B=4, d=2,048). Two bit-for-bit checks fail the run if they do not hold:
+mips_score's small-batch path against its tile path at the serve tile
+(1% of the rows invalid, exactly -1e30), and sketch_scores against the
+ordered LUT sum `ref.sketch_scores_lut_ref` at n=1M, at both of the
+kernel's query-group sizes there (8 for the batch of 64, 4 for its first
+4 queries). The B sweep of mips_score (B = 1..64 at the serve tile and at
+the stream delta's shape, the small path, the tile path and torch.matmul +
+masked_fill_ in turns) prints one line per shape; its crossover sets the
+kernel's B_SMALL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -66,6 +75,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -157,11 +167,20 @@ def phase_setup():
     path, build_log = build.build()
     build.library()
     log(f"[build] {time.perf_counter() - t0:.1f} s -> {os.path.relpath(path, ROOT)}")
+    # ptxas's report of each kernel: registers, stack frame and spills; a
+    # kernel that spills fails the run
+    kernel, frame, spilled = "?", "", []
     for line in build_log.splitlines():
         if "Compiling entry" in line:
-            log("[build] " + line.split("'")[1][:90])
+            kernel = line.split("'")[1]
+        elif "spill stores" in line:
+            frame = line.strip()
+            if re.search(r"[1-9]\d* bytes spill (stores|loads)", frame):
+                spilled.append(kernel)
         elif "registers" in line:
-            log("[build]   " + line.split(":", 1)[1].strip())
+            log(f"[build] {kernel[:100]}: {line.split(':', 1)[1].strip()}; "
+                f"{frame}")
+    require(not spilled, f"kernels that spill registers: {spilled}")
     return smi.splitlines()[0]
 
 
@@ -401,6 +420,55 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
     return rec
 
 
+def check_sketch_bitwise(q, codebooks, codes, est):
+    """sketch_scores bit for bit against the ordered LUT sum in torch:
+    ``est``, what the wrapper returned for the batch (query groups of 8),
+    and the kernel on the batch's first 4 queries (a group of 4)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import sketch_scores as sk
+    for label, qb, got in (("the batch", q, est),
+                           ("4 queries", q[:4], None)):
+        want = ref.sketch_scores_lut_ref(qb, codebooks, codes)
+        if got is None:
+            got = sk.sketch_scores(qb, codebooks, codes)
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"sketch_scores on {label} is not "
+                f"bit-identical to the ordered LUT sum: "
+                f"{int((got != want).sum())} entries differ, max |d| "
+                f"{float((got - want).abs().max()):.3g}")
+    log("[kernel sketch_scores] bit-identical to the ordered LUT sum "
+        "(ref.sketch_scores_lut_ref) with query groups of 8 and of 4")
+
+
+def sweep_mips_score(timer, shapes):
+    """The B sweep of mips_score: at each (label, x) of ``shapes`` and each
+    B, the small-batch path (for B <= B_SMALL), the tile path and
+    torch.matmul + masked_fill_, in turns; one line per shape. The wrapper
+    takes the small path for B <= B_SMALL."""
+    import torch
+    from repro_torch.kernels import mips_score as ms
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(15)
+    b_small = ms.b_small()
+    for label, x in shapes:
+        r, d = x.shape
+        valid = torch.ones(r, dtype=torch.bool, device=DEVICE)
+        cells = []
+        for b in (1, 2, 4, 8, 16, 32, 64):
+            qb = torch.randn((b, d), generator=gen, device=DEVICE)
+            t_s = (timer.ms(lambda: ms._launch(x, qb, valid, ms.SMALL))
+                   if b <= b_small else None)
+            t_l = timer.ms(lambda: torch.matmul(x, qb.T).masked_fill_(
+                ~valid[:, None], -1e30))
+            t_t = timer.ms(lambda: ms._launch(x, qb, valid, ms.TILE))
+            small = "-" if t_s is None else f"{t_s:.4f}"
+            cells.append(f"B={b}: small {small} tile {t_t:.4f} "
+                         f"matmul {t_l:.4f}")
+        log(f"[mips_score B sweep: {label}] R={r} d={d} (ms; B_SMALL="
+            f"{b_small}): " + " | ".join(cells))
+
+
 def phase_kernels_serve(pm, q, timer):
     """The slice-3 kernels against their plain versions: binary_probe_lb at
     the vocab index's shape (every one of the 256 sign codes of m = 8,
@@ -410,6 +478,7 @@ def phase_kernels_serve(pm, q, timer):
     the records of the kernel line (the serve shapes)."""
     import torch
     from repro_torch.data.synthetic import mf_factors
+    from repro_torch.kernels import mips_score as ms_wrapper
     from repro_torch.kernels import ops
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(11)
@@ -432,14 +501,38 @@ def phase_kernels_serve(pm, q, timer):
     tol = REL * xt.norm(dim=1)[:, None] * qt.norm(dim=1)[None, :] + ABS
     require(bool(((got - want).abs() <= tol).all()),
             "mips_score at the serve tile exceeds |d| <= 1e-5*|q||x|+1e-6")
+    # the small-batch path bit for bit against the tile path's columns, with
+    # 1% of the rows invalid: the batch padded past B_SMALL takes the tile
+    # path; the wrapper's own choice at B = 4 is the small path
+    v1 = torch.rand(32_000, generator=gen, device=DEVICE) > 0.01
+    pad = torch.randn((ms_wrapper.b_small() + 1 - 4, 2048), generator=gen,
+                      device=DEVICE)
+    small = ms_wrapper._launch(xt, qt, v1, ms_wrapper.SMALL)
+    chosen = ops.mips_score(xt, qt, v1, use_kernels=True)
+    tile = ops.mips_score(xt, torch.cat([qt, pad]), v1, use_kernels=True)[:, :4]
+    torch.cuda.synchronize()
+    require(torch.equal(small, chosen), "mips_score at the serve tile does "
+            "not take its small-batch path")
+    require(torch.equal(small, tile), "mips_score small path != tile path at "
+            f"the serve tile: {int((small != tile).sum())} scores differ")
+    require(bool((small[~v1] == -1e30).all()),
+            "mips_score: an invalid row is not exactly -1e30")
     t_k = timer.ms(lambda: ops.mips_score(xt, qt, vt, use_kernels=True))
+    t_c = timer.ms(lambda: ops.mips_score(xt, qt, vt, use_kernels=True),
+                   hold=False)
     t_p = timer.ms(lambda: ops.mips_score(xt, qt, vt, use_kernels=False))
     t_l = timer.ms(lambda: torch.matmul(xt, qt.T).masked_fill_(~vt[:, None], -1e30))
     bound, by = mips_score_bound_ms(xt, qt)
     log(f"[kernel mips_score: serve tile] R=32000 B=4 d=2048: max|d|="
-        f"{float((got - want).abs().max()):.3g}  device {t_k:.4f} ms  plain "
-        f"{t_p:.4f} ms  torch.matmul+masked_fill {t_l:.4f} ms  bound "
-        f"{bound:.4f} ms ({by})")
+        f"{float((got - want).abs().max()):.3g}; small path = tile path bit "
+        f"for bit ({int((~v1).sum())} invalid rows exactly -1e30)  device "
+        f"{t_k:.4f} ms (call with host {t_c:.4f} ms)  plain {t_p:.4f} ms  "
+        f"torch.matmul+masked_fill {t_l:.4f} ms  bound {bound:.4f} ms ({by})")
+    xd = torch.from_numpy(mf_factors(131_072, RECIPE["d"], RECIPE["rank"],
+                                     decay=RECIPE["decay"],
+                                     norm_tail=RECIPE["norm_tail"],
+                                     seed=3)).to(DEVICE)
+    sweep_mips_score(timer, [("serve tile", xt), ("stream delta", xd)])
     return [bp_rec, da_rec]
 
 
@@ -484,6 +577,7 @@ def phase_kernels(pm, q, timer):
         f"host {sk_rec['call_ms']:.4f} ms)  plain "
         f"{sk_rec['plain_ms']:.4f} ms  torch.matmul {sk_rec['library_ms']:.4f} ms"
         f"  bound {sk_rec['bound_ms']:.4f} ms ({sk_rec['bound_by']})")
+    check_sketch_bitwise(q, arrays.sk_codebooks, arrays.sk_codes, est_k)
 
     # -- mips_score on a delta of the stream-1M cell's shape
     from repro_torch.data.synthetic import mf_factors

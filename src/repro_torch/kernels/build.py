@@ -68,7 +68,7 @@ def build():
     library was already built)."""
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):   # the sources and their headers
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     lib_path = BUILD_DIR / f"libpromips_kernels_{digest.hexdigest()[:16]}.so"
@@ -104,8 +104,10 @@ def library() -> ctypes.CDLL:
             lib.decode_attention_launch.argtypes = (
                 [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr])
             lib.decode_attention_launch.restype = i32
-            lib.mips_score_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+            lib.mips_score_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.mips_score_launch.restype = i32
+            lib.mips_score_b_small.argtypes = []
+            lib.mips_score_b_small.restype = i32
             lib.sketch_scores_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
             lib.sketch_scores_launch.restype = i32
             lib.kernels_error_string.argtypes = [i32]

@@ -112,6 +112,31 @@ def sketch_scores_ref(q: torch.Tensor, sk_mu: torch.Tensor) -> torch.Tensor:
     return q.float() @ sk_mu.float().T
 
 
+def sketch_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """(B, M, K) table lut[b, s, j] = <q_b[s], codebook_s[j]>, in plain
+    torch (the JAX package builds it outside its grid too); the sketch
+    kernel sums its entries."""
+    b = q.shape[0]
+    m, _, sub_d = codebooks.shape
+    return torch.einsum("bms,mks->bmk", q.view(b, m, sub_d),
+                        codebooks).contiguous()
+
+
+def sketch_scores_lut_ref(q, codebooks, codes):
+    """The sketch kernel's own arithmetic, for tests: est[b, n] = sum over
+    s = 0..M-1, in that order, of sketch_lut(q, codebooks)[b, s, codes[n, s]]
+    in f32 from 0. q (B, d), codebooks (M, K, d/M), codes (NB, M) ->
+    (B, NB). The kernel gives these bits exactly; the GEMM
+    `sketch_scores_ref` agrees to float tolerance."""
+    lut = sketch_lut(q, codebooks)
+    codes = codes.long()
+    est = torch.zeros((q.shape[0], codes.shape[0]), dtype=torch.float32,
+                      device=q.device)
+    for s in range(codes.shape[1]):
+        est = est + lut[:, s, codes[:, s]]
+    return est
+
+
 def binary_probe_lb_ref(codes, q_code, q_proj):
     """Theorem-3 group lower bounds for a query batch:
     lb[b, g] = sum_i bit_i(codes[g] ^ q_code[b]) |q_proj[b, i]| / sqrt(m).

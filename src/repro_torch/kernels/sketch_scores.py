@@ -2,7 +2,8 @@
 PQ-sketch block estimates of the verification prefilter, the port of
 `repro.kernels.block_mips.sketch_scores`. Its plain version is the GEMM
 over the decoded centroids, `ref.sketch_scores_ref`; the two sum the same
-subspace products in another order and agree to float tolerance.
+subspace products in another order and agree to float tolerance. The
+kernel is bit-identical to the ordered LUT sum `ref.sketch_scores_lut_ref`.
 """
 from __future__ import annotations
 
@@ -10,15 +11,7 @@ import torch
 
 from . import build
 from .build import require
-
-
-def sketch_lut(q: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
-    """(B, M, K) table lut[b, s, j] = <q_b[s], codebook_s[j]>, in plain
-    torch (the JAX package builds it outside its grid too)."""
-    b = q.shape[0]
-    m, _, sub_d = codebooks.shape
-    return torch.einsum("bms,mks->bmk", q.view(b, m, sub_d),
-                        codebooks).contiguous()
+from .ref import sketch_lut
 
 
 def sketch_scores(q, codebooks, codes):

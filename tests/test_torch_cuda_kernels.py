@@ -11,6 +11,11 @@ plain version must agree bit for bit, ties included; `block_mips` at every
 k up to n_pad, past the 1,024 where its merge moves to device memory.
 `mips_score` on float data and `sketch_scores` sum in another order than
 their GEMM plain versions and are held to |d| <= 1e-5 * |q| |x| + 1e-6.
+Both also have a bit-for-bit check of their own on float data: the
+`mips_score` small-batch path (B <= the kernel's B_SMALL) against the tile
+path's columns of the same batch padded past B_SMALL, and `sketch_scores`
+against the ordered LUT sum `ref.sketch_scores_lut_ref`, at every
+query-group size of the kernel (8, 4, 2 and 1, chosen by B).
 `binary_probe_lb` is bit for bit on integer-valued projections (every
 partial sum is exact) and within 1e-6 relative on float ones.
 `decode_attention` sums scores, the softmax and P.V in another order than
@@ -22,7 +27,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import mips_score as ms
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.cuda
 
@@ -147,6 +154,62 @@ def test_sketch_scores_kernel_within_tolerance(cuda, b, nb, m, kcw, sub_d):
     assert bool(((got - want).abs() <= tol).all())
 
 
+# B picks the query group: 64 and 7 take groups of 8, 4 and 3 of 4, 2 of 2,
+# 1 of 1
+@pytest.mark.parametrize("b,nb,m,kcw,sub_d", [
+    (1, 1000, 16, 256, 8), (7, 777, 8, 64, 4), (64, 5000, 16, 256, 8),
+    (64, 1001, 8, 256, 16), (7, 333, 6, 32, 3),   # M % 4 != 0: scalar codes
+    (3, 50, 3, 17, 2), (4, 2049, 16, 256, 8), (4, 777, 8, 64, 4),
+    (2, 500, 16, 256, 8)])
+def test_sketch_scores_kernel_bitwise_equals_ordered_lut(cuda, b, nb, m, kcw,
+                                                         sub_d):
+    rng = np.random.RandomState(b * 7 + nb)
+    q = torch.from_numpy(rng.standard_normal((b, m * sub_d)).astype(np.float32)).to(cuda)
+    cb = torch.from_numpy(rng.standard_normal((m, kcw, sub_d)).astype(np.float32)).to(cuda)
+    codes = torch.from_numpy(rng.randint(0, kcw, (nb, m)).astype(np.int32)).to(cuda)
+    sk_mu = torch.cat([cb[s][codes[:, s].long()] for s in range(m)], dim=1)
+    want = ref.sketch_scores_lut_ref(q, cb, codes)
+    before = ops.LAUNCHES["sketch_scores"]
+    got = ops.sketch_scores(q, sk_mu, cb, codes, use_kernels=True)
+    assert ops.LAUNCHES["sketch_scores"] == before + 1
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+# (B, d, R, offset): every small B at three depths (d % 4 != 0 included),
+# ragged R, and x a contiguous view 4 bytes past a 16-byte boundary; B None
+# stands for B_SMALL, which the kernel's library holds
+SMALL_CASES = ([(b, d, 1037, 0) for b in (1, 2, 3, 4, 5, None)
+                for d in (128, 130, 2048)]
+               + [(4, 128, 777, 1), (3, 2048, 300, 1), (None, 130, 5000, 1),
+                  (2, 128, 5, 0), (4, 2048, 32_000, 0)])
+
+
+@pytest.mark.parametrize("b,d,r,offset", SMALL_CASES)
+def test_mips_score_small_path_bitwise_equals_tile_path(cuda, b, d, r, offset):
+    b_small = ms.b_small()
+    b = b_small if b is None else b
+    rng = np.random.RandomState(b * 1000 + d + r)
+    flat = torch.from_numpy(rng.standard_normal(r * d + offset).astype(np.float32))
+    x = flat.to(cuda)[offset:].view(r, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4 * offset
+    q = torch.from_numpy(rng.standard_normal((b_small + 1, d)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(r) > 0.01).to(cuda)
+    small = ops.mips_score(x, q[:b].contiguous(), valid, use_kernels=True)
+    forced = ms._launch(x, q[:b].contiguous(), valid, ms.SMALL)
+    tile = ops.mips_score(x, q, valid, use_kernels=True)[:, :b]
+    forced_tile = ms._launch(x, q[:b].contiguous(), valid, ms.TILE)
+    torch.cuda.synchronize()
+    # the wrapper took the small path, and it equals the tile path's columns
+    np.testing.assert_array_equal(small.cpu().numpy(), forced.cpu().numpy())
+    np.testing.assert_array_equal(small.cpu().numpy(), tile.cpu().numpy())
+    np.testing.assert_array_equal(small.cpu().numpy(), forced_tile.cpu().numpy())
+    assert bool((small[~valid] == -1e30).all())
+    want = ops.mips_score(x, q[:b].contiguous(), valid, use_kernels=False)
+    tol = 1e-5 * x.norm(dim=1)[:, None] * q[:b].norm(dim=1)[None, :] + 1e-6
+    assert bool(((small - want).abs() <= tol).all())
+
+
 @pytest.mark.parametrize("r,b,d", [(1, 1, 1), (131, 7, 33), (1000, 64, 128),
                                    (300, 70, 300), (129, 65, 17)])
 def test_mips_score_kernel_bitwise_on_integer_data(cuda, r, b, d):
@@ -184,6 +247,16 @@ def test_mips_score_kernel_rejects_what_it_does_not_take(cuda):
         ops.mips_score(x, q[:, :3].contiguous(), valid, use_kernels=True)
     with pytest.raises(ValueError):
         ops.mips_score(x.T, q, valid, use_kernels=True)
+
+
+def test_mips_score_small_path_refuses_a_batch_above_b_small(cuda):
+    b = ms.b_small() + 1
+    x = torch.ones((64, 8), device=cuda)
+    q = torch.ones((b, 8), device=cuda)
+    valid = torch.ones(64, dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="mips_score launch failed"):
+        ms._launch(x, q, valid, ms.SMALL)
+    assert bool((ms._launch(x, q, valid, ms.TILE) == 8.0).all())
 
 
 @pytest.mark.parametrize("b,g,m,integer", [

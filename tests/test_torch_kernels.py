@@ -208,6 +208,56 @@ def test_sketch_scores_plain_matches_pallas_interpret(sketch_inputs):
     assert (np.abs(got.numpy() - want) <= 1e-5 * scale + 1e-6).all()
 
 
+# (B, NB, M, K, d/M): ragged NB, B not a multiple of 8, M 8 and 16
+LUT_CASES = [(9, 700, 16, 64, 3), (13, 777, 8, 32, 4), (64, 1001, 16, 256, 8),
+             (5, 129, 8, 191, 2), (1, 513, 16, 16, 1)]
+
+
+def _lut_inputs(b, nb, m, kcw, sub_d):
+    rng = np.random.RandomState(b * 31 + nb + m)
+    q = rng.standard_normal((b, m * sub_d)).astype(np.float32)
+    codebooks = rng.standard_normal((m, kcw, sub_d)).astype(np.float32)
+    codes = rng.randint(0, kcw, (nb, m)).astype(np.int32)
+    sk_mu = np.concatenate([codebooks[s][codes[:, s]] for s in range(m)], axis=1)
+    scale = (np.linalg.norm(q, axis=1)[:, None]
+             * np.linalg.norm(sk_mu, axis=1)[None, :])
+    return q, sk_mu, codebooks, codes, scale
+
+
+@pytest.mark.parametrize("b,nb,m,kcw,sub_d", LUT_CASES,
+                         ids=[f"B{c[0]}-NB{c[1]}-M{c[2]}" for c in LUT_CASES])
+def test_sketch_scores_lut_ref_matches_pallas_and_gemm(b, nb, m, kcw, sub_d):
+    """The ordered LUT sum (the CUDA kernel's arithmetic) against the JAX
+    LUT kernel in interpret mode and against the GEMM plain version: the
+    stated |d| <= 1e-5 |q||mu| + 1e-6 (other sum orders, and the two
+    frameworks' einsums may round the table differently)."""
+    q, sk_mu, codebooks, codes, scale = _lut_inputs(b, nb, m, kcw, sub_d)
+    got = ref.sketch_scores_lut_ref(torch.from_numpy(q),
+                                    torch.from_numpy(codebooks),
+                                    torch.from_numpy(codes))
+    assert got.shape == (b, nb) and got.dtype == torch.float32
+    pallas = np.asarray(jax_ops.sketch_scores(
+        jnp.asarray(q), jnp.asarray(sk_mu), jnp.asarray(codebooks),
+        jnp.asarray(codes), use_pallas=True))
+    gemm = ref.sketch_scores_ref(torch.from_numpy(q), torch.from_numpy(sk_mu))
+    for want in (pallas, gemm.numpy()):
+        assert (np.abs(got.numpy() - want) <= 1e-5 * scale + 1e-6).all()
+
+
+def test_sketch_scores_lut_ref_is_the_ordered_table_sum():
+    """Bit for bit: est[b, n] = (((0 + t_0) + t_1) + ...) + t_{M-1} in f32
+    over t_s = lut[b, s, codes[n, s]], the table from `ref.sketch_lut`."""
+    q, _, codebooks, codes, _ = _lut_inputs(7, 300, 8, 64, 4)
+    lut = ref.sketch_lut(torch.from_numpy(q), torch.from_numpy(codebooks)).numpy()
+    want = np.zeros((7, 300), np.float32)
+    for s in range(8):
+        want = want + lut[:, s, codes[:, s]]
+    got = ref.sketch_scores_lut_ref(torch.from_numpy(q),
+                                    torch.from_numpy(codebooks),
+                                    torch.from_numpy(codes))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 MIPS_SHAPES = [(1, 1, 1), (37, 5, 19), (300, 9, 128), (513, 130, 200)]
 
 
