@@ -13,10 +13,11 @@ line):
      pow2 tile with padding slots, on the dense tile of all 125,000 slots,
      on a round-2 tile with a carried top-k, on a tile with carried hits at
      c_half where the Condition-A stop fires, and on the round-1 tile at the
-     streaming over-fetch's k = 2,058 and at k = 16,394 (the device-memory
-     merge); sketch_scores at NB=125,000; mips_score on a 131,072-row delta
-     with 1% of rows invalid; each with its time, the plain version's, the
-     library call's and the bound;
+     streaming over-fetch's k = 2,058 and at k = 16,394, each bit for bit
+     equal to the plain version and printed with its density (selected
+     pairs / (NS x B)) and union pages; sketch_scores at NB=125,000;
+     mips_score on a 131,072-row delta with 1% of rows invalid; each with
+     its time, the plain version's, the library call's and the bound;
   3. the main path (`ProMIPS.search`, two-phase fused search with the sketch
      prefilter) at n=100,000 with the LARGE_N recipe, held against the same
      search on the plain versions (sketch estimates within tolerance, each
@@ -536,18 +537,80 @@ def phase_kernels_serve(pm, q, timer):
     return [bp_rec, da_rec]
 
 
-def phase_kernels(pm, q, timer):
-    """Each kernel against its plain version at the n=1M main path's shapes.
-    Returns the records of the kernel line (launches filled in later)."""
+def block_mips_cases(pm, q):
+    """The seven block_mips rounds of phase 2 on the n=1M index, as (label,
+    args, dense, k): the main path's round-1 tile, a sparse pow2 tile with
+    padding slots, the dense tile of the same pairs, round 2 with a carried
+    top-k, round 1 where the Condition-A stop fires, and round 1 at the
+    stream's k = 2,058 and at k = 16,394."""
     import numpy as np
     import torch
     from repro_torch.core import search_device as sd
     from repro_torch.core.search_fused import _plan_tile
     from repro_torch.kernels import ops
-    arrays, meta = pm.arrays, pm.meta
-    k, pr, nb = SEARCH["k"], meta.page_rows, meta.n_blocks
+    arrays = pm.arrays
+    k, pr, nb = SEARCH["k"], pm.meta.page_rows, pm.meta.n_blocks
     valid = arrays.ids >= 0
-    *_, c_half, mask0 = sd.select_frontend(arrays, meta, q)
+    *_, c_half, mask0 = sd.select_frontend(arrays, pm.meta, q)
+    mask_r1 = sd.prefilter_round1(arrays, q, mask0, k, pr,
+                                  SEARCH["prefilter_eps"], True)[0]
+    mask_np = mask_r1.cpu().numpy()
+    union = np.nonzero(mask_np.any(axis=0))[0]
+    n_sub = min(3000, len(union) // 3)       # 3000 union blocks -> 4096 slots
+    n_sub -= n_sub > 1 and (n_sub & (n_sub - 1)) == 0   # never a power of 2
+    sub = np.zeros(nb, bool)
+    sub[union[:n_sub]] = True
+
+    def empty_top(kk):
+        return (torch.full((q.shape[0], kk), float("-inf"), device=q.device),
+                torch.full((q.shape[0], kk), -1, dtype=torch.int32,
+                           device=q.device))
+
+    empty = empty_top(k)
+    main_plan = _plan_tile(mask_np, nb, nb, SEARCH["dense_frac"])
+
+    def as_args(plan, init, c=c_half):
+        slots, sel = plan[0], plan[1]
+        return (arrays.x, valid, q, torch.from_numpy(slots).cuda(),
+                torch.from_numpy(np.ascontiguousarray(sel)).cuda(), init[0],
+                init[1], c)
+
+    dense_args = as_args((np.arange(nb, dtype=np.int32), mask_np), empty)
+    cases = [("main path round 1", as_args(main_plan, empty), main_plan[3], k),
+             ("sparse pow2 tile", as_args(_plan_tile(mask_np & sub[None], nb, nb,
+                                                     SEARCH["dense_frac"]), empty),
+              False, k),
+             ("dense tile", dense_args, True, k)]
+    top1 = ops.block_mips(*dense_args, k=k, page_rows=pr, use_kernels=False)
+    round2 = (mask0 & ~mask_r1).cpu().numpy()     # blocks the prefilter cut
+    plan2 = _plan_tile(round2, nb, nb, SEARCH["dense_frac"])
+    cases.append(("round 2, carried top-k", as_args(plan2, top1[:2]), None, k))
+    # The Condition-A stop: carry the top-k of the blocks the prefilter cut
+    # into the round-1 tile, with c_half at each query's 5th carried score,
+    # so 5 hits are carried and the scan stops at the 5th hit in the tile.
+    top2 = ops.block_mips(*as_args(plan2, empty), k=k, page_rows=pr,
+                          dense=bool(plan2[3]), use_kernels=False)
+    c_stop = top2[0][:, 4].contiguous()
+    require(bool(torch.isfinite(c_stop).all()),
+            "the stop case needs 5 carried scores per query")
+    cases.append(("round 1 after a carried top-k, Condition-A stop",
+                  as_args(main_plan, top2[:2], c_stop), main_plan[3], k))
+    # the streaming over-fetch: k_base = 10 + next_pow2(2,000 tombstones),
+    # and a k whose sort crosses the merge's cluster in device memory
+    for kk in (2_058, 16_394):
+        cases.append((f"main path round 1 at k={kk}",
+                      as_args(main_plan, empty_top(kk)), main_plan[3], kk))
+    return cases
+
+
+def phase_kernels(pm, q, timer):
+    """Each kernel against its plain version at the n=1M main path's shapes.
+    Returns the records of the kernel line (launches filled in later)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    arrays, meta = pm.arrays, pm.meta
+    pr, nb = meta.page_rows, meta.n_blocks
 
     # -- sketch_scores
     sk = (q, arrays.sk_mu, arrays.sk_codebooks, arrays.sk_codes)
@@ -618,54 +681,7 @@ def phase_kernels(pm, q, timer):
         f"({ms_rec['bound_by']})")
     del xd, vd, ms_k, ms_p, diff, tol
 
-    # -- block_mips on the main path's round-1 selection and two variants
-    mask_r1 = sd.prefilter_round1(arrays, q, mask0, k, pr,
-                                  SEARCH["prefilter_eps"], True)[0]
-    mask_np = mask_r1.cpu().numpy()
-    union = np.nonzero(mask_np.any(axis=0))[0]
-    n_sub = min(3000, len(union) // 3)       # 3000 union blocks -> 4096 slots
-    n_sub -= n_sub > 1 and (n_sub & (n_sub - 1)) == 0   # never a power of 2
-    sub = np.zeros(nb, bool)
-    sub[union[:n_sub]] = True
-    def empty_top(kk):
-        return (torch.full((q.shape[0], kk), float("-inf"), device=q.device),
-                torch.full((q.shape[0], kk), -1, dtype=torch.int32,
-                           device=q.device))
-
-    empty = empty_top(k)
-    main_plan = _plan_tile(mask_np, nb, nb, SEARCH["dense_frac"])
-
-    def as_args(plan, init, c=c_half):
-        slots, sel = plan[0], plan[1]
-        return (arrays.x, valid, q, torch.from_numpy(slots).cuda(),
-                torch.from_numpy(np.ascontiguousarray(sel)).cuda(), init[0],
-                init[1], c)
-
-    dense_args = as_args((np.arange(nb, dtype=np.int32), mask_np), empty)
-    cases = [("main path round 1", as_args(main_plan, empty), main_plan[3], k),
-             ("sparse pow2 tile", as_args(_plan_tile(mask_np & sub[None], nb, nb,
-                                                     SEARCH["dense_frac"]), empty),
-              False, k),
-             ("dense tile", dense_args, True, k)]
-    top1 = ops.block_mips(*dense_args, k=k, page_rows=pr, use_kernels=False)
-    round2 = (mask0 & ~mask_r1).cpu().numpy()     # blocks the prefilter cut
-    plan2 = _plan_tile(round2, nb, nb, SEARCH["dense_frac"])
-    cases.append(("round 2, carried top-k", as_args(plan2, top1[:2]), None, k))
-    # The Condition-A stop: carry the top-k of the blocks the prefilter cut
-    # into the round-1 tile, with c_half at each query's 5th carried score,
-    # so 5 hits are carried and the scan stops at the 5th hit in the tile.
-    top2 = ops.block_mips(*as_args(plan2, empty), k=k, page_rows=pr,
-                          dense=bool(plan2[3]), use_kernels=False)
-    c_stop = top2[0][:, 4].contiguous()
-    require(bool(torch.isfinite(c_stop).all()),
-            "the stop case needs 5 carried scores per query")
-    cases.append(("round 1 after a carried top-k, Condition-A stop",
-                  as_args(main_plan, top2[:2], c_stop), main_plan[3], k))
-    # the streaming over-fetch: k_base = 10 + next_pow2(2,000 tombstones),
-    # and a k far above the shared-memory merge
-    for kk in (2_058, 16_394):
-        cases.append((f"main path round 1 at k={kk} (device-memory merge)",
-                      as_args(main_plan, empty_top(kk)), main_plan[3], kk))
+    cases = block_mips_cases(pm, q)
     bm_rec = None
     for label, args, dense, k in cases:
         slots = args[3]
@@ -674,6 +690,16 @@ def phase_kernels(pm, q, timer):
                               use_kernels=False)
         torch.cuda.synchronize()
         err, flips = check_block_mips(args, k, pr, got, want)
+        # the kernel's in-order fmaf chains give the plain version's bits
+        # at every one of these rounds: hold it to that
+        for name, g, w in zip(("top_s", "top_r", "cnt", "pages", "cand"),
+                              got, want):
+            require(torch.equal(g.view(torch.int32) if g.is_floating_point()
+                                else g,
+                                w.view(torch.int32) if w.is_floating_point()
+                                else w),
+                    f"block_mips {label}: {name} not bit for bit the plain "
+                    f"version's (max|d score| {err}, {flips})")
         n0 = int((args[5] >= args[7][:, None]).sum())
         stopped = int((got[3] < args[4].sum(dim=1)).sum())
         if "stop" in label:
@@ -692,8 +718,10 @@ def phase_kernels(pm, q, timer):
                 *args, k=k, page_rows=pr, dense=bool(dense), use_kernels=False)),
             library_ms=None)
         rec["bound_ms"], rec["bound_by"] = block_mips_bound_ms(args, k, pr)
+        pairs, union = int(args[4].sum()), int(args[4].any(dim=0).sum())
         log(f"[kernel block_mips: {label}] NS={slots.shape[0]} "
-            f"selected pairs={int(args[4].sum())} carried hits={n0} "
+            f"selected pairs={pairs} density "
+            f"{pairs / args[4].numel():.4f} union pages={union} carried hits={n0} "
             f"stopped queries={stopped} "
             f"pages={float(got[3].float().mean()):.1f}/query: max|d score|={err:.3g} "
             f"(tol 1e-5*|q||x|+1e-6) flips={flips}  device {rec['ms']:.4f} ms "

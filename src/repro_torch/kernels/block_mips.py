@@ -10,8 +10,7 @@ import torch
 from . import build
 from .build import require
 
-TILE_ROWS = 64    # rows per block tile (RT in the source); page_rows <= it
-SHARED_MERGE_K = 1024  # larger k merge in device memory (KMAX in the source)
+TILE_ROWS = 64    # rows per chunk (RT in the source); page_rows <= it
 
 
 def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
@@ -49,32 +48,27 @@ def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
             ("c_half", c_half, torch.float32, (b,))):
         require("block_mips", name, t, dtype, shape, dev)
 
-    spc = TILE_ROWS // page_rows
-    n_chunks = -(-n_slots // spc)
-    kc = min(k, spc * page_rows)
-    kp2 = 1 << (k - 1).bit_length()     # the large-k merge's sort width
+    kp2 = 1 << (k - 1).bit_length()     # the merge's sort width
     i32 = dict(dtype=torch.int32, device=dev)
     top_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     top_r = torch.empty((b, k), **i32)
     cnt = torch.empty((b, n_slots), **i32)
     pages = torch.empty((b,), **i32)
     cand = torch.empty((b,), **i32)
-    live = torch.empty((b, n_slots), dtype=torch.uint8, device=dev)
-    part_s = torch.empty((b, n_chunks, kc), dtype=torch.float32, device=dev)
-    part_p = torch.empty((b, n_chunks, kc), **i32)
-    part_n = torch.empty((b, n_chunks), **i32)
-    keys = torch.empty((b, kp2) if k > SHARED_MERGE_K else (1,),
-                       dtype=torch.int64, device=dev)
+    # the selected pairs' row scores; written only where sel is set
+    scr = torch.empty((b, n_slots, page_rows), dtype=torch.float32, device=dev)
+    keys = torch.empty((b, kp2), dtype=torch.int64, device=dev)
     lib = build.library()
+    work = torch.empty((lib.block_mips_work_bytes(b, n_slots, page_rows),),
+                       dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.block_mips_launch(
             x.data_ptr(), valid.data_ptr(), q.data_ptr(), slots.data_ptr(),
             sel.data_ptr(), init_scores.data_ptr(), init_rows.data_ptr(),
             c_half.data_ptr(), top_s.data_ptr(), top_r.data_ptr(),
-            cnt.data_ptr(), pages.data_ptr(), cand.data_ptr(), live.data_ptr(),
-            part_s.data_ptr(), part_p.data_ptr(), part_n.data_ptr(),
-            keys.data_ptr(), b, d, n_slots, k, page_rows, spc, kc, n_chunks,
-            kp2,
+            cnt.data_ptr(), pages.data_ptr(), cand.data_ptr(), scr.data_ptr(),
+            keys.data_ptr(), work.data_ptr(), b, d, n_slots, k, page_rows,
+            kp2, work.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "block_mips")
     build.LAUNCHES["block_mips"] += 1

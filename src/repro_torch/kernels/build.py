@@ -99,7 +99,10 @@ def library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.binary_probe_lb_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
             lib.binary_probe_lb_launch.restype = i32
-            lib.block_mips_launch.argtypes = [ptr] * 18 + [i32] * 9 + [ptr]
+            lib.block_mips_launch.argtypes = (
+                [ptr] * 16 + [i32] * 6 + [ctypes.c_longlong, ptr])
+            lib.block_mips_work_bytes.argtypes = [i32] * 3
+            lib.block_mips_work_bytes.restype = ctypes.c_longlong
             lib.block_mips_launch.restype = i32
             lib.decode_attention_launch.argtypes = (
                 [ptr] * 8 + [i32] * 7 + [ctypes.c_float, ptr])

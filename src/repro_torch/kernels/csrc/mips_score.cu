@@ -156,8 +156,10 @@ __device__ __forceinline__ int swz(int rr, int c) {
 // Shared memory: q_s [BQ][dq] (dq = d rounded up to 4), then the ring
 // [stages][SB_THREADS][DC]. Work item i of a block is (sub-tile
 // i / n_chunks, depth slice i % n_chunks) and lives in stage i % stages.
+// The register budget is explicit (one block an SM, up to 255 registers): a
+// build without it spilled 8 bytes at 80 registers in <16, 32, false>.
 template <int BQ, int DC, bool VEC>
-__global__ void __launch_bounds__(SB_THREADS) mips_score_small_kernel(
+__global__ void __launch_bounds__(SB_THREADS, 1) mips_score_small_kernel(
     const float* __restrict__ x, const float* __restrict__ q,
     const uint8_t* __restrict__ valid, float* __restrict__ out, int R, int B,
     int d, int stages) {

@@ -104,6 +104,81 @@ def _verify_core(scores, rvalid, sel, init_scores, init_rows, c_half,
     return top_s, merged_r.gather(1, pos), cnt, pages, cand
 
 
+_U32 = 0xFFFFFFFF
+
+
+def merge_key(scores: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The `block_mips` kernel's 64-bit merge key, larger = better: the
+    score's bits in an unsigned order (-0 counted as +0), then the position
+    inverted, so the lower position wins a tie. Returned as int64 with the
+    key's top bit flipped, which keeps the order."""
+    s = torch.where(scores == 0, torch.zeros_like(scores), scores.float())
+    bits = s.contiguous().view(torch.int32).long() & _U32
+    u = torch.where(bits >= 2 ** 31, _U32 - bits, bits | 2 ** 31)
+    return (u - 2 ** 31) * 2 ** 32 + (_U32 - pos.long())
+
+
+def key_score(key: torch.Tensor) -> torch.Tensor:
+    """The score of a merge key (a -0 comes back as +0)."""
+    u = (key >> 32) + 2 ** 31
+    bits = torch.where(u >= 2 ** 31, u & 0x7FFFFFFF, _U32 - u)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits)
+    return bits.int().view(torch.float32)
+
+
+def key_pos(key: torch.Tensor) -> torch.Tensor:
+    """The position of a merge key."""
+    return _U32 - (key & _U32)
+
+
+def block_mips_stages_ref(x, valid, q, slots, sel, init_scores, init_rows,
+                          c_half, *, k: int, page_rows: int):
+    """`block_mips_ref` computed the way the CUDA kernel decomposes it, for
+    the tests: (1) the row scores of each selected (query, slot) pair, once,
+    -inf on invalid rows, and cnt; (2) one cut per query from the prefix
+    counts: a query's live slots are its selected slots before the first
+    one at which n0 + the exclusive prefix of cnt reaches k; (3) one top-k
+    of the carried keys and the live finite stored keys under `merge_key`
+    (carried entries at positions 0..k-1, tile row t at k + t), read back
+    through its inverse: carried entries keep their own bits."""
+    b, n_slots = sel.shape
+    d = x.shape[1]
+    sl = slots.long()
+    sel = sel.bool()
+    xt = x.view(-1, page_rows, d)[sl].reshape(-1, d)             # (R, d)
+    rvalid = valid.view(-1, page_rows)[sl].bool()                # (NS, p)
+    s = (xt.float() @ q.float().T).T.reshape(b, n_slots, page_rows)
+    scr = torch.where(sel[:, :, None] & rvalid[None], s,
+                      torch.full_like(s, NEG_INF))               # (B, NS, p)
+    cnt = ((scr >= c_half[:, None, None]).sum(dim=2) * sel).int()
+
+    n0 = (init_scores >= c_half[:, None]).sum(dim=1)
+    excl = torch.cumsum(cnt.long(), dim=1) - cnt
+    stop = sel & (n0[:, None] + excl >= k)
+    slot_idx = torch.arange(n_slots, device=x.device)
+    cut = torch.where(stop, slot_idx, torch.full_like(slot_idx, n_slots)
+                      ).amin(dim=1)                              # (B,)
+    live = sel & (slot_idx[None, :] < cut[:, None])
+    pages = live.sum(dim=1).int()
+    cand = (live.long() * rvalid.sum(dim=1)[None, :]).sum(dim=1).int()
+
+    pos_tile = k + torch.arange(n_slots * page_rows, device=x.device)
+    tile_s = scr.reshape(b, -1)
+    tile_ok = live.repeat_interleave(page_rows, dim=1) & (tile_s > NEG_INF)
+    carried = merge_key(init_scores, torch.arange(k, device=x.device)[None])
+    tile = torch.where(tile_ok, merge_key(tile_s, pos_tile[None]),
+                       torch.full_like(tile_ok, -2 ** 63, dtype=torch.long))
+    top = torch.topk(torch.cat([carried, tile], dim=1), k, dim=1).values
+    pos = key_pos(top)
+    from_init = pos < k
+    t = (pos - k).clamp(min=0)
+    rows = sl[t // page_rows] * page_rows + t % page_rows
+    pi = pos.clamp(max=k - 1)
+    top_s = torch.where(from_init, init_scores.gather(1, pi), key_score(top))
+    top_r = torch.where(from_init, init_rows.long().gather(1, pi), rows).int()
+    return top_s, top_r, cnt, pages, cand
+
+
 def sketch_scores_ref(q: torch.Tensor, sk_mu: torch.Tensor) -> torch.Tensor:
     """Estimated block scores from the DECODED sketch centroids:
     q (B, d), sk_mu (NB, d) -> (B, NB). One GEMM; the kernel sums the same

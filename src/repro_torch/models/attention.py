@@ -20,7 +20,7 @@ from .layers import apply_rope, dense_init, rms_norm
 NEG_INF = -1e30
 
 
-def init_attention(cfg, *, generator=None, device="cpu",
+def init_attention(cfg, *, generator=None, device,
                    dtype=torch.float32) -> dict:
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     kw = dict(generator=generator, device=device, dtype=dtype)

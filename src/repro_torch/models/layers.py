@@ -14,7 +14,7 @@ import torch.nn.functional as F
 
 
 def dense_init(shape, scale: Optional[float] = None, *,
-               generator: Optional[torch.Generator] = None, device="cpu",
+               generator: Optional[torch.Generator] = None, device,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init: a standard normal cut to [-2, 2],
     times ``scale`` (default fan_in ** -0.5), drawn from ``generator`` on
@@ -61,7 +61,7 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
-def init_mlp(d_model: int, d_ff: int, *, generator=None, device="cpu",
+def init_mlp(d_model: int, d_ff: int, *, generator=None, device,
              dtype=torch.float32) -> dict:
     kw = dict(generator=generator, device=device, dtype=dtype)
     return {

@@ -8,7 +8,9 @@ inside the fixture). Run them on a machine with an H100:
 `block_mips` and `mips_score` are held on integer-valued data, where every
 dot product is exact in f32 whatever the summation order, so kernel and
 plain version must agree bit for bit, ties included; `block_mips` at every
-k up to n_pad, past the 1,024 where its merge moves to device memory.
+k up to n_pad, at 3% and 50% of the (query, slot) entries selected (its
+chunks scored pair by pair and as a tile), with one query a page, at
+B = 65, and with the Condition-A stop inside a chunk.
 `mips_score` on float data and `sketch_scores` sum in another order than
 their GEMM plain versions and are held to |d| <= 1e-5 * |q| |x| + 1e-6.
 Both also have a bit-for-bit check of their own on float data: the
@@ -43,10 +45,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q=0.97):
+def _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q=0.97, sel_frac=None,
+                  lone=False):
     """Integer-valued round inputs: padding slots, invalid rows, duplicate
     rows, a carried top-k with hits and empty (-inf, -1) tails; c_half at
-    the ``hit_q`` quantile of each query's scores."""
+    the ``hit_q`` quantile of each query's scores. ``sel_frac`` sets the
+    share of selected (query, slot) entries; ``lone`` gives every slot
+    exactly one selecting query."""
     n = nb * p
     x = rng.randint(-3, 4, (n, d)).astype(np.float32)
     dup = rng.choice(n, n // 8, replace=False)
@@ -55,12 +60,16 @@ def _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q=0.97):
     q = rng.randint(-3, 4, (b, d)).astype(np.float32)
     if dense:
         slots = np.arange(nb, dtype=np.int32)
-        sel = rng.rand(b, nb) > 0.3
+        sel = rng.rand(b, nb) > (0.3 if sel_frac is None else 1 - sel_frac)
     else:
         blocks = np.sort(rng.choice(nb, ns - 2, replace=False))
         slots = np.concatenate([blocks, [0, 0]]).astype(np.int32)
-        sel = rng.rand(b, ns) > 0.4
+        sel = rng.rand(b, ns) > (0.4 if sel_frac is None else 1 - sel_frac)
         sel[:, ns - 2:] = False
+    if lone:
+        sel[:] = False
+        n_real = len(slots) if dense else ns - 2
+        sel[rng.randint(0, b, n_real), np.arange(n_real)] = True
     scores = q @ x.T
     c_half = (np.quantile(scores, hit_q, axis=1) + 0.5).astype(np.float32)
     init_s = np.sort(rng.randint(-10, 60, (b, k)).astype(np.float32),
@@ -73,22 +82,21 @@ def _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q=0.97):
     return (x, valid, q, slots, sel, init_s, init_r, c_half)
 
 
-@pytest.mark.parametrize("nb,p,d,b,k,ns,dense", [
-    (12, 8, 32, 5, 4, 8, False),
-    (30, 16, 64, 9, 10, 16, False),
-    (64, 21, 48, 70, 32, 40, False),    # page_rows 21, two query tiles
-    (20, 8, 128, 17, 1, 4, False),
-    (100, 1, 300, 3, 5, 64, False),     # page_rows 1, depth in 10 slices
-    (40, 64, 16, 2, 100, 40, True),     # page_rows = tile rows
-    (50, 32, 32, 5, 128, 50, True),
-    (300, 8, 128, 64, 10, 300, True),   # the main path's widths
-    (30, 8, 128, 4, 700, 30, True),     # k above one chunk's rows
-])
-def test_block_mips_kernel_bitwise_on_integer_data(cuda, nb, p, d, b, k, ns,
-                                                   dense):
-    rng = np.random.RandomState(nb * 1000 + k)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in _round_inputs(rng, nb, p, d, b, k, ns, dense)]
+def _stop_slots(args, cnt, k):
+    """Per query, the slot at which the Condition-A scan stops (the first
+    selected slot where the carried hits plus the earlier counts reach k),
+    or -1 where it does not."""
+    sel, init_s, c_half = args[4].cpu(), args[5].cpu(), args[7].cpu()
+    cnt = cnt.cpu().long()
+    n0 = (init_s >= c_half[:, None]).sum(dim=1)
+    stop = sel & (n0[:, None] + torch.cumsum(cnt, dim=1) - cnt >= k)
+    first = torch.where(stop.any(dim=1), stop.int().argmax(dim=1),
+                        torch.full((sel.shape[0],), -1))
+    return first
+
+
+def _check_round(cuda, args, k, p, dense):
+    args = [torch.from_numpy(a).to(cuda) for a in args]
     got = ops.block_mips(*args, k=k, page_rows=p, use_kernels=True)
     want = ops.block_mips(*args, k=k, page_rows=p, dense=dense,
                           use_kernels=False)
@@ -97,30 +105,61 @@ def test_block_mips_kernel_bitwise_on_integer_data(cuda, nb, p, d, b, k, ns,
         assert g.dtype == w.dtype, name
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
                                       err_msg=name)
+    return args, got
 
 
-@pytest.mark.parametrize("nb,p,d,b,k,ns,dense,hit_q", [
-    (600, 8, 32, 5, 1025, 400, False, 0.97),
-    (600, 8, 64, 9, 4096, 600, True, 0.97),
-    (300, 8, 16, 3, 2400, 300, True, 0.97),     # k = n_pad
-    (100, 21, 48, 4, 2100, 100, True, 0.97),    # k = n_pad, page_rows 21
-    (512, 8, 32, 66, 1025, 500, False, 0.5),    # the Condition-A stop fires
+@pytest.mark.parametrize("nb,p,d,b,k,ns,dense,extra", [
+    (12, 8, 32, 5, 4, 8, False, {}),
+    (30, 16, 64, 9, 10, 16, False, {}),
+    (64, 21, 48, 70, 32, 40, False, {}),    # page_rows 21, two query tiles
+    (20, 8, 128, 17, 1, 4, False, {}),
+    (100, 1, 300, 3, 5, 64, False, {}),     # page_rows 1, depth in 3 slices
+    (40, 64, 16, 2, 100, 40, True, {}),     # page_rows = tile rows
+    (50, 32, 32, 5, 128, 50, True, {}),
+    (300, 8, 128, 64, 10, 300, True, {}),   # the main path's widths
+    (30, 8, 128, 4, 700, 30, True, {}),     # k above one chunk's rows
+    # the main path's widths, about 3% of the entries selected (chunks
+    # scored pair by pair), and about 50% (chunks scored as a tile)
+    (4096, 8, 128, 64, 10, 4000, False, {"sel_frac": 0.03}),
+    (2000, 8, 128, 64, 10, 2000, True, {"sel_frac": 0.5}),
+    (512, 8, 128, 64, 10, 500, False, {"lone": True}),   # one query a page
+    (600, 8, 128, 64, 1, 600, False, {"sel_frac": 0.03}),   # k = 1
+    (700, 8, 64, 65, 10, 600, False, {"sel_frac": 0.2}),    # B = 65
+    (800, 8, 64, 64, 10, 700, False, {"hit_q": 0.9, "sel_frac": 0.1}),  # stop
+    (40, 8, 33, 6, 10, 30, False, {}),      # rows not 16-byte aligned
+    (40, 8, 301, 5, 10, 30, False, {}),     # and queries not resident
+])
+def test_block_mips_kernel_bitwise_on_integer_data(cuda, nb, p, d, b, k, ns,
+                                                   dense, extra):
+    rng = np.random.RandomState(nb * 1000 + k)
+    args, got = _check_round(cuda, _round_inputs(rng, nb, p, d, b, k, ns, dense,
+                                                 **extra), k, p, dense)
+    if extra.get("lone"):
+        assert int(args[4].sum(dim=0).max()) == 1
+    if "hit_q" in extra:   # the stop falls inside a chunk for some query
+        stop = _stop_slots(args, got[2], k)
+        assert bool(((stop >= 0) & (stop % (64 // p) != 0)).any())
+
+
+@pytest.mark.parametrize("nb,p,d,b,k,ns,dense,hit_q,extra", [
+    (600, 8, 32, 5, 1025, 400, False, 0.97, {}),
+    (600, 8, 64, 9, 4096, 600, True, 0.97, {}),
+    (300, 8, 16, 3, 2400, 300, True, 0.97, {}),     # k = n_pad
+    (100, 21, 48, 4, 2100, 100, True, 0.97, {}),    # k = n_pad, page_rows 21
+    (512, 8, 32, 66, 1025, 500, False, 0.5, {}),    # the Condition-A stop fires
+    # either side of 1,024 (the earlier kernel's shared-memory merge) at
+    # the main path's widths and about 3% selected
+    (4096, 8, 128, 64, 1024, 4000, False, 0.97, {"sel_frac": 0.03}),
+    (4096, 8, 128, 64, 1025, 4000, False, 0.97, {"sel_frac": 0.03}),
+    (2000, 8, 128, 65, 1025, 2000, True, 0.97, {"sel_frac": 0.5}),
 ])
 def test_block_mips_kernel_large_k_bitwise(cuda, nb, p, d, b, k, ns, dense,
-                                           hit_q):
-    """k above the shared-memory merge: the device-memory merge gives the
-    plain version's rows and scores, ties (duplicate rows, carried against
-    tile) included."""
+                                           hit_q, extra):
+    """k from 1,024 up to n_pad: the merge gives the plain version's rows
+    and scores, ties (duplicate rows, carried against tile) included."""
     rng = np.random.RandomState(nb + k)
-    args = [torch.from_numpy(a).to(cuda)
-            for a in _round_inputs(rng, nb, p, d, b, k, ns, dense, hit_q)]
-    got = ops.block_mips(*args, k=k, page_rows=p, use_kernels=True)
-    want = ops.block_mips(*args, k=k, page_rows=p, dense=dense,
-                          use_kernels=False)
-    torch.cuda.synchronize()
-    for name, g, w in zip(("top_s", "top_r", "cnt", "pages", "cand"), got, want):
-        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
-                                      err_msg=name)
+    args, got = _check_round(cuda, _round_inputs(rng, nb, p, d, b, k, ns, dense,
+                                                 hit_q, **extra), k, p, dense)
     if hit_q < 0.9:
         assert bool((got[3] < args[4].sum(dim=1)).any()), "no stop fired"
 

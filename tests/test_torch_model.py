@@ -172,6 +172,26 @@ def test_layers_match_jax():
         layers.rms_norm(torch.from_numpy(x), torch.from_numpy(w)).numpy(),
         np.asarray(jax_layers.rms_norm(jnp.asarray(x), jnp.asarray(w))),
         rtol=0, atol=1e-6)
-    init = layers.dense_init((4000, 50), generator=torch.Generator().manual_seed(0))
+    init = layers.dense_init((4000, 50), generator=torch.Generator().manual_seed(0),
+                             device="cpu")
     assert float(init.abs().max()) <= 2.0 * 4000 ** -0.5 + 1e-7
     assert abs(float(init.std()) * 4000 ** 0.5 - 0.88) < 0.02   # std of N cut at 2
+
+
+def test_init_helpers_take_the_device_they_are_given():
+    cfg = get_config("tinyllama-1.1b").reduced()
+    g = torch.Generator().manual_seed(0)
+    assert layers.dense_init((8, 4), generator=g, device="cpu").device.type == "cpu"
+    mlp = layers.init_mlp(16, 32, generator=g, device="cpu")
+    attn = attention.init_attention(cfg, generator=g, device="cpu")
+    assert all(t.device.type == "cpu" for t in [*mlp.values(), *attn.values()])
+
+
+@pytest.mark.parametrize("helper", ["dense_init", "init_mlp", "init_attention"])
+def test_init_helpers_have_no_default_device(helper):
+    cfg = get_config("tinyllama-1.1b").reduced()
+    call = {"dense_init": lambda: layers.dense_init((8, 4)),
+            "init_mlp": lambda: layers.init_mlp(16, 32),
+            "init_attention": lambda: attention.init_attention(cfg)}[helper]
+    with pytest.raises(TypeError):
+        call()
