@@ -55,9 +55,12 @@ line):
      update of vocab rows; step times, tokens/s, pages, launches per step,
      peak memory, and a torch.profiler trace of one decode step.
 Phase 2 also holds binary_probe_lb (at the vocab index's and the n=1M
-index's shapes) and decode_attention (at the serve shape and at the
-decode_32k shape, B=8, S=32,768) against their plain versions, with the
-same four times, and mips_score at the serve search's tile (R=32,000,
+index's shapes) and decode_attention (at the serve shape, where it must be
+one CUDA kernel a call, and at the JAX package's decode shapes: decode_32k,
+S=32,768, at B=8 and at B=128 with seeded uniform lengths, and long_500k,
+B=1, S=524,288) against their plain versions and against a second call
+(equal bit for bit), with the same four times and each time's share of the
+HBM rate, and mips_score at the serve search's tile (R=32,000,
 B=4, d=2,048). Two bit-for-bit checks fail the run if they do not hold:
 mips_score's small-batch path against its tile path at the serve tile
 (1% of the rows invalid, exactly -1e30), and sketch_scores against the
@@ -367,11 +370,15 @@ def check_binary_probe(timer, label, codes, q_proj):
     return rec
 
 
-def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
+def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
+                           count_launches=False):
     """decode_attention against its plain version on seeded normal inputs
-    (|d| <= 1e-5 max|v| + 1e-6), timed, with scaled_dot_product_attention
-    (length mask, enable_gqa) as the library yardstick. Returns the kernel
-    line's record."""
+    (|d| <= 1e-5 max|v| + 1e-6) and against itself (a second call equal bit
+    for bit), timed, with scaled_dot_product_attention (length mask, the G
+    query rows of a KV head as its query-length axis) as the library
+    yardstick. ``count_launches`` also holds the call
+    to one CUDA kernel under torch.profiler. Returns the kernel line's
+    record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -383,6 +390,7 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
     cache_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     args = (q, k, v, cache_len)
     got = ops.decode_attention(*args, use_kernels=True)
+    again = ops.decode_attention(*args, use_kernels=True)
     want = ops.decode_attention(*args, use_kernels=False)
     torch.cuda.synchronize()
     diff = (got - want).abs()
@@ -390,16 +398,31 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
     require(bool((diff <= tol).all()),
             f"decode_attention {label}: |d| beyond 1e-5 max|v|+1e-6 by "
             f"{float((diff - tol).max())}")
-    qs = q.reshape(b, kh * g, 1, dh)
+    require(torch.equal(got, again), f"decode_attention {label}: two calls on "
+            f"the same input differ in {int((got != again).sum())} entries")
+    launches = ""
+    if count_launches:
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            ops.decode_attention(*args, use_kernels=True)
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        require(len(kernels) == 1, f"decode_attention {label}: {len(kernels)} "
+                f"CUDA kernels in one call: {kernels}")
+        launches = f"; one CUDA kernel a call ({kernels[0][:40]})"
+    # G as the query-length axis: each KV head's G query rows attend to its
+    # own K and V, so the library call needs no GQA expansion of the cache
     ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
     mask = (torch.arange(s, device=DEVICE)[None, :]
             < cache_len[:, None].long())[:, None, None, :]
 
     def sdpa():
-        return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(q, ks, vs, attn_mask=mask)
 
-    lib_err = float((sdpa().reshape(b, kh, g, dh) - want).abs().max())
+    lib_err = float((sdpa() - want).abs().max())
+    library_ms = timer.ms(sdpa)
     rec = dict(
         name="decode_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -409,15 +432,16 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64):
         call_ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=True),
                          hold=False),
         plain_ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=False)),
-        library_ms=timer.ms(sdpa))
+        library_ms=library_ms)
     rec["bound_ms"], rec["bound_by"] = decode_attention_bound_ms(q, k, cache_len)
     log(f"[kernel decode_attention: {label}] B={b} S={s} KH={kh} G={g} dh={dh} "
         f"cache_len={lens if len(lens) <= 8 else '...'}: max|d|="
-        f"{rec['max_abs_err']:.3g} (tol 1e-5 max|v|+1e-6)  device "
-        f"{rec['ms']:.4f} ms (call with host {rec['call_ms']:.4f} ms)  plain "
-        f"{rec['plain_ms']:.4f} ms  scaled_dot_product_attention "
-        f"{rec['library_ms']:.4f} ms (max|d| to plain {lib_err:.3g})  bound "
-        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        f"{rec['max_abs_err']:.3g} (tol 1e-5 max|v|+1e-6), two calls equal bit "
+        f"for bit{launches}  device {rec['ms']:.4f} ms "
+        f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the HBM rate; call with "
+        f"host {rec['call_ms']:.4f} ms)  plain {rec['plain_ms']:.4f} ms  "
+        f"scaled_dot_product_attention {library_ms:.4f} ms (max|d| to plain "
+        f"{lib_err:.3g})  bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -474,9 +498,11 @@ def phase_kernels_serve(pm, q, timer):
     """The slice-3 kernels against their plain versions: binary_probe_lb at
     the vocab index's shape (every one of the 256 sign codes of m = 8,
     B = 4) and at the n=1M index's (its group table, the batch's
-    projections); decode_attention at the serve shape and at the
-    decode_32k shape; mips_score at the serve search's union tile. Returns
-    the records of the kernel line (the serve shapes)."""
+    projections); decode_attention at the serve shape and at the JAX
+    package's decode shapes (decode_32k at B 8 and B 128, long_500k);
+    mips_score at the serve search's union tile. Returns the records of the
+    kernel line (the serve shapes)."""
+    import numpy as np
     import torch
     from repro_torch.data.synthetic import mf_factors
     from repro_torch.kernels import mips_score as ms_wrapper
@@ -488,9 +514,18 @@ def phase_kernels_serve(pm, q, timer):
                                 torch.randn((4, 8), generator=gen, device=DEVICE))
     check_binary_probe(timer, "n=1M index", pm.arrays.g_code, q @ pm.arrays.a)
     da_rec = check_decode_attention(timer, "serve shape", 4, 512,
-                                    [1, 37, 300, 512], seed=12)
+                                    [1, 37, 300, 512], seed=12,
+                                    count_launches=True)
+    # the JAX package's decode shapes (`src/repro/configs/base.py`)
     lens = [32768, 1, 20000, 4097, 64, 31000, 12345, 27000]
-    check_decode_attention(timer, "decode_32k shape", 8, 32768, lens, seed=13)
+    check_decode_attention(timer, "decode_32k shape, B 8", 8, 32768, lens,
+                           seed=13)
+    lens = np.random.RandomState(16).randint(1, 32769, 128).tolist()
+    check_decode_attention(timer, "decode_32k shape, B 128", 128, 32768, lens,
+                           seed=17)
+    check_decode_attention(timer, "long_500k shape", 1, 524288, [524288],
+                           seed=18)
+    torch.cuda.empty_cache()
     # mips_score at the serve search's tile: every vocab row at full budget
     xt = torch.from_numpy(mf_factors(32_000, 2048, 64, decay=0.5,
                                      seed=14)).to(DEVICE)
@@ -878,6 +913,7 @@ def phase_main_path(label, pm, x, q):
     from repro_torch.core.runtime import search as runtime_search
     from repro_torch.core import search_device as sd
     from repro_torch.kernels import ops
+    from repro_torch.tune import cache as tune_cache
     meta = pm.meta
     k = SEARCH["k"]
     # -- the main path, counted
@@ -943,6 +979,22 @@ def phase_main_path(label, pm, x, q):
         f"used_round2 {int(st.used_round2.sum())} exhausted "
         f"{int(st.exhausted.sum())}")
     require(rate >= floor, f"Theorem-2 floor missed: {rate} < {floor}")
+
+    # -- what reading the tuning cache adds to each search on the host, and
+    # what a stat of the cache file (made at most once a second) costs here
+    def per_call_us(fn, n_calls=2000):
+        t0 = time.perf_counter()
+        for _ in range(n_calls):
+            fn()
+        return (time.perf_counter() - t0) / n_calls * 1e6
+
+    path = tune_cache.cache_path()
+    stat_us = (per_call_us(lambda: os.path.exists(path)) if path else 0.0)
+    resolve_us = per_call_us(lambda: tune_cache.resolved(
+        "runtime", meta.n, meta.d, device=q.device))
+    log(f"[{label}] tuning-cache resolve (runtime knobs, this index's key): "
+        f"{resolve_us:.2f} us a search on the host; one stat of the cache "
+        f"file {stat_us:.2f} us")
     return launches
 
 

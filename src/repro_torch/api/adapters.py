@@ -15,7 +15,7 @@ import numpy as np
 
 from ..core.runtime import RuntimeConfig
 from ..stream.mutable import MutableProMIPS
-from ..tune.space import HAND_PICKED
+from ..tune import cache as tune_cache
 from .base import Searcher
 from .registry import register
 from .types import Capabilities, GuaranteeConfig
@@ -27,21 +27,26 @@ def _runtime_from_opts(guarantee: GuaranteeConfig, mode: str,
                        cs_prune: Optional[bool], budget, budget2,
                        prefilter: bool = False,
                        prefilter_eps: Optional[float] = None,
-                       obs: bool = False) -> RuntimeConfig:
+                       obs: bool = False, *, shape: tuple,
+                       device) -> RuntimeConfig:
     """Map facade opts onto a `RuntimeConfig` with guarantee-safe defaults:
     budgets stay None (scan every selected block; the Theorem-2 bound needs
     no truncation) unless the caller trades them. ``verification=None`` and
-    ``prefilter_eps=None`` resolve to the hand-picked "fused" and 1.0 (the
-    lossless sketch bound), what the JAX package resolves to without a
-    tuning-cache entry."""
+    ``prefilter_eps=None`` consult the tuning cache for the ``shape=(n, d)``
+    point on ``device`` and fall back to the hand-picked "fused" and 1.0 (the
+    lossless sketch bound) on a miss, as the JAX package's facade does."""
     if mode == "progressive":
         norm_adaptive = True if norm_adaptive is None else norm_adaptive
         cs_prune = True if cs_prune is None else cs_prune
-    tuned = HAND_PICKED["runtime"]
-    if verification is None:
-        verification = str(tuned["verification"])
-    if prefilter_eps is None:
-        prefilter_eps = float(tuned["prefilter_eps"]) if prefilter else 1.0
+    if verification is None or prefilter_eps is None:
+        tuned = tune_cache.resolved("runtime", *shape, device=device)
+        if verification is None:
+            verification = str(tuned["verification"])
+        if prefilter_eps is None:
+            # a tuned eps only describes a prefiltered workload; with the
+            # prefilter off the knob is dead and stays at lossless 1.0
+            prefilter_eps = (float(tuned["prefilter_eps"]) if prefilter
+                             else 1.0)
     return RuntimeConfig(
         k=guarantee.k, budget=budget, budget2=budget2, mode=mode,
         verification=verification,
@@ -97,9 +102,6 @@ class StreamSearcher(_MutableMixin, Searcher):
               prefilter=False, prefilter_eps=None, obs=False,
               delta_capacity=None, auto_compact=False, device="cuda",
               **index_opts) -> "StreamSearcher":
-        runtime = _runtime_from_opts(guarantee, mode, verification,
-                                     norm_adaptive, cs_prune, budget, budget2,
-                                     prefilter, prefilter_eps, obs)
         plan = guarantee.derive(len(x))
         stream = MutableProMIPS(
             x, ids=ids, delta_capacity=delta_capacity,
@@ -107,7 +109,10 @@ class StreamSearcher(_MutableMixin, Searcher):
             m=plan.m if m is None else int(m), c=guarantee.c, p=guarantee.p0,
             page_bytes=page_bytes, seed=seed, norm_strata=int(norm_strata),
             **index_opts)
-        return cls(stream, runtime)
+        return cls(stream, _runtime_from_opts(
+            guarantee, mode, verification, norm_adaptive, cs_prune, budget,
+            budget2, prefilter, prefilter_eps, obs,
+            shape=(len(x), int(x.shape[1])), device=stream.device))
 
     def _search(self, queries, k, runtime: Optional[RuntimeConfig] = None
                 ) -> Tuple[np.ndarray, np.ndarray, dict]:

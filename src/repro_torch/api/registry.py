@@ -8,7 +8,8 @@ from typing import Dict, Optional, Tuple, Type
 
 import numpy as np
 
-from ..tune.space import HAND_PICKED
+from ..core.index import resolve_device
+from ..tune import cache as tune_cache
 from .base import Searcher, UnsupportedOperation
 from .types import Capabilities, GuaranteeConfig
 
@@ -57,8 +58,9 @@ def build(x: np.ndarray, backend: str = "promips", *,
 
     ``guarantee`` is the declarative contract (c, p0, k); ``seed`` makes the
     build reproducible; ``opts`` are backend-specific (e.g. ``m=8``,
-    ``norm_strata=4``). ``page_bytes=None`` takes the hand-picked 4096 (the
-    tuning cache is not ported). ``wal_dir`` raises until the write-ahead
+    ``norm_strata=4``). ``page_bytes=None`` consults the tuning cache for
+    this data shape on ``device`` and takes the hand-picked 4096 on a miss.
+    ``wal_dir`` raises until the write-ahead
     log is ported (ROADMAP Queue 1 item 8).
     """
     cls = get_backend(backend)
@@ -71,7 +73,9 @@ def build(x: np.ndarray, backend: str = "promips", *,
     if x.ndim != 2:
         raise ValueError(f"x must be (n, d), got shape {x.shape}")
     if page_bytes is None:
-        page_bytes = int(HAND_PICKED["build"]["page_bytes"])
+        page_bytes = int(tune_cache.resolved(
+            "build", x.shape[0], x.shape[1],
+            device=resolve_device(device))["page_bytes"])
     t0 = time.perf_counter()
     searcher = cls.build(x, guarantee=guarantee, seed=int(seed),
                          page_bytes=int(page_bytes), device=device, **opts)

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops, ref
+from ..tune import cache as tune_cache
 from .index import IndexArrays, IndexMeta, resolve_device
 from .search_common import DENSE_FRAC, next_pow2
 from .search_device import SearchStats, _search_batch_batched
@@ -44,7 +45,10 @@ class RuntimeConfig:
 
     ``use_kernels``: None runs the CUDA kernels on CUDA tensors and the plain
     versions on CPU tensors; False asks for the plain versions on the card;
-    True on the CPU raises. ``dense_frac`` None resolves to `DENSE_FRAC`.
+    True on the CPU raises. ``dense_frac`` and ``tile_cap`` None consult
+    the tuning cache for the index's shape on the search's device and fall
+    back to `DENSE_FRAC` and no cap (`tune.cache.resolved`), as the JAX
+    package's `search` does.
     ``obs=True`` (per-call spans) raises until `obs/trace.py` is ported.
     """
 
@@ -147,7 +151,20 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
                      meta.n_blocks))
     budget2 = int(min(cfg.budget2 if cfg.budget2 is not None else budget,
                       meta.n_blocks))
-    dense_frac = DENSE_FRAC if cfg.dense_frac is None else cfg.dense_frac
+    # the tuned fused-tile knobs: explicit values win; None consults the
+    # tuning cache for this index's shape key on this device, the
+    # hand-picked defaults on a miss
+    dense_frac, tile_cap = cfg.dense_frac, cfg.tile_cap
+    if cfg.mode == "two_phase" and cfg.verification == "fused" and (
+            dense_frac is None or tile_cap is None):
+        tuned = tune_cache.resolved("runtime", meta.n, meta.d, device=dev)
+        if dense_frac is None:
+            dense_frac = float(tuned.get("dense_frac", DENSE_FRAC))
+        if tile_cap is None:
+            tc = tuned.get("tile_cap")
+            tile_cap = int(tc) if tc is not None else None
+    elif dense_frac is None:
+        dense_frac = DENSE_FRAC
     q = _queries(queries, meta, dev)
     if cfg.verification == "batched":
         ids, _, stats = _search_batch_batched(
@@ -159,7 +176,7 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
             norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
             use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
             prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
-            tile_cap=cfg.tile_cap)
+            tile_cap=tile_cap)
     scores = _rescore(arrays.x, stats.rows, q)
     return ids, scores, stats
 

@@ -1,7 +1,7 @@
-// One-token GQA attention against a KV cache on Hopper (sm_90a), split over
-// the cache length (flash-decoding):
+// One-token GQA attention against a KV cache on Hopper (sm_90a), in one
+// launch:
 //   out[b, kh, g] = softmax_t(<q[b, kh, g], k[b, t, kh]> / sqrt(dh)) . v[b, t, kh]
-// over t < cache_len[b]; positions at or beyond it are masked with -1e30, so
+// over t < cache_len[b]; positions at or beyond it are masked, so
 // cache_len = 0 gives the mean of V over all S positions.
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (Pallas
@@ -11,219 +11,652 @@
 // of every decode step calls.
 //
 // What bounds it: each (b, kh) pair reads its cache rows below cache_len once
-// (2 * n_b * dh f32 for K and V) and does about 4 * dh operations per
-// (position, query row); with G = 8 query rows per KV head that is 8 flops per
-// byte read, far below the card's 20 fp32 flops per byte: bound by bytes. At
-// the serve shape (B = 4, KH = 4, G = 8, dh = 64, S = 512) the cache of one
-// layer is 4 MB, at the decode_32k shape (B = 8, S = 32,768) 537 MB.
+// (2 * n_b * dh f32 for K and V) and does 4 * dh operations per (position,
+// query row); with G = 8 query rows per KV head that is 4 flops per byte
+// read, far below the card's 20 fp32 flops per byte: bound by bytes.
 //
 // What the design does about it:
-//  * The TPU grid's in-order carry does not translate: one CTA per (b, kh)
-//    would leave 116 of the 132 SMs idle at B * KH = 16. So S is split into
-//    chunks, one CTA per (chunk, b, kh); each keeps a partial (m, l, acc)
-//    over its chunk, and a second small kernel merges the partials.
-//  * A CTA holds the G query rows of one KV head, one warp per row, and
-//    loads each K/V tile of 64 positions into shared memory once for all G
-//    rows (16-byte global loads, one row of dh floats per position).
-//  * A chunk stops at cache_len[b]: positions beyond it are never read, and
-//    a chunk wholly beyond it writes an empty partial (m = -inf, l = 0).
-//    For cache_len = 0 every position is masked alike, so the kernel reads
-//    all S positions with equal scores (q taken as 0), which is what the
-//    masked softmax gives.
-// Scores use q pre-scaled by 1/sqrt(dh) and fmaf in depth order; the online
-// softmax uses expf (not the fast intrinsic).
+//  * Work in proportion to the cached rows, split evenly. A row is (b, kh,
+//    group of up to 8 query rows); its tiles cover [0, min(cache_len, S)).
+//    Every CTA of a persistent grid (as many as fit the card, at most the
+//    tiles the shapes allow) derives the tile sequence from cache_len on the
+//    device (a prefix sum over B in shared memory) and takes one contiguous
+//    range of it, the same number of tiles for every CTA to within one. A
+//    range may hold the end of one row, whole rows and the start of another:
+//    each (row, CTA) piece is a segment. Positions at or past cache_len are
+//    never read: a ragged tile's tail is zero-filled by cp.async.
+//  * Pipelined tiles. A tile is 16 KB of K and 16 KB of V (4096 / dh
+//    positions); a ring of STAGES tiles is filled by 16-byte cp.async.cg
+//    copies, two tiles ahead, across segment boundaries, so a segment's
+//    epilogue runs while the next segment's first tiles load. K is stored
+//    row-major with its 16-byte chunks XOR-swizzled by position, which makes
+//    the score reads conflict-free; V is read along rows and needs none.
+//  * Shared memory read once per tile. All query rows of a row share the
+//    tile: for the scores a thread holds one position x 16 depths x all of
+//    them (q broadcast from shared memory) and the partial dots are
+//    reduce-scattered over the position's lanes; for P.V a thread holds one
+//    16-byte column chunk x up to 4 rows for a fixed set of positions,
+//    reading the probabilities from shared memory (16 accumulators, so two
+//    CTAs fit an SM at 128 registers without a spill). fp32 fmaf and expf
+//    throughout (no TF32, no tensor cores).
+//  * One launch. A segment that is a whole row writes its output; any other
+//    writes a partial (m, l, acc) to slot row + CTA (unique: along the tile
+//    sequence either the row or the CTA advances), and the CTA that
+//    finishes a row's last segment (a ticket per row, atomicAdd after a
+//    __threadfence) merges the row's partials in CTA order and resets the
+//    ticket for the next call. Every sum runs in an order fixed by the
+//    shapes, cache_len and the grid, so two calls on the same input are
+//    equal bit for bit, and the launcher keeps no state that depends on
+//    device values, so a CUDA graph can capture it.
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "launch_cache.cuh"
 
 namespace {
 
-constexpr int TILE = 64;  // cache positions per shared-memory tile
+constexpr int NT = 256;             // threads per CTA
+constexpr int NWARPS = NT / 32;
+constexpr int STAGES = 3;           // tiles in the cp.async ring
+constexpr int AHEAD = STAGES - 1;   // tiles in flight ahead of the one computed
+constexpr int QBUF = STAGES;        // q buffers: segments live at once at most
+constexpr int TILE_FLOATS = 4096;   // floats of one K (or V) tile: 16 KB
+constexpr int GROUP_MAX = 8;        // query rows per row at most
+constexpr int B_MAX = 4096;         // sequences (the prefix sum is in shared memory)
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// grid (splits, B * KH), block 32 * G threads (warp g owns query row g).
-// part_m / part_l: (splits, B, KH, G); part_acc: (splits, B, KH, G, DH).
 template <int DH>
-__global__ void __launch_bounds__(1024)
-    da_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ lens,
-                    float* __restrict__ part_m, float* __restrict__ part_l,
-                    float* __restrict__ part_acc, int B, int S, int KH, int G, int chunk,
-                    float scale) {
-  constexpr int PER = DH / 32;   // output dims per lane
-  constexpr int KS = DH + 1;     // padded K row: lane t reads row t conflict-free
-  extern __shared__ float smem[];
-  float* qs = smem;              // G * DH
-  float* ks = qs + G * DH;       // TILE * KS
-  float* vs = ks + TILE * KS;    // TILE * DH (16-byte aligned: G*DH, TILE*KS are multiples of 4)
-  const int j = blockIdx.x, bh = blockIdx.y, b = bh / KH, kh = bh % KH;
-  const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int len = lens[b];
-  const bool empty = len <= 0;
-  const int n = empty ? S : min(len, S);
-  const int start = j * chunk, end = min(start + chunk, n);
-  const size_t row = (size_t)bh * G + g;                   // (b, kh, g)
-  const size_t part = (size_t)j * B * KH * G + row;        // (j, b, kh, g)
-  if (start >= end) {  // uniform over the block: the whole chunk is masked
-    part_m[part] = -INFINITY;
-    part_l[part] = 0.f;
+struct Geo {
+  static constexpr int T = TILE_FLOATS / DH;  // positions per tile: 128, 64, 32
+  static constexpr int C4 = DH / 4;           // 16-byte chunks per cache row
+  static constexpr int DQ = NT / T;           // score lanes per position: 2, 4, 8
+  static constexpr int JQ = C4 / DQ;          // chunks per score lane: 4
+  static constexpr int R = 8 / DQ;            // positions per quarter warp
+  static constexpr int LQ = NT / C4;          // loader rows per pass
+  static constexpr int LP = T / LQ;           // loader passes: 4
+  static_assert(LQ % R == 0, "the loader's swizzle must not depend on its pass");
+};
+
+// The P.V split of a tile over the CTA: a thread holds one 16-byte column
+// chunk x GR query rows (the rows cut in RS sets, so that a thread holds at
+// most 16 accumulators) for PP positions, one of PQ position groups.
+template <int DH, int GB>
+struct PvGeo {
+  static constexpr int RS = GB >= 4 ? GB / 4 : 1;
+  static constexpr int GR = GB / RS;
+  static constexpr int PQ = NT / (Geo<DH>::C4 * RS);
+  static constexpr int PP = Geo<DH>::T / PQ;
+};
+
+// Shared-memory layout in floats. One ring slot is free while its tile's
+// segment ends (the loader is AHEAD tiles ahead), so the epilogue reduces
+// through it.
+template <int DH, int GB>
+struct Smem {
+  static constexpr int RING = STAGES * 2 * TILE_FLOATS;
+  static constexpr int Q = RING;                              // QBUF * GB * DH
+  static constexpr int S = Q + QBUF * GB * DH;                // T * GB scores
+  static constexpr int WMAX = S + Geo<DH>::T * GB;            // NWARPS * GB
+  static constexpr int MBUF = WMAX + NWARPS * GB;             // 2 * GB
+  static constexpr int ALPHA = MBUF + 2 * GB;                 // GB
+  static constexpr int LS = ALPHA + GB;                       // GB
+  static constexpr int RED_L = LS + GB;                       // NT
+  static constexpr int INTS = RED_L + NT;                     // 2 B + 2 ints
+  static_assert(PvGeo<DH, GB>::PQ * GB * DH <= 2 * TILE_FLOATS, "reduction exceeds a ring slot");
+  static size_t bytes(int B) { return sizeof(float) * (size_t)INTS + sizeof(int) * (2 * B + 2); }
+};
+
+struct Params {
+  const float* q;       // (B, KH, G, DH)
+  const float* k;       // (B, S, KH, DH)
+  const float* v;       // (B, S, KH, DH)
+  const int* lens;      // (B,)
+  float* part_acc;      // (slots, GB, DH)
+  float* part_ml;       // (slots, 2, GB): m then l
+  int* tickets;         // (rows,), zero between calls
+  float* out;           // (B, KH, G, DH)
+  int B, S, KH, G, n_rg;
+  float scale;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;  // 0: no global read, the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Sum the N partial dots in `sc` over the DQ lanes of a position. While
+// N > 1 each step halves the rows a lane keeps (the lane with bit LVL set
+// keeps the upper half; `rbase` tracks the first kept row); once a lane
+// keeps one row the remaining steps all-reduce it. Either way every kept
+// row ends as the same sum in every lane that keeps it.
+template <int N, int LVL, int DQ>
+__device__ __forceinline__ void reduce_scatter(float* sc, int dq, int& rbase) {
+  if constexpr (LVL < DQ) {
+    if constexpr (N > 1) {
+      constexpr int H = N / 2;
+      const bool up = (dq & LVL) != 0;
 #pragma unroll
-    for (int i = 0; i < PER; ++i) part_acc[part * DH + lane + 32 * i] = 0.f;
-    return;
+      for (int i = 0; i < H; ++i) {
+        const float send = up ? sc[i] : sc[i + H];
+        const float keep = up ? sc[i + H] : sc[i];
+        sc[i] = keep + __shfl_xor_sync(FULL, send, LVL);
+      }
+      if (up) rbase += H;
+      reduce_scatter<H, LVL * 2, DQ>(sc, dq, rbase);
+    } else {
+      sc[0] += __shfl_xor_sync(FULL, sc[0], LVL);
+      reduce_scatter<1, LVL * 2, DQ>(sc, dq, rbase);
+    }
   }
-  for (int i = threadIdx.x; i < G * DH; i += blockDim.x)
-    qs[i] = empty ? 0.f : q[(size_t)bh * G * DH + i] * scale;
-  const size_t pos_stride = (size_t)KH * DH;  // floats between cache positions
-  const float* kb = k + ((size_t)b * S * KH + kh) * DH;
-  const float* vb = v + ((size_t)b * S * KH + kh) * DH;
-  float m = -INFINITY, l = 0.f, acc[PER];
+}
+
+// A position in the tile sequence: sequence b, row rloc of b (kh * n_rg +
+// row group), tile t of the row, which has nt tiles.
+struct Cursor {
+  int b, rloc, t, nt;
+  __device__ __forceinline__ void advance(const int* offs, int rows_b) {
+    if (++t < nt) return;
+    t = 0;
+    if (++rloc < rows_b) return;
+    rloc = 0;
+    ++b;
+    nt = (offs[b + 1] - offs[b]) / rows_b;
+  }
+};
+
+template <int DH, int GB>
+__global__ void __launch_bounds__(NT, 2) da_kernel(const Params p) {
+  using Gm = Geo<DH>;
+  using Sm = Smem<DH, GB>;
+  constexpr int T = Gm::T, C4 = Gm::C4, DQ = Gm::DQ, JQ = Gm::JQ, R = Gm::R;
+  constexpr int LQ = Gm::LQ, LP = Gm::LP;
+  constexpr int RS = PvGeo<DH, GB>::RS, GR = PvGeo<DH, GB>::GR;
+  constexpr int PQ = PvGeo<DH, GB>::PQ, PP = PvGeo<DH, GB>::PP;
+  constexpr int NOWN = GB >= DQ ? GB / DQ : 1;  // rows a score lane keeps
+  extern __shared__ __align__(16) float smem[];
+  float* s_s = smem + Sm::S;        // [t][g]: scores, then probabilities
+  float* wmax = smem + Sm::WMAX;    // [warp][g]: the tile's max per warp
+  float* m_buf = smem + Sm::MBUF;   // [2][g]: the running max, double-buffered
+  float* alpha_s = smem + Sm::ALPHA;
+  float* l_s = smem + Sm::LS;
+  float* red_l = smem + Sm::RED_L;
+  int* offs = reinterpret_cast<int*>(smem + Sm::INTS);  // B + 1 tile offsets
+  int* nlen = offs + p.B + 1;                            // B cached rows per sequence
+  int* last_flag = nlen + p.B;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rows_b = p.KH * p.n_rg;  // rows per sequence
+
+  // -- the tile sequence: sequence b owns tiles [offs[b], offs[b + 1])
+  for (int b = tid; b < p.B; b += NT) {
+    const int len = p.lens[b];
+    const int n = (len <= 0 || len > p.S) ? p.S : len;
+    nlen[b] = len <= 0 ? -n : n;  // negative: every score is equal (cache_len <= 0)
+    offs[b + 1] = (n + T - 1) / T * rows_b;
+  }
+  if (tid == 0) offs[0] = 0;
+  __syncthreads();
+  if (warp == 0) {
+    const int per = (p.B + 31) / 32;
+    const int lo = 1 + lane * per, hi = min(lo + per, p.B + 1);
+    int sum = 0;
+    for (int i = lo; i < hi; ++i) sum += offs[i];
+    int incl = sum;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  for (int t0 = start; t0 < end; t0 += TILE) {
-    const int nt = min(TILE, end - t0);
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int idx = threadIdx.x; idx < nt * (DH / 4); idx += blockDim.x) {
-      const int r = idx / (DH / 4), c4 = idx % (DH / 4);
-      const size_t off = (size_t)(t0 + r) * pos_stride;
-      const float4 kv = reinterpret_cast<const float4*>(kb + off)[c4];
-      const float4 vv = reinterpret_cast<const float4*>(vb + off)[c4];
-      float* kr = ks + r * KS + 4 * c4;
-      kr[0] = kv.x; kr[1] = kv.y; kr[2] = kv.z; kr[3] = kv.w;
-      reinterpret_cast<float4*>(vs + r * DH)[c4] = vv;
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += y;
+    }
+    int run = incl - sum;
+    for (int i = lo; i < hi; ++i) {
+      run += offs[i];
+      offs[i] = run;
+    }
+  }
+  __syncthreads();
+  // every CTA below `grid` gets at least one tile, so the CTAs that share a
+  // row are consecutive and all write partials
+  const long long total = offs[p.B];
+  const int grid = (int)min((long long)gridDim.x, total);
+  if ((int)blockIdx.x >= grid) return;  // uniform over the CTA
+  const int g_lo = (int)(total * blockIdx.x / grid);
+  const int steps = (int)(total * (blockIdx.x + 1) / grid) - g_lo;
+  // the CTA whose range holds tile g
+  auto cta_of = [&](long long g) { return (int)(((g + 1) * grid - 1) / total); };
+
+  Cursor cur;  // the tile computed
+  {
+    int lo = 0, hi = p.B;  // offs[lo] <= g_lo < offs[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (offs[mid] <= g_lo) lo = mid; else hi = mid;
+    }
+    cur.b = lo;
+    cur.nt = (offs[lo + 1] - offs[lo]) / rows_b;
+    const int local = g_lo - offs[lo];
+    cur.rloc = local / cur.nt;
+    cur.t = local % cur.nt;
+  }
+  // loader rows lq + i * LQ and 16-byte column lc
+  const int lq = tid / C4, lc = tid % C4;
+  const int ld_soff = 4 * (lq * C4 + (lc ^ ((lq % R) * DQ)));  // swizzled K chunk
+  const size_t pos_stride = (size_t)p.KH * DH;
+
+  // load tile `step` at cursor `ld`, the start of segment `ls` or inside it
+  auto load_tile = [&](int step, const Cursor& ld, int ls) {
+    const int slot = step % STAGES;
+    float* ks = smem + slot * 2 * TILE_FLOATS;
+    float* vs = ks + TILE_FLOATS;
+    const int kh = ld.rloc / p.n_rg;
+    const int n = abs(nlen[ld.b]);
+    const int t0 = ld.t * T;
+    const int nv = min(T, n - t0);
+    const size_t base = ((size_t)ld.b * p.S + t0 + lq) * pos_stride + (size_t)kh * DH + 4 * lc;
+#pragma unroll
+    for (int i = 0; i < LP; ++i) {
+      const int r = lq + i * LQ;
+      const bool ok = r < nv;
+      const size_t off = ok ? base + (size_t)i * LQ * pos_stride : 0;
+      cp_async16(ks + ld_soff + i * LQ * DH, p.k + off, ok);
+      cp_async16(vs + 4 * (r * C4 + lc), p.v + off, ok);
+    }
+    if (ld.t == 0 || step == 0) {  // a segment starts: its query rows
+      float* qs = smem + Sm::Q + (ls % QBUF) * GB * DH;
+      const int g0 = (ld.rloc % p.n_rg) * GB;
+      const int gn = min(GB, p.G - g0);
+      const float* qrow = p.q + (((size_t)ld.b * p.KH + kh) * p.G + g0) * DH;
+      for (int i = tid; i < GB * C4; i += NT) {
+        const bool ok = i / C4 < gn;
+        cp_async16(qs + 4 * i, ok ? qrow + 4 * i : p.q, ok);
+      }
+    }
+  };
+  {
+    Cursor ld = cur;
+    int ls = 0;
+#pragma unroll
+    for (int s = 0; s < AHEAD; ++s) {
+      if (s < steps) {
+        if (s > 0) {
+          ld.advance(offs, rows_b);
+          ls += ld.t == 0;
+        }
+        load_tile(s, ld, ls);
+      }
+      cp_async_commit();
+    }
+  }
+
+  // score lanes: position sp of the tile, depth lane dq
+  const int sp = tid / DQ, dq = tid % DQ;
+  const int swz = (sp % R) * DQ;
+  const int eg = tid % GB;  // the query row of this thread's probabilities
+  // P.V: position group pq, column chunk dc, query rows gh * GR ...
+  const int gh = tid % RS, dc = tid / RS % C4, pq = tid / (RS * C4);
+  float acc[GR][4];  // zero at every segment's start (reset by the epilogue)
+#pragma unroll
+  for (int g = 0; g < GR; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+  float lsum = 0.f;
+  int seg = -1;
+
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<AHEAD - 1>();
+    __syncthreads();  // tile `step` landed; the previous tile is consumed
+    const bool first = cur.t == 0 || step == 0;
+    const bool last = cur.t == cur.nt - 1 || step == steps - 1;
+    if (first) ++seg;
+    if (step + AHEAD < steps) {  // the loader's cursor and segment, AHEAD tiles on
+      Cursor ld = cur;
+      int ls = seg;
+#pragma unroll
+      for (int j = 0; j < AHEAD; ++j) {
+        ld.advance(offs, rows_b);
+        ls += ld.t == 0;
+      }
+      load_tile(step + AHEAD, ld, ls);
+    }
+    cp_async_commit();
+    const int slot = step % STAGES;
+    const float* ks = smem + slot * 2 * TILE_FLOATS;
+    const float* vs = ks + TILE_FLOATS;
+    const float* q_s = smem + Sm::Q + (seg % QBUF) * GB * DH;
+    const int n = nlen[cur.b];
+    const int nv = min(T, abs(n) - cur.t * T);
+    const float qscale = n < 0 ? 0.f : p.scale;  // cache_len <= 0: equal scores
+
+    // -- scores of position sp for all GB rows over this lane's depths
+    float sc[GB];
+#pragma unroll
+    for (int g = 0; g < GB; ++g) sc[g] = 0.f;
+    const float* kr = ks + sp * DH;
+#pragma unroll
+    for (int jj = 0; jj < JQ; ++jj) {
+      const int c = jj * DQ + dq;
+      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * (c ^ swz));
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const float4 qv = *reinterpret_cast<const float4*>(q_s + g * DH + 4 * c);
+        sc[g] = fmaf(qv.x, kv.x, sc[g]);
+        sc[g] = fmaf(qv.y, kv.y, sc[g]);
+        sc[g] = fmaf(qv.z, kv.z, sc[g]);
+        sc[g] = fmaf(qv.w, kv.w, sc[g]);
+      }
+    }
+    int rbase = 0;
+    reduce_scatter<GB, 1, DQ>(sc, dq, rbase);
+    float mx[NOWN];
+#pragma unroll
+    for (int i = 0; i < NOWN; ++i) {
+      // a zero-filled position past cache_len is masked
+      sc[i] = sp < nv ? sc[i] * qscale : -INFINITY;
+      mx[i] = sc[i];
+    }
+#pragma unroll
+    for (int o = DQ; o < 32; o <<= 1)
+#pragma unroll
+      for (int i = 0; i < NOWN; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], o));
+    if (dq < GB) {
+#pragma unroll
+      for (int i = 0; i < NOWN; ++i) {
+        s_s[sp * GB + rbase + i] = sc[i];
+        if (lane < DQ) wmax[warp * GB + rbase + i] = mx[i];
+      }
     }
     __syncthreads();
-    float s[TILE / 32];
-    float tmax = -INFINITY;
+
+    // -- online softmax: the new max, the rescale, the probabilities
+    {
+      const float m_old = first ? -INFINITY : m_buf[(step & 1) * GB + eg];
+      float m_new = m_old;
 #pragma unroll
-    for (int u = 0; u < TILE / 32; ++u) {
-      const int t = lane + 32 * u;
-      float dot = -INFINITY;
-      if (t < nt) {
-        dot = 0.f;
-        const float* qr = qs + g * DH;
-        const float* kr = ks + t * KS;
-#pragma unroll 16
-        for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], kr[d], dot);
+      for (int w = 0; w < NWARPS; ++w) m_new = fmaxf(m_new, wmax[w * GB + eg]);
+      const float alpha = expf(m_old - m_new);  // 0 on a segment's first tile
+      float ps = 0.f;
+      for (int e = tid; e < T * GB; e += NT) {
+        const float pe = expf(s_s[e] - m_new);
+        s_s[e] = pe;
+        ps += pe;
       }
-      s[u] = dot;
-      tmax = fmaxf(tmax, dot);
-    }
-    const float m_new = fmaxf(m, warp_max(tmax));
-    const float alpha = expf(m - m_new);   // 0 on the first tile (m = -inf)
-    float psum = 0.f;
-#pragma unroll
-    for (int u = 0; u < TILE / 32; ++u) {
-      s[u] = (lane + 32 * u < nt) ? expf(s[u] - m_new) : 0.f;
-      psum += s[u];
-    }
-    l = alpha * l + warp_sum(psum);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int u = 0; u < TILE / 32; ++u) {
-      const int tmax_u = min(32, nt - 32 * u);
-      for (int src = 0; src < tmax_u; ++src) {
-        const float p = __shfl_sync(0xffffffffu, s[u], src);
-        const float* vr = vs + (32 * u + src) * DH;
-#pragma unroll
-        for (int i = 0; i < PER; ++i) acc[i] = fmaf(p, vr[lane + 32 * i], acc[i]);
+      lsum = fmaf(alpha, lsum, ps);
+      if (tid < GB) {
+        m_buf[((step + 1) & 1) * GB + tid] = m_new;
+        alpha_s[tid] = alpha;
       }
     }
-    m = m_new;
-  }
-  if (lane == 0) {
-    part_m[part] = m;
-    part_l[part] = l;
-  }
+    __syncthreads();
+
+    // -- P.V for this thread's column chunk and rows over its positions
+    {
+      float a[GR];
+      bool rescale = false;
 #pragma unroll
-  for (int i = 0; i < PER; ++i) part_acc[part * DH + lane + 32 * i] = acc[i];
+      for (int g = 0; g < GR; ++g) {
+        a[g] = alpha_s[gh * GR + g];
+        rescale |= a[g] != 1.f;
+      }
+      if (rescale) {
+#pragma unroll
+        for (int g = 0; g < GR; ++g)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[g][c] *= a[g];
+      }
+#pragma unroll 2  // fully unrolled, the GB = 8 kernels spill at 128 registers
+      for (int i = 0; i < PP; ++i) {
+        const int t = pq + i * PQ;
+        const float4 vv = *reinterpret_cast<const float4*>(vs + t * DH + 4 * dc);
+        float pr[GR];
+        if constexpr (GR == 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(s_s + t * GB + gh * GR);
+          pr[0] = p4.x; pr[1] = p4.y; pr[2] = p4.z; pr[3] = p4.w;
+        } else {
+#pragma unroll
+          for (int g = 0; g < GR; ++g) pr[g] = s_s[t * GB + g];
+        }
+#pragma unroll
+        for (int g = 0; g < GR; ++g) {
+          acc[g][0] = fmaf(pr[g], vv.x, acc[g][0]);
+          acc[g][1] = fmaf(pr[g], vv.y, acc[g][1]);
+          acc[g][2] = fmaf(pr[g], vv.z, acc[g][2]);
+          acc[g][3] = fmaf(pr[g], vv.w, acc[g][3]);
+        }
+      }
+    }
+
+    if (last) {
+      // -- the segment ends: reduce over the P.V position groups through
+      // this tile's ring slot (the loader refills it only after the next
+      // step's barrier) and over the softmax sums
+      __syncthreads();  // every thread is done with the slot's V
+      float* red = smem + slot * 2 * TILE_FLOATS;
+#pragma unroll
+      for (int g = 0; g < GR; ++g)
+        *reinterpret_cast<float4*>(red + (pq * GB + gh * GR + g) * DH + 4 * dc) =
+            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
+      red_l[tid] = lsum;
+#pragma unroll
+      for (int g = 0; g < GR; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
+      lsum = 0.f;
+      __syncthreads();
+      if (tid < GB) {
+        float l = 0.f;
+        for (int i = tid; i < NT; i += GB) l += red_l[i];
+        l_s[tid] = l;
+      }
+      __syncthreads();
+      const int kh = cur.rloc / p.n_rg, g0 = (cur.rloc % p.n_rg) * GB;
+      const int gn = min(GB, p.G - g0);
+      const int row = cur.b * rows_b + cur.rloc;
+      const long long row_tile0 = offs[cur.b] + (long long)cur.rloc * cur.nt;
+      const int c_first = cta_of(row_tile0), c_last = cta_of(row_tile0 + cur.nt - 1);
+      float* orow = p.out + (((size_t)cur.b * p.KH + kh) * p.G + g0) * DH;
+      if (c_first == c_last) {  // the whole row: normalize and write the output
+        for (int o = tid; o < gn * DH; o += NT) {
+          const int g = o / DH, d = o % DH;
+          float s = 0.f;
+          for (int t = 0; t < PQ; ++t) s += red[(t * GB + g) * DH + d];
+          orow[o] = s / fmaxf(l_s[g], 1e-30f);
+        }
+      } else {
+        const size_t slot_p = (size_t)row + blockIdx.x;
+        for (int o = tid; o < GB * DH; o += NT) {
+          const int g = o / DH, d = o % DH;
+          float s = 0.f;
+          for (int t = 0; t < PQ; ++t) s += red[(t * GB + g) * DH + d];
+          p.part_acc[slot_p * GB * DH + o] = s;
+        }
+        if (tid < GB) {
+          p.part_ml[slot_p * 2 * GB + tid] = m_buf[((step + 1) & 1) * GB + tid];
+          p.part_ml[slot_p * 2 * GB + GB + tid] = l_s[tid];
+        }
+        __threadfence();
+        __syncthreads();
+        if (tid == 0) {
+          const int done = atomicAdd(p.tickets + row, 1);
+          const bool fin = done == c_last - c_first;
+          if (fin) p.tickets[row] = 0;  // every segment has counted: ready for the next call
+          *last_flag = fin;
+        }
+        __syncthreads();
+        if (*last_flag) {
+          // -- the row's last segment: merge its partials in CTA order. SETS
+          // thread sets each fold a contiguous run of them with an online
+          // rescale (one pass over device memory), then the runs are folded
+          // in set order.
+          __threadfence();
+          const int nc = c_last - c_first + 1;
+          const float* pm = p.part_ml + ((size_t)row + c_first) * 2 * GB;  // [c][m, l][g]
+          constexpr int O4 = GB * C4, SETS = NT / O4 > 0 ? NT / O4 : 1;
+          const int o4 = tid % O4, set = tid / O4, g = o4 / C4;
+          float4* red4 = reinterpret_cast<float4*>(red);        // [set][o4]
+          float2* red_ml = reinterpret_cast<float2*>(red4 + SETS * O4);
+          if (set < SETS) {
+            const int per = (nc + SETS - 1) / SETS;
+            const int lo = min(nc, set * per), hi = min(nc, lo + per);
+            const float4* pa =
+                reinterpret_cast<const float4*>(p.part_acc) + ((size_t)row + c_first) * O4 + o4;
+            float m = -INFINITY, l = 0.f;
+            float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+            for (int c = lo; c < hi; ++c) {
+              const float mc = __ldcg(pm + c * 2 * GB + g);
+              const float lc = __ldcg(pm + c * 2 * GB + GB + g);
+              const float4 x = __ldcg(pa + (size_t)c * O4);
+              const float mn = fmaxf(m, mc);
+              const float a = expf(m - mn), w = expf(mc - mn);
+              l = fmaf(a, l, w * lc);
+              acc4.x = fmaf(a, acc4.x, w * x.x);
+              acc4.y = fmaf(a, acc4.y, w * x.y);
+              acc4.z = fmaf(a, acc4.z, w * x.z);
+              acc4.w = fmaf(a, acc4.w, w * x.w);
+              m = mn;
+            }
+            red4[set * O4 + o4] = acc4;
+            red_ml[set * O4 + o4] = make_float2(m, l);
+          }
+          __syncthreads();
+          if (tid < O4 && g < gn) {
+            float mm = -INFINITY;
+            for (int k = 0; k < SETS; ++k) mm = fmaxf(mm, red_ml[k * O4 + o4].x);
+            float l = 0.f;
+            float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
+            for (int k = 0; k < SETS; ++k) {
+              const float2 ml = red_ml[k * O4 + o4];
+              const float w = expf(ml.x - mm);  // 0 for an empty run
+              const float4 x = red4[k * O4 + o4];
+              l = fmaf(w, ml.y, l);
+              acc4.x = fmaf(w, x.x, acc4.x);
+              acc4.y = fmaf(w, x.y, acc4.y);
+              acc4.z = fmaf(w, x.z, acc4.z);
+              acc4.w = fmaf(w, x.w, acc4.w);
+            }
+            const float iv = 1.f / fmaxf(l, 1e-30f);
+            reinterpret_cast<float4*>(orow)[o4] =
+                make_float4(acc4.x * iv, acc4.y * iv, acc4.z * iv, acc4.w * iv);
+          }
+        }
+      }
+    }
+    cur.advance(offs, rows_b);
+  }
+  cp_async_wait<0>();  // leave no copy in flight at exit
 }
 
-// grid (B * KH), block 32 * G: merge the splits' partials of each row.
-template <int DH>
-__global__ void __launch_bounds__(1024)
-    da_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                    const float* __restrict__ part_acc, float* __restrict__ out, int rows,
-                    int G, int splits) {
-  constexpr int PER = DH / 32;
-  const int lane = threadIdx.x & 31;
-  const size_t row = (size_t)blockIdx.x * G + (threadIdx.x >> 5);
-  float ms = -INFINITY;
-  for (int j = 0; j < splits; ++j) ms = fmaxf(ms, part_m[(size_t)j * rows + row]);
-  float l = 0.f, acc[PER];
-#pragma unroll
-  for (int i = 0; i < PER; ++i) acc[i] = 0.f;
-  for (int j = 0; j < splits; ++j) {
-    const size_t p = (size_t)j * rows + row;
-    const float mj = part_m[p];
-    if (mj == -INFINITY) continue;  // an empty chunk
-    const float w = expf(mj - ms);
-    l = fmaf(w, part_l[p], l);
-#pragma unroll
-    for (int i = 0; i < PER; ++i) acc[i] = fmaf(w, part_acc[p * DH + lane + 32 * i], acc[i]);
-  }
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < PER; ++i) out[row * DH + lane + 32 * i] = acc[i] * inv;
+int group_rows(int G) { return G > 4 ? GROUP_MAX : G > 2 ? 4 : G; }
+
+bool valid_shape(int B, int S, int KH, int G, int DH) {
+  if (B < 1 || B > B_MAX || S < 1 || KH < 1 || G < 1 || G > 32 ||
+      (DH != 32 && DH != 64 && DH != 128))
+    return false;
+  const int gb = group_rows(G), t = TILE_FLOATS / DH;
+  // tile indices and output offsets are ints
+  return (long long)B * KH * ((G + gb - 1) / gb) * ((S + t - 1) / t) < (1LL << 31) &&
+         (long long)B * KH * G * DH < (1LL << 31);
+}
+
+// The grid: as many CTAs as fit the card at once, at most one per tile the
+// shapes allow. A function of the shapes and the device only.
+template <int DH, int GB>
+cudaError_t plan(int B, int S, int KH, int G, int* grid, int* smem) {
+  static LaunchCache cache;
+  *smem = static_cast<int>(Smem<DH, GB>::bytes(B));
+  int blocks = 0;
+  const cudaError_t e = resident_blocks(cache, da_kernel<DH, GB>, NT, *smem, &blocks);
+  if (e != cudaSuccess) return e;
+  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  const int t = Geo<DH>::T;
+  const long long tiles = (long long)B * KH * ((G + GB - 1) / GB) * ((S + t - 1) / t);
+  *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
+  return cudaSuccess;
 }
 
 template <int DH>
-int launch(const float* q, const float* k, const float* v, const int* lens, float* part_m,
-           float* part_l, float* part_acc, float* out, int B, int S, int KH, int G,
-           int splits, int chunk, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)G * DH + TILE * (DH + 1) + TILE * DH);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        da_split_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
+cudaError_t plan_dh(int B, int S, int KH, int G, int* grid, int* smem) {
+  switch (group_rows(G)) {
+    case 1: return plan<DH, 1>(B, S, KH, G, grid, smem);
+    case 2: return plan<DH, 2>(B, S, KH, G, grid, smem);
+    case 4: return plan<DH, 4>(B, S, KH, G, grid, smem);
+    default: return plan<DH, 8>(B, S, KH, G, grid, smem);
   }
-  da_split_kernel<DH><<<dim3(splits, B * KH), 32 * G, smem, stream>>>(
-      q, k, v, lens, part_m, part_l, part_acc, B, S, KH, G, chunk, scale);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  da_merge_kernel<DH><<<B * KH, 32 * G, 0, stream>>>(part_m, part_l, part_acc, out,
-                                                    B * KH * G, G, splits);
-  return static_cast<int>(cudaGetLastError());
+}
+
+cudaError_t make_plan(int B, int S, int KH, int G, int DH, int* grid, int* smem) {
+  if (!valid_shape(B, S, KH, G, DH)) return cudaErrorInvalidValue;
+  switch (DH) {
+    case 32: return plan_dh<32>(B, S, KH, G, grid, smem);
+    case 64: return plan_dh<64>(B, S, KH, G, grid, smem);
+    default: return plan_dh<128>(B, S, KH, G, grid, smem);
+  }
+}
+
+template <int DH>
+void launch_dh(const Params& p, int gb, int grid, int smem, cudaStream_t stream) {
+  switch (gb) {
+    case 1: da_kernel<DH, 1><<<grid, NT, smem, stream>>>(p); break;
+    case 2: da_kernel<DH, 2><<<grid, NT, smem, stream>>>(p); break;
+    case 4: da_kernel<DH, 4><<<grid, NT, smem, stream>>>(p); break;
+    default: da_kernel<DH, 8><<<grid, NT, smem, stream>>>(p); break;
+  }
 }
 
 }  // namespace
 
+// Floats of partial-state scratch a call needs, (rows + grid) slots of
+// GB * (DH + 2), or -1 for shapes the kernel does not take (or a runtime
+// error). A function of the shapes and the current device only, so the
+// scratch can be allocated without a host sync.
+extern "C" long long decode_attention_scratch_floats(int B, int S, int KH, int G, int DH) {
+  int grid = 0, smem = 0;
+  if (make_plan(B, S, KH, G, DH, &grid, &smem) != cudaSuccess) return -1;
+  const int gb = group_rows(G);
+  const long long rows = (long long)B * KH * ((G + gb - 1) / gb);
+  return (rows + grid) * gb * (DH + 2);
+}
+
 // q (B, KH, G, DH) f32; k, v (B, S, KH, DH) f32; lens (B,) i32; out (B, KH, G,
-// DH) f32. Scratch: part_m, part_l (splits, B, KH, G), part_acc (splits, B,
-// KH, G, DH) f32. Chunk j covers positions [j * chunk, (j + 1) * chunk).
-// Takes DH in {32, 64, 128} and 1 <= G <= 32. Returns the launch error, or 0.
+// DH) f32. `part` holds decode_attention_scratch_floats(...) floats; `tickets`
+// at least B * KH * G ints, all zero (the kernel leaves them zero). Takes DH in
+// {32, 64, 128}, 1 <= G <= 32 and B <= 4096. Returns the launch error, or 0.
 extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
-                                       const int* lens, float* part_m, float* part_l,
-                                       float* part_acc, float* out, int B, int S, int KH,
-                                       int G, int DH, int splits, int chunk, float scale,
+                                       const int* lens, float* part, int* tickets, float* out,
+                                       int B, int S, int KH, int G, int DH, float scale,
                                        void* stream_handle) {
-  if (B < 1 || S < 1 || KH < 1 || G < 1 || G > 32 || splits < 1 || chunk < 1 ||
-      (long long)splits * chunk < S || B * KH > 65535 || splits > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0, smem = 0;
+  const cudaError_t e = make_plan(B, S, KH, G, DH, &grid, &smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int gb = group_rows(G);
+  const size_t rows = (size_t)B * KH * ((G + gb - 1) / gb);
+  Params p;
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.lens = lens;
+  p.part_acc = part;
+  p.part_ml = part + (rows + grid) * gb * DH;
+  p.tickets = tickets;
+  p.out = out;
+  p.B = B;
+  p.S = S;
+  p.KH = KH;
+  p.G = G;
+  p.n_rg = (G + gb - 1) / gb;
+  p.scale = scale;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   switch (DH) {
-    case 32:
-      return launch<32>(q, k, v, lens, part_m, part_l, part_acc, out, B, S, KH, G, splits,
-                        chunk, scale, stream);
-    case 64:
-      return launch<64>(q, k, v, lens, part_m, part_l, part_acc, out, B, S, KH, G, splits,
-                        chunk, scale, stream);
-    case 128:
-      return launch<128>(q, k, v, lens, part_m, part_l, part_acc, out, B, S, KH, G, splits,
-                         chunk, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    case 32: launch_dh<32>(p, gb, grid, smem, stream); break;
+    case 64: launch_dh<64>(p, gb, grid, smem, stream); break;
+    default: launch_dh<128>(p, gb, grid, smem, stream); break;
   }
+  return static_cast<int>(cudaGetLastError());
 }

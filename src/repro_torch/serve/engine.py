@@ -41,7 +41,7 @@ from ..models import transformer as model_lib
 from ..obs import metrics as _metrics
 from ..robust.faultpoints import fault
 from ..robust.watchdog import EwmaWatchdog
-from ..tune.space import HAND_PICKED
+from ..tune import cache as tune_cache
 from .qcache import HotQueryCache
 
 
@@ -133,15 +133,18 @@ class DecodeEngine:
             raise ValueError(f"use_kernels=True needs the card, the engine "
                              f"runs on {self.device}")
         self.use_kernels = use_kernels
-        # the hand-picked serve knobs (the tuning cache is not ported);
-        # explicit arguments win
-        picked = HAND_PICKED["serve"]
-        if batch_slots is None:
-            batch_slots = int(picked["decode_batch_slots"])
-        if result_cache is None:
-            result_cache = int(picked["result_cache_size"])
-        if max_refill is None:
-            max_refill = picked["max_refill_per_step"]
+        if batch_slots is None or result_cache is None or max_refill is None:
+            # tuned defaults keyed on the logit index's shape (vocab,
+            # d_model) on this device; the hand-picked ones on a miss.
+            # Explicit arguments win.
+            tuned = tune_cache.resolved("serve", cfg.vocab, cfg.d_model,
+                                        device=self.device)
+            if batch_slots is None:
+                batch_slots = int(tuned["decode_batch_slots"])
+            if result_cache is None:
+                result_cache = int(tuned["result_cache_size"])
+            if max_refill is None:
+                max_refill = tuned["max_refill_per_step"]
         self.params = _to_device(params, self.device)
         self.cfg = cfg
         self.b, self.max_len = batch_slots, max_len

@@ -9,20 +9,43 @@ default, and the section of a tuning-cache entry it lands in:
   build     `api.build` / `build_index` knobs (changing one rebuilds)
   serve     `serve.engine.DecodeEngine` knobs
 
-The port has no tuning cache yet (ROADMAP Queue 1 item 10): its callers
-resolve to `HAND_PICKED`, which is what the JAX package resolves to when
-its cache holds no entry for the running platform.
+Cache entries are keyed by `shape_key(n, d, device)`: the pow2 n-bucket,
+exact d, the device (``cuda-<device name>`` or ``cpu``) and the torch
+version (`tune.cache` reads them; the tuner that writes them is ROADMAP
+Queue 1 item 10).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Tuple
+
+import torch
 
 
 def n_bucket(n: int) -> int:
     """pow2 bucketing of the corpus size (same quantizer as the fused tile
     shapes): a tuned entry covers every n in (bucket/2, bucket]."""
     return 1 << max(0, int(n) - 1).bit_length()
+
+
+def shape_key(n: int, d: int, device) -> str:
+    """Cache key for one tuning point on ``device``: the platform part is
+    ``cuda-<device name>`` for a CUDA device and ``cpu`` for the CPU, then
+    ``torch<version>``, which keeps it apart from every JAX key (those end
+    in ``jax<version>``). A cache tuned on another card or torch build
+    never matches and falls back to the hand-picked defaults."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return f"n{n_bucket(n)}:d{int(d)}:{_platform(device)}"
+
+
+@functools.lru_cache(maxsize=None)
+def _platform(device: torch.device) -> str:
+    name = (f"cuda-{torch.cuda.get_device_name(device)}"
+            if device.type == "cuda" else device.type)
+    return f"{name}:torch{torch.__version__}"
 
 
 @dataclass(frozen=True)
@@ -70,8 +93,8 @@ KNOBS: Tuple[Knob, ...] = (
          "of queue wait)"),
 )
 
-# The hand-picked defaults, by cache section (the JAX package's tuning cache
-# overlays a tuned entry on this dict; the port has no cache yet).
+# The hand-picked defaults, by cache section (`tune.cache.resolved` overlays
+# a tuned entry on this dict).
 HAND_PICKED = {
     "runtime": {"verification": "fused", "dense_frac": 0.9, "tile_cap": None,
                 "prefilter_eps": 1.0},
@@ -88,4 +111,4 @@ def knob(name: str) -> Knob:
     raise KeyError(f"unknown knob: {name!r}")
 
 
-__all__ = ["Knob", "KNOBS", "HAND_PICKED", "knob", "n_bucket"]
+__all__ = ["Knob", "KNOBS", "HAND_PICKED", "knob", "n_bucket", "shape_key"]

@@ -23,7 +23,9 @@ partial sum is exact) and within 1e-6 relative on float ones.
 `decode_attention` sums scores, the softmax and P.V in another order than
 its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
 (the output is a convex combination of V rows), with cache_len = 0 giving
-the mean of V.
+the mean of V. Its sums run in an order fixed by the inputs, so repeated
+calls are equal bit for bit; it is one CUDA launch a call and replays
+from a CUDA graph after its inputs change in place.
 """
 import numpy as np
 import pytest
@@ -345,6 +347,13 @@ def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
     (2, 1, 1, 128, 1, [1, 3]),                    # cache_len past S
     (2, 2, 32, 64, 3000, [2999, 1025]),
     (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+    (4, 4, 8, 64, 20000, [19000, 1, 0, 64]),     # one long row among short ones
+    (3, 2, 8, 64, 40000, [1, 40000, 5]),          # rows whose chunks are past cache_len
+    (2, 4, 1, 64, 9000, [9000, 4500]),            # G = 1 over many chunks
+    (2, 2, 32, 128, 5000, [5000, 2500]),          # G = 32 (four row groups), dh 128
+    (2, 2, 3, 32, 3000, [2999, 700]),             # G = 3 (a padded row group), dh 32
+    (2, 1, 12, 64, 300, [300, 100]),              # G = 12 (a partial second group)
+    (1, 4, 8, 64, 524288, [524288]),              # long_500k
 ])
 def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
     rng = np.random.RandomState(b * s + g)
@@ -375,3 +384,106 @@ def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
                              v, cache_len, use_kernels=True)
     with pytest.raises(ValueError):      # bf16
         ops.decode_attention(q.bfloat16(), k, v, cache_len, use_kernels=True)
+
+
+def test_decode_attention_kernel_is_deterministic(cuda):
+    """Two calls on the same input are equal bit for bit: the partials are
+    merged in chunk order whichever CTA finishes a row last."""
+    rng = np.random.RandomState(5)
+    args = _attention_inputs(rng, 8, 4, 8, 64, 32768,
+                             [32768, 1, 20000, 4097, 64, 65, 31000, 0], cuda)
+    first = ops.decode_attention(*args, use_kernels=True)
+    for _ in range(3):
+        assert torch.equal(ops.decode_attention(*args, use_kernels=True), first)
+
+
+def test_decode_attention_kernel_in_a_cuda_graph(cuda):
+    """A captured call, replayed after cache_len, K and V change in place,
+    equals an eager call on the new values."""
+    rng = np.random.RandomState(6)
+    q, k, v, cache_len = _attention_inputs(rng, 4, 4, 8, 64, 4096,
+                                           [4096, 1, 2000, 0], cuda)
+    ops.decode_attention(q, k, v, cache_len, use_kernels=True)   # the tickets
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    for lens in ([17, 4096, 0, 3000], [1, 1, 1, 1], [4096, 4096, 4096, 4096]):
+        q2, k2, v2, len2 = _attention_inputs(rng, 4, 4, 8, 64, 4096, lens, cuda)
+        for dst, src in ((q, q2), (k, k2), (v, v2), (cache_len, len2)):
+            dst.copy_(src)
+        graph.replay()
+        want = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), lens
+
+
+def test_decode_attention_kernel_graph_outlives_a_larger_eager_call(cuda):
+    """An eager call that needs more tickets than the device's array holds
+    gets a new array; a graph captured before it still replays correctly
+    on the old one."""
+    from repro_torch.kernels import decode_attention as da
+    rng = np.random.RandomState(8)
+    q, k, v, cache_len = _attention_inputs(rng, 4, 4, 8, 64, 4096,
+                                           [4096, 1, 2000, 0], cuda)
+    ops.decode_attention(q, k, v, cache_len, use_kernels=True)   # the tickets
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    before = da._tickets[q.device.index]
+    big_b = before.numel() // (4 * 32) + 1          # KH 4, G 32: outgrows it
+    assert big_b <= da.B_MAX
+    big = _attention_inputs(rng, big_b, 4, 32, 32, 64,
+                            rng.randint(0, 65, big_b).tolist(), cuda)
+    got = ops.decode_attention(*big, use_kernels=True)
+    assert da._tickets[q.device.index].numel() > before.numel()
+    want = ops.decode_attention(*big, use_kernels=False)
+    tol = 1e-5 * big[2].abs().amax() + 1e-6
+    assert float((got - want).abs().max()) <= float(tol)
+    for lens in ([17, 4096, 0, 3000], [4096, 4096, 4096, 4096]):
+        q2, k2, v2, len2 = _attention_inputs(rng, 4, 4, 8, 64, 4096, lens, cuda)
+        for dst, src in ((q, q2), (k, k2), (v, v2), (cache_len, len2)):
+            dst.copy_(src)
+        graph.replay()
+        want = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), lens
+
+
+def test_decode_attention_kernel_on_two_streams(cuda):
+    """Calls on two streams, queued back to back with no sync between them,
+    each equal the same call made alone: the wrapper orders them, since
+    they share the tickets."""
+    rng = np.random.RandomState(9)
+    inputs = [_attention_inputs(rng, 8, 4, 8, 64, 32768,
+                                rng.randint(1, 32769, 8).tolist(), cuda)
+              for _ in range(4)]
+    alone = [ops.decode_attention(*a, use_kernels=True) for a in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(cuda))
+    got = []
+    for i, a in enumerate(inputs * 2):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(ops.decode_attention(*a, use_kernels=True))
+    torch.cuda.synchronize()
+    for i, out in enumerate(got):
+        assert torch.equal(out, alone[i % 4]), i
+
+
+def test_decode_attention_kernel_is_one_launch(cuda):
+    """One CUDA kernel per call, as the profiler sees it."""
+    rng = np.random.RandomState(7)
+    args = _attention_inputs(rng, 8, 4, 8, 64, 32768,
+                             [32768, 1, 20000, 4097, 64, 65, 31000, 12345], cuda)
+    ops.decode_attention(*args, use_kernels=True)   # build, tickets
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ops.decode_attention(*args, use_kernels=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "da_kernel" in kernels[0], kernels
