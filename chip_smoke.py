@@ -38,43 +38,58 @@ line):
        deletes (state B, k_base = 2,058); each state held like the main
        path (plain path, exact top-k over the live rows, Theorem-2 floor),
        timed, and state B profiled.
-     Every search of phases 3-5 also runs binary_probe_lb (the Quick-Probe
-     group bounds of the frontend); each choice of group that differs
-     between the kernel and the plain path is reported with its margin;
+     Every search of phases 3-5 also runs quick_probe_select (the
+     frontend's whole Quick-Probe in one launch); each choice of group that
+     differs between the kernel and the plain path, and each round-1 block
+     that the radius's last-ulp difference moves across its sphere test, is
+     reported with its margin. Fused searches on the card run the in-graph
+     driver (`core/search_graph.py`: the tile plan on the device, the
+     stages replayed as CUDA graphs); phases 3-5 hold it bit for bit (ids,
+     scores, every stats field) against the host driver
+     (`search_fused.search_batch_fused`, its plan in numpy) on the same
+     input, through a search that captures the graphs and one that replays
+     them; phases 4 and 5 time the two drivers in turns (host, graph,
+     graph, host, after one graph pass that captures), each median with
+     its range, and profile one batch under each (device busy, idle share,
+     Memcpy time);
   6. the serve path (`serve.DecodeEngine`) at the full width of
      tinyllama-1.1b (22 layers, d_model 2048, 32 heads, 4 KV heads, vocab
      32,000 padded to 32,256), random f32 weights from a seeded generator,
      4 batch slots, max_len 512, 16 requests with prompts of 24 and 40
      tokens and 16 new tokens each: exact and ProMIPS logits, each on the
      kernels (decode_attention in every layer of every step; the vocab
-     search's binary_probe_lb and mips_score) and on the plain versions,
+     search's quick_probe_select and mips_score) and on the plain versions,
      tokens held kernel against plain (each difference explained by a logit
      margin below LOGIT_TOL), the c-approximation of every searched row
      against the exact top-1 over the live vocab (the Theorem-2 floor), the
      hot-query cache (hits, tokens equal to a cache-off run), deletes and an
      update of vocab rows; step times, tokens/s, pages, launches per step,
      peak memory, and a torch.profiler trace of one decode step.
-Phase 2 also holds binary_probe_lb (at the vocab index's and the n=1M
-index's shapes) and decode_attention (at the serve shape, where it must be
-one CUDA kernel a call, and at the JAX package's decode shapes: decode_32k,
-S=32,768, at B=8 and at B=128 with seeded uniform lengths, and long_500k,
-B=1, S=524,288) against their plain versions and against a second call
-(equal bit for bit), with the same four times and each time's share of the
-HBM rate, and mips_score at the serve search's tile (R=32,000,
-B=4, d=2,048). Two bit-for-bit checks fail the run if they do not hold:
-mips_score's small-batch path against its tile path at the serve tile
-(1% of the rows invalid, exactly -1e30), and sketch_scores against the
-ordered LUT sum `ref.sketch_scores_lut_ref` at n=1M, at both of the
-kernel's query-group sizes there (8 for the batch of 64, 4 for its first
-4 queries). The B sweep of mips_score (B = 1..64 at the serve tile and at
-the stream delta's shape, the small path, the tile path and torch.matmul +
-masked_fill_ in turns) prints one line per shape; its crossover sets the
-kernel's B_SMALL.
+Phase 2 also holds binary_probe_lb and quick_probe_select (each at the
+vocab index's shape and at the n=1M index's; quick_probe_select one CUDA
+kernel a call, its representative rows and Test-A flags equal to the plain
+version's, its radius within 1e-6 relative, timed beside the chain of torch
+ops around binary_probe_lb that it replaced) and decode_attention (at the
+serve shape, where it must be one CUDA kernel a call, and at the JAX
+package's decode shapes: decode_32k, S=32,768, at B=8 and at B=128 with
+seeded uniform lengths, and long_500k, B=1, S=524,288) against their plain
+versions and against a second call (equal bit for bit), with the same four
+times and each time's share of the HBM rate, and mips_score at the serve
+search's tile (R=32,000, B=4, d=2,048). Two bit-for-bit checks fail the run
+if they do not hold: mips_score's small-batch path against its tile path at
+the serve tile (1% of the rows invalid, exactly -1e30), and sketch_scores
+against the ordered LUT sum `ref.sketch_scores_lut_ref` at n=1M, at both of
+the kernel's query-group sizes there (8 for the batch of 64, 4 for its
+first 4 queries). The B sweep of mips_score (B = 1..64 at the serve tile
+and at the stream delta's shape, the small path, the tile path and
+torch.matmul + masked_fill_ in turns) prints one line per shape; its
+crossover sets the kernel's B_SMALL.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -370,6 +385,181 @@ def check_binary_probe(timer, label, codes, q_proj):
     return rec
 
 
+def quick_probe_bound_ms(b, g, m):
+    """The group table's codes (int64), min-l1 values and counts and the
+    batch's projections and l1 norms read once, the chosen group's
+    representative read once per query, three outputs written once per
+    query; against one multiply-add per bit and about ten operations of
+    Test A per (query, group)."""
+    nbytes = g * (8 + 4 + 4) + b * (m * 4 + 4) + b * (m * 4 + 4) + b * 9
+    ops = float(b) * g * (2 * m + 10)
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def probe_chain(table, q_proj, q_l1, c, x_p):
+    """The frontend's Quick-Probe as it was before quick_probe_select: the
+    binary_probe_lb kernel, then Test A, the choice and the radius as
+    separate torch ops, timed beside the fused kernel that replaced it."""
+    import torch
+    from repro_torch.core.quick_probe import pack_codes
+    from repro_torch.kernels import ops
+    q_code = pack_codes(q_proj)
+    lb = ops.binary_probe_lb(table.code, q_code, q_proj, use_kernels=True)
+    valid = table.count > 0
+    denom = c * (table.min_l1[None, :] + q_l1[:, None]) ** 2
+    val = lb * lb / torch.clamp(denom, min=1e-30)
+    passes = (val >= x_p) & valid[None, :]
+    any_pass = passes.any(dim=1)
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=q_proj.device)
+    first_pass = torch.argmin(torch.where(passes, lb, inf), dim=1)
+    best_val = torch.argmax(torch.where(valid[None, :], val, -inf), dim=1)
+    chosen = torch.where(any_pass, first_pass, best_val)
+    rep = table.rep_proj[chosen]
+    radius = torch.sqrt(((rep - q_proj) ** 2).sum(dim=-1))
+    return table.rep_row[chosen], radius, any_pass
+
+
+def cuda_kernels_of(fn, n_calls=3, sessions=3):
+    """The CUDA kernels (and copies) of ``n_calls`` calls of ``fn``, as
+    torch.profiler sees them, and the sessions it took. The calls sit
+    between sentinel kernels (short spins, three before and one after);
+    this tracer can drop the first records of a session, which the leading
+    sentinels absorb. A session whose trace does not end with the trailing
+    sentinel, or holds fewer records than calls, lost records and is taken
+    again, up to ``sessions`` times."""
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    for session in range(1, sessions + 1):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        kernels = [n for n in names if "spin_kernel" not in n]
+        if names and "spin_kernel" in names[-1] and len(kernels) >= n_calls:
+            return kernels, session
+    raise SmokeFailure(f"torch.profiler lost records in {sessions} sessions "
+                       f"in a row (last trace: {names})")
+
+
+def host_enqueue_us(fn, n_calls=20):
+    """Host time of one call of ``fn`` issued to an idle card (a sync
+    before each call, none after it): what the host spends to enqueue it,
+    plus any wait the call itself imposes (a pageable copy)."""
+    import torch
+    fn()
+    total = 0.0
+    for _ in range(n_calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / n_calls * 1e6
+
+
+def check_quick_probe(timer, label, table, q_proj, q_l1, c, x_p):
+    """quick_probe_select against its plain version (rep_row and Test A
+    equal, the radius within 1e-6 relative + 1e-7) and against itself (a
+    second call equal bit for bit), one CUDA kernel a call, timed beside
+    the torch chain it replaced. Returns the kernel line's record."""
+    import torch
+    from repro_torch.kernels import ops
+    args = (table.code, table.min_l1, table.count, table.rep_proj,
+            table.rep_row, q_proj, q_l1, c, x_p)
+    got = ops.quick_probe_select(*args, use_kernels=True)
+    again = ops.quick_probe_select(*args, use_kernels=True)
+    want = ops.quick_probe_select(*args, use_kernels=False)
+    chain = probe_chain(table, q_proj, q_l1, c, x_p)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, w) for a, w in zip(got, again)),
+            f"quick_probe_select {label}: two calls on the same input differ")
+    require(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+            f"quick_probe_select {label}: the chosen rows or Test-A flags "
+            f"differ from the plain version's in "
+            f"{int(((got[0] != want[0]) | (got[2] != want[2])).sum())} queries")
+    require(torch.equal(got[0], chain[0]) and torch.equal(got[2], chain[2]),
+            f"quick_probe_select {label}: the choice differs from the "
+            "binary_probe_lb chain's, whose bounds are the same bits")
+    diff = (got[1] - want[1]).abs()
+    tol = 1e-6 * want[1].abs() + 1e-7
+    require(bool((diff <= tol).all()),
+            f"quick_probe_select {label}: radius beyond 1e-6 relative by "
+            f"{float((diff - tol).max())}")
+    fused = lambda: ops.quick_probe_select(*args, use_kernels=True)  # noqa: E731
+    kernels, sessions = cuda_kernels_of(fused)
+    require(len(kernels) == 3 and all("quick_probe_kernel" in k
+                                      for k in kernels),
+            f"quick_probe_select {label}: not one CUDA kernel a call in 3 "
+            f"calls ({sessions} profiler sessions): {kernels}")
+    chain_fn = lambda: probe_chain(table, q_proj, q_l1, c, x_p)  # noqa: E731
+    chain_kernels = cuda_kernels_of(chain_fn, n_calls=1)[0]
+    b, m = q_proj.shape
+    g = table.code.shape[0]
+    rec = dict(
+        name="quick_probe_select", route="cuda",
+        source="src/repro_torch/kernels/csrc/binary_probe.cu",
+        replaces="src/repro/kernels/binary_probe.py:30",
+        max_abs_err=float(diff.max()),
+        ms=timer.ms(fused), call_ms=timer.ms(fused, hold=False),
+        plain_ms=timer.ms(lambda: ops.quick_probe_select(*args,
+                                                         use_kernels=False)),
+        chain_ms=timer.ms(chain_fn), chain_call_ms=timer.ms(chain_fn, hold=False),
+        host_us=host_enqueue_us(fused), chain_host_us=host_enqueue_us(chain_fn),
+        library_ms=None)
+    rec["bound_ms"], rec["bound_by"] = quick_probe_bound_ms(b, g, m)
+    log(f"[kernel quick_probe_select: {label}] B={b} G={g} m={m}: rep_row and "
+        f"Test A equal to the plain version's ({int(got[2].sum())} of {b} "
+        f"pass), radius max|d|={rec['max_abs_err']:.3g} (tol 1e-6|r|+1e-7), "
+        f"two calls equal bit for bit, one CUDA kernel a call "
+        f"({kernels[0][:40]}; {sessions} profiler sessions)  device "
+        f"{rec['ms']:.4f} ms (call with host {rec['call_ms']:.4f} ms; host "
+        f"enqueue {rec['host_us']:.1f} us)  "
+        f"plain {rec['plain_ms']:.4f} ms  the binary_probe_lb chain it "
+        f"replaced: {len(chain_kernels)} CUDA kernels and copies, device "
+        f"{rec['chain_ms']:.4f} ms (call with host {rec['chain_call_ms']:.4f} "
+        f"ms; host enqueue {rec['chain_host_us']:.1f} us)  bound "
+        f"{rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    return rec
+
+
+def vocab_probe_table(gen):
+    """A Quick-Probe table of the vocab index's shape (all 256 sign codes of
+    m = 8, B = 4), seeded, with x_p in the widest gap of the tested values
+    near their median, so some groups pass and none sits within an ulp of
+    the cut. Returns (table, q_proj, q_l1, c, x_p)."""
+    import torch
+    from repro_torch.core.quick_probe import GroupTable, pack_codes
+    from repro_torch.kernels import ref
+    g, m, b, c = 256, 8, 4, 0.9
+    table = GroupTable(
+        code=torch.arange(g, dtype=torch.int64, device=DEVICE),
+        min_l1=torch.rand(g, generator=gen, device=DEVICE) * 40 + 20,
+        rep_proj=torch.randn((g, m), generator=gen, device=DEVICE),
+        rep_row=torch.randperm(32_000, generator=gen, device=DEVICE)[:g].int(),
+        count=torch.randint(1, 400, (g,), generator=gen, device=DEVICE).int())
+    q_proj = torch.randn((b, m), generator=gen, device=DEVICE) * 8
+    q_l1 = q_proj.abs().sum(dim=1) * 16
+    lb = ref.binary_probe_lb_ref(table.code, pack_codes(q_proj), q_proj)
+    val = (lb.double() ** 2 / (c * (table.min_l1.double()[None, :]
+                                    + q_l1.double()[:, None]) ** 2)).flatten()
+    val = torch.sort(val).values
+    lo, hi = int(0.4 * val.numel()), int(0.6 * val.numel())
+    i = lo + int(torch.argmax(val[lo + 1:hi] - val[lo:hi - 1]))
+    return table, q_proj, q_l1, c, float(val[i] + val[i + 1]) / 2
+
+
 def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
                            count_launches=False):
     """decode_attention against its plain version on seeded normal inputs
@@ -495,13 +685,14 @@ def sweep_mips_score(timer, shapes):
 
 
 def phase_kernels_serve(pm, q, timer):
-    """The slice-3 kernels against their plain versions: binary_probe_lb at
-    the vocab index's shape (every one of the 256 sign codes of m = 8,
-    B = 4) and at the n=1M index's (its group table, the batch's
-    projections); decode_attention at the serve shape and at the JAX
-    package's decode shapes (decode_32k at B 8 and B 128, long_500k);
+    """The serve path's kernels against their plain versions:
+    binary_probe_lb and quick_probe_select at the vocab index's shape
+    (every one of the 256 sign codes of m = 8, B = 4) and at the n=1M
+    index's (its group table, the batch's projections); decode_attention at
+    the serve shape and at the JAX package's decode shapes (decode_32k at
+    B 8 and B 128, long_500k);
     mips_score at the serve search's union tile. Returns the records of the
-    kernel line (the serve shapes)."""
+    kernel line (the serve shapes; quick_probe_select's at n=1M)."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import mf_factors
@@ -513,6 +704,11 @@ def phase_kernels_serve(pm, q, timer):
     bp_rec = check_binary_probe(timer, "vocab index shape", vocab_codes,
                                 torch.randn((4, 8), generator=gen, device=DEVICE))
     check_binary_probe(timer, "n=1M index", pm.arrays.g_code, q @ pm.arrays.a)
+    from repro_torch.core import search_device as sd
+    check_quick_probe(timer, "vocab index shape", *vocab_probe_table(gen))
+    qp_rec = check_quick_probe(timer, "n=1M index", sd._group_table(pm.arrays),
+                               q @ pm.arrays.a, q.abs().sum(dim=1), pm.meta.c,
+                               pm.meta.x_p)
     da_rec = check_decode_attention(timer, "serve shape", 4, 512,
                                     [1, 37, 300, 512], seed=12,
                                     count_launches=True)
@@ -569,7 +765,7 @@ def phase_kernels_serve(pm, q, timer):
                                      norm_tail=RECIPE["norm_tail"],
                                      seed=3)).to(DEVICE)
     sweep_mips_score(timer, [("serve tile", xt), ("stream delta", xd)])
-    return [bp_rec, da_rec]
+    return [bp_rec, qp_rec, da_rec]
 
 
 def block_mips_cases(pm, q):
@@ -884,8 +1080,10 @@ def probe_flips(arrays, meta, q):
     require(bool((diff <= tol).all()),
             f"binary_probe_lb on the main path's input: |d| beyond tolerance "
             f"by {float((diff - tol).max())}")
-    rk, _, ok_k = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p, True)
-    rp, _, ok_p = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p, False)
+    rk, r0k, ok_k = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p,
+                                      True)
+    rp, r0p, ok_p = quick_probe_batch(table, q_proj, q_l1, meta.c, meta.x_p,
+                                      False)
     denom = meta.c * (table.min_l1[None, :] + q_l1[:, None]) ** 2
     val = lb_p * lb_p / denom.clamp(min=1e-30)
     tol_val = 2.0 * tol * lb_p / denom.clamp(min=1e-30) + 1e-12
@@ -902,6 +1100,36 @@ def probe_flips(arrays, meta, q):
                 f"(group {gk}) and plain (group {gp}) with no bound within "
                 f"tolerance (normalized margins {margins})")
         out[b] = min(margins)
+    # the same group: the radius sums its m squares in another order than
+    # torch's reduction; a round-1 block whose sphere test that moves is a
+    # flip only if one of its sub-partitions lies within the two radii's
+    # difference (plus 1e-6 relative) of its cut
+    same = ((rk == rp) & (ok_k == ok_p)).nonzero().flatten()
+    r_tol = 1e-6 * r0p.abs() + 1e-7
+    r_err = (r0k - r0p).abs()
+    require(bool((r_err[same] <= r_tol[same]).all()),
+            f"quick_probe_select radius beyond 1e-6 relative on the main "
+            f"path's input by {float((r_err - r_tol)[same].max())}")
+    d_sp = sd.subpart_distances(arrays, q_proj)
+    mk = sd.blocks_from_radii(arrays, d_sp, r0k)
+    mp = sd.blocks_from_radii(arrays, d_sp, r0p)
+    moved = {}
+    for b, n in (mk != mp).nonzero().tolist():
+        if b not in same.tolist():
+            continue
+        sp = arrays.block_sp_idx[n]
+        sp = sp[sp >= 0].long()
+        cut = r0p[b] + arrays.sp_radius[sp]
+        margin = float(((d_sp[b, sp] - cut).abs()
+                        / (2 * r_err[b] + 1e-6 * cut.abs())).min())
+        require(margin <= 1.0,
+                f"query {b} block {n}: the round-1 masks under the kernel's "
+                f"and the plain radius differ {margin} tolerances from the cut")
+        moved.setdefault(b, {})[n] = margin
+        out[b] = min(out.get(b, margin), margin)
+    if moved:
+        log(f"[probe] round-1 blocks moved by the radius's last ulp (query: "
+            f"{{block: normalized margin}}): {moved}")
     return out, float(diff.max())
 
 
@@ -934,7 +1162,7 @@ def phase_main_path(label, pm, x, q):
         f"allocated before the search, +{(peak - resident) / 2**20:.1f} MiB "
         f"during it)")
     require(launches["block_mips"] > 0 and launches["sketch_scores"] > 0
-            and launches["binary_probe_lb"] > 0,
+            and launches["quick_probe_select"] > 0,
             f"a kernel of the main path was not launched: {launches}")
     require(ids.shape == (q.shape[0], k) and bool(torch.isfinite(scores).all()),
             "main path output has the wrong shape or non-finite scores")
@@ -956,8 +1184,9 @@ def phase_main_path(label, pm, x, q):
         lambda r: int(row_of_id[r]) // meta.page_rows, probe)
     log(f"[{label}] sketch_scores on this input: max|d|={sk_err:.3g} "
         f"(tol 1e-5*|q||mu|+1e-6); binary_probe_lb max|d|={lb_err:.3g} (tol "
-        f"1e-6|lb|+1e-7); Quick-Probe group flips (query: normalized "
-        f"margin) {probe if probe else 'none'}")
+        f"1e-6|lb|+1e-7); Quick-Probe flips (query: normalized margin) "
+        f"{probe if probe else 'none'}")
+    compare_drivers(label, lambda qb: pm.search(qb, **SEARCH), q)
     log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} queries "
         f"differ in ids; {pages_diff} differ in pages; prefilter cut flips "
         f"(query: {{block: est+bnd-tau}}) {flips if flips else 'none'}")
@@ -996,6 +1225,85 @@ def phase_main_path(label, pm, x, q):
         f"{resolve_us:.2f} us a search on the host; one stat of the cache "
         f"file {stat_us:.2f} us")
     return launches
+
+
+@contextlib.contextmanager
+def host_driver():
+    """Run `runtime.search`'s fused searches on the card through the host
+    driver (`search_fused.search_batch_fused`: masks to the host, the tile
+    planned in numpy) instead of the in-graph driver, for the A/B of
+    phases 3-5."""
+    from repro_torch.core import runtime, search_fused
+    inner = runtime.search_batch
+
+    def search_batch(arrays, meta, q, verification, **knobs):
+        if verification == "fused":
+            return search_fused.search_batch_fused(arrays, meta, q, **knobs)
+        return inner(arrays, meta, q, verification=verification, **knobs)
+
+    runtime.search_batch = search_batch
+    try:
+        yield
+    finally:
+        runtime.search_batch = inner
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, through tuples (SearchStats, StreamStats)."""
+    import torch
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                                else a, b.view(torch.int32)
+                                if b.dtype == torch.float32 else b))
+    return a == b
+
+
+def compare_drivers(label, search, q):
+    """The in-graph driver (three searches on ``q``: the stages eager, then
+    captured and replayed, then replayed) against the host driver on the
+    same input: ids, scores and every stats field equal bit for bit."""
+    import torch
+    from repro_torch.core import search_graph
+    got = [search(q) for _ in range(3)]
+    with host_driver():
+        want = search(q)
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        require(_same_bits(g, want), f"[{label}] the in-graph driver's search "
+                f"{i} differs from the host driver's (ids, scores or a stats "
+                "field)")
+    n_graphs = sum(len(e.graphs) for e in search_graph._GRAPHS.values())
+    log(f"[{label}] in-graph driver = host driver bit for bit (ids, scores, "
+        f"every stats field) on the eager, capturing and replaying searches; "
+        f"{n_graphs} CUDA graphs held")
+
+
+def time_turns(label, search, q):
+    """The two fused drivers in turns on one card: one graph pass that
+    captures (its batches' stage variants), then host, graph, graph, host,
+    each the median of 5 batches with its range; then one profiled batch
+    under each."""
+    med0, times0 = time_batches(search)
+    runs = []
+    for name in ("host", "graph", "graph", "host"):
+        if name == "host":
+            with host_driver():
+                runs.append((name,) + time_batches(search))
+        else:
+            runs.append((name,) + time_batches(search))
+    log(f"[{label}] search time per batch of {N_QUERIES}, graph driver's "
+        f"first pass (eager stages and captures): median {med0:.3f} ms "
+        f"{['%.3f' % t for t in times0]}")
+    for name, med, times in runs:
+        log(f"[{label}] search time per batch of {N_QUERIES}, {name} driver: "
+            f"median {med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}) "
+            f"{['%.3f' % t for t in times]}")
+    with host_driver():
+        phase_profile(search, q, f"{label} host driver")
+    phase_profile(search, q, f"{label} graph driver")
 
 
 def time_batches(search, n_batches=5):
@@ -1049,8 +1357,13 @@ def phase_profile(search, q, label):
         log(f"[profile {label}] device time not measured: the trace holds no "
             "CUDA events")
         return
+    memcpy = {kind: sum(t for name, (t, _) in by_name.items()
+                        if name.startswith(f"Memcpy {kind}")) / 1e3
+              for kind in ("DtoH", "HtoD")}
     log(f"[profile {label}] one batch: wall {wall_ms:.3f} ms under the profiler, "
-        f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        f"device busy {busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"{sum(c for _, c in by_name.values())} device events; Memcpy DtoH "
+        f"{memcpy['DtoH']:.3f} ms, HtoD {memcpy['HtoD']:.3f} ms")
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         log(f"[profile {label}]   {t / 1e3:8.3f} ms  x{c:<3d} {name}")
 
@@ -1091,11 +1404,12 @@ def corpus_rows(n, seed):
                       norm_tail=RECIPE["norm_tail"], seed=seed)
 
 
-def phase_stream_state(label, st, q, path_kernels, profile=False):
+def phase_stream_state(label, st, q, path_kernels, turns=False):
     """One state of a stream: its snapshot, one counted search through
-    `MutableProMIPS.search`, held against the plain path, an exact top-k
-    over `alive_items()` and the Theorem-2 floor; then the time per batch
-    and, if asked, a profile. Returns the launches of the counted search."""
+    `MutableProMIPS.search`, held against the plain path, the host driver,
+    an exact top-k over `alive_items()` and the Theorem-2 floor; then the
+    time per batch, with ``turns`` of both drivers and their profiles.
+    Returns the launches of the counted search."""
     import torch
     from repro_torch.core import search_device as sd
     from repro_torch.core.search_common import next_pow2
@@ -1164,10 +1478,11 @@ def phase_stream_state(label, st, q, path_kernels, profile=False):
     log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} "
         f"queries differ in ids; {pages_diff} differ in pages; prefilter cut "
         f"flips at k_base (query: {{block: est+bnd-tau}}) "
-        f"{flips if flips else 'none'}; Quick-Probe group flips "
+        f"{flips if flips else 'none'}; Quick-Probe flips "
         f"{probe if probe else 'none'}")
     for note in notes:
         log(f"[{label}]   {note}")
+    compare_drivers(label, search, q)
 
     # -- quality against the exact top-k over the live rows
     eidx, escores = exact_topk(x_alive, q, k)
@@ -1186,11 +1501,13 @@ def phase_stream_state(label, st, q, path_kernels, profile=False):
     require(recall >= 0.99, f"[{label}] recall@10 {recall} < 0.99")
     del x_alive, gids_t, pos_of
 
-    med, times = time_batches(search)
-    log(f"[{label}] search time per batch of {N_QUERIES}: median {med:.3f} ms "
-        f"over {len(times)} batches {['%.3f' % t for t in times]}")
-    if profile:
-        phase_profile(search, q, label)
+    if turns:
+        time_turns(label, search, q)
+    else:
+        med, times = time_batches(search)
+        log(f"[{label}] search time per batch of {N_QUERIES}: median "
+            f"{med:.3f} ms over {len(times)} batches "
+            f"{['%.3f' % t for t in times]}")
     return launches
 
 
@@ -1213,14 +1530,14 @@ def phase_compact_100k(pm, q):
         f"{time.perf_counter() - t0:.3f} s (host); churn "
         f"{st.churn_fraction:.4f}")
     phase_stream_state("compact-100k before compaction", st, q,
-                       ("binary_probe_lb", "block_mips", "sketch_scores",
+                       ("quick_probe_select", "block_mips", "sketch_scores",
                         "mips_score"))
     t0 = time.perf_counter()
     st.compact()
     log(f"[compact-100k] compact() {time.perf_counter() - t0:.1f} s (host "
         f"rebuild over {st.meta.n} rows); churn {st.churn_fraction}")
     phase_stream_state("compact-100k after compact()", st, q,
-                       ("binary_probe_lb", "block_mips", "sketch_scores"))
+                       ("quick_probe_select", "block_mips", "sketch_scores"))
 
     # -- a background compaction with writes and searches landing meanwhile
     st.compactor = Compactor()
@@ -1266,7 +1583,7 @@ def phase_compact_100k(pm, q):
     require(len(found) == len(expected) and recall >= 0.99,
             "[compact-100k] an inserted row was not found after the join")
     phase_stream_state("compact-100k after the background compaction", st, q,
-                       ("binary_probe_lb", "block_mips", "sketch_scores",
+                       ("quick_probe_select", "block_mips", "sketch_scores",
                         "mips_score"))
 
 
@@ -1281,8 +1598,8 @@ def phase_stream_1m(pm, q):
     st.insert(np.arange(n, n + n_ins), corpus_rows(n_ins, seed=3))
     log(f"[stream-1M] state A: {n_ins} inserts in {time.perf_counter() - t0:.2f} s "
         f"(host); delta fraction {st.delta_fraction:.4f}")
-    kernels = ("binary_probe_lb", "block_mips", "sketch_scores", "mips_score")
-    phase_stream_state("stream-1M state A", st, q, kernels)
+    kernels = ("quick_probe_select", "block_mips", "sketch_scores", "mips_score")
+    phase_stream_state("stream-1M state A", st, q, kernels, turns=True)
     rng = np.random.RandomState(5)
     base_ids = rng.choice(n, 2_000, replace=False)
     t0 = time.perf_counter()
@@ -1291,7 +1608,7 @@ def phase_stream_1m(pm, q):
     st.delete(rng.choice(np.arange(n, n + n_ins), 1_112, replace=False))
     log(f"[stream-1M] state B: 1,000 base deletes, 1,000 base updates, "
         f"1,112 delta deletes in {time.perf_counter() - t0:.2f} s (host)")
-    return phase_stream_state("stream-1M state B", st, q, kernels, profile=True)
+    return phase_stream_state("stream-1M state B", st, q, kernels, turns=True)
 
 
 
@@ -1509,8 +1826,8 @@ def phase_serve():
                     f"row of {meta.page_rows} x {cfg.d_model} f32 "
                     f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f}"
                     f" 4-KB pages) against the exact mode's dense scan of "
-                    f"{dense} 4-KB pages; per search binary_probe_lb "
-                    f"{counts['binary_probe_lb'] / max(n_search, 1):.2f}, "
+                    f"{dense} 4-KB pages; per search quick_probe_select "
+                    f"{counts['quick_probe_select'] / max(n_search, 1):.2f}, "
                     f"mips_score {counts['mips_score'] / max(n_search, 1):.2f} "
                     f"launches")
                 p0 = meta.p
@@ -1523,7 +1840,7 @@ def phase_serve():
                 require(rows_searched > 0 and share >= floor,
                         f"[serve {mode}/{path}] guarantee share {share} < {floor}")
                 if path == "kernels":
-                    require(counts["binary_probe_lb"] == n_search
+                    require(counts["quick_probe_select"] == n_search
                             and counts["mips_score"] >= n_search,
                             f"[serve promips] a search kernel was not launched "
                             f"once per search ({n_search}): {counts}")
@@ -1643,16 +1960,14 @@ def main() -> int:
 
     t0 = time.perf_counter()
     launches = phase_main_path("n=1M", pm1m, x1m, q1m)
-    search_1m = lambda qb: pm1m.search(qb, **SEARCH)  # noqa: E731
-    med, times = time_batches(search_1m)
-    log(f"[n=1M] search time per batch of {N_QUERIES}: median {med:.3f} ms over "
-        f"{len(times)} batches {['%.3f' % t for t in times]}")
-    phase_profile(search_1m, q1m, "n=1M")
+    time_turns("n=1M", lambda qb: pm1m.search(qb, **SEARCH), q1m)
     del x1m
     log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stream_launches = phase_stream_1m(pm1m, q1m)
     del pm1m, q1m
+    from repro_torch.core import search_graph
+    search_graph.clear_graphs()      # their pools hold the n=1M scratch
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
@@ -1662,8 +1977,10 @@ def main() -> int:
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
 
     # each kernel's count from the path whose shapes its record was timed
-    # at: the static main path for block_mips and sketch_scores, the stream
-    # for mips_score, the serve run for binary_probe_lb and decode_attention
+    # at: the static main path for block_mips, sketch_scores and
+    # quick_probe_select, the stream for mips_score, the serve run for
+    # binary_probe_lb (no path launches it since quick_probe_select took
+    # its place in the frontend) and decode_attention
     launches["mips_score"] = stream_launches["mips_score"]
     for name in ("binary_probe_lb", "decode_attention"):
         launches[name] = serve_launches[name]

@@ -98,31 +98,15 @@ def build_group_table(codes: np.ndarray, l1: np.ndarray, p_pts: np.ndarray,
 def quick_probe_batch(table: GroupTable, q_proj: torch.Tensor,
                       q_l1: torch.Tensor, c: float, x_p: float,
                       use_kernels: Optional[bool] = None):
-    """Batch-native Algorithm 2 for a (B, m) query batch.
-
-    The (B, G) Theorem-3 lower bounds come from `ops.binary_probe_lb` (the
-    CUDA kernel on CUDA tensors, its plain version elsewhere, as
-    ``use_kernels`` says). Test A: LB^2 >= x_p * c * (min_l1 + ||q||_1)^2.
-    Among passing groups the smallest LB wins (`torch.argmin` returns the
-    first minimum, as `jnp` does); with none passing, the largest tested
-    value.
+    """Batch-native Algorithm 2 for a (B, m) query batch, through
+    `ops.quick_probe_select`: one CUDA launch on CUDA tensors (unless
+    ``use_kernels=False``), its plain version elsewhere. Theorem-3 bounds,
+    Test A: LB^2 >= x_p * c * (min_l1 + ||q||_1)^2; among passing groups the
+    smallest LB wins (first index on ties, as `jnp.argmin`), with none
+    passing the largest tested value.
 
     Returns (rep_row (B,), radius (B,), test_a_passed (B,)).
     """
-    q_code = pack_codes(q_proj)                                      # (B,)
-    lb = ops.binary_probe_lb(table.code, q_code, q_proj,
-                             use_kernels=use_kernels)                # (B, G)
-    valid = table.count > 0
-    denom = c * (table.min_l1[None, :] + q_l1[:, None]) ** 2
-    val = lb * lb / torch.clamp(denom, min=1e-30)
-    passes = (val >= x_p) & valid[None, :]
-
-    any_pass = passes.any(dim=1)
-    inf = torch.tensor(float("inf"), dtype=torch.float32, device=q_proj.device)
-    first_pass = torch.argmin(torch.where(passes, lb, inf), dim=1)
-    best_val = torch.argmax(torch.where(valid[None, :], val, -inf), dim=1)
-    chosen = torch.where(any_pass, first_pass, best_val)            # (B,)
-
-    rep = table.rep_proj[chosen]                                    # (B, m)
-    radius = torch.sqrt(((rep - q_proj) ** 2).sum(dim=-1))
-    return table.rep_row[chosen], radius, any_pass
+    return ops.quick_probe_select(table.code, table.min_l1, table.count,
+                                  table.rep_proj, table.rep_row, q_proj, q_l1,
+                                  c, x_p, use_kernels=use_kernels)

@@ -2,9 +2,12 @@
 batched verification backends and the streaming index.
 
 `search` validates a `RuntimeConfig`, clamps the budgets to the index,
-runs `search_fused.search_batch_fused` (``verification="fused"``) or
-`search_device._search_batch_batched` (``"batched"``, the serve engine's
-default) and rescores the k winners exactly (`_rescore`).
+runs `search_device.search_batch` (``verification="fused"``: the in-graph
+driver `search_graph`, replayed as CUDA graphs on the card;
+``"batched"``, the serve engine's default) or, for a fused search on the
+CPU, the host driver `search_fused.search_batch_fused` (whose dense-round
+score cache is the CPU oracle's), and rescores the k winners exactly
+(`_rescore`).
 `search_segments` runs it over a streaming snapshot's base with an
 over-fetched k and merges in the delta segment's exact scores
 (`_merge_segments`). Both run on the card unless the caller passes
@@ -23,7 +26,7 @@ from ..kernels import ops, ref
 from ..tune import cache as tune_cache
 from .index import IndexArrays, IndexMeta, resolve_device
 from .search_common import DENSE_FRAC, next_pow2
-from .search_device import SearchStats, _search_batch_batched
+from .search_device import SearchStats, search_batch
 from .search_fused import search_batch_fused
 
 
@@ -166,17 +169,16 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
     elif dense_frac is None:
         dense_frac = DENSE_FRAC
     q = _queries(queries, meta, dev)
-    if cfg.verification == "batched":
-        ids, _, stats = _search_batch_batched(
-            arrays, meta, q, cfg.k, budget, budget2, cfg.norm_adaptive,
-            cfg.cs_prune, cfg.use_kernels, cfg.prefilter, cfg.prefilter_eps)
+    knobs = dict(k=cfg.k, budget=budget, budget2=budget2,
+                 norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
+                 use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
+                 prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
+                 tile_cap=tile_cap)
+    if cfg.verification == "fused" and not q.is_cuda:
+        ids, _, stats = search_batch_fused(arrays, meta, q, **knobs)
     else:
-        ids, _, stats = search_batch_fused(
-            arrays, meta, q, k=cfg.k, budget=budget, budget2=budget2,
-            norm_adaptive=cfg.norm_adaptive, cs_prune=cfg.cs_prune,
-            use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
-            prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
-            tile_cap=tile_cap)
+        ids, _, stats = search_batch(arrays, meta, q,
+                                     verification=cfg.verification, **knobs)
     scores = _rescore(arrays.x, stats.rows, q)
     return ids, scores, stats
 

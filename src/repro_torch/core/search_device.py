@@ -1,15 +1,15 @@
 """Batched block selection of the two-phase search (MIP-Search-II,
-Algorithm 3, at block granularity) and the batched verification backend;
-port of `repro.core.search_device` without its scan and progressive
-drivers.
+Algorithm 3, at block granularity), the batched verification backend and
+`search_batch`, which picks the backend; port of `repro.core.search_device`
+without its scan and progressive drivers.
 
   quick-probe -> radius r -> sub-partition sphere filter -> block masks
   -> verification -> Condition B -> compensation masks over the blocks not
   scanned in round 1 -> verification.
 
 Everything is batch-native: one (B, NB) mask per round for the whole batch.
-Verification is the fused driver (`search_fused`) or, here,
-``verification="batched"``: per round the blocks selected by any query are
+Verification is the fused in-graph driver (`search_graph`; the host
+driver `search_fused` is its CPU twin) or, here, ``verification="batched"``: per round the blocks selected by any query are
 unioned, their rows gathered into one (R, d) tile and every query scored
 against it in one `ops.mips_score` call; the sequential Condition-A stop is
 then rebuilt exactly from the scores (`_verify_batched`).
@@ -154,9 +154,7 @@ def truncate_union(union, prio, cap: int):
         return union
     key = torch.where(union, prio, torch.full_like(prio, float("inf")))
     best = torch.sort(key, stable=True).indices[:cap]
-    keep = torch.zeros_like(union)
-    keep[best] = True
-    return keep & union
+    return torch.zeros_like(union).index_fill_(0, best, True) & union
 
 
 def _verify_batched(arrays: IndexArrays, meta: IndexMeta, queries,
@@ -278,3 +276,29 @@ def _search_batch_batched(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
                       arrays.ids[torch.clamp(top.rows, min=0).long()],
                       torch.full_like(top.rows, -1))
     return ids, top.scores, stats
+
+
+def search_batch(arrays: IndexArrays, meta: IndexMeta, queries, k: int = 10,
+                 budget: int = 64, budget2: int = 64,
+                 norm_adaptive: bool = False, cs_prune: bool = False,
+                 verification: str = "batched",
+                 use_kernels: Optional[bool] = None, prefilter: bool = False,
+                 prefilter_eps: float = 1.0, dense_frac: float = sc.DENSE_FRAC,
+                 tile_cap: Optional[int] = None):
+    """c-k-AMIP search for a (B, d) batch with the ``verification`` backend:
+    "fused" is the in-graph fused driver (`search_graph`, CUDA graphs on the
+    card), "batched" the union-tile backend. ``dense_frac`` and ``tile_cap``
+    are the fused tile knobs; the batched backend ignores them. Returns
+    (ids (B, k), scores (B, k), SearchStats)."""
+    if verification == "fused":
+        # lazy import: search_graph imports this module
+        from .search_graph import search_batch_fused_graph
+        return search_batch_fused_graph(arrays, meta, queries, k, budget,
+                                        budget2, norm_adaptive, cs_prune,
+                                        use_kernels, prefilter, prefilter_eps,
+                                        dense_frac, tile_cap)
+    if verification == "batched":
+        return _search_batch_batched(arrays, meta, queries, k, budget, budget2,
+                                     norm_adaptive, cs_prune, use_kernels,
+                                     prefilter, prefilter_eps)
+    raise ValueError(f"unknown verification backend: {verification!r}")

@@ -71,5 +71,5 @@ def block_mips(x, valid, q, slots, sel, init_scores, init_rows, c_half, *,
             kp2, work.numel(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "block_mips")
-    build.LAUNCHES["block_mips"] += 1
+    build.count_launch("block_mips")
     return top_s, top_r, cnt, pages, cand

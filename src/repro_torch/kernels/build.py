@@ -13,6 +13,7 @@ compiler's output; there is no stub.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,12 +29,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel wrapper, counted where the wrapper launches its kernel
-# (one per call); `ops.LAUNCHES` is this dict.
+# (one per call, `count_launch`) and where a CUDA graph that holds it is
+# replayed (`add_launches`); `ops.LAUNCHES` is this dict.
 LAUNCHES = {"binary_probe_lb": 0, "block_mips": 0, "decode_attention": 0,
-            "mips_score": 0, "sketch_scores": 0}
+            "mips_score": 0, "quick_probe_select": 0, "sketch_scores": 0}
 
 _lock = threading.Lock()
 _lib = None
+_capture = threading.local()
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` in `LAUNCHES`; while this thread
+    captures a CUDA graph (`counting_into`), in the graph's own tally
+    instead, since a capture launches nothing."""
+    tally = getattr(_capture, "tally", None)
+    if tally is None:
+        LAUNCHES[name] += 1
+    else:
+        tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def counting_into(tally: dict):
+    """Route this thread's `count_launch` calls into ``tally`` (the kernels
+    a CUDA graph being captured holds)."""
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
+def add_launches(tally: dict) -> None:
+    """Count the kernels of one replay of a graph whose tally is ``tally``."""
+    for name, n in tally.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:
@@ -99,6 +131,9 @@ def library() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.binary_probe_lb_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
             lib.binary_probe_lb_launch.restype = i32
+            lib.quick_probe_select_launch.argtypes = (
+                [ptr] * 10 + [i32] * 3 + [ctypes.c_float] * 2 + [ptr])
+            lib.quick_probe_select_launch.restype = i32
             lib.block_mips_launch.argtypes = (
                 [ptr] * 16 + [i32] * 6 + [ctypes.c_longlong, ptr])
             lib.block_mips_work_bytes.argtypes = [i32] * 3

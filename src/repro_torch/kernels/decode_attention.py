@@ -108,5 +108,5 @@ def decode_attention(q, k, v, cache_len):
             part.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, s, kh, g,
             dh, ctypes.c_float(dh ** -0.5), stream.cuda_stream)
     build.check(err, "decode_attention")
-    build.LAUNCHES["decode_attention"] += 1
+    build.count_launch("decode_attention")
     return out

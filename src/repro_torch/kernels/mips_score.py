@@ -39,7 +39,7 @@ def _launch(x, q, valid, path: int = AUTO):
             x.data_ptr(), q.data_ptr(), valid.data_ptr(), out.data_ptr(), r, b,
             d, path, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "mips_score")
-    build.LAUNCHES["mips_score"] += 1
+    build.count_launch("mips_score")
     return out
 
 

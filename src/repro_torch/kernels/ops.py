@@ -22,7 +22,8 @@ from . import sketch_scores as _sketch_scores
 from .build import LAUNCHES
 
 __all__ = ["LAUNCHES", "binary_probe_lb", "block_mips", "block_mips_cached",
-           "decode_attention", "mips_score", "sketch_scores"]
+           "decode_attention", "mips_score", "quick_probe_select",
+           "sketch_scores"]
 
 
 def _use_kernel(t, use_kernels: Optional[bool], name: str) -> bool:
@@ -84,6 +85,20 @@ def binary_probe_lb(codes, q_code, q_proj, *,
     if _use_kernel(q_proj, use_kernels, "binary_probe_lb"):
         return _binary_probe.binary_probe_lb(codes, q_code, q_proj)
     return ref.binary_probe_lb_ref(codes, q_code, q_proj)
+
+
+def quick_probe_select(code, min_l1, count, rep_proj, rep_row, q_proj, q_l1,
+                       c: float, x_p: float, *,
+                       use_kernels: Optional[bool] = None):
+    """Batched Quick-Probe (Algorithm 2) over a group table: (rep_row (B,)
+    i32, radius (B,) f32, test_a_passed (B,) bool); see
+    `ref.quick_probe_select_ref`. The function of the JAX package's
+    `core.quick_probe.quick_probe_batch`, one launch on the card."""
+    if _use_kernel(q_proj, use_kernels, "quick_probe_select"):
+        return _binary_probe.quick_probe_select(
+            code, min_l1, count, rep_proj, rep_row, q_proj, q_l1, c, x_p)
+    return ref.quick_probe_select_ref(code, min_l1, count, rep_proj, rep_row,
+                                      q_proj, q_l1, c, x_p)
 
 
 def decode_attention(q, k, v, cache_len, *,

@@ -222,9 +222,42 @@ def binary_probe_lb_ref(codes, q_code, q_proj):
     shifts = torch.arange(m, dtype=torch.int64, device=q_proj.device)
     bits = (((codes[None, :] ^ q_code[:, None])[..., None] >> shifts) & 1
             ).to(torch.float32)                                  # (B, G, m)
-    sqrt_m = torch.sqrt(torch.tensor(float(m), dtype=torch.float32,
-                                     device=q_proj.device))
+    sqrt_m = torch.sqrt(torch.full((), float(m), dtype=torch.float32,
+                                   device=q_proj.device))
     return torch.einsum("bgm,bm->bg", bits, q_proj.abs()) / sqrt_m
+
+
+def quick_probe_select_ref(code, min_l1, count, rep_proj, rep_row, q_proj,
+                           q_l1, c: float, x_p: float):
+    """Batched Quick-Probe (Algorithm 2) over a group table of G groups:
+    code (G,) int64, min_l1 (G,) f32, count (G,) i32 (0 marks padding),
+    rep_proj (G, m) f32, rep_row (G,) i32; q_proj (B, m) f32, q_l1 (B,) f32.
+
+    The Theorem-3 bounds of `binary_probe_lb_ref`; Test A: LB^2 >= x_p * c *
+    (min_l1 + ||q||_1)^2. Among passing groups the smallest LB wins
+    (`torch.argmin` returns the first minimum, as `jnp` does); with none
+    passing, the largest tested value. Returns (rep_row (B,), radius (B,),
+    test_a_passed (B,)): the chosen group's representative row, the distance
+    from its projection to the query's, and whether any group passed."""
+    m = q_proj.shape[-1]
+    weights = torch.ones((), dtype=torch.int64, device=q_proj.device) << torch.arange(
+        m, dtype=torch.int64, device=q_proj.device)
+    q_code = ((q_proj >= 0.0).to(torch.int64) * weights).sum(dim=-1)   # (B,)
+    lb = binary_probe_lb_ref(code, q_code, q_proj)                    # (B, G)
+    valid = count > 0
+    denom = c * (min_l1[None, :] + q_l1[:, None]) ** 2
+    val = lb * lb / torch.clamp(denom, min=1e-30)
+    passes = (val >= x_p) & valid[None, :]
+
+    any_pass = passes.any(dim=1)
+    inf = torch.full_like(lb, float("inf"))   # no host copy: capturable
+    first_pass = torch.argmin(torch.where(passes, lb, inf), dim=1)
+    best_val = torch.argmax(torch.where(valid[None, :], val, -inf), dim=1)
+    chosen = torch.where(any_pass, first_pass, best_val)            # (B,)
+
+    rep = rep_proj[chosen]                                          # (B, m)
+    radius = torch.sqrt(((rep - q_proj) ** 2).sum(dim=-1))
+    return rep_row[chosen], radius, any_pass
 
 
 def decode_attention_ref(q, k, v, cache_len, block: int = 1024):

@@ -42,5 +42,5 @@ def sketch_scores(q, codebooks, codes):
             codes.data_ptr(), lut.data_ptr(), est.data_ptr(), b, nb, m,
             n_codewords, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "sketch_scores")
-    build.LAUNCHES["sketch_scores"] += 1
+    build.count_launch("sketch_scores")
     return est

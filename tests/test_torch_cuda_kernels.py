@@ -20,6 +20,14 @@ against the ordered LUT sum `ref.sketch_scores_lut_ref`, at every
 query-group size of the kernel (8, 4, 2 and 1, chosen by B).
 `binary_probe_lb` is bit for bit on integer-valued projections (every
 partial sum is exact) and within 1e-6 relative on float ones.
+`quick_probe_select` (the fused Quick-Probe) gives its plain version's
+representative rows and Test-A flags, with the radius within 1e-6
+relative, on exact ties, padding groups, no group passing, m = 1 and
+m = 30; it is one launch a call and two calls are equal bit for bit.
+The in-graph fused driver (`core/search_graph.py`) captures its stages as
+CUDA graphs: replayed after the caller's query tensor changed in place it
+equals the host driver bit for bit, with and without the kernels and under
+a truncating cap, and each replay counts the kernels its graphs hold.
 `decode_attention` sums scores, the softmax and P.V in another order than
 its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
 (the output is a convex combination of V rows), with cache_len = 0 giving
@@ -487,3 +495,174 @@ def test_decode_attention_kernel_is_one_launch(cuda):
     kernels = [e.name for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(kernels) == 1 and "da_kernel" in kernels[0], kernels
+
+
+def _probe_table(rng, g, m, b, flavor):
+    """A group table, a batch and x_p for `quick_probe_select` (numpy, as
+    `tests/test_torch_quick_probe.py` makes them against JAX)."""
+    if 2 ** m <= 4 * g:
+        codes = rng.choice(2 ** m, g, replace=False)
+    else:
+        codes = rng.permutation(np.unique(rng.randint(0, 2 ** m, 2 * g)))[:g]
+    if flavor == "ties":
+        q_proj = rng.choice([-2.0, 2.0], (b, m)).astype(np.float32)
+        min_l1 = np.full(g, 3.0, np.float32)
+        q_l1 = np.full(b, 4.0, np.float32)
+    else:
+        q_proj = rng.standard_normal((b, m)).astype(np.float32)
+        min_l1 = rng.uniform(0.5, 4.0, g).astype(np.float32)
+        q_l1 = np.abs(q_proj).sum(axis=1).astype(np.float32)
+    count = rng.randint(1, 50, g).astype(np.int32)
+    if flavor == "padding":
+        pad = rng.rand(g) < 0.3
+        count[pad], min_l1[pad] = 0, 1e-3
+    table = (np.sort(codes).astype(np.int64), min_l1, count,
+             rng.standard_normal((g, m)).astype(np.float32),
+             rng.permutation(10 * g)[:g].astype(np.int32))
+    if flavor == "none pass":
+        return table, q_proj, q_l1, 1e9
+    # x_p in the middle of the widest gap between the tested values near
+    # their 70% quantile: some groups pass, and none is within an ulp of it
+    bits = ((table[0][None, :] ^ ((q_proj >= 0) << np.arange(m)).sum(1)[:, None]
+             )[..., None] >> np.arange(m)) & 1
+    lb = (bits * np.abs(q_proj)[:, None, :]).sum(-1) / np.sqrt(m)
+    val = np.sort((lb ** 2 / (0.9 * (min_l1[None, :] + q_l1[:, None]) ** 2))
+                  .ravel())
+    lo, hi = int(0.6 * val.size), max(int(0.8 * val.size), int(0.6 * val.size) + 2)
+    i = lo + int(np.argmax(np.diff(val[lo:hi])))
+    return table, q_proj, q_l1, float(val[i] + val[i + 1]) / 2
+
+
+@pytest.mark.parametrize("g,m,b,flavor", [
+    (200, 8, 6, "ties"), (300, 12, 8, "padding"), (100, 10, 5, "none pass"),
+    (2, 1, 4, "float"), (1000, 30, 4, "float"), (4493, 16, 64, "float"),
+    (256, 8, 4, "float")])
+def test_quick_probe_select_kernel(cuda, g, m, b, flavor):
+    rng = np.random.RandomState(g + m + b)
+    table, q_proj, q_l1, x_p = _probe_table(rng, g, m, b, flavor)
+    args = ([torch.from_numpy(t).to(cuda) for t in table]
+            + [torch.from_numpy(q_proj).to(cuda), torch.from_numpy(q_l1).to(cuda),
+               0.9, x_p])
+    before = ops.LAUNCHES["quick_probe_select"]
+    got = ops.quick_probe_select(*args, use_kernels=True)
+    again = ops.quick_probe_select(*args, use_kernels=True)
+    want = ops.quick_probe_select(*args, use_kernels=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["quick_probe_select"] == before + 2
+    for a, w in zip(got, again):
+        assert torch.equal(a, w)
+    assert got[0].dtype == torch.int32 and got[2].dtype == torch.bool
+    assert torch.equal(got[0], want[0]), "rep_row"
+    assert torch.equal(got[2], want[2]), "test_a_passed"
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-6, atol=0)
+    if flavor == "none pass":
+        assert not bool(got[2].any())
+    else:
+        assert bool(got[2].any())
+    if flavor == "padding":
+        rows = table[4][table[2] == 0]
+        assert not np.isin(got[0].cpu().numpy(), rows).any()
+
+
+def test_quick_probe_select_kernel_is_one_launch_and_rejects(cuda):
+    rng = np.random.RandomState(3)
+    table, q_proj, q_l1, x_p = _probe_table(rng, 4493, 16, 64, "float")
+    t = [torch.from_numpy(a).to(cuda) for a in table]
+    q = [torch.from_numpy(q_proj).to(cuda), torch.from_numpy(q_l1).to(cuda)]
+    ops.quick_probe_select(*t, *q, 0.9, x_p, use_kernels=True)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ops.quick_probe_select(*t, *q, 0.9, x_p, use_kernels=True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "quick_probe_kernel" in kernels[0], kernels
+    with pytest.raises(ValueError):          # int32 codes
+        ops.quick_probe_select(t[0].int(), *t[1:], *q, 0.9, x_p,
+                               use_kernels=True)
+    with pytest.raises(ValueError):          # m > 30
+        ops.quick_probe_select(t[0], t[1], t[2],
+                               torch.zeros((4493, 31), device=cuda), t[4],
+                               torch.zeros((64, 31), device=cuda), q[1], 0.9,
+                               x_p, use_kernels=True)
+
+
+@pytest.fixture(scope="module")
+def card_index():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core.promips import ProMIPS
+    from repro_torch.data.synthetic import mf_factors
+    x = mf_factors(20000, 64, 12, decay=0.5, norm_tail=0.6, seed=0)
+    pm = ProMIPS.build(x, m=12, c=0.9, p=0.6, norm_strata=4, seed=0,
+                       device="cuda")
+    qs = [torch.from_numpy(mf_factors(32, 64, 12, decay=0.5, seed=s)).cuda()
+          for s in (1, 2, 3)]
+    return pm, qs
+
+
+GRAPH_CASES = {
+    "kernels, prefilter": dict(use_kernels=None, prefilter=True,
+                               prefilter_eps=0.1, dense_frac=0.8),
+    "plain versions": dict(use_kernels=False, prefilter=True,
+                           prefilter_eps=0.3),
+    "kernels, truncating cap": dict(use_kernels=None, tile_cap=48),
+}
+
+
+def _assert_same(got, want, what):
+    assert torch.equal(got[0], want[0]), f"{what}: ids"
+    assert torch.equal(got[1], want[1]), f"{what}: scores"
+    for field, a, w in zip(want[2]._fields, got[2], want[2]):
+        assert torch.equal(a, w), f"{what}: {field}"
+
+
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_search_graph_replays_equal_the_host_driver(cuda, card_index, case):
+    """Four searches with one query tensor, changed in place before the
+    third: the first runs each stage eagerly, the second captures and
+    replays, the rest replay. Each equals the host driver bit for bit."""
+    from repro_torch.core import search_graph as sg
+    from repro_torch.core.search_fused import search_batch_fused
+    pm, qs = card_index
+    nb = pm.meta.n_blocks
+    knobs = dict(k=10, budget=nb, budget2=nb, **GRAPH_CASES[case])
+    q = qs[0].clone()
+    for i, src in enumerate((qs[0], qs[0], qs[1], qs[2])):
+        q.copy_(src)
+        got = sg.search_batch_fused_graph(pm.arrays, pm.meta, q, **knobs)
+        want = search_batch_fused(pm.arrays, pm.meta, src.clone(), **knobs)
+        torch.cuda.synchronize()
+        _assert_same(got, want, f"search {i}")
+        if "cap" in case:
+            assert bool(want[2].exhausted.any()), "the cap truncated nothing"
+    entry = next(e for key, e in sg._GRAPHS.items() if e.arrays is pm.arrays
+                 and e.cfg.on_kernels == (knobs["use_kernels"] is None)
+                 and e.cfg.prefilter == knobs.get("prefilter", False))
+    assert ("front",) in entry.graphs and len(entry.graphs) >= 3
+
+
+def test_search_graph_counts_the_kernels_of_each_replay(cuda, card_index):
+    """After the graphs exist, N searches count N times the kernels the
+    replayed graphs hold: one Quick-Probe, one sketch and two block_mips
+    launches a search."""
+    from repro_torch.core import search_graph as sg
+    pm, qs = card_index
+    nb = pm.meta.n_blocks
+    knobs = dict(k=10, budget=nb, budget2=nb, prefilter=True,
+                 prefilter_eps=0.1, dense_frac=0.8)
+    for _ in range(2):
+        sg.search_batch_fused_graph(pm.arrays, pm.meta, qs[0], **knobs)
+    torch.cuda.synchronize()
+    before = dict(ops.LAUNCHES)
+    n = 3
+    for _ in range(n):
+        sg.search_batch_fused_graph(pm.arrays, pm.meta, qs[0], **knobs)
+    torch.cuda.synchronize()
+    delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    assert delta == {"binary_probe_lb": 0, "block_mips": 2 * n,
+                     "decode_attention": 0, "mips_score": 0,
+                     "quick_probe_select": n, "sketch_scores": n}, delta
