@@ -64,7 +64,21 @@ line):
      against the exact top-1 over the live vocab (the Theorem-2 floor), the
      hot-query cache (hits, tokens equal to a cache-off run), deletes and an
      update of vocab rows; step times, tokens/s, pages, launches per step,
-     peak memory, and a torch.profiler trace of one decode step.
+     peak memory. The engine replays its decode step as a CUDA graph: on
+     the kernel path each mode's traffic runs four times on one engine,
+     eager, graph, graph, eager (the eager runs point the engine at the
+     functions behind its graphs), with equal tokens and launches in all
+     four, at most one capture of each decode variant, and one fixed
+     step's logits or hidden state equal bit for bit between the replay
+     and the eager step; again after the deletes and the update (which
+     captures the hidden-state graph once more, over the engine's copy of
+     the embed table). A torch.profiler trace of one decode step on the
+     graph and on the eager functions; a fenced span trace (`obs.trace`)
+     of a promips run, the `search`, `rescore` and `segments_merge` span
+     totals of each step against its wall time; and an open-loop Zipfian
+     `serve.loadgen` run of about 10 s at half the graph engine's
+     throughput (p50/p99 latency and queue wait, completed requests/s,
+     shed and expired shares, tier occupancy).
 Phase 2 also holds binary_probe_lb and quick_probe_select (each at the
 vocab index's shape and at the n=1M index's; quick_probe_select one CUDA
 kernel a call, its representative rows and Test-A flags equal to the plain
@@ -1703,9 +1717,9 @@ def explain_token_diffs(label, params, cfg, reqs_a, reqs_b):
     return notes
 
 
-def profile_step(engine, prompts):
-    """Device time by kernel and the device's idle share over one promips
-    decode step with every slot active (torch.profiler)."""
+def profile_step(engine, prompts, label):
+    """Device time by kernel and the device's idle share over one decode
+    step with every slot active (torch.profiler)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1730,27 +1744,215 @@ def profile_step(engine, prompts):
                               count + 1)
     busy_ms = sum(t for t, _ in by_name.values()) / 1e3
     if busy_ms == 0:
-        log("[profile serve] device time not measured: the trace holds no "
-            "CUDA events")
+        log(f"[profile serve {label}] device time not measured: the trace "
+            "holds no CUDA events")
     else:
-        log(f"[profile serve] one promips decode step, 4 active slots: wall "
-            f"{wall_ms:.3f} ms under the profiler, device busy {busy_ms:.3f} "
-            f"ms, idle share {1 - busy_ms / wall_ms:.3f}")
-        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:18]:
-            log(f"[profile serve]   {t / 1e3:8.3f} ms  x{c:<4d} {name}")
+        log(f"[profile serve {label}] one {engine.logits_mode} decode step, "
+            f"{engine.b} active slots: wall {wall_ms:.3f} ms under the "
+            f"profiler, device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f}")
+        for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+            log(f"[profile serve {label}]   {t / 1e3:8.3f} ms  x{c:<4d} {name}")
     while engine.queue or engine.active.any():
         engine.step()
 
 
+def decode_graphs(engine):
+    """The engine's two `_DecodeGraph`s, by attribute name."""
+    return {"_decode": engine._decode, "_decode_hidden": engine._decode_hidden}
+
+
+def use_graphs(engine, graphs, on):
+    """Point the engine's decode functions at its CUDA graphs (``on``) or at
+    the eager functions behind them (a test seam, not an engine option)."""
+    for name, g in graphs.items():
+        setattr(engine, name, g if on else g.step)
+
+
+def check_graph_bits(label, engine, graphs):
+    """One decode step, on the engine's cache as its traffic left it and a
+    seeded token batch, through the engine's graph (replayed) and eagerly
+    from the same cache: the output (logits or hidden state) and the cache
+    must be equal bit for bit."""
+    import numpy as np
+    import torch
+    variant = "_decode_hidden" if engine.logits_mode == "promips" else "_decode"
+    g = graphs[variant]
+    require(g.graph is not None, f"[serve {label}] {variant} was never captured")
+    tok = torch.from_numpy(np.random.RandomState(7).randint(
+        1, engine.cfg.vocab, (engine.b, 1)).astype("int32")).to(DEVICE)
+    saved = {n: t.clone() for n, t in engine.cache.items()}
+    out_g = g(engine.params, engine.cache, tok)[0].clone()
+    cache_g = {n: t.clone() for n, t in engine.cache.items()}
+    for n, t in engine.cache.items():
+        t.copy_(saved[n])
+    out_e = g.step(engine.params, engine.cache, tok)[0]
+    torch.cuda.synchronize()
+    what = "hidden state" if variant == "_decode_hidden" else "logits"
+    diff = float((out_g - out_e).abs().max())
+    same = torch.equal(out_g, out_e) and all(
+        torch.equal(cache_g[n], engine.cache[n]) for n in saved)
+    log(f"[serve {label}] a fixed step's {what} {tuple(out_g.shape)}, graph "
+        f"replay vs eager: {'equal bit for bit' if same else 'DIFFER'} "
+        f"(largest difference {diff:.3g})")
+    require(same, f"[serve {label}] graph and eager {what} differ, largest "
+            f"difference {diff}")
+
+
+def timed_prefills(engine):
+    """Record the wall time of each of the engine's prefill groups (each
+    ends in a copy of its logits to the host). Returns the list."""
+    inner, times = engine._prefill_group, []
+
+    def prefill_group(group):
+        t0 = time.perf_counter()
+        inner(group)
+        times.append(time.perf_counter() - t0)
+
+    engine._prefill_group = prefill_group
+    return times
+
+
+def serve_run(label, engine, prompts, new, searches, live, meta, cfg):
+    """One traffic run with the launch counts, the peak memory and the
+    checks of its path; returns its numbers."""
+    import torch
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    steps0 = engine.steps
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    prefills = timed_prefills(engine)
+    reqs, times, wall = run_traffic(engine, prompts, new)
+    del engine._prefill_group
+    counts = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    steps = engine.steps - steps0
+    n_search = len(searches.rows)
+    rows_searched, ok = searches.guarantee(live, meta.c)
+    decoded = sum(len(r.out_tokens) - 1 for r in reqs)
+    require(all(len(r.out_tokens) >= 1 and 0 <= min(r.out_tokens)
+                and max(r.out_tokens) < cfg.vocab for r in reqs),
+            f"[serve {label}] a request emitted no token or an id outside "
+            "the vocab")
+    times_ms = sorted(1e3 * t for t in times)
+    median = times_ms[len(times_ms) // 2]
+    log(f"[serve {label}] {len(reqs)} requests, {steps} steps, {decoded} "
+        f"decoded tokens in {wall:.3f} s = {decoded / wall:.1f} tokens/s; step "
+        f"median {median:.3f} ms (range {times_ms[0]:.3f}-{times_ms[-1]:.3f}); "
+        f"{len(prefills)} prefills (eager) {1e3 * sum(prefills):.1f} ms in all; "
+        f"launches {counts}; peak memory {peak / 2**20:.1f} MiB "
+        f"({resident / 2**20:.1f} before + {(peak - resident) / 2**20:.1f})")
+    if engine.use_kernels is None:
+        require(counts["decode_attention"] == cfg.n_layers * steps,
+                f"[serve {label}] decode_attention launched "
+                f"{counts['decode_attention']} times in {steps} steps of "
+                f"{cfg.n_layers} layers")
+    else:
+        require(not any(counts.values()),
+                f"[serve {label}] a kernel was launched: {counts}")
+    if engine.logits_mode == "promips":
+        p0 = meta.p
+        floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / max(rows_searched, 1))
+        share = ok / max(rows_searched, 1)
+        log(f"[serve {label}] {n_search} searches; guarantee: {ok} of "
+            f"{rows_searched} searched rows have a top-1 score >= c={meta.c} x "
+            f"the exact top-1 over the live vocab: {share:.4f} (floor "
+            f"{floor:.4f})")
+        require(rows_searched > 0 and share >= floor,
+                f"[serve {label}] guarantee share {share} < {floor}")
+        if engine.use_kernels is None:
+            require(counts["quick_probe_select"] == n_search
+                    and counts["mips_score"] >= n_search,
+                    f"[serve {label}] a search kernel was not launched once "
+                    f"per search ({n_search}): {counts}")
+    return dict(reqs=reqs, tokens=[r.out_tokens for r in reqs], counts=counts,
+                steps=steps, searches=n_search, median_ms=median,
+                tok_s=decoded / wall, peak=peak)
+
+
+def graph_turns(label, engine, prompts, new, searches, live, meta, cfg,
+                max_captures=1):
+    """The traffic four times on one engine, eager, graph, graph, eager:
+    equal tokens and launches in all four, and at most ``max_captures``
+    captures of each decode variant. Returns the runs."""
+    graphs = decode_graphs(engine)
+    runs = []
+    for turn, on in enumerate((False, True, True, False)):
+        use_graphs(engine, graphs, on)
+        runs.append(serve_run(f"{label} {'graph' if on else 'eager'} {turn + 1}",
+                              engine, prompts, new, searches, live, meta, cfg))
+    use_graphs(engine, graphs, True)
+    require(all(r["tokens"] == runs[0]["tokens"] for r in runs),
+            f"[serve {label}] the tokens differ between graph and eager runs")
+    require(all(r["counts"] == runs[0]["counts"] for r in runs),
+            f"[serve {label}] the launches differ between graph and eager: "
+            f"{[r['counts'] for r in runs]}")
+    caps = {name: g.captures for name, g in graphs.items()}
+    log(f"[serve {label}] graph vs eager: tokens equal in all four runs, "
+        f"launches equal ({runs[0]['counts']}); captures {caps}; graph "
+        f"medians {runs[1]['median_ms']:.3f} / {runs[2]['median_ms']:.3f} ms "
+        f"against eager {runs[0]['median_ms']:.3f} / {runs[3]['median_ms']:.3f}")
+    require(all(n <= max_captures for n in caps.values()),
+            f"[serve {label}] a decode variant was captured more than "
+            f"{max_captures} times: {caps}")
+    check_graph_bits(label, engine, graphs)
+    return runs
+
+
+def traced_steps(engine, prompts, new):
+    """The traffic with the span tracer on and fencing: per step, the wall
+    time and the totals of a ``decode`` span around the decode graph's
+    replay (synchronized, so the search spans hold only the search) and
+    of the ``search``, ``rescore`` and ``segments_merge`` spans. Returns
+    the per-step rows; the spans go to build/serve_promips_spans.json."""
+    import torch
+    from repro_torch.obs import trace
+    names = ("decode", "search", "rescore", "segments_merge")
+    rows = []
+    graph = engine._decode_hidden
+
+    def fenced_decode(params, cache, token):
+        with trace.span("decode") as sp:
+            return sp.fence(graph(params, cache, token))
+
+    engine._decode_hidden = fenced_decode
+    trace.clear()
+    trace.enable(fence=True)
+    try:
+        for p in prompts:
+            engine.submit(p, max_new_tokens=new)
+        while engine.queue or engine.active.any():
+            n_before = trace.total()
+            t0 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            sums = dict.fromkeys(names, 0.0)
+            ring = trace.spans()
+            for sp in ring[len(ring) - (trace.total() - n_before):]:
+                if sp["name"] in sums:
+                    sums[sp["name"]] += sp["dur_us"] / 1e3
+            rows.append((wall, sums))
+        trace.export_chrome_trace(os.path.join(ROOT, "build",
+                                               "serve_promips_spans.json"))
+    finally:
+        engine._decode_hidden = graph
+        trace.disable()
+        trace.clear()
+    return rows
+
+
 def phase_serve():
     """The serve cell. Returns the launches of the counted promips run."""
-    import numpy as np
     import torch
     from repro_torch import api
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serve import DecodeEngine
+    from repro_torch.serve import DecodeEngine, LoadgenConfig, generate, run_load
     cfg = get_config(SERVE["arch"])
     t0 = time.perf_counter()
     params = T.init_params(cfg, seed=SERVE["param_seed"], device=DEVICE)
@@ -1779,111 +1981,81 @@ def phase_serve():
                   result_cache=0, device=DEVICE)
     new = SERVE["max_new_tokens"]
     live = torch.from_numpy(emb).to(DEVICE)
-    runs, launches = {}, None
+    run_args = (prompts, new, searches, live, meta, cfg)
+    runs, engines, launches = {}, {}, None
     for mode in ("exact", "promips"):
-        for path, use in (("kernels", None), ("plain", False)):
-            engine = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=use,
-                                  index=index if mode == "promips" else None,
-                                  **eng_kw)
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            resident = torch.cuda.memory_allocated()
-            for name in ops.LAUNCHES:
-                ops.LAUNCHES[name] = 0
-            reqs, times, wall = run_traffic(engine, prompts, new)
-            counts = dict(ops.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            n_search = len(searches.rows)
-            rows_searched, ok = searches.guarantee(live, meta.c)
-            decoded = sum(len(r.out_tokens) - 1 for r in reqs)
-            require(all(len(r.out_tokens) >= 1 and 0 <= min(r.out_tokens)
-                        and max(r.out_tokens) < cfg.vocab for r in reqs),
-                    f"[serve {mode}/{path}] a request emitted no token or an "
-                    "id outside the vocab")
-            times_ms = sorted(1e3 * t for t in times)
-            log(f"[serve {mode}/{path}] {len(reqs)} requests, {engine.steps} "
-                f"steps, {engine.prefill_calls} prefills, {decoded} decoded "
-                f"tokens in {wall:.3f} s = {decoded / wall:.1f} tokens/s; step "
-                f"median {times_ms[len(times_ms) // 2]:.3f} ms (range "
-                f"{times_ms[0]:.3f}-{times_ms[-1]:.3f}); launches {counts}; "
-                f"peak memory {peak / 2**20:.1f} MiB ({resident / 2**20:.1f} "
-                f"before + {(peak - resident) / 2**20:.1f})")
-            steps = engine.steps
-            if path == "kernels":
-                require(counts["decode_attention"] == cfg.n_layers * steps,
-                        f"[serve {mode}] decode_attention launched "
-                        f"{counts['decode_attention']} times in {steps} steps "
-                        f"of {cfg.n_layers} layers")
-            else:
-                require(not any(counts.values()),
-                        f"[serve {mode}/plain] a kernel was launched: {counts}")
-            if mode == "promips":
-                pages_row = engine.pages / max(engine.searched_rows, 1)
-                dense = cfg.vocab_padded * cfg.d_model * 4 // 4096
-                log(f"[serve {mode}/{path}] {n_search} searches over "
-                    f"{engine.searched_rows} rows: {pages_row:.1f} blocks per "
-                    f"row of {meta.page_rows} x {cfg.d_model} f32 "
-                    f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f}"
-                    f" 4-KB pages) against the exact mode's dense scan of "
-                    f"{dense} 4-KB pages; per search quick_probe_select "
-                    f"{counts['quick_probe_select'] / max(n_search, 1):.2f}, "
-                    f"mips_score {counts['mips_score'] / max(n_search, 1):.2f} "
-                    f"launches")
-                p0 = meta.p
-                floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / max(rows_searched, 1))
-                share = ok / max(rows_searched, 1)
-                log(f"[serve {mode}/{path}] guarantee: {ok} of {rows_searched} "
-                    f"searched rows have a top-1 score >= c={meta.c} x the "
-                    f"exact top-1 over the live vocab: {share:.4f} (floor "
-                    f"{floor:.4f})")
-                require(rows_searched > 0 and share >= floor,
-                        f"[serve {mode}/{path}] guarantee share {share} < {floor}")
-                if path == "kernels":
-                    require(counts["quick_probe_select"] == n_search
-                            and counts["mips_score"] >= n_search,
-                            f"[serve promips] a search kernel was not launched "
-                            f"once per search ({n_search}): {counts}")
-                    launches = dict(counts, steps=steps, searches=n_search)
-            runs[mode, path] = (engine, reqs)
+        # the kernel path four times on one engine (eager, graph, graph,
+        # eager), the plain path once through its graph
+        engine = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=None,
+                              index=index if mode == "promips" else None,
+                              **eng_kw)
+        turns = graph_turns(f"{mode}/kernels", engine, *run_args)
+        engines[mode] = engine
+        runs[mode, "kernels"] = turns[2]
+        plain = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=False,
+                             index=index if mode == "promips" else None,
+                             **eng_kw)
+        runs[mode, "plain"] = serve_run(f"{mode}/plain graph", plain, *run_args)
+        caps = {name: g.captures for name, g in decode_graphs(plain).items()}
+        require(max(caps.values()) == 1 and min(caps.values()) == 0,
+                f"[serve {mode}/plain] captures {caps}, one variant once")
+        del plain
+        if mode == "promips":
+            r = turns[2]
+            pages_row = engine.pages / max(engine.searched_rows, 1)
+            dense = cfg.vocab_padded * cfg.d_model * 4 // 4096
+            log(f"[serve promips/kernels] {engine.searched_rows} rows searched "
+                f"in four runs: {pages_row:.1f} blocks per row of "
+                f"{meta.page_rows} x {cfg.d_model} f32 "
+                f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f}"
+                f" 4-KB pages) against the exact mode's dense scan of "
+                f"{dense} 4-KB pages; per search quick_probe_select "
+                f"{r['counts']['quick_probe_select'] / max(r['searches'], 1):.2f}"
+                f", mips_score "
+                f"{r['counts']['mips_score'] / max(r['searches'], 1):.2f} "
+                f"launches")
+            launches = dict(r["counts"], steps=r["steps"], searches=r["searches"])
         notes = explain_token_diffs(f"serve {mode}", params, cfg,
-                                    runs[mode, "kernels"][1],
-                                    runs[mode, "plain"][1])
+                                    runs[mode, "kernels"]["reqs"],
+                                    runs[mode, "plain"]["reqs"])
         log(f"[serve {mode}] kernel vs plain path: "
             f"{len(notes)} of {len(prompts)} requests differ in tokens"
             + "".join(f"; {n}" for n in notes))
-    same = sum(a.out_tokens == b.out_tokens for a, b in
-               zip(runs["exact", "kernels"][1], runs["promips", "kernels"][1]))
-    tok_eq = sum(x == y for a, b in zip(runs["exact", "kernels"][1],
-                                        runs["promips", "kernels"][1])
-                 for x, y in zip(a.out_tokens, b.out_tokens))
-    tok_n = sum(min(len(a.out_tokens), len(b.out_tokens)) for a, b in
-                zip(runs["exact", "kernels"][1], runs["promips", "kernels"][1]))
+    ka, kb = runs["exact", "kernels"]["tokens"], runs["promips", "kernels"]["tokens"]
+    same = sum(a == b for a, b in zip(ka, kb))
+    tok_eq = sum(x == y for a, b in zip(ka, kb) for x, y in zip(a, b))
+    tok_n = sum(min(len(a), len(b)) for a, b in zip(ka, kb))
     log(f"[serve] exact vs promips (kernel paths, not gated): {same} of "
         f"{len(prompts)} requests emit the same tokens; {tok_eq} of {tok_n} "
         f"token positions agree")
-    profile_step(runs["promips", "kernels"][0], prompts)
+    engine = engines["promips"]
+    graphs = decode_graphs(engine)
+    profile_step(engine, prompts, "graph")
+    use_graphs(engine, graphs, False)
+    profile_step(engine, prompts, "eager")
+    use_graphs(engine, graphs, True)
     searches.rows.clear()
 
     # -- the hot-query cache on repeated prompts, against the cache off
     repeated = prompts[:8] * 2
     outs = {}
     for cap in (0, 256):
-        engine = DecodeEngine(params, cfg, logits_mode="promips", index=index,
-                              **dict(eng_kw, result_cache=cap))
-        reqs, _, wall = run_traffic(engine, repeated, new)
+        eng = DecodeEngine(params, cfg, logits_mode="promips", index=index,
+                           **dict(eng_kw, result_cache=cap))
+        reqs, _, wall = run_traffic(eng, repeated, new)
         outs[cap] = [r.out_tokens for r in reqs]
-        st = engine.qcache.stats()
+        st = eng.qcache.stats()
         log(f"[serve cache {cap}] {len(repeated)} requests (8 prompts twice): "
-            f"{engine.searched_rows} rows searched, cache {st}, {wall:.3f} s")
+            f"{eng.searched_rows} rows searched, cache {st}, {wall:.3f} s")
+    del eng
     searches.rows.clear()
     require(st["hits"] > 0, "[serve cache] no hit on repeated prompts")
     require(outs[0] == outs[256], "[serve cache] tokens differ with the cache on")
 
-    # -- mutation: retire three emitted ids, then refresh one row
-    engine = runs["promips", "kernels"][0]
-    emitted = [t for r in runs["promips", "kernels"][1] for t in r.out_tokens[1:]
-               if t != engine.eos_id]
+    # -- mutation: retire three emitted ids, then refresh one row; graph
+    # against eager again in the mutated state
+    emitted = [t for r in runs["promips", "kernels"]["reqs"]
+               for t in r.out_tokens[1:] if t != engine.eos_id]
     retired = [int(t) for t, _ in
                sorted(((t, emitted.count(t)) for t in set(emitted)),
                       key=lambda tc: (-tc[1], tc[0]))[:3]]
@@ -1891,7 +2063,8 @@ def phase_serve():
     reqs, _, wall = run_traffic(engine, prompts, new)
     hit = sorted({t for r in reqs for t in r.out_tokens} & set(retired))
     gids, rows = index.alive_items()
-    n_rows, ok = searches.guarantee(torch.from_numpy(rows).to(DEVICE), meta.c)
+    live_rows = torch.from_numpy(rows).to(DEVICE)
+    n_rows, ok = searches.guarantee(live_rows, meta.c)
     log(f"[serve mutation] deleted ids {retired} (the most emitted); the same "
         f"traffic again in {wall:.3f} s: retired ids emitted {hit or 'none'}; "
         f"guarantee {ok} of {n_rows} rows over {len(gids)} live rows")
@@ -1899,14 +2072,70 @@ def phase_serve():
     upd = int(next(t for t in range(1, cfg.vocab) if t not in retired))
     row = (params["embed"][upd] * 1.5).cpu().numpy()
     engine.update([upd], row[None])
-    for name in ops.LAUNCHES:
-        ops.LAUNCHES[name] = 0
-    reqs, _, wall = run_traffic(engine, prompts[:4], new)
-    hit = sorted({t for r in reqs for t in r.out_tokens} & set(retired))
+    live_rows = torch.from_numpy(index.alive_items()[1]).to(DEVICE)
+    mut = graph_turns("promips/kernels after the deletes and the update",
+                      engine, prompts[:4], new, searches, live_rows, meta, cfg,
+                      max_captures=2)
+    hit = sorted({t for r in mut[0]["reqs"] for t in r.out_tokens}
+                 & set(retired))
     log(f"[serve mutation] updated id {upd} (its row x 1.5, now in the delta "
-        f"segment); 4 requests in {wall:.3f} s, launches {dict(ops.LAUNCHES)}; "
-        f"retired ids emitted {hit or 'none'}")
+        f"segment); 4 requests; retired ids emitted {hit or 'none'}; "
+        f"captures of the hidden-state graph {graphs['_decode_hidden'].captures}"
+        f" (one more after update() copied the embed table)")
     require(not hit, f"[serve mutation] a deleted id was emitted: {hit}")
+    require(graphs["_decode_hidden"].captures == 2,
+            "[serve mutation] the hidden-state graph was not captured once "
+            f"more after update(): {graphs['_decode_hidden'].captures}")
+
+    # -- the vocab search's spans against the step, fenced
+    rows = traced_steps(engine, prompts, new)
+    for i in range(0, len(rows), 8):
+        log(f"[serve spans] steps {i}-{min(i + 8, len(rows)) - 1}, ms of wall"
+            f" / decode / search / rescore / segments_merge: " + "; ".join(
+                f"{w:.3f} / {s['decode']:.3f} / {s['search']:.3f} / "
+                f"{s['rescore']:.3f} / {s['segments_merge']:.3f}"
+                for w, s in rows[i:i + 8]))
+    med = sorted(w for w, _ in rows)[len(rows) // 2]
+    tot = {name: sum(s[name] for _, s in rows) for name in rows[0][1]}
+    wall_sum = sum(w for w, _ in rows)
+    log(f"[serve spans] {len(rows)} fenced promips steps after the mutations: "
+        f"step median {med:.3f} ms; of {wall_sum:.1f} ms of steps, the decode "
+        f"graph {tot['decode']:.1f} ms ({tot['decode'] / wall_sum:.3f}), search "
+        f"{tot['search']:.1f} ms ({tot['search'] / wall_sum:.3f}; rescore "
+        f"{tot['rescore']:.1f} inside it), segments_merge "
+        f"{tot['segments_merge']:.1f} ms ({tot['segments_merge'] / wall_sum:.3f})"
+        f"; Chrome trace build/serve_promips_spans.json")
+    require(tot["search"] > 0 and tot["segments_merge"] > 0,
+            "[serve spans] no search or segments_merge span was recorded")
+    searches.rows.clear()
+
+    # -- open-loop load at half the graph engine's throughput
+    step_s = runs["promips", "kernels"]["median_ms"] / 1e3
+    rate = 0.5 * SERVE["batch_slots"] / (new * step_s)
+    lg = LoadgenConfig(rate_qps=rate, n_requests=max(1, round(10.0 * rate)),
+                       pool_size=32, prompt_lens=SERVE["prompt_lens"],
+                       max_new_tokens_choices=(new,), seed=SERVE["traffic_seed"])
+    eng = DecodeEngine(params, cfg, logits_mode="promips", index=index,
+                       **dict(eng_kw, result_cache=256))
+    arrivals = generate(lg, cfg.vocab)
+    prefills = timed_prefills(eng)
+    summary = run_load(eng, arrivals, max_wall_s=120.0)
+    searches.rows.clear()
+    log(f"[serve loadgen] open loop, {lg.n_requests} requests at "
+        f"{rate:.2f} requests/s (half of {SERVE['batch_slots']} slots / "
+        f"({new} tokens x {1e3 * step_s:.3f} ms)), Zipf {lg.zipf_s} over "
+        f"{lg.pool_size} prompts, graph engine, result cache 256: "
+        f"{json.dumps(summary)}")
+    log(f"[serve loadgen] {eng.steps} decode steps; {len(prefills)} prefills "
+        f"(eager, one a prompt length admitted together) took "
+        f"{sum(prefills):.3f} s of the {summary['wall_s']:.3f} s "
+        f"(median {1e3 * sorted(prefills)[len(prefills) // 2]:.3f} ms)")
+    require(summary["completed"] + round(summary["shed_frac"] * lg.n_requests)
+            + round(summary["expired_frac"] * lg.n_requests) == lg.n_requests
+            and summary["completed"] > 0,
+            f"[serve loadgen] requests unaccounted for: {summary}")
+    require(eng._decode_hidden.captures == 1,
+            f"[serve loadgen] captures {eng._decode_hidden.captures}")
     engine.join_compaction(timeout=600)
     return launches
 

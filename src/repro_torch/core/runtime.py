@@ -12,6 +12,12 @@ score cache is the CPU oracle's), and rescores the k winners exactly
 over-fetched k and merges in the delta segment's exact scores
 (`_merge_segments`). Both run on the card unless the caller passes
 ``device="cpu"``.
+
+Spans (`obs.trace`), under the JAX package's names: ``search`` over the
+whole call and a fenced ``rescore``, both when ``cfg.obs`` or the global
+tracer is on and the search is not being captured into a CUDA graph; the
+host driver's per-phase spans inside; ``segments_merge`` around the delta
+merge.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops, ref
+from ..obs import trace as _trace
 from ..tune import cache as tune_cache
 from .index import IndexArrays, IndexMeta, resolve_device
 from .search_common import DENSE_FRAC, next_pow2
@@ -51,8 +58,8 @@ class RuntimeConfig:
     True on the CPU raises. ``dense_frac`` and ``tile_cap`` None consult
     the tuning cache for the index's shape on the search's device and fall
     back to `DENSE_FRAC` and no cap (`tune.cache.resolved`), as the JAX
-    package's `search` does.
-    ``obs=True`` (per-call spans) raises until `obs/trace.py` is ported.
+    package's `search` does. ``obs=True`` records this call's spans
+    (`obs.trace`) whether or not the tracer is on.
     """
 
     k: int = 10
@@ -102,10 +109,6 @@ class RuntimeConfig:
             if not isinstance(getattr(self, field_name), bool):
                 raise ValueError(f"{field_name} must be a bool, got "
                                  f"{getattr(self, field_name)!r}")
-        if self.obs:
-            raise NotImplementedError(
-                "obs=True needs the span tracer, which is not ported yet "
-                "(ROADMAP Queue 1 item 8)")
         if self.use_kernels is not None and not isinstance(self.use_kernels, bool):
             raise ValueError(f"use_kernels must be None or a bool, got "
                              f"{self.use_kernels!r}")
@@ -125,6 +128,14 @@ class RuntimeConfig:
                                or isinstance(tc, bool) or tc < 1):
             raise ValueError(f"tile_cap must be None or a positive int, got "
                              f"{tc!r}")
+
+
+def _spans_on(cfg: RuntimeConfig, q: torch.Tensor) -> bool:
+    """Whether this search records spans: asked for, and not inside a CUDA
+    graph capture (a capture runs nothing to time, and a fence there would
+    break it)."""
+    return ((cfg.obs or _trace.enabled())
+            and not (q.is_cuda and torch.cuda.is_current_stream_capturing()))
 
 
 def _queries(queries, meta: IndexMeta, dev) -> torch.Tensor:
@@ -174,12 +185,20 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
                  use_kernels=cfg.use_kernels, prefilter=cfg.prefilter,
                  prefilter_eps=cfg.prefilter_eps, dense_frac=dense_frac,
                  tile_cap=tile_cap)
-    if cfg.verification == "fused" and not q.is_cuda:
-        ids, _, stats = search_batch_fused(arrays, meta, q, **knobs)
-    else:
-        ids, _, stats = search_batch(arrays, meta, q,
-                                     verification=cfg.verification, **knobs)
-    scores = _rescore(arrays.x, stats.rows, q)
+    active = _spans_on(cfg, q)
+    with _trace.span("search", active=active,
+                     metric="search.batch_us") as sp_e2e:
+        if cfg.verification == "fused" and not q.is_cuda:
+            ids, _, stats = search_batch_fused(arrays, meta, q, obs=active,
+                                               **knobs)
+        else:
+            ids, _, stats = search_batch(arrays, meta, q,
+                                         verification=cfg.verification,
+                                         **knobs)
+        with _trace.span("rescore", active=active,
+                         metric="search.rescore_us") as sp:
+            scores = sp.fence(_rescore(arrays.x, stats.rows, q))
+        sp_e2e.fence((ids, scores))
     return ids, scores, stats
 
 
@@ -197,12 +216,11 @@ def _merge_segments(base_alive, rows, base_ids, base_scores, delta_x,
     over the concatenation keeps `lax.top_k`'s rule: a tie goes to the
     lower index, so base entries first."""
     alive = (rows >= 0) & base_alive[torch.clamp(rows, min=0).long()]
-    neg_inf = torch.tensor(float("-inf"), device=base_scores.device)
-    b_scores = torch.where(alive, base_scores, neg_inf)
+    b_scores = torch.where(alive, base_scores, float("-inf"))
     b_ids = torch.where(alive, base_ids, torch.full_like(base_ids, -1))
     d_scores = ops.mips_score(delta_x, queries, delta_valid,
                               use_kernels=use_kernels).T       # (B, cap)
-    d_scores = torch.where(delta_valid[None, :], d_scores, neg_inf)
+    d_scores = torch.where(delta_valid[None, :], d_scores, float("-inf"))
     d_ids = torch.where(delta_valid, delta_gids,
                         torch.full_like(delta_gids, -1)).expand_as(d_scores)
     merged_s = torch.cat([b_scores, d_scores], dim=1)
@@ -239,9 +257,13 @@ def search_segments(snap, queries, cfg: RuntimeConfig = RuntimeConfig(), *,
     ids_b, scores_b, stats = search(snap.arrays, meta, q,
                                     dataclasses.replace(cfg, k=k_base),
                                     device=dev)
-    ids, scores = _merge_segments(snap.base_alive, stats.rows, ids_b,
-                                  scores_b, snap.delta_x, snap.delta_gids,
-                                  snap.delta_valid, q, cfg.k, cfg.use_kernels)
+    with _trace.span("segments_merge", active=_spans_on(cfg, q),
+                     metric="search.merge_us") as sp:
+        ids, scores = _merge_segments(snap.base_alive, stats.rows, ids_b,
+                                      scores_b, snap.delta_x, snap.delta_gids,
+                                      snap.delta_valid, q, cfg.k,
+                                      cfg.use_kernels)
+        sp.fence((ids, scores))
     delta_pages = -(-snap.delta_count // meta.page_rows)  # logical delta sweep
     return ids, scores, StreamStats(
         pages=stats.pages + delta_pages,

@@ -12,6 +12,10 @@ Per query batch:
   5. `compensation_masks` -> Condition B + round-2 masks, pruned again by
      the sketch; an empty round is skipped on the host;
   6. the second verification round.
+
+With ``obs`` each phase is a span (`obs.trace`) under the JAX driver's
+name, fenced when the tracer fences, and the round shapes feed the
+``fused.*`` counters.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
+from ..obs import metrics as _metrics
+from ..obs.trace import span as _span
 from .index import IndexArrays, IndexMeta
 from .search_common import DENSE_FRAC, next_pow2
 from .search_device import (SearchStats, TopK, block_priority,
@@ -106,6 +112,7 @@ def search_batch_fused(
     use_kernels: Optional[bool] = None,
     prefilter: bool = False,
     prefilter_eps: float = 1.0,
+    obs: bool = False,
     dense_frac: float = DENSE_FRAC,
     tile_cap: Optional[int] = None,
 ):
@@ -116,7 +123,9 @@ def search_batch_fused(
     before any page is read. ``dense_frac`` moves the dense-tile threshold
     (results are identical at any value); ``tile_cap`` clamps both rounds'
     tiles below the budget, truncating under the best-first rule and
-    flagging the affected queries ``exhausted``.
+    flagging the affected queries ``exhausted``. ``obs`` records the
+    per-phase spans and the round-shape counters (the results do not
+    change).
     """
     dev = queries.device
     n_blocks = meta.n_blocks
@@ -129,16 +138,22 @@ def search_batch_fused(
     on_kernels = queries.is_cuda if use_kernels is None else bool(use_kernels)
     valid = arrays.ids >= 0
 
-    q_proj, q_l2sq, d_sp, r0, probe_ok, c_half, mask0 = select_frontend(
-        arrays, meta, queries, use_kernels)
+    with _span("select_frontend", active=obs,
+               metric="search.frontend_us") as sp:
+        q_proj, q_l2sq, d_sp, r0, probe_ok, c_half, mask0 = select_frontend(
+            arrays, meta, queries, use_kernels)
+        sp.fence(mask0)
     prio_np = (block_priority(arrays, q_proj).cpu().numpy()
                if min(cap, cap2) < n_blocks else None)
     mask_r1 = mask0
     sk_est = sk_bnd = sk_bvalid = None
     if prefilter:
-        mask_r1, sk_est, sk_bnd, sk_bvalid = prefilter_round1(
-            arrays, queries, mask0, k, meta.page_rows, prefilter_eps,
-            use_kernels)
+        with _span("prefilter_round1", active=obs,
+                   metric="search.prefilter_us") as sp:
+            mask_r1, sk_est, sk_bnd, sk_bvalid = prefilter_round1(
+                arrays, queries, mask0, k, meta.page_rows, prefilter_eps,
+                use_kernels)
+            sp.fence(mask_r1)
     zero = torch.zeros(n_batch, dtype=torch.int32, device=dev)
     false = torch.zeros(n_batch, dtype=torch.bool, device=dev)
     top = TopK(scores=torch.full((n_batch, k), float("-inf"), device=dev),
@@ -149,42 +164,72 @@ def search_batch_fused(
                 torch.from_numpy(np.ascontiguousarray(sel)).to(dev))
 
     scores_cache = None
-    plan = _plan_tile(mask_r1.cpu().numpy(), cap, n_blocks, dense_frac,
-                      prio=prio_np)
+    with _span("plan_tile_round1", active=obs, metric="search.plan_us"):
+        mask_np = mask_r1.cpu().numpy()
+        if obs and prefilter:
+            n_sel = float(mask0.sum())
+            _metrics.gauge("search.prefilter_survivor_frac").set(
+                float(mask_np.sum()) / max(n_sel, 1.0))
+        plan = _plan_tile(mask_np, cap, n_blocks, dense_frac, prio=prio_np)
     if plan is None:
+        if obs:
+            _metrics.counter("fused.rounds_skipped").inc()
         pages1, cand1, done_a, lost1 = zero, zero, false, false
     else:
         slots, sel, lost_np, dense = plan
+        if obs:
+            _metrics.counter("fused.rounds_dense" if dense
+                             else "fused.rounds_sparse").inc()
         # a dense plain round scores the whole corpus in place; keep that
         # (B, n_pad) product so the compensation round needs no new matmul
         want_scores = dense and not on_kernels
-        top, pages1, cand1, done_a, scores_cache = _verify(
-            arrays, valid, queries, *tile(slots, sel), top, c_half, k,
-            meta.page_rows, dense, use_kernels, want_scores)
+        with _span("verify_round1", active=obs,
+                   metric="search.verify_round_us") as sp:
+            top, pages1, cand1, done_a, scores_cache = _verify(
+                arrays, valid, queries, *tile(slots, sel), top, c_half, k,
+                meta.page_rows, dense, use_kernels, want_scores)
+            sp.fence(top.scores)
         lost1 = torch.from_numpy(lost_np).to(dev)
 
-    s_k = top.scores[:, k - 1]
-    need2, r1, mask1 = compensation_masks(arrays, meta, d_sp, q_l2sq, s_k, r0,
-                                          done_a, mask0, norm_adaptive,
-                                          cs_prune)
+    with _span("compensation", active=obs,
+               metric="search.compensation_us") as sp:
+        s_k = top.scores[:, k - 1]
+        need2, r1, mask1 = compensation_masks(arrays, meta, d_sp, q_l2sq, s_k,
+                                              r0, done_a, mask0, norm_adaptive,
+                                              cs_prune)
+        sp.fence(mask1)
     mask_r2 = mask1
     if prefilter:
-        mask_r2 = prefilter_round2(mask1, sk_est, sk_bnd, sk_bvalid, s_k)
+        with _span("prefilter_round2", active=obs,
+                   metric="search.prefilter_us") as sp:
+            mask_r2 = prefilter_round2(mask1, sk_est, sk_bnd, sk_bvalid, s_k)
+            sp.fence(mask_r2)
 
-    plan = _plan_tile(mask_r2.cpu().numpy(), cap2, n_blocks, dense_frac,
-                      prio=prio_np)
+    with _span("plan_tile_round2", active=obs, metric="search.plan_us"):
+        plan = _plan_tile(mask_r2.cpu().numpy(), cap2, n_blocks, dense_frac,
+                          prio=prio_np)
     if plan is None:
+        if obs:
+            _metrics.counter("fused.rounds_skipped").inc()
         pages2, cand2, lost2 = zero, zero, false
     else:
         slots, sel, lost_np, dense = plan
-        if scores_cache is not None:
-            top, pages2, cand2 = _verify_cached(
-                valid, scores_cache, *tile(slots, sel), top, c_half, k,
-                meta.page_rows)
-        else:
-            top, pages2, cand2, _, _ = _verify(
-                arrays, valid, queries, *tile(slots, sel), top, c_half, k,
-                meta.page_rows, dense, use_kernels)
+        with _span("verify_round2", active=obs,
+                   metric="search.verify_round_us") as sp:
+            if scores_cache is not None:
+                if obs:
+                    _metrics.counter("fused.rounds_cached").inc()
+                top, pages2, cand2 = _verify_cached(
+                    valid, scores_cache, *tile(slots, sel), top, c_half, k,
+                    meta.page_rows)
+            else:
+                if obs:
+                    _metrics.counter("fused.rounds_dense" if dense
+                                     else "fused.rounds_sparse").inc()
+                top, pages2, cand2, _, _ = _verify(
+                    arrays, valid, queries, *tile(slots, sel), top, c_half, k,
+                    meta.page_rows, dense, use_kernels)
+            sp.fence(top.scores)
         lost2 = torch.from_numpy(lost_np).to(dev)
 
     stats = SearchStats(

@@ -10,9 +10,11 @@ leading layer axis (``ln1``, ``ln2``, ``attn``: ``wq wk wv wo``, ``mlp``:
 
 The cache is ``{"len": (B,) int32, "k", "v": (L, B, max_len, KH, dh)}``, as
 in JAX. Unlike JAX's functional update, `decode_step` writes the new K/V
-into the cache tensors in place (no copy of the whole cache per step) and
-returns the same dict. Other block patterns, MoE and modality frontends
-raise `NotImplementedError` (ROADMAP Queue 1 item 12).
+and lengths into the cache tensors in place (no copy of the whole cache per
+step) and returns the same dict, so the three tensors never change
+identity and a CUDA graph captured over them stays valid. Other block
+patterns, MoE and modality frontends raise `NotImplementedError` (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -161,7 +163,7 @@ def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
                                     use_kernels=use_kernels)
         x = x + att.reshape(b, 1, -1) @ lp["attn"]["wo"]
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
-    cache["len"] = new_len
+    cache["len"].copy_(new_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x[:, 0], cache

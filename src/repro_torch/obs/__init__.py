@@ -1,6 +1,10 @@
-"""Observability of the port: the metrics registry (`metrics`, a copy of
-`repro.obs.metrics`). The span tracer `repro.obs.trace` is not ported yet
-(ROADMAP Queue 1 item 8)."""
-from . import metrics
+"""Observability of the port: the span tracer (`trace`, the port of
+`repro.obs.trace`, fenced by CUDA stream syncs) and the metrics registry
+(`metrics`, a copy of `repro.obs.metrics`). Neither imports anything of
+`repro_torch.core`, which imports them."""
+from . import metrics, trace
+from .trace import (configure, disable, enable, enabled, export_chrome_trace,
+                    span)
 
-__all__ = ["metrics"]
+__all__ = ["metrics", "trace", "span", "configure", "enable", "disable",
+           "enabled", "export_chrome_trace"]

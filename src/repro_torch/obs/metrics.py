@@ -27,8 +27,8 @@ exactly which paths actually recorded. Feeds:
     directly (already gated by its own flag).
 
 The glossary keeps every name the JAX package declares, the span
-histograms of its `obs.trace` (not ported yet) included, so that both
-packages accept the same names.
+histograms of `obs.trace` included, so that both packages accept the same
+names.
 
 `register_collector(fn)` adds a callback run at every `snapshot()` /
 `prometheus_text()` — used for pull-style values (e.g. the fused driver's

@@ -24,12 +24,19 @@ Everything runs on ``device`` (the card by default). ``use_kernels`` has
 and the plain versions on the CPU, False the plain versions on the card,
 True on the CPU raises. The hidden rows' fingerprints and the chosen tokens
 go to the host every step, as in the JAX engine.
+
+Where the JAX engine jits its decode step, a card engine replays it as a
+CUDA graph (`_DecodeGraph`, one for the logits and one for the hidden
+state) over its static cache; a CPU engine runs `decode_step` eagerly.
+`prefill` runs eagerly in both, as in the JAX engine, and writes into the
+static cache in place.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -37,6 +44,7 @@ import torch
 from .. import api
 from ..core.index import resolve_device
 from ..core.runtime import RuntimeConfig
+from ..kernels import build
 from ..models import transformer as model_lib
 from ..obs import metrics as _metrics
 from ..robust.faultpoints import fault
@@ -96,6 +104,97 @@ class DegradationPolicy:
             raise ValueError("recall_floors must declare one floor per tier")
         if self.queue_low >= self.queue_high:
             raise ValueError("queue_low must be < queue_high (hysteresis)")
+
+
+def _eager_decode(cfg, return_hidden: bool, use_kernels) -> Callable:
+    """`decode_step` as the JAX engine's jitted function sees it:
+    ``(params, cache, token) -> (logits or hidden, cache)``."""
+    def decode(params, cache, token):
+        return model_lib.decode_step(params, cfg, cache, token,
+                                     return_hidden=return_hidden,
+                                     use_kernels=use_kernels)
+    return decode
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from _leaves(val)
+    else:
+        yield tree
+
+
+class _DecodeGraph:
+    """One decode function of a card engine (``step``, from
+    `_eager_decode`) replayed as a CUDA graph: the counterpart of the JAX
+    engine's `jax.jit` of it, called the same way,
+    ``(params, cache, token) -> (out, cache)``.
+
+    The graph reads the tensors it was captured over: every leaf of
+    ``params``, the cache's ``len``, ``k`` and ``v`` (which `decode_step`
+    updates in place) and a static (B, 1) token buffer that each call
+    fills. A call with tensors the graph was not captured over (the first
+    call, or a new embed table after `DecodeEngine.update`) runs ``step``
+    eagerly, which warms up cuBLAS and the allocator and allocates
+    `decode_attention`'s tickets; the next call captures on a side stream,
+    and later calls replay. The output is a static buffer of the graph: the
+    next call overwrites it, so the caller finishes with it (on the same
+    stream, in order) first. Kernels launched inside the capture go to the
+    graph's tally and are counted at each replay. A lock and `wait_stream`
+    keep two calls off the static buffers. A capture or a replay that
+    fails raises.
+    """
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self.lock = threading.Lock()
+        self.last_stream = None
+        self.key = None          # the identities of the tensors captured over
+        self.inputs = None       # ... kept alive, so that the ids stay theirs
+        self.stream = None
+        self.graph = None
+        self.tok = None
+        self.out = None
+        self.tally: dict = {}
+        self.captures = 0
+
+    def __call__(self, params, cache, token):
+        key = (tuple(id(t) for t in _leaves(params))
+               + tuple(id(cache[name]) for name in ("len", "k", "v"))
+               + (tuple(token.shape),))
+        dev = token.device
+        with self.lock, torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            if self.last_stream is not None and self.last_stream != cur:
+                cur.wait_stream(self.last_stream)
+            self.last_stream = cur
+            if key != self.key:
+                if self.graph is not None:
+                    torch.cuda.synchronize(dev)   # no replay left in flight
+                self.graph = self.out = self.tok = None
+                self.key, self.inputs = key, (params, cache)
+                return self.step(params, cache, token)
+            if self.graph is None:
+                self._capture(params, cache, token, cur)
+            self.tok.copy_(token)
+            self.graph.replay()
+            build.add_launches(self.tally)
+            return self.out, cache
+
+    def _capture(self, params, cache, token, cur) -> None:
+        graph, tally = torch.cuda.CUDAGraph(), {}
+        tok = torch.empty_like(token)
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(token.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream), build.counting_into(tally):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out, _ = self.step(params, cache, tok)
+            finally:
+                graph.capture_end()
+        self.graph, self.tok, self.out, self.tally = graph, tok, out, tally
+        self.captures += 1
 
 
 class DecodeEngine:
@@ -161,6 +260,12 @@ class DecodeEngine:
         self.cache = model_lib.init_cache(cfg, batch_slots, max_len,
                                           self.params["embed"].dtype,
                                           device=self.device)
+        self._embed_owned = False       # update() has copied the table
+        self._decode = _eager_decode(cfg, False, use_kernels)
+        self._decode_hidden = _eager_decode(cfg, True, use_kernels)
+        if self.device.type == "cuda":
+            self._decode = _DecodeGraph(self._decode)
+            self._decode_hidden = _DecodeGraph(self._decode_hidden)
         self.active = np.zeros(batch_slots, bool)
         self.requests: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
@@ -280,9 +385,11 @@ class DecodeEngine:
     # -- embedding mutation ---------------------------------------------------
     def update(self, ids, rows) -> None:
         """Refresh output-embedding rows mid-traffic. The engine's embed
-        table gets the new rows (a copy: the caller's tensor is untouched);
-        in promips mode they move to the index's delta segment and are
-        scored exactly from the next step."""
+        table gets the new rows: the first refresh copies the table (the
+        caller's tensor is untouched; the decode graphs are captured anew
+        over the copy), later ones write into the copy in place, where the
+        captured graphs read them. In promips mode the rows move to the
+        index's delta segment and are scored exactly from the next step."""
         ids = np.atleast_1d(np.asarray(ids, np.int64))
         rows = np.atleast_2d(np.asarray(rows, np.float32))
         if (ids < 0).any() or (ids >= self.cfg.vocab).any():
@@ -296,10 +403,13 @@ class DecodeEngine:
             # the embed table untouched
             self.index.update(ids, rows)
             self.qcache.clear()   # cached results may predate the rows
-        embed = self.params["embed"].clone()
+        if not self._embed_owned:
+            self.params = dict(self.params,
+                               embed=self.params["embed"].clone())
+            self._embed_owned = True
+        embed = self.params["embed"]
         embed[torch.from_numpy(ids).to(embed.device)] = torch.from_numpy(
             rows).to(device=embed.device, dtype=embed.dtype)
-        self.params = dict(self.params, embed=embed)
 
     def delete(self, ids) -> None:
         """Retire vocab ids from decoding: tombstoned in the embedding
@@ -493,14 +603,11 @@ class DecodeEngine:
                 tokens[slot, 0] = self.requests[slot].out_tokens[-1]
         tok = torch.from_numpy(tokens).to(self.device)
         if self.logits_mode == "promips":
-            hidden, self.cache = model_lib.decode_step(
-                self.params, self.cfg, self.cache, tok, return_hidden=True,
-                use_kernels=self.use_kernels)
+            hidden, self.cache = self._decode_hidden(self.params, self.cache,
+                                                     tok)
             nxt = self._promips_next_tokens(hidden)
         else:
-            logits, self.cache = model_lib.decode_step(
-                self.params, self.cfg, self.cache, tok,
-                use_kernels=self.use_kernels)
+            logits, self.cache = self._decode(self.params, self.cache, tok)
             lg = logits.float().cpu().numpy()
             lg[..., self.cfg.vocab:] = -np.inf  # mask the vocab_padded tail
             nxt = np.argmax(lg, axis=-1)

@@ -32,6 +32,7 @@ from ..core.index import (IndexArrays, IndexMeta, ProMIPSIndex, resolve_device,
                           to_device)
 from ..core.runtime import RuntimeConfig, next_pow2, search_segments
 from ..obs import metrics as _metrics
+from ..obs import trace as _trace
 from .compaction import CompactionConfig, Compactor, rebuild_base
 from .segments import DeltaSegment, Snapshot
 
@@ -374,17 +375,22 @@ class MutableProMIPS:
     def compact(self) -> None:
         """Synchronous compaction (the background path is `self.compactor`).
         With no surviving rows there is nothing to rebuild from: the op log
-        is closed and the tombstones stay (searches mask them)."""
-        gids, rows = self._freeze_for_compaction()
-        if len(gids) == 0:
-            self._abandon_compaction()
-            return
-        try:
-            new_base = rebuild_base(gids, rows, self.build_kwargs)
-        except BaseException:
-            self._abandon_compaction()
-            raise
-        self._install_compacted(new_base)
+        is closed and the tombstones stay (searches mask them). A
+        ``stream_compact`` span times it when the tracer or the metrics
+        registry is on."""
+        with _trace.span("stream_compact",
+                         active=_trace.enabled() or _metrics.enabled(),
+                         metric="stream.compaction_us"):
+            gids, rows = self._freeze_for_compaction()
+            if len(gids) == 0:
+                self._abandon_compaction()
+                return
+            try:
+                new_base = rebuild_base(gids, rows, self.build_kwargs)
+            except BaseException:
+                self._abandon_compaction()
+                raise
+            self._install_compacted(new_base)
 
     def join_compaction(self, timeout: Optional[float] = None) -> None:
         if self.compactor is not None:

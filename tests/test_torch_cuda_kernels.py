@@ -34,6 +34,12 @@ its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
 the mean of V. Its sums run in an order fixed by the inputs, so repeated
 calls are equal bit for bit; it is one CUDA launch a call and replays
 from a CUDA graph after its inputs change in place.
+The serve engine's captured decode step (`serve.engine._DecodeGraph`, at
+the reduced tinyllama config) equals the eager `decode_step` bit for bit
+in its output and cache after the tokens and ``cache_len`` change in
+place, counts its kernels at each replay, and after `update()` is
+captured again over the engine's copy of the embed table, giving the
+eager engine's tokens; a decode function that cannot be captured raises.
 """
 import numpy as np
 import pytest
@@ -666,3 +672,157 @@ def test_search_graph_counts_the_kernels_of_each_replay(cuda, card_index):
     assert delta == {"binary_probe_lb": 0, "block_mips": 2 * n,
                      "decode_attention": 0, "mips_score": 0,
                      "quick_probe_select": n, "sketch_scores": n}, delta
+
+
+# -- the serve engine's captured decode step ----------------------------------
+
+@pytest.fixture(scope="module")
+def card_model():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the decode step is captured on it")
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("tinyllama-1.1b").reduced()
+    return cfg, T.init_params(cfg, seed=0, device="cuda")
+
+
+def _filled_cache(cfg, b, s, lens, seed):
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, b, s, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for name in ("k", "v"):
+        cache[name].copy_(torch.randn(cache[name].shape, generator=gen,
+                                      device="cuda"))
+    cache["len"].copy_(torch.tensor(lens, dtype=torch.int32))
+    return cache
+
+
+def _tokens(cfg, b, seed):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.randint(1, cfg.vocab, (b, 1)).astype(
+        np.int32)).cuda()
+
+
+@pytest.mark.parametrize("hidden", [False, True], ids=["logits", "hidden"])
+@pytest.mark.parametrize("use_kernels", [None, False], ids=["kernel", "plain"])
+def test_decode_graph_replays_bit_equal_to_eager(cuda, card_model, hidden,
+                                                 use_kernels):
+    """Five calls of one `_DecodeGraph` (eager, capture and replay, then
+    replays), with new tokens every call and ``cache_len`` changed in place
+    before the fourth: each output and the cache equal an eager
+    `decode_step` on a copy of the cache bit for bit."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as engine_lib
+    cfg, params = card_model
+    cache = _filled_cache(cfg, 4, 64, [1, 17, 40, 63], seed=1)
+    ref_cache = {name: t.clone() for name, t in cache.items()}
+    ids = {name: id(t) for name, t in cache.items()}
+    g = engine_lib._DecodeGraph(engine_lib._eager_decode(cfg, hidden,
+                                                         use_kernels))
+    for i in range(5):
+        if i == 3:
+            for c in (cache, ref_cache):
+                c["len"].copy_(torch.tensor([5, 0, 30, 2], dtype=torch.int32))
+        tok = _tokens(cfg, 4, seed=10 + i)
+        got, got_cache = g(params, cache, tok)
+        want, _ = T.decode_step(params, cfg, ref_cache, tok,
+                                return_hidden=hidden, use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        assert got_cache is cache
+        assert {name: id(t) for name, t in cache.items()} == ids
+        assert torch.equal(got, want), f"call {i}"
+        for name in ("len", "k", "v"):
+            assert torch.equal(cache[name], ref_cache[name]), (i, name)
+    assert g.captures == 1 and g.graph is not None
+
+
+def test_decode_graph_counts_the_kernels_of_each_replay(cuda, card_model):
+    """Once captured, N calls count N x n_layers `decode_attention`
+    launches, and the plain path's graph none."""
+    from repro_torch.serve import engine as engine_lib
+    cfg, params = card_model
+    for use_kernels, per_call in ((None, cfg.n_layers), (False, 0)):
+        cache = _filled_cache(cfg, 4, 64, [3, 9, 27, 50], seed=2)
+        g = engine_lib._DecodeGraph(engine_lib._eager_decode(cfg, False,
+                                                             use_kernels))
+        for i in range(2):
+            g(params, cache, _tokens(cfg, 4, seed=i))
+        torch.cuda.synchronize()
+        assert g.captures == 1
+        assert g.tally == ({"decode_attention": cfg.n_layers} if per_call
+                           else {})
+        before = dict(ops.LAUNCHES)
+        n = 3
+        for i in range(n):
+            g(params, cache, _tokens(cfg, 4, seed=5 + i))
+        torch.cuda.synchronize()
+        delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
+        assert delta == dict({k: 0 for k in before},
+                             decode_attention=n * per_call), delta
+
+
+@pytest.mark.parametrize("mode", ["exact", "promips"])
+def test_decode_graph_after_update_reads_the_new_rows(cuda, card_model, mode):
+    """A card engine (graphs) and the same engine with its eager decode
+    functions get the same traffic and two embedding refreshes while
+    requests are in flight: equal tokens. The first refresh copies the
+    table and the graph is captured again over the copy; the second writes
+    into the copy in place, which the graph reads without a capture."""
+    from repro_torch.serve import DecodeEngine
+    cfg, params = card_model
+    caller_embed = params["embed"].clone()
+    kw = dict(batch_slots=3, max_len=64, result_cache=0, max_refill=None,
+              logits_mode=mode, device="cuda")
+    graph_eng = DecodeEngine(params, cfg, **kw)
+    eager_eng = DecodeEngine(params, cfg, **kw)
+    variant = "_decode_hidden" if mode == "promips" else "_decode"
+    g = getattr(graph_eng, variant)
+    setattr(eager_eng, variant, g.step)
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(1, cfg.vocab, size=6 + i % 3).astype(np.int32)
+               for i in range(6)]
+    reqs = [[e.submit(p, max_new_tokens=10) for p in prompts]
+            for e in (graph_eng, eager_eng)]
+    captures = []
+    for phase in range(3):
+        for _ in range(4):
+            graph_eng.step()
+            eager_eng.step()
+        captures.append(g.captures)
+        if phase == 2:
+            break
+        emitted = sorted({t for r in reqs[0] for t in r.out_tokens if t})
+        ids = [emitted[phase]]
+        rows = (rng.standard_normal((1, cfg.d_model)) * 0.05).astype(np.float32)
+        for e in (graph_eng, eager_eng):
+            e.update(ids, rows)
+    graph_eng.run()
+    eager_eng.run()
+    assert [r.out_tokens for r in reqs[0]] == [r.out_tokens for r in reqs[1]]
+    assert captures == [1, 2, 2] and g.captures == 2
+    assert torch.equal(params["embed"], caller_embed)
+    for e in (graph_eng, eager_eng):
+        e.join_compaction()
+
+
+def test_decode_graph_capture_that_fails_raises(cuda, card_model):
+    """A decode function that reads a value on the host cannot be captured:
+    the call that would capture it raises (no eager fallback), every later
+    call raises too, and the eager first call is unaffected."""
+    from repro_torch.serve import engine as engine_lib
+    cfg, params = card_model
+    eager = engine_lib._eager_decode(cfg, False, None)
+
+    def step(params, cache, token):
+        out, cache = eager(params, cache, token)
+        out.sum().item()                     # a host read
+        return out, cache
+
+    cache = _filled_cache(cfg, 4, 64, [3, 9, 27, 50], seed=4)
+    g = engine_lib._DecodeGraph(step)
+    g(params, cache, _tokens(cfg, 4, seed=0))           # eager
+    for i in range(2):
+        with pytest.raises(RuntimeError):
+            g(params, cache, _tokens(cfg, 4, seed=1 + i))
+        assert g.graph is None and g.captures == 0
+    torch.cuda.synchronize()

@@ -142,8 +142,7 @@ def test_runtime_config_rejects_what_is_not_ported():
         RuntimeConfig(mode="progressive")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RuntimeConfig(verification="scan")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig(obs=True)
+    assert RuntimeConfig(obs=True).obs is True    # the span tracer is ported
     with pytest.raises(ValueError):
         RuntimeConfig(verification="nope")
     with pytest.raises(ValueError):
