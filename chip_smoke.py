@@ -26,6 +26,16 @@ line):
   4. the same at n=1,000,000, plus the time per batch, the launches of each
      kernel, the peak memory, and a torch.profiler trace of one batch
      (device time per kernel, the device's idle share);
+  4b. on the same n=1M index, the promips backend in every mode at full
+     budget (fused, batched, scan, progressive): scan = batched = fused in
+     ids and every counter, or each difference a tie or a flip with its
+     margin; the scan_blocks kernel against its plain walk on the same
+     inputs (scores within tolerance on equal rows, differing rows exact
+     ties, a differing walk explained by a flip and, in scan mode, each
+     output the top-k of its own walk); ops.mips_topk over the corpus; the
+     facade with the four baselines on the n=100k rows; the paper's host
+     search in a forked child process pinned to one core, away from the
+     thread that drives the card;
   5. the streaming index (`MutableProMIPS`: insert / delete / update ->
      snapshot -> base search with the over-fetched k + the delta scored by
      mips_score -> merge; compaction), in two cells:
@@ -1381,6 +1391,534 @@ def phase_profile(search, q, label):
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:16]:
         log(f"[profile {label}]   {t / 1e3:8.3f} ms  x{c:<3d} {name}")
 
+# ---------------------------------------------------------------- phase 4b
+
+# the modes of the promips backend at full budget on the n=1M index: the
+# two-phase backends with the main path's sketch prefilter, and the
+# progressive search with the facade's Cauchy-Schwarz pruning
+MODES = (("two_phase/fused", dict(verification="fused", prefilter=True,
+                                  prefilter_eps=0.1, dense_frac=0.8)),
+         ("two_phase/batched", dict(verification="batched", prefilter=True,
+                                    prefilter_eps=0.1)),
+         ("two_phase/scan", dict(verification="scan", prefilter=True,
+                                 prefilter_eps=0.1)),
+         ("progressive", dict(mode="progressive", cs_prune=True)))
+WALK_BUDGETS = (256, 4096)            # and scan at full budget
+HOST_QUERIES, INCREMENTAL_QUERIES = 8, 2
+FACADE_BACKENDS = (("promips", dict(mode="progressive")), ("exact", {}),
+                   ("h2alsh", {}), ("pq", {}), ("rangelsh", {}))
+SCAN_REPLACES = ("src/repro/core/search_device.py:441,611 (lax.scan bodies, "
+                 "no Pallas)")
+
+
+def host_searches(pm, queries, conn, core):
+    """Child process: the paper's host searches on the n=1M index, numpy
+    only (the card belongs to the parent), on CPU core ``core`` alone (None:
+    unpinned) so that it does not take the cores of the parent's timed
+    work. The facade's ``search_path="host"`` in two-phase and progressive
+    mode on `HOST_QUERIES` queries, each query's `HostStats` recorded as it
+    passes, and Algorithm 1 (`search_incremental`) on
+    `INCREMENTAL_QUERIES`. Sends a list of per-query dicts, or ("error",
+    traceback)."""
+    import traceback
+    try:
+        if core is not None:    # before numpy starts its threads
+            os.sched_setaffinity(0, {core})
+        from repro_torch.api.adapters import PromipsSearcher
+        from repro_torch.core.runtime import RuntimeConfig
+        out, seen = [], []
+
+        def recorded(fn):
+            def call(q, **kw):
+                t0 = time.perf_counter()
+                ids, scores, st = fn(q, **kw)
+                seen.append((ids, st, time.perf_counter() - t0))
+                return ids, scores, st
+            return call
+
+        pm.search_host = recorded(pm.search_host)
+        pm.search_host_progressive = recorded(pm.search_host_progressive)
+        for path, cfg in (("two_phase", RuntimeConfig(k=SEARCH["k"])),
+                          ("progressive", RuntimeConfig(
+                              k=SEARCH["k"], mode="progressive",
+                              cs_prune=True))):
+            seen.clear()
+            facade = PromipsSearcher(pm, cfg, search_path="host")
+            res = facade.search(queries[:HOST_QUERIES])
+            for i, (ids, st, sec) in enumerate(seen):
+                out.append(dict(path=path, q=i, ids=ids.tolist(),
+                                pages=st.pages, candidates=st.candidates,
+                                stopped_by=st.stopped_by,
+                                probe_passed=st.probe_passed,
+                                used_round2=st.used_round2, seconds=sec,
+                                facade_ids=res.ids[i].tolist()))
+        for i in range(INCREMENTAL_QUERIES):
+            t0 = time.perf_counter()
+            ids, _, st = pm.search_incremental(queries[i], k=SEARCH["k"])
+            out.append(dict(path="incremental", q=i, ids=ids.tolist(),
+                            pages=st.pages, candidates=st.candidates,
+                            stopped_by=st.stopped_by, probe_passed=False,
+                            used_round2=False,
+                            seconds=time.perf_counter() - t0))
+        conn.send(out)
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def walk_inputs(pm, q, budget):
+    """The rounds of a scan search and the walk of a progressive search on
+    the card, as `ops.scan_blocks` argument sets: the frontend, the sketch
+    prefilter and the compensation masks of the main path's scan search
+    (round 2 carries the kernel's round-1 top-k), and the progressive gaps.
+    Yields (label, positional args, keyword args)."""
+    import torch
+    from repro_torch.core import search_device as sd
+    from repro_torch.kernels import ops
+    arrays, meta = pm.arrays, pm.meta
+    k, pr = SEARCH["k"], meta.page_rows
+    _, q_l2sq, d_sp, r0, _, c_half, mask0 = sd.select_frontend(arrays, meta, q)
+    mask_r1, est, bnd, bvalid = sd.prefilter_round1(
+        arrays, q, mask0, k, pr, SEARCH["prefilter_eps"])
+    empty = sd._empty_top(q.shape[0], k, q.device)
+
+    def scan_args(mask, top):
+        order = torch.sort((~mask).to(torch.uint8), dim=1,
+                           stable=True).indices.int()
+        return ((arrays.x, arrays.ids, q, order, top.scores.contiguous(),
+                 top.rows.contiguous(), c_half.contiguous()),
+                dict(k=k, page_rows=pr, budget=budget,
+                     n_sel=mask.sum(dim=1, dtype=torch.int32)))
+
+    args, kw = scan_args(mask_r1, empty)
+    yield "scan round 1", args, kw
+    top_s, top_r, _, _, done_a = ops.scan_blocks(*args, **kw)
+    s_k = top_s[:, k - 1]
+    _, _, mask1 = sd.compensation_masks(arrays, meta, d_sp, q_l2sq, s_k, r0,
+                                        done_a, mask0, False, False)
+    mask_r2 = sd.prefilter_round2(mask1, est, bnd, bvalid, s_k)
+    yield ("scan round 2",) + scan_args(mask_r2, sd.TopK(top_s, top_r))
+    gap = sd.block_gaps(arrays, q @ arrays.a)
+    order = torch.sort(gap, dim=1, stable=True).indices.int()
+    yield ("progressive", (arrays.x, arrays.ids, q, order, empty.scores,
+                           empty.rows, c_half.contiguous()),
+           dict(k=k, page_rows=pr, budget=min(budget, meta.n_blocks),
+                block_gap=gap.contiguous(),
+                block_max_l2sq=arrays.block_max_l2sq,
+                q_l2sq=q_l2sq.contiguous(), c=meta.c, x_p=meta.x_p,
+                cs_prune=True))
+
+
+def _walk_top_exact(x, ids, qv, blocks, pr, init_rows, k):
+    """The k best exact (float64) scores, descending and -inf padded, over
+    the valid rows of a walked block list and the carried rows; and the
+    number of valid rows walked."""
+    import torch
+    rows = (blocks[:, None] * pr + torch.arange(pr, device=x.device)).flatten()
+    rows = rows[ids[rows] >= 0]
+    pool = torch.cat([rows, init_rows[init_rows >= 0].long()]).unique()
+    best = torch.full((k,), float("-inf"), dtype=torch.float64)
+    if pool.numel():
+        top = (x[pool].double() @ qv.double()).topk(min(k, pool.numel()))
+        best[:top.values.numel()] = top.values.cpu()
+    return best, int(rows.numel())
+
+
+def check_walk(label, args, kw, got, want, meta):
+    """Hold a kernel walk against the plain walk on the same inputs.
+
+    - Every slot where both top-k's hold the same row: a finite score
+      within REL |x_row| |q| + ABS of the plain one, an infinite one equal.
+    - A query whose walk is the same (pages, candidates, done_a): each slot
+      whose rows differ holds two rows whose exact scores tie within
+      tolerance.
+    - A query whose walk differs: a flip whose normalized margin is <= 1,
+      a valid row of its walk range within tolerance of c_half (a
+      Condition-A stop) or, in progressive mode, a block of its range whose
+      gap lies within the radius's change over the k-th score's tolerance
+      (a qualify flip). In scan mode each of the two outputs must then be
+      the top-k of its own walk: its candidates the valid rows of its
+      walked prefix, its exact scores those of the prefix's (and the
+      carried rows') k best within tolerance.
+
+    Returns (max |d top_s| on equal rows, {query: flip margin}, the number
+    of tie slots)."""
+    import torch
+    x, ids, q, order, _, init_r, c_half = args
+    pr, k = kw["page_rows"], kw["k"]
+    g = [t.cpu() for t in got]
+    w = [t.cpu() for t in want]
+    same_r = g[1] == w[1]
+    inf = torch.isinf(g[0]) | torch.isinf(w[0])
+    require(bool((g[0][same_r & inf] == w[0][same_r & inf]).all()),
+            f"scan_blocks {label}: an infinite top score differs on one row")
+    fin = same_r & ~inf
+    x_top = x[g[1].clamp(min=0).long().to(x.device)]                # (B, k, d)
+    tol = (REL * x_top.double().norm(dim=-1)
+           * q.double().norm(dim=1)[:, None] + ABS).cpu()
+    err = (g[0].double() - w[0].double()).abs()
+    require(bool((err[fin] <= tol[fin]).all()),
+            f"scan_blocks {label}: top_s beyond tolerance by "
+            f"{float((err - tol)[fin].max()) if fin.any() else 0.0}")
+    max_err = float(err[fin].max()) if bool(fin.any()) else 0.0
+
+    walk_differs = (g[2] != w[2]) | (g[3] != w[3]) | (g[4] != w[4])
+    ties = 0
+    for b, j in (~same_r & ~walk_differs[:, None]).nonzero().tolist():
+        rg, rw = int(g[1][b, j]), int(w[1][b, j])
+        require(rg >= 0 and rw >= 0,
+                f"scan_blocks {label}: top_r[{b},{j}] {rg} vs {rw}")
+        e = (x[[rg, rw]].double() @ q[b].double()).cpu()
+        t = float(_row_tol(x[[rg, rw]], q[b]).max())
+        require(abs(float(e[0] - e[1])) <= t,
+                f"scan_blocks {label}: top_r[{b},{j}] {rg} vs {rw}: exact "
+                f"scores {float(e[0])} vs {float(e[1])} are not a tie")
+        ties += 1
+
+    flips = {}
+    for b in walk_differs.nonzero().flatten().tolist():
+        limit = (int(kw["n_sel"][b]) if "n_sel" in kw else kw["budget"])
+        blocks = order[b, :min(limit, kw["budget"])].long()
+        rows = (blocks[:, None] * pr + torch.arange(pr, device=x.device)).flatten()
+        rows = rows[ids[rows] >= 0]
+        s64 = x[rows].double() @ q[b].double()
+        tol_r = _row_tol(x[rows], q[b])
+        margins = [float(((s64 - c_half[b].double()).abs() / tol_r).min())]
+        if "block_gap" in kw:
+            gap = kw["block_gap"][b, blocks].double()
+            m_l2 = kw["block_max_l2sq"][blocks].double()
+            ql = kw["q_l2sq"][b].double()
+            for s_k in {float(g[0][b, -1]), float(w[0][b, -1])}:
+                if not math.isfinite(s_k):
+                    continue
+                tol_s = float(tol_r.max())
+
+                def radius(s):
+                    return torch.sqrt(torch.clamp(meta.x_p * (
+                        m_l2 + ql - 2.0 * s / meta.c), min=0.0))
+                dr = (radius(s_k - tol_s) - radius(s_k + tol_s)).abs()
+                margins.append(float(((gap - radius(s_k)).abs()
+                                      / (dr + 1e-6 * radius(s_k))).min()))
+        require(min(margins) <= 1.0,
+                f"scan_blocks {label}: query {b}'s walk differs between the "
+                f"kernel and the plain walk (pages {int(g[2][b])} vs "
+                f"{int(w[2][b])}, done {bool(g[4][b])} vs {bool(w[4][b])}) "
+                f"with no flip within tolerance (normalized margins "
+                f"{margins})")
+        flips[b] = min(margins)
+        if "block_gap" in kw:
+            continue
+        for name, out in (("kernel", g), ("plain", w)):
+            walked = order[b, :int(out[2][b])].long()
+            best, n_rows = _walk_top_exact(x, ids, q[b], walked, pr,
+                                           init_r[b], k)
+            require(int(out[3][b]) == n_rows,
+                    f"scan_blocks {label}: query {b}'s {name} walk counts "
+                    f"{int(out[3][b])} candidates for {n_rows} valid rows")
+            r = out[1][b].long()
+            e = torch.full((k,), float("-inf"), dtype=torch.float64)
+            e[r >= 0] = (x[r[r >= 0].to(x.device)].double()
+                         @ q[b].double()).cpu()
+            e = e.sort(descending=True).values
+            t = float(tol_r.max()) if tol_r.numel() else ABS
+            ok = (e == best) | ((e - best).abs() <= t)
+            require(bool(ok.all()),
+                    f"scan_blocks {label}: query {b}'s {name} top-k is not "
+                    f"the top-k of its own walk (exact {e.tolist()} vs "
+                    f"{best.tolist()})")
+    return max_err, flips, ties
+
+
+def scan_blocks_bound_ms(args, kw, got):
+    """Least time of a scan walk: the pages it reads (the union over the
+    batch of the walked prefixes, each page's rows and ids read once), the
+    order entries walked, queries and top-k in and out, over the HBM rate;
+    against 2 d page_rows fp32 operations per (query, page) walked."""
+    import torch
+    x, ids, q, order = args[:4]
+    b, d = q.shape
+    pr, k = kw["page_rows"], kw["k"]
+    pages = got[2].long()
+    steps = torch.arange(order.shape[1], device=order.device)[None, :]
+    walked = order.long()[steps < pages[:, None]]
+    union = int(walked.unique().numel())
+    nbytes = (union * pr * (d * 4 + 4) + int(pages.sum()) * 4 + b * d * 4
+              + 4 * b * k * 8 + b * 13)
+    ops = 2.0 * d * pr * float(pages.sum())
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", union)
+
+
+def flip_check(label, want, got, x, q, c_half, k):
+    """Two searches on the card that must agree (scan = batched = fused at
+    full budget): ids, pages, candidates, used_round2 and exhausted equal.
+    Where only ids differ, each differing slot holds two rows whose exact
+    scores tie within tolerance; where a counter differs, the query needs a
+    row within tolerance of c_half (a Condition-A stop) or a rank tie in
+    its two top-k's (a k-th score, and so Condition B, within tolerance).
+    Returns {query: margin}."""
+    import torch
+    ids_w, _, st_w = want
+    ids_g, _, st_g = got
+    counters = ((st_w.pages != st_g.pages)
+                | (st_w.candidates != st_g.candidates)
+                | (st_w.used_round2 != st_g.used_round2)
+                | (st_w.exhausted != st_g.exhausted))
+    differ = ((ids_w != ids_g).any(dim=1) | counters).nonzero().flatten()
+    flips = {}
+    for b in differ.tolist():
+        s64 = x.double() @ q[b].double()
+        tol = _row_tol(x, q[b])
+        if not bool(counters[b]):
+            for j in (ids_w[b] != ids_g[b]).nonzero().flatten().tolist():
+                rw, rg = int(ids_w[b, j]), int(ids_g[b, j])
+                require(rw >= 0 and rg >= 0,
+                        f"{label}: query {b} slot {j}: ids {rw} vs {rg}")
+                gap = abs(float(s64[rw] - s64[rg]))
+                t = float(max(tol[rw], tol[rg]))
+                require(gap <= t, f"{label}: query {b} slot {j}: ids {rw} vs "
+                        f"{rg} with exact scores {gap} apart, not a tie")
+                flips[b] = max(flips.get(b, 0.0), gap / t)
+            continue
+        margins = [float(((s64 - c_half[b].double()).abs() / tol).min())]
+        top = torch.cat([ids_w[b], ids_g[b]]).unique()
+        top = top[top >= 0].long()
+        st = torch.sort(s64[top], descending=True).values
+        if st.numel() > 1:
+            margins.append(float(((st[:-1] - st[1:]) / tol[top].max()).min()))
+        require(min(margins) <= 1.0,
+                f"{label}: query {b}'s counters differ with no flip within "
+                f"tolerance (normalized margins {margins})")
+        flips[b] = min(margins)
+    return flips
+
+
+def phase_modes(pm, x, q, x100k, q100k, timer):
+    """The promips backend in every mode on the n=1M index (no rebuild),
+    the paper's host search on it, `ops.mips_topk` at n=1M, and the facade
+    with the four baselines on the n=100k rows. Returns (the scan_blocks
+    record, the modes' launches, mips_topk's block_mips launches)."""
+    import multiprocessing as mp
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api.adapters import PromipsSearcher
+    from repro_torch.core import search_common as sc
+    from repro_torch.core.metrics import overall_ratio, recall_at_k
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.runtime import search as runtime_search
+    from repro_torch.kernels import ops
+    k, meta, arrays = SEARCH["k"], pm.meta, pm.arrays
+    p0 = meta.p
+    floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
+
+    # the host searches run in a child process beside the card's work, on
+    # one core of their own; the driving thread keeps off that core
+    cores = os.sched_getaffinity(0)
+    core = max(cores) if len(cores) > 1 else None
+    ctx = mp.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=host_searches,
+                        args=(pm, q[:HOST_QUERIES].cpu().numpy(), send, core))
+    t_host = time.perf_counter()
+    child.start()
+    send.close()
+    if core is not None:
+        os.sched_setaffinity(0, cores - {core})
+    log(f"[modes] host searches pinned to core {core} of {sorted(cores)}; "
+        f"the driving thread keeps off it")
+    try:
+        # -- every mode at full budget, through the facade and the runtime
+        eids, escores = exact_topk(x, q, k)
+        c_half = sc.condition_a_threshold(arrays.max_l2sq,
+                                          (q * q).sum(dim=1), meta.c)
+        facade = PromipsSearcher(pm, RuntimeConfig(k=k))
+        runs, launches = {}, {}
+        for label, knobs in MODES:
+            cfg = RuntimeConfig(k=k, **knobs)
+            for name in ops.LAUNCHES:
+                ops.LAUNCHES[name] = 0
+            out = runtime_search(arrays, meta, q, cfg, device=pm.device)
+            torch.cuda.synchronize()
+            launches[label] = dict(ops.LAUNCHES)
+            runs[label] = out
+            ids, scores, st = out
+            res = facade.search(q, runtime=cfg)
+            require(np.array_equal(res.ids, ids.cpu().numpy()),
+                    f"[modes] {label}: the facade's ids differ from the "
+                    f"runtime's")
+            require(ids.shape == (q.shape[0], k)
+                    and bool(torch.isfinite(scores).all()),
+                    f"[modes] {label}: output has the wrong shape or "
+                    f"non-finite scores")
+            recall = float(np.mean([recall_at_k(ids[b].cpu().numpy(),
+                                                eids[b].cpu().numpy())
+                                    for b in range(q.shape[0])]))
+            rate = success_rate(scores, escores, meta.c)
+            med, times = time_batches(
+                lambda qb, cfg=cfg: runtime_search(arrays, meta, qb, cfg,
+                                                   device=pm.device))
+            log(f"[modes n=1M {label}] recall {recall:.4f} theorem-2 success "
+                f"{rate:.4f} (floor {floor:.4f}) pages_mean "
+                f"{float(st.pages.double().mean()):.2f} used_round2 "
+                f"{int(st.used_round2.sum())} exhausted "
+                f"{int(st.exhausted.sum())}; batch of {q.shape[0]}: median "
+                f"{med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}); "
+                f"launches {launches[label]}")
+            require(rate >= floor, f"[modes] {label}: Theorem-2 floor missed: "
+                    f"{rate} < {floor}")
+        for label in ("two_phase/scan", "progressive"):
+            require(launches[label]["scan_blocks"] > 0,
+                    f"[modes] {label} launched no scan_blocks kernel")
+        for other in ("two_phase/batched", "two_phase/fused"):
+            flips = flip_check(f"[modes] scan vs {other}", runs["two_phase/scan"],
+                               runs[other], x, q, c_half, k)
+            log(f"[modes n=1M] two_phase/scan = {other} in ids, pages, "
+                f"candidates, used_round2 and exhausted"
+                + (f", but for flips (query: normalized margin) {flips}"
+                   if flips else ", every query"))
+
+        # -- the walk kernel against its plain version on the same inputs
+        scan_rec = None
+        for budget in (meta.n_blocks,) + WALK_BUDGETS:
+            for label, args, kw in walk_inputs(pm, q, budget):
+                if budget == meta.n_blocks and label == "progressive":
+                    continue
+                got = ops.scan_blocks(*args, **kw, use_kernels=True)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()    # the plain walk, timed once
+                want = ops.scan_blocks(*args, **kw, use_kernels=False)
+                torch.cuda.synchronize()
+                plain_ms = 1e3 * (time.perf_counter() - t0)
+                err, flips, ties = check_walk(label, args, kw, got, want,
+                                              meta)
+                ms = timer.ms(lambda: ops.scan_blocks(*args, **kw,
+                                                      use_kernels=True))
+                line = (f"[kernel scan_blocks: {label}, budget {budget}] "
+                        f"pages/query {float(got[2].float().mean()):.1f} "
+                        f"done_a {int(got[4].sum())}: max|d top_s|={err:.3g} "
+                        f"tie slots {ties} walk flips (query: normalized "
+                        f"margin) {flips if flips else 'none'}  device "
+                        f"{ms:.4f} ms  "
+                        f"plain {plain_ms:.4f} ms")
+                if label.startswith("scan"):
+                    bound, by, union = scan_blocks_bound_ms(args, kw, got)
+                    line += (f"  bound {bound:.4f} ms ({by}; {union} distinct "
+                             f"pages read)")
+                    if scan_rec is None:     # the full-budget scan, round 1
+                        scan_rec = dict(
+                            name="scan_blocks", route="cuda",
+                            source="src/repro_torch/kernels/csrc/scan_blocks.cu",
+                            replaces=SCAN_REPLACES, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                            library_ms=None)
+                log(line)
+
+        # -- ops.mips_topk over the whole corpus
+        valid = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+        before = ops.LAUNCHES["block_mips"]
+        top_k, rows_k = ops.mips_topk(x, q, valid, k)
+        topk_launches = ops.LAUNCHES["block_mips"] - before
+        top_p, rows_p = ops.mips_topk(x, q, valid, k, use_kernels=False)
+        torch.cuda.synchronize()
+        require(topk_launches == 1, f"mips_topk launched block_mips "
+                f"{topk_launches} times, not once")
+        require(torch.equal(rows_k, rows_p), "mips_topk: the kernel route's "
+                "rows differ from the plain route's")
+        err = float((top_k - top_p).abs().max())
+        t_tol = float((REL * x.norm(dim=1).max() * q.norm(dim=1).max()) + ABS)
+        require(err <= t_tol, f"mips_topk scores differ by {err} > {t_tol}")
+        exact_ok = (rows_k.long() == eids).all(dim=1)
+        for b in (~exact_ok).nonzero().flatten().tolist():
+            got_s, want_s = ((x[r.long()].double() @ q[b].double())
+                             .sort(descending=True).values
+                             for r in (rows_k[b], eids[b]))
+            require(float((got_s - want_s).abs().max()) <= t_tol,
+                    f"mips_topk query {b}: rows differ from the exact top-k "
+                    "beyond a tie")
+        ms = timer.ms(lambda: ops.mips_topk(x, q, valid, k))
+        plain_ms = timer.ms(lambda: ops.mips_topk(x, q, valid, k,
+                                                  use_kernels=False))
+        mm_ms = timer.ms(lambda: torch.matmul(q, x.T))
+        s = torch.matmul(q, x.T)
+        tk_ms = timer.ms(lambda: torch.topk(s, k))
+        both_ms = timer.ms(lambda: torch.topk(torch.matmul(q, x.T), k))
+        del s
+        nbytes = x.numel() * 4 + x.shape[0] + q.numel() * 4 + 2 * q.shape[0] * k * 4
+        t_b, t_o = nbytes / PEAK_BYTES, 2.0 * x.shape[0] * q.shape[0] * x.shape[1] / PEAK_FP32
+        log(f"[mips_topk n=1M B={q.shape[0]} k={k}] block_mips route, one "
+            f"launch: rows equal to the plain route, max|d score| {err:.3g}; "
+            f"{int((~exact_ok).sum())} queries differ from the exact top-k "
+            f"(ties within tolerance)  device {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  torch.topk(torch.matmul(q, x.T)), two calls: "
+            f"{both_ms:.4f} ms (matmul {mm_ms:.4f} + topk {tk_ms:.4f})  bound "
+            f"{1e3 * max(t_b, t_o):.4f} ms (bytes {1e3 * t_b:.4f}, operations "
+            f"{1e3 * t_o:.4f})")
+
+        # -- the facade and the baselines on the n=100k rows
+        x100 = x100k.cpu().numpy()
+        q100 = q100k.cpu().numpy()
+        e_ids, e_scores = exact_topk(x100k, q100k, k)
+        e_ids, e_scores = e_ids.cpu().numpy(), e_scores.cpu().numpy()
+        for backend, opts in FACADE_BACKENDS:
+            t0 = time.perf_counter()
+            s = api.build(x100, backend=backend, device=DEVICE, **opts)
+            build_s = time.perf_counter() - t0
+            res = s.search(q100)
+            recall = float(np.mean([recall_at_k(res.ids[b], e_ids[b])
+                                    for b in range(len(q100))]))
+            ratio = float(np.mean([overall_ratio(res.scores[b], e_scores[b])
+                                   for b in range(len(q100))]))
+            log(f"[facade n=100k {backend} {opts or ''}] recall {recall:.4f} "
+                f"overall ratio {ratio:.4f} pages/query "
+                f"{res.stats['pages'] / len(q100):.1f} build {build_s:.2f} s "
+                f"search {res.stats['wall_time_s']:.3f} s for {len(q100)} "
+                f"queries, index bytes {s.index_bytes}")
+            require(res.ids.shape == (len(q100), k)
+                    and np.isfinite(res.scores).all(),
+                    f"facade {backend}: wrong shape or non-finite scores")
+            if backend == "exact":
+                require(recall >= 0.999, f"facade exact: recall {recall}")
+
+        # -- the host searches' results
+        t0 = time.perf_counter()
+        require(recv.poll(600), "the host searches did not finish in 600 s")
+        out = recv.recv()
+        require(not (isinstance(out, tuple) and out[0] == "error"),
+                f"the host searches failed:\n{out[1] if isinstance(out, tuple) else ''}")
+        log(f"[host n=1M] child process: {time.perf_counter() - t_host:.1f} s "
+            f"in all ({time.perf_counter() - t0:.1f} s waited for after the "
+            f"card's work)")
+        for path in ("two_phase", "progressive", "incremental"):
+            rs = [r for r in out if r["path"] == path]
+            rec = np.mean([recall_at_k(np.asarray(r["ids"]),
+                                       eids[r["q"]].cpu().numpy()) for r in rs])
+            if path != "incremental":
+                require(all(r["ids"] == r["facade_ids"] for r in rs),
+                        f"host {path}: the facade's ids differ")
+            log(f"[host n=1M {path}] {len(rs)} queries: recall {rec:.4f}; "
+                f"pages {[r['pages'] for r in rs]} candidates "
+                f"{[r['candidates'] for r in rs]} stopped_by "
+                f"{[r['stopped_by'] for r in rs]} probe_passed "
+                f"{sum(r['probe_passed'] for r in rs)} used_round2 "
+                f"{sum(r['used_round2'] for r in rs)}; seconds per query "
+                f"{['%.2f' % r['seconds'] for r in rs]}")
+    finally:
+        os.sched_setaffinity(0, cores)
+        if child.is_alive():
+            child.join(timeout=1 if sys.exc_info()[0] else 600)
+        if child.is_alive():
+            child.terminate()
+        child.join()
+        recv.close()
+    require(scan_rec is not None, "no scan_blocks record")
+    mode_launches = {"scan_blocks": launches["two_phase/scan"]["scan_blocks"]
+                     + launches["progressive"]["scan_blocks"]}
+    return scan_rec, mode_launches, topk_launches
+
+
 # ---------------------------------------------------------------- phase 5
 
 def stream_from_index(pm):
@@ -2184,14 +2722,20 @@ def main() -> int:
     log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_compact_100k(pm100k, q100k)
-    del pm100k, x100k
+    del pm100k
     log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
     launches = phase_main_path("n=1M", pm1m, x1m, q1m)
     time_turns("n=1M", lambda qb: pm1m.search(qb, **SEARCH), q1m)
-    del x1m
     log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    scan_rec, mode_launches, topk_launches = phase_modes(pm1m, x1m, q1m,
+                                                         x100k, q100k, timer)
+    records.append(scan_rec)
+    launches.update(mode_launches)
+    del x1m, x100k, q100k
+    log(f"[phase 4b] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stream_launches = phase_stream_1m(pm1m, q1m)
     del pm1m, q1m
@@ -2215,10 +2759,13 @@ def main() -> int:
         launches[name] = serve_launches[name]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+    # block_mips also serves ops.mips_topk (phase 4b), launched once there
+    records[0]["mips_topk_launches"] = topk_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "mips_topk_launches")
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
-    print(json.dumps({"kernels": [{key: rec[key] for key in keys}
+    print(json.dumps({"kernels": [{key: rec[key] for key in keys if key in rec}
                                   for rec in records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

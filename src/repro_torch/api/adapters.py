@@ -1,19 +1,35 @@
-"""Registered backends of the port: ``promips-stream`` (the mutable
-streaming index, `stream.MutableProMIPS`), the one the serve engine builds;
-port of that part of `repro.api.adapters`. The immutable ``promips``,
-``sharded`` and the baselines are ROADMAP Queue 1 item 6.
+"""Registered backends of the port; port of `repro.api.adapters`:
 
-The ProMIPS family derives m from the `GuaranteeConfig` (the Section V-B
-cost model, unless the caller gives ``m``) and x_p = Psi_m^{-1}(p0) inside
-`build_index` from the same (c, p0).
+  promips         core.promips.ProMIPS through the runtime (two-phase fused
+                  verification by default; opts select mode="progressive",
+                  norm_adaptive, cs_prune, verification="batched"/"scan"),
+                  or with ``search_path="host"`` the paper's numpy search
+  promips-stream  stream.MutableProMIPS (mutation + compaction), the one
+                  the serve engine builds
+  exact           baselines.ExactMIPS (ground-truth full scan)
+  h2alsh          baselines.H2ALSH
+  pq              baselines.PQBased
+  rangelsh        baselines.RangeLSH
+
+``sharded`` is ROADMAP Queue 1 item 9. The ProMIPS family derives m from the
+`GuaranteeConfig` (the Section V-B cost model, unless the caller gives
+``m``) and x_p = Psi_m^{-1}(p0) inside `build_index` from the same (c, p0);
+the baselines take (c, p0) as tuning hints only and compute on the host,
+as in the JAX package.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..baselines import ExactMIPS, H2ALSH, PQBased, RangeLSH
+from ..core.index import IndexArrays, IndexMeta, ProMIPSIndex
+from ..core.promips import ProMIPS
 from ..core.runtime import RuntimeConfig
+from ..core.runtime import search as runtime_search
 from ..stream.mutable import MutableProMIPS
 from ..tune import cache as tune_cache
 from .base import Searcher
@@ -54,6 +70,129 @@ def _runtime_from_opts(guarantee: GuaranteeConfig, mode: str,
         cs_prune=bool(cs_prune) if cs_prune is not None else False,
         prefilter=bool(prefilter), prefilter_eps=float(prefilter_eps),
         obs=bool(obs))
+
+
+def _host_queries(queries) -> np.ndarray:
+    """Queries as a float32 numpy batch for the host engines."""
+    if isinstance(queries, torch.Tensor):
+        queries = queries.detach().cpu().numpy()
+    return np.asarray(queries, np.float32)
+
+
+@register
+class PromipsSearcher(Searcher):
+    """Immutable ProMIPS index.
+
+    ``search_path="device"`` (default) runs the runtime (`core.runtime.
+    search`) on the index's device; ``search_path="host"`` runs the
+    paper's sequential numpy search (`HostSearcher`) with its exact
+    resident-4KB-page accounting.
+    """
+
+    name = "promips"
+    capabilities = Capabilities(guaranteed=True, prefilter=True)
+
+    def __init__(self, pm: ProMIPS, runtime: RuntimeConfig,
+                 search_path: str = "device"):
+        if search_path not in ("device", "host"):
+            raise ValueError(f"unknown search_path {search_path!r}; valid "
+                             "choices: device, host")
+        self.pm = pm
+        self.runtime = runtime
+        self.search_path = search_path
+
+    @classmethod
+    def build(cls, x, *, guarantee, seed, page_bytes, m=None,
+              mode="two_phase", verification=None, norm_adaptive=None,
+              cs_prune=None, budget=None, budget2=None, norm_strata=None,
+              prefilter=False, prefilter_eps=None, obs=False,
+              search_path="device", device="cuda",
+              **index_opts) -> "PromipsSearcher":
+        plan = guarantee.derive(len(x))
+        if norm_strata is None:
+            # the progressive mode's adaptive radii need norm-homogeneous
+            # sub-partitions to bite
+            norm_strata = 4 if mode == "progressive" else 1
+        pm = ProMIPS.build(x, m=plan.m if m is None else int(m),
+                           c=guarantee.c, p=guarantee.p0,
+                           page_bytes=page_bytes, seed=seed,
+                           norm_strata=int(norm_strata), device=device,
+                           **index_opts)
+        return cls(pm, _runtime_from_opts(
+            guarantee, mode, verification, norm_adaptive, cs_prune, budget,
+            budget2, prefilter, prefilter_eps, obs,
+            shape=(len(x), int(x.shape[1])), device=pm.device), search_path)
+
+    def _search_host(self, queries, k, cfg: RuntimeConfig
+                     ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        queries = _host_queries(queries)
+        ids = np.full((len(queries), k), -1, np.int64)
+        scores = np.full((len(queries), k), -np.inf, np.float32)
+        pages = candidates = exhausted = 0
+        for i, q in enumerate(queries):
+            if cfg.mode == "progressive":
+                qi, qs, st = self.pm.search_host_progressive(
+                    q, k=k, cs_prune=cfg.cs_prune)
+            else:
+                qi, qs, st = self.pm.search_host(
+                    q, k=k, norm_adaptive=cfg.norm_adaptive,
+                    cs_prune=cfg.cs_prune)
+            ids[i], scores[i] = qi, qs
+            d = st.to_dict()
+            pages += d["pages"]
+            candidates += d["candidates"]
+            exhausted += d["exhausted"]
+        return ids, scores, {"pages": pages, "candidates": candidates,
+                             "exhausted": exhausted, "queries": len(queries)}
+
+    def _search(self, queries, k, runtime: Optional[RuntimeConfig] = None
+                ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        cfg = dataclasses.replace(self.runtime if runtime is None else runtime,
+                                  k=k)
+        if self.search_path == "host":
+            return self._search_host(queries, k, cfg)
+        ids, scores, stats = runtime_search(self.pm.arrays, self.pm.meta,
+                                            queries, cfg, device=self.pm.device)
+        return ids.cpu().numpy(), scores.cpu().numpy(), stats.to_dict()
+
+    @property
+    def n(self) -> int:
+        return self.pm.meta.n
+
+    @property
+    def dim(self) -> int:
+        return self.pm.meta.d
+
+    @property
+    def index_bytes(self) -> int:
+        return self.pm.meta.index_bytes
+
+    def state(self) -> Tuple[dict, dict]:
+        """(arrays, meta) as the JAX adapter's: the host arrays by field,
+        and the index meta, runtime settings and search path."""
+        arrays = {f: np.asarray(getattr(self.pm.index.arrays, f))
+                  for f in IndexArrays._fields}
+        return arrays, dict(meta=dataclasses.asdict(self.pm.meta),
+                            runtime=dataclasses.asdict(self.runtime),
+                            search_path=self.search_path)
+
+    @classmethod
+    def from_state(cls, arrays, meta, device="cuda") -> "PromipsSearcher":
+        """The searcher of a `state()` pair, its arrays on ``device``.
+        Runtime fields the port does not have (the JAX ``use_pallas``) are
+        dropped: the port picks the kernels by device."""
+        names = {f.name for f in dataclasses.fields(IndexMeta)}
+        index = ProMIPSIndex(
+            arrays=IndexArrays(**{f: np.asarray(arrays[f])
+                                  for f in IndexArrays._fields}),
+            meta=IndexMeta(**{k: v for k, v in meta["meta"].items()
+                              if k in names}),
+            layout=None)
+        fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
+        runtime = RuntimeConfig(**{k: v for k, v in meta["runtime"].items()
+                                   if k in fields})
+        return cls(ProMIPS(index, device=device), runtime,
+                   meta.get("search_path", "device"))
 
 
 class _MutableMixin:
@@ -137,4 +276,98 @@ class StreamSearcher(_MutableMixin, Searcher):
         return base + delta.x.nbytes + delta.gids.nbytes + delta.alive.nbytes
 
 
-__all__ = ["StreamSearcher"]
+# ---------------------------------------------------------------------------
+# Baselines: numpy host engines, rebuilt from raw rows + ctor kwargs + seed
+# ---------------------------------------------------------------------------
+
+class _BaselineSearcher(Searcher):
+    """Shared adapter for the numpy baselines (single-query engines on the
+    host). `state()` is the raw rows plus the constructor kwargs (the seed
+    included); `from_state` re-runs the seeded build, which is bit for bit
+    the same index."""
+
+    inner_cls: type = None           # set by subclasses
+    seeded = True                    # inner_cls accepts a ``seed`` kwarg
+
+    def __init__(self, inner, x: np.ndarray, ctor: dict):
+        self.inner = inner
+        self._x = x
+        self._ctor = ctor
+
+    @classmethod
+    def build(cls, x, *, guarantee, seed, page_bytes, device=None, **opts):
+        # ``device`` was resolved by `registry.build`; the engine is numpy
+        ctor = dict(opts, page_bytes=int(page_bytes))
+        if cls.seeded:
+            ctor.setdefault("seed", int(seed))
+        return cls(cls.inner_cls(**ctor).build(x), x, ctor)
+
+    def _search(self, queries, k, **_ignored
+                ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        queries = _host_queries(queries)
+        ids = np.full((len(queries), k), -1, np.int64)
+        scores = np.full((len(queries), k), -np.inf, np.float32)
+        pages = candidates = 0
+        for i, q in enumerate(queries):
+            qi, qs, st = self.inner.search(q, k=k)
+            ids[i, : len(qi)] = qi
+            scores[i, : len(qs)] = qs
+            pages += int(st["pages"])
+            candidates += int(st["candidates"])
+        return ids, scores, {"pages": pages, "candidates": candidates,
+                             "exhausted": 0, "queries": len(queries)}
+
+    @property
+    def n(self) -> int:
+        return len(self._x)
+
+    @property
+    def dim(self) -> int:
+        return int(self._x.shape[1])
+
+    @property
+    def index_bytes(self) -> int:
+        return int(self.inner.index_bytes)
+
+    def state(self) -> Tuple[dict, dict]:
+        return {"x": self._x}, dict(ctor=self._ctor)
+
+    @classmethod
+    def from_state(cls, arrays, meta) -> "_BaselineSearcher":
+        x = np.ascontiguousarray(arrays["x"], np.float32)
+        ctor = dict(meta["ctor"])
+        return cls(cls.inner_cls(**ctor).build(x), x, ctor)
+
+
+@register
+class ExactSearcher(_BaselineSearcher):
+    name = "exact"
+    # the full scan IS the guarantee (c=1, p0=1) and pays n/page_rows pages
+    capabilities = Capabilities(guaranteed=True)
+    inner_cls = ExactMIPS
+    seeded = False
+
+
+@register
+class H2ALSHSearcher(_BaselineSearcher):
+    name = "h2alsh"
+    capabilities = Capabilities()
+    inner_cls = H2ALSH
+
+
+@register
+class PQSearcher(_BaselineSearcher):
+    name = "pq"
+    capabilities = Capabilities()
+    inner_cls = PQBased
+
+
+@register
+class RangeLSHSearcher(_BaselineSearcher):
+    name = "rangelsh"
+    capabilities = Capabilities()
+    inner_cls = RangeLSH
+
+
+__all__ = ["PromipsSearcher", "StreamSearcher", "ExactSearcher",
+           "H2ALSHSearcher", "PQSearcher", "RangeLSHSearcher"]

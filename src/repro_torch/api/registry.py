@@ -16,7 +16,7 @@ from .types import Capabilities, GuaranteeConfig
 _REGISTRY: Dict[str, Type[Searcher]] = {}
 
 # backends of the JAX package the port has not taken yet
-NOT_PORTED = ("exact", "h2alsh", "pq", "promips", "rangelsh", "sharded")
+NOT_PORTED = ("sharded",)
 
 
 def register(cls: Type[Searcher]) -> Type[Searcher]:
@@ -42,7 +42,7 @@ def get_backend(name: str) -> Type[Searcher]:
         if name in NOT_PORTED:
             raise UnsupportedOperation(
                 f"backend {name!r} is not ported yet (ROADMAP Queue 1 item "
-                f"6); registered: {', '.join(backends())}") from None
+                f"9); registered: {', '.join(backends())}") from None
         raise ValueError(f"unknown backend {name!r}; registered backends: "
                          f"{', '.join(backends())}") from None
 
@@ -54,7 +54,9 @@ def build(x: np.ndarray, backend: str = "promips", *,
           **opts) -> Searcher:
     """Build an index over ``x`` with the named backend, its search on
     ``device`` (the card by default; pass ``device="cpu"`` for the plain
-    path).
+    path). ``device`` is resolved before any backend builds, so the default
+    raises without a card for every backend; the numpy baselines then
+    compute on the host, as in the JAX package.
 
     ``guarantee`` is the declarative contract (c, p0, k); ``seed`` makes the
     build reproducible; ``opts`` are backend-specific (e.g. ``m=8``,
@@ -64,6 +66,7 @@ def build(x: np.ndarray, backend: str = "promips", *,
     log is ported (ROADMAP Queue 1 item 8).
     """
     cls = get_backend(backend)
+    device = resolve_device(device)
     if wal_dir is not None:
         raise UnsupportedOperation(
             "wal_dir= needs the write-ahead log, which is not ported yet "
@@ -74,8 +77,7 @@ def build(x: np.ndarray, backend: str = "promips", *,
         raise ValueError(f"x must be (n, d), got shape {x.shape}")
     if page_bytes is None:
         page_bytes = int(tune_cache.resolved(
-            "build", x.shape[0], x.shape[1],
-            device=resolve_device(device))["page_bytes"])
+            "build", x.shape[0], x.shape[1], device=device)["page_bytes"])
     t0 = time.perf_counter()
     searcher = cls.build(x, guarantee=guarantee, seed=int(seed),
                          page_bytes=int(page_bytes), device=device, **opts)

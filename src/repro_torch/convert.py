@@ -7,6 +7,10 @@ and `index_from_dir` reads a ``promips`` backend's save directory
 the `IndexMeta` fields under ``backend_meta.meta``). Both return the port's
 (IndexArrays, IndexMeta) on one device.
 
+A ``promips`` backend's state is the JAX `PromipsSearcher.state()` pair:
+`promips_from_state` restores it as the port's `PromipsSearcher` (the
+index arrays, meta, runtime settings and search path; no rebuild).
+
 A streaming index's state is the JAX `MutableProMIPS.state_dict()` pair:
 `stream_from_state` restores it as the port's `MutableProMIPS`, and
 `stream_from_dir` reads a ``promips-stream`` save directory (the same
@@ -64,6 +68,17 @@ def index_from_dir(path: str, device="cuda"):
     """(IndexArrays, IndexMeta) on ``device`` from a ``promips`` save dir."""
     arrays, backend_meta = _read_dir(path, "promips")
     return index_from_numpy(arrays, backend_meta["meta"], device)
+
+
+def promips_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
+                       device="cuda"):
+    """The port's `api.adapters.PromipsSearcher` on ``device`` from the JAX
+    `PromipsSearcher.state()` output (arrays by `IndexArrays` field; meta
+    with the index meta, runtime settings and search path). The JAX
+    runtime's ``use_pallas`` is dropped: the port picks its kernels by
+    device."""
+    from .api.adapters import PromipsSearcher
+    return PromipsSearcher.from_state(dict(arrays), dict(meta), device=device)
 
 
 def stream_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,

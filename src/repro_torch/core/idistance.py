@@ -128,3 +128,21 @@ def build_idistance(
         sp_key=np.asarray(sp_key, np.int64),
         sp_part=np.asarray(sp_part, np.int64),
     )
+
+
+def ring_key_range(layout: IDistanceLayout, q_proj: np.ndarray, radius: float):
+    """The B+-tree key windows a range-search sphere touches (host search).
+
+    For each first-stage partition i the sphere (q, r) meets the rings with
+    dis(q, O_i) - r <= ring * eps (+eps) <= dis(q, O_i) + r, skipping a
+    partition the sphere misses. Returns a list of inclusive (key_lo,
+    key_hi) windows, for the page accounting of the B+-tree descent."""
+    windows = []
+    for i in range(layout.part_center.shape[0]):
+        dq = float(np.linalg.norm(q_proj - layout.part_center[i]))
+        if dq - radius > layout.part_radius[i]:
+            continue  # sphere misses the partition entirely
+        lo_ring = max(0, int(np.floor(max(dq - radius, 0.0) / layout.eps)))
+        hi_ring = int(np.floor((dq + radius) / layout.eps))
+        windows.append((i * layout.c_key + lo_ring, i * layout.c_key + hi_ring))
+    return windows

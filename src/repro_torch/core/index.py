@@ -76,6 +76,25 @@ class IndexMeta:
     sk_codewords: int = 0    # sketch PQ codewords per subspace
     max_probe_groups: Optional[int] = None
 
+    @property
+    def index_bytes(self) -> int:
+        """Size of the index without the raw data x, the paper's 'Index
+        Size' metric (Fig. 4a); the JAX package's formula."""
+        per_point = self.m * 4 + 4 + 4  # projected point + id + l2sq
+        groups = self.n_groups * (4 + 4 + self.m * 4 + 4 + 4)
+        subparts = self.n_subparts * (self.m * 4 + 4 + 8) + 8
+        blocks = self.n_blocks * 8
+        proj = self.d * self.m * 4
+        sketch = 0
+        if self.sk_subspaces:
+            sketch = (self.n_blocks * self.d * 4          # decoded centroids
+                      + self.sk_subspaces * self.sk_codewords
+                      * (self.d // self.sk_subspaces) * 4  # codebooks
+                      + self.n_blocks * self.sk_subspaces * 4  # codes
+                      + self.n_blocks * 4)                 # err radii
+        return (self.n_pad * per_point + groups + subparts + blocks + proj
+                + sketch)
+
 
 class ProMIPSIndex(NamedTuple):
     arrays: IndexArrays

@@ -38,6 +38,12 @@ def pack_codes(p_pts: torch.Tensor) -> torch.Tensor:
     return ((p_pts >= 0.0).to(torch.int64) * weights).sum(dim=-1)
 
 
+def unpack_bits(codes: torch.Tensor, m: int) -> torch.Tensor:
+    """int64 codes -> (..., m) float32 bits."""
+    shifts = torch.arange(m, dtype=torch.int64, device=codes.device)
+    return ((codes[..., None] >> shifts) & 1).to(torch.float32)
+
+
 class GroupTable(NamedTuple):
     """Per-group Quick-Probe metadata (G groups).
 
@@ -93,6 +99,43 @@ def build_group_table(codes: np.ndarray, l1: np.ndarray, p_pts: np.ndarray,
         rep_row=np.asarray(g_rep_row, np.int32),
         count=np.asarray(g_count, np.int32),
     )
+
+
+def group_lower_bounds(g_code: torch.Tensor, q_code: torch.Tensor,
+                       q_proj: torch.Tensor) -> torch.Tensor:
+    """Theorem-3 per-group lower bounds on dis(P(o), P(q)) for one query.
+
+    g_code: (G,) int64, q_code: () int64, q_proj: (m,) -> (G,) f32."""
+    m = q_proj.shape[-1]
+    xor_bits = unpack_bits(g_code ^ q_code, m)                  # (G, m)
+    return (xor_bits @ q_proj.abs()) / torch.sqrt(
+        torch.tensor(float(m), dtype=torch.float32, device=q_proj.device))
+
+
+def quick_probe(table: GroupTable, q_proj: torch.Tensor, q_l1, c: float,
+                x_p: float):
+    """Algorithm 2 for one query, vectorised over the groups. Returns
+    (rep_row, radius, test_a_passed) as 0-d tensors.
+
+    Test A: LB^2 >= x_p * c * (min_l1 + ||q||_1)^2. Among passing groups the
+    smallest LB wins (the first hit of the paper's ascending-LB scan; the
+    first index on ties); with none passing, the group with the largest
+    tested value. The radius is dis(P(o), P(q)) of the chosen group's
+    representative."""
+    q_code = pack_codes(q_proj)
+    lb = group_lower_bounds(table.code, q_code, q_proj)           # (G,)
+    valid = table.count > 0
+    denom = c * (table.min_l1 + q_l1) ** 2
+    val = lb * lb / torch.clamp(denom, min=1e-30)
+    passes = (val >= x_p) & valid
+    inf = torch.full_like(lb, float("inf"))
+    first_pass = torch.argmin(torch.where(passes, lb, inf))
+    best_val = torch.argmax(torch.where(valid, val, -inf))
+    any_pass = passes.any()
+    chosen = torch.where(any_pass, first_pass, best_val)
+    rep = table.rep_proj[chosen]
+    radius = torch.sqrt(((rep - q_proj) ** 2).sum())
+    return table.rep_row[chosen], radius, any_pass
 
 
 def quick_probe_batch(table: GroupTable, q_proj: torch.Tensor,

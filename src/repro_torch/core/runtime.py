@@ -1,13 +1,17 @@
-"""Two-phase search runtime; port of `repro.core.runtime` for the fused and
-batched verification backends and the streaming index.
+"""The search runtime; port of `repro.core.runtime`.
 
-`search` validates a `RuntimeConfig`, clamps the budgets to the index,
-runs `search_device.search_batch` (``verification="fused"``: the in-graph
-driver `search_graph`, replayed as CUDA graphs on the card;
-``"batched"``, the serve engine's default) or, for a fused search on the
-CPU, the host driver `search_fused.search_batch_fused` (whose dense-round
-score cache is the CPU oracle's), and rescores the k winners exactly
-(`_rescore`).
+`search` validates a `RuntimeConfig`, clamps the budgets to the index and
+runs one of:
+  mode="two_phase"    Algorithm 3 through `search_device.search_batch`:
+                      ``verification="fused"``, the in-graph driver
+                      `search_graph`, replayed as CUDA graphs on the card
+                      (on the CPU the host driver
+                      `search_fused.search_batch_fused`, whose dense-round
+                      score cache is the CPU oracle's); ``"batched"``, the
+                      union-tile backend (the serve engine's default);
+                      ``"scan"``, each query's own block walk;
+  mode="progressive"  `search_device.search_batch_progressive`;
+then rescores the k winners exactly (`_rescore`).
 `search_segments` runs it over a streaming snapshot's base with an
 over-fetched k and merges in the delta segment's exact scores
 (`_merge_segments`). Both run on the card unless the caller passes
@@ -33,7 +37,7 @@ from ..obs import trace as _trace
 from ..tune import cache as tune_cache
 from .index import IndexArrays, IndexMeta, resolve_device
 from .search_common import DENSE_FRAC, next_pow2
-from .search_device import SearchStats, search_batch
+from .search_device import SearchStats, search_batch, search_batch_progressive
 from .search_fused import search_batch_fused
 
 
@@ -91,13 +95,6 @@ class RuntimeConfig:
             raise ValueError(
                 f"unknown verification backend: {self.verification!r}; valid "
                 f"choices: {', '.join(VALID_VERIFICATIONS)}")
-        if self.mode == "progressive":
-            raise NotImplementedError(
-                "mode='progressive' is not ported yet (ROADMAP Queue 1 item 5)")
-        if self.verification == "scan":
-            raise NotImplementedError(
-                "verification='scan' is not ported yet (ROADMAP Queue 1 "
-                "item 5)")
         if not isinstance(self.k, (int, np.integer)) or self.k < 1:
             raise ValueError(f"k must be a positive int, got {self.k!r}")
         for field_name in ("budget", "budget2"):
@@ -161,6 +158,8 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
                          f"for {dev}")
     if cfg.prefilter and not meta.sk_subspaces:
         raise ValueError("prefilter=True but the index carries no sketch")
+    if cfg.prefilter and cfg.mode != "two_phase":
+        raise ValueError("prefilter is only supported in two_phase mode")
     budget = int(min(cfg.budget if cfg.budget is not None else meta.n_blocks,
                      meta.n_blocks))
     budget2 = int(min(cfg.budget2 if cfg.budget2 is not None else budget,
@@ -188,7 +187,11 @@ def search(arrays: IndexArrays, meta: IndexMeta, queries,
     active = _spans_on(cfg, q)
     with _trace.span("search", active=active,
                      metric="search.batch_us") as sp_e2e:
-        if cfg.verification == "fused" and not q.is_cuda:
+        if cfg.mode == "progressive":
+            ids, _, stats = search_batch_progressive(
+                arrays, meta, q, k=cfg.k, budget=budget, cs_prune=cfg.cs_prune,
+                use_kernels=cfg.use_kernels)
+        elif cfg.verification == "fused" and not q.is_cuda:
             ids, _, stats = search_batch_fused(arrays, meta, q, obs=active,
                                                **knobs)
         else:

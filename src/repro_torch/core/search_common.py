@@ -1,13 +1,15 @@
-"""ProMIPS search math on torch tensors; port of the parts of
-`repro.core.search_common` the fused two-phase search runs.
+"""ProMIPS search math on torch tensors; port of `repro.core.search_common`
+for the device paths. The host searcher (`search_host`) keeps its own numpy
+forms of the same formulas.
 
 Paper mapping (arXiv:2104.04406):
-  condition_a_threshold   Theorem 1 (deterministic stop)
+  condition_a / condition_a_threshold   Theorem 1 (deterministic stop)
   condition_b             Theorem 2, Formula 2/3
   compensation_radius     Algorithm 3 line 12 (range r')
   adaptive_radii          per-sub-partition radii (Theorem 2 with the LOCAL
                           max norm)
   sphere_select           sub-partition sphere-overlap filter
+  gap_select              the same with a precomputed surface gap
   sketch_*                the quantized-sketch block prefilter
   topk_merge              running c-k-AMIP top-k merge
 """
@@ -33,6 +35,11 @@ def condition_a_threshold(max_l2sq, q_l2sq, c: float):
     """Condition A as a threshold on the inner product:
     <o,q> >= c/2 (||o_M||^2 + ||q||^2)."""
     return 0.5 * c * (max_l2sq + q_l2sq)
+
+
+def condition_a(best_ip, max_l2sq, q_l2sq, c: float):
+    """Theorem 1 test. True => terminate, the result is exact-guaranteed."""
+    return max_l2sq + q_l2sq - 2.0 * best_ip / c <= 0.0
 
 
 def condition_b_denominator(best_ip, max_l2sq, q_l2sq, c: float):
@@ -71,6 +78,12 @@ def sphere_select(center_dist, region_radius, radius):
     """Does the search ball of ``radius`` meet a region at ``center_dist``
     with ``region_radius``? Radius < 0 deselects outright."""
     return (center_dist <= radius + region_radius) & (radius >= 0.0)
+
+
+def gap_select(gap, radius):
+    """`sphere_select` with a precomputed surface gap = center_dist -
+    region_radius."""
+    return (gap <= radius) & (radius >= 0.0)
 
 
 def block_valid_from_ids(ids, page_rows: int):

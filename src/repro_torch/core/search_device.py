@@ -1,7 +1,7 @@
 """Batched block selection of the two-phase search (MIP-Search-II,
-Algorithm 3, at block granularity), the batched verification backend and
-`search_batch`, which picks the backend; port of `repro.core.search_device`
-without its scan and progressive drivers.
+Algorithm 3, at block granularity), the batched and scan verification
+backends, `search_batch`, which picks the backend, and the progressive
+search; port of `repro.core.search_device`.
 
   quick-probe -> radius r -> sub-partition sphere filter -> block masks
   -> verification -> Condition B -> compensation masks over the blocks not
@@ -12,7 +12,18 @@ Verification is the fused in-graph driver (`search_graph`; the host
 driver `search_fused` is its CPU twin) or, here, ``verification="batched"``: per round the blocks selected by any query are
 unioned, their rows gathered into one (R, d) tile and every query scored
 against it in one `ops.mips_score` call; the sequential Condition-A stop is
-then rebuilt exactly from the scores (`_verify_batched`).
+then rebuilt exactly from the scores (`_verify_batched`). With
+``verification="scan"`` each query walks its own selected blocks in layout
+order (`_scan_blocks`); `search_batch_progressive` walks every block in
+ascending gap order, testing each against the norm-adaptive radius of the
+running k-th score. Both walks are one `ops.scan_blocks` call a round (a
+CUDA kernel on the card, one CTA per query, where the JAX package has a
+`lax.scan`).
+
+At full budget scan, batched and fused give the same ids, pages,
+candidates and ``used_round2``. A finite budget caps each query's own
+selection in layout order under scan, and the union tile shared by the
+batch under batched and fused.
 """
 from __future__ import annotations
 
@@ -35,6 +46,11 @@ class SearchStats(NamedTuple):
     radius1: torch.Tensor        # compensation radius (0 if unused)
     exhausted: torch.Tensor      # budget ran out before Condition B held
     rows: torch.Tensor           # top-k rows in the padded sorted layout (-1 = empty)
+
+    def to_dict(self) -> dict:
+        """Normalized accounting (`core.stats.stats_totals`)."""
+        from .stats import stats_totals
+        return stats_totals(self.pages, self.candidates, self.exhausted)
 
 
 class TopK(NamedTuple):
@@ -85,6 +101,14 @@ def block_priority(arrays: IndexArrays, q_proj):
     gathered = torch.where(idx >= 0, ub[torch.clamp(idx, min=0).long()],
                            torch.full(idx.shape, float("-inf"), device=ub.device))
     return torch.clamp(-gathered.amax(dim=1), max=1e30)
+
+
+def adaptive_radii(arrays: IndexArrays, meta: IndexMeta, s_k, q_l2sq,
+                   cs_prune: bool):
+    """Per-sub-partition norm-adaptive radii (`search_common.adaptive_radii`
+    over ``arrays.sp_max_l2sq``)."""
+    return sc.adaptive_radii(arrays.sp_max_l2sq, s_k, q_l2sq, meta.c,
+                             meta.x_p, cs_prune=cs_prune)
 
 
 def select_frontend(arrays: IndexArrays, meta: IndexMeta, queries,
@@ -217,35 +241,41 @@ def _verify_batched(arrays: IndexArrays, meta: IndexMeta, queries,
     return TopK(scores=best_s, rows=best_r), pages, cand, done_a, lost
 
 
-def _search_batch_batched(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
-                         budget: int, budget2: int, norm_adaptive: bool,
-                         cs_prune: bool, use_kernels=None, prefilter=False,
-                         prefilter_eps=1.0):
-    """Two-phase search with batched verification: the frontend, one
-    `_verify_batched` round, Condition B and the compensation masks, and a
-    second round only when some query needs it (a host check, where the JAX
-    package has a `lax.cond`). Returns (ids (B, k), scores (B, k),
+def _empty_top(n_batch: int, k: int, dev) -> TopK:
+    return TopK(scores=torch.full((n_batch, k), float("-inf"), device=dev),
+                rows=torch.full((n_batch, k), -1, dtype=torch.int32,
+                                device=dev))
+
+
+def _search_two_round(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
+                      budget: int, budget2: int, norm_adaptive: bool,
+                      cs_prune: bool, use_kernels, prefilter: bool,
+                      prefilter_eps: float, verify, truncate: bool):
+    """Two-phase search around one verification backend: the frontend, the
+    optional sketch prefilter, round 1, Condition B and the compensation
+    masks, and a second round only when some query needs it (a host check,
+    where the JAX package has a `lax.cond`; the round is an identity for a
+    query that does not). ``verify(mask, top, c_half, cap, prio)`` is one
+    round and returns (top, pages, candidates, done_a, lost), ``lost``
+    flagging queries whose selection did not fit the ``cap`` blocks;
+    ``prio`` is the best-first truncation key when ``truncate`` and a finite
+    budget ask for it, else None. Returns (ids (B, k), scores (B, k),
     SearchStats)."""
     n_batch = queries.shape[0]
     n_blocks = arrays.block_sp_lo.shape[0]
     dev = queries.device
     q_proj, q_l2sq, d_sp, r0, probe_ok, c_half, mask0 = select_frontend(
         arrays, meta, queries, use_kernels)
-    # best-first truncation key, only when a finite budget can truncate
     prio = (block_priority(arrays, q_proj)
-            if min(budget, budget2) < n_blocks else None)
+            if truncate and min(budget, budget2) < n_blocks else None)
     mask_r1 = mask0
     sk_est = sk_bnd = sk_bvalid = None
     if prefilter:
         mask_r1, sk_est, sk_bnd, sk_bvalid = prefilter_round1(
             arrays, queries, mask0, k, meta.page_rows, prefilter_eps,
             use_kernels)
-    empty = TopK(scores=torch.full((n_batch, k), float("-inf"), device=dev),
-                 rows=torch.full((n_batch, k), -1, dtype=torch.int32,
-                                 device=dev))
-    top, pages1, cand1, done_a, lost1 = _verify_batched(
-        arrays, meta, queries, mask_r1, empty, c_half, k, budget, use_kernels,
-        prio=prio)
+    top, pages1, cand1, done_a, lost1 = verify(
+        mask_r1, _empty_top(n_batch, k, dev), c_half, budget, prio)
 
     s_k = top.scores[:, k - 1]
     need2, r1, mask1 = compensation_masks(arrays, meta, d_sp, q_l2sq, s_k,
@@ -255,9 +285,8 @@ def _search_batch_batched(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
     if prefilter:
         mask_r2 = prefilter_round2(mask1, sk_est, sk_bnd, sk_bvalid, s_k)
     if bool(need2.any()):
-        top, pages2, cand2, _, lost2 = _verify_batched(
-            arrays, meta, queries, mask_r2, top, c_half, k, budget2,
-            use_kernels, prio=prio)
+        top, pages2, cand2, _, lost2 = verify(mask_r2, top, c_half, budget2,
+                                              prio)
     else:   # every query stopped by A or B: the round is an identity
         pages2 = cand2 = torch.zeros(n_batch, dtype=torch.int32, device=dev)
         lost2 = torch.zeros(n_batch, dtype=torch.bool, device=dev)
@@ -278,6 +307,56 @@ def _search_batch_batched(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
     return ids, top.scores, stats
 
 
+def _search_batch_batched(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
+                         budget: int, budget2: int, norm_adaptive: bool,
+                         cs_prune: bool, use_kernels=None, prefilter=False,
+                         prefilter_eps=1.0):
+    """Two-phase search with batched verification: each round one
+    `_verify_batched` over the union tile, a finite budget truncating the
+    union best-first. Returns (ids (B, k), scores (B, k), SearchStats)."""
+    def verify(mask, top, c_half, cap, prio):
+        return _verify_batched(arrays, meta, queries, mask, top, c_half, k,
+                               cap, use_kernels, prio=prio)
+    return _search_two_round(arrays, meta, queries, k, budget, budget2,
+                             norm_adaptive, cs_prune, use_kernels, prefilter,
+                             prefilter_eps, verify, truncate=True)
+
+
+def _scan_blocks(arrays: IndexArrays, meta: IndexMeta, queries, block_mask,
+                 top: TopK, c_half, k: int, budget: int, use_kernels=None):
+    """One scan round for the batch: each query walks its selected blocks
+    in layout order (selected first by a stable sort), at most ``budget``
+    of them, from the carried top-k and its Condition-A state. Returns
+    (top, pages (B,), candidates (B,), done_a (B,))."""
+    n_sel = block_mask.sum(dim=1, dtype=torch.int32)
+    order = torch.sort((~block_mask).to(torch.uint8), dim=1,
+                       stable=True).indices.int()
+    top_s, top_r, pages, cand, done_a = ops.scan_blocks(
+        arrays.x, arrays.ids, queries, order, top.scores.contiguous(),
+        top.rows.contiguous(), c_half.contiguous(), k=k,
+        page_rows=meta.page_rows, budget=budget, n_sel=n_sel,
+        use_kernels=use_kernels)
+    return TopK(scores=top_s, rows=top_r), pages, cand, done_a
+
+
+def _search_batch_scan(arrays: IndexArrays, meta: IndexMeta, queries, k: int,
+                       budget: int, budget2: int, norm_adaptive: bool,
+                       cs_prune: bool, use_kernels=None, prefilter=False,
+                       prefilter_eps=1.0):
+    """Two-phase search with scan verification: each round a per-query walk
+    (`_scan_blocks`). ``exhausted`` flags a query whose selection held more
+    blocks than the round's budget. Returns (ids (B, k), scores (B, k),
+    SearchStats)."""
+    def verify(mask, top, c_half, cap, prio):
+        top, pages, cand, done_a = _scan_blocks(arrays, meta, queries, mask,
+                                                top, c_half, k, cap,
+                                                use_kernels)
+        return top, pages, cand, done_a, mask.sum(dim=1) > cap
+    return _search_two_round(arrays, meta, queries, k, budget, budget2,
+                             norm_adaptive, cs_prune, use_kernels, prefilter,
+                             prefilter_eps, verify, truncate=False)
+
+
 def search_batch(arrays: IndexArrays, meta: IndexMeta, queries, k: int = 10,
                  budget: int = 64, budget2: int = 64,
                  norm_adaptive: bool = False, cs_prune: bool = False,
@@ -287,9 +366,10 @@ def search_batch(arrays: IndexArrays, meta: IndexMeta, queries, k: int = 10,
                  tile_cap: Optional[int] = None):
     """c-k-AMIP search for a (B, d) batch with the ``verification`` backend:
     "fused" is the in-graph fused driver (`search_graph`, CUDA graphs on the
-    card), "batched" the union-tile backend. ``dense_frac`` and ``tile_cap``
-    are the fused tile knobs; the batched backend ignores them. Returns
-    (ids (B, k), scores (B, k), SearchStats)."""
+    card), "batched" the union-tile backend, "scan" the per-query block
+    walk. ``dense_frac`` and ``tile_cap`` are the fused tile knobs; the
+    other backends ignore them. Returns (ids (B, k), scores (B, k),
+    SearchStats)."""
     if verification == "fused":
         # lazy import: search_graph imports this module
         from .search_graph import search_batch_fused_graph
@@ -301,4 +381,76 @@ def search_batch(arrays: IndexArrays, meta: IndexMeta, queries, k: int = 10,
         return _search_batch_batched(arrays, meta, queries, k, budget, budget2,
                                      norm_adaptive, cs_prune, use_kernels,
                                      prefilter, prefilter_eps)
+    if verification == "scan":
+        return _search_batch_scan(arrays, meta, queries, k, budget, budget2,
+                                  norm_adaptive, cs_prune, use_kernels,
+                                  prefilter, prefilter_eps)
     raise ValueError(f"unknown verification backend: {verification!r}")
+
+
+def block_gaps(arrays: IndexArrays, q_proj):
+    """(B, NB) projected distance from each query to each block's nearest
+    sub-partition surface: min over the block's sub-partitions of
+    ||center - q_proj|| - radius."""
+    diff = arrays.sp_center[None, :, :] - q_proj[:, None, :]    # (B, S, m)
+    gap_sp = torch.sqrt((diff * diff).sum(dim=-1)) - arrays.sp_radius[None, :]
+    idx = arrays.block_sp_idx
+    gathered = torch.where((idx >= 0)[None],
+                           gap_sp[:, torch.clamp(idx, min=0).long()],
+                           torch.full((1,) + tuple(idx.shape), float("inf"),
+                                      device=gap_sp.device))
+    return gathered.amin(dim=2)
+
+
+def search_batch_progressive(arrays: IndexArrays, meta: IndexMeta, queries,
+                             k: int = 10, budget: int = 64,
+                             cs_prune: bool = True,
+                             use_kernels: Optional[bool] = None):
+    """Progressive search for a (B, d) batch (the device form of
+    `HostSearcher.search_progressive`).
+
+    Each query visits blocks in ascending gap (`block_gaps`, ties to the
+    lower block), at most ``budget`` of them (clamped to NB); a step is
+    live when the block qualifies under the norm-adaptive radius of the
+    running k-th score (`search_common.adaptive_radii` over the block's max
+    norm, `gap_select`) and Condition A has not stopped the walk. The
+    block-level tests are conservative, so no qualified sub-partition is
+    skipped. ``exhausted`` flags a query that did not stop by Condition A
+    and leaves a block qualified under its final k-th score unvisited.
+    Returns (ids (B, k), scores (B, k), SearchStats); the Quick-Probe and
+    round-2 fields are False / 0."""
+    n_batch = queries.shape[0]
+    n_blocks = arrays.block_sp_lo.shape[0]
+    budget = min(budget, n_blocks)
+    dev = queries.device
+    q_proj = queries @ arrays.a
+    q_l2sq = (queries * queries).sum(dim=1)
+    gap = block_gaps(arrays, q_proj)                             # (B, NB)
+    order = torch.sort(gap, dim=1, stable=True).indices.int()
+    c_half = sc.condition_a_threshold(arrays.max_l2sq, q_l2sq, meta.c)
+    empty = _empty_top(n_batch, k, dev)
+    top_s, top_r, pages, cand, done_a = ops.scan_blocks(
+        arrays.x, arrays.ids, queries, order, empty.scores, empty.rows,
+        c_half.contiguous(), k=k, page_rows=meta.page_rows, budget=budget,
+        block_gap=gap.contiguous(), block_max_l2sq=arrays.block_max_l2sq,
+        q_l2sq=q_l2sq.contiguous(), c=meta.c, x_p=meta.x_p,
+        cs_prune=cs_prune, use_kernels=use_kernels)
+
+    # any block still qualified under the final k-th score, left unvisited?
+    s_k = top_s[:, k - 1]
+    r_blk = sc.adaptive_radii(arrays.block_max_l2sq[None, :], s_k[:, None],
+                              q_l2sq[:, None], meta.c, meta.x_p,
+                              cs_prune=cs_prune)
+    qual_all = sc.gap_select(gap, r_blk)
+    visited = torch.zeros((n_batch, n_blocks), dtype=torch.bool, device=dev)
+    visited.scatter_(1, order[:, :budget].long(), True)
+    exhausted = (qual_all & ~visited).any(dim=1) & ~done_a
+
+    zero = torch.zeros(n_batch, dtype=torch.float32, device=dev)
+    false = torch.zeros(n_batch, dtype=torch.bool, device=dev)
+    stats = SearchStats(pages=pages, candidates=cand, probe_passed=false,
+                        used_round2=false, radius0=zero, radius1=zero,
+                        exhausted=exhausted, rows=top_r)
+    ids = torch.where(top_r >= 0, arrays.ids[torch.clamp(top_r, min=0).long()],
+                      torch.full_like(top_r, -1))
+    return ids, top_s, stats

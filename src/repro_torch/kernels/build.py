@@ -32,7 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (one per call, `count_launch`) and where a CUDA graph that holds it is
 # replayed (`add_launches`); `ops.LAUNCHES` is this dict.
 LAUNCHES = {"binary_probe_lb": 0, "block_mips": 0, "decode_attention": 0,
-            "mips_score": 0, "quick_probe_select": 0, "sketch_scores": 0}
+            "mips_score": 0, "quick_probe_select": 0, "scan_blocks": 0,
+            "sketch_scores": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -148,6 +149,13 @@ def library() -> ctypes.CDLL:
             lib.mips_score_launch.restype = i32
             lib.mips_score_b_small.argtypes = []
             lib.mips_score_b_small.restype = i32
+            lib.scan_blocks_launch.argtypes = (
+                [ptr] * 16 + [i32] * 8 + [ctypes.c_float] * 2 + [ptr])
+            lib.scan_blocks_launch.restype = i32
+            lib.scan_blocks_smem_bytes.argtypes = [i32] * 2
+            lib.scan_blocks_smem_bytes.restype = ctypes.c_longlong
+            lib.scan_blocks_max_smem.argtypes = []
+            lib.scan_blocks_max_smem.restype = i32
             lib.sketch_scores_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
             lib.sketch_scores_launch.restype = i32
             lib.kernels_error_string.argtypes = [i32]

@@ -18,12 +18,17 @@ from . import block_mips as _block_mips
 from . import decode_attention as _decode_attention
 from . import mips_score as _mips_score
 from . import ref
+from . import scan_blocks as _scan_blocks
 from . import sketch_scores as _sketch_scores
 from .build import LAUNCHES
 
-__all__ = ["LAUNCHES", "binary_probe_lb", "block_mips", "block_mips_cached",
-           "decode_attention", "mips_score", "quick_probe_select",
-           "sketch_scores"]
+__all__ = ["BLOCK_MIPS_MAX_K", "LAUNCHES", "binary_probe_lb", "block_mips",
+           "block_mips_cached", "decode_attention", "mips_score", "mips_topk",
+           "quick_probe_select", "scan_blocks", "sketch_scores"]
+
+# the largest k `mips_topk` routes through `block_mips`, the JAX package's
+# `block_mips.MAX_K`
+BLOCK_MIPS_MAX_K = 128
 
 
 def _use_kernel(t, use_kernels: Optional[bool], name: str) -> bool:
@@ -74,6 +79,59 @@ def block_mips_cached(scores_full, valid, slots, sel, init_scores, init_rows,
     return ref.block_mips_cached_ref(scores_full, valid, slots, sel,
                                      init_scores, init_rows, c_half,
                                      k=k, page_rows=page_rows)
+
+
+def mips_topk(x, q, valid, k: int, *, use_kernels: Optional[bool] = None,
+              page_rows: int = 32):
+    """Full-corpus top-k: (scores (B, k), rows (B, k)) of x (R, d) against
+    q (B, d), invalid rows left out.
+
+    Routed as the JAX package's `ops.mips_topk`: for k <= `BLOCK_MIPS_MAX_K`
+    one `block_mips` round over every page of ``x`` (padded to ``page_rows``
+    rows, every (query, page) selected, c_half = float32 max, so Condition A
+    never stops it): the kernel on CUDA tensors, its plain version
+    elsewhere; where fewer than k rows are valid the remaining slots are
+    -1 with -inf scores. For larger k, `mips_score` and a top-k with ties to
+    the lower row (invalid rows score -1e30 there, as in the JAX route)."""
+    if k <= BLOCK_MIPS_MAX_K:
+        r, d = x.shape
+        b = q.shape[0]
+        rp = -(-r // page_rows) * page_rows
+        xpad = torch.nn.functional.pad(x.float(), (0, 0, 0, rp - r))
+        vpad = torch.nn.functional.pad(valid.bool(), (0, rp - r))
+        n_blocks = rp // page_rows
+        dev = x.device
+        slots = torch.arange(n_blocks, dtype=torch.int32, device=dev)
+        sel = torch.ones((b, n_blocks), dtype=torch.bool, device=dev)
+        init_s = torch.full((b, k), float("-inf"), device=dev)
+        init_r = torch.full((b, k), -1, dtype=torch.int32, device=dev)
+        c_half = torch.full((b,), torch.finfo(torch.float32).max, device=dev)
+        top, rows, _, _, _ = block_mips(
+            xpad, vpad, q.float().contiguous(), slots, sel, init_s, init_r,
+            c_half, k=k, page_rows=page_rows, dense=True,
+            use_kernels=use_kernels)
+        return top, rows
+    scores = mips_score(x, q, valid, use_kernels=use_kernels)    # (R, B)
+    return ref.topk_stable(scores.T, k)
+
+
+def scan_blocks(x, ids, q, order, init_scores, init_rows, c_half, *, k: int,
+                page_rows: int, budget: int, n_sel=None, block_gap=None,
+                block_max_l2sq=None, q_l2sq=None, c: float = 1.0,
+                x_p: float = 0.0, cs_prune: bool = False,
+                use_kernels: Optional[bool] = None):
+    """The block walk of the scan (``n_sel`` given) and progressive
+    (``block_gap``, ``block_max_l2sq``, ``q_l2sq`` given) searches:
+    (top_s (B, k), top_r (B, k), pages (B,), cand (B,), done_a (B,)); see
+    `ref.scan_blocks_ref`."""
+    kw = dict(k=k, page_rows=page_rows, budget=budget, n_sel=n_sel,
+              block_gap=block_gap, block_max_l2sq=block_max_l2sq,
+              q_l2sq=q_l2sq, c=c, x_p=x_p, cs_prune=cs_prune)
+    if _use_kernel(x, use_kernels, "scan_blocks"):
+        return _scan_blocks.scan_blocks(x, ids, q, order, init_scores,
+                                        init_rows, c_half, **kw)
+    return ref.scan_blocks_ref(x, ids, q, order, init_scores, init_rows,
+                               c_half, **kw)
 
 
 def binary_probe_lb(codes, q_code, q_proj, *,

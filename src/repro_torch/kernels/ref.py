@@ -104,6 +104,90 @@ def _verify_core(scores, rvalid, sel, init_scores, init_rows, c_half,
     return top_s, merged_r.gather(1, pos), cnt, pages, cand
 
 
+MIN_SCORE = -1e30   # `search_common.MIN_SCORE`: the floor of the running score
+
+
+def scan_qualify(gap, local_max_l2sq, best_ip, q_l2sq, c: float, x_p: float,
+                 cs_prune: bool):
+    """The progressive walk's per-block test: `search_common.adaptive_radii`
+    then `gap_select`, the same f32 operations in the same order (the CUDA
+    kernel repeats them with IEEE intrinsics, so the two agree bit for
+    bit): r = sqrt(max(x_p * (M + |q|^2 - 2 max(best, MIN_SCORE) / c), 0)),
+    -1 where cs_prune and sqrt(M) sqrt(|q|^2) < best; qualified iff
+    gap <= r and r >= 0."""
+    denom = local_max_l2sq + q_l2sq - 2.0 * torch.clamp(best_ip, min=MIN_SCORE) / c
+    r = torch.sqrt(torch.clamp(x_p * denom, min=0.0))
+    if cs_prune:
+        ok = torch.sqrt(local_max_l2sq) * torch.sqrt(q_l2sq) >= best_ip
+        r = torch.where(ok, r, torch.full_like(r, -1.0))
+    return (gap <= r) & (r >= 0.0)
+
+
+def scan_blocks_ref(x, ids, q, order, init_scores, init_rows, c_half, *,
+                    k: int, page_rows: int, budget: int, n_sel=None,
+                    block_gap=None, block_max_l2sq=None, q_l2sq=None,
+                    c: float = 1.0, x_p: float = 0.0, cs_prune: bool = False):
+    """The block walk of the scan and progressive searches: the step loop of
+    the JAX bodies (`src/repro/core/search_device.py:441,611`) in torch,
+    vectorized over the batch.
+
+    x (n_pad, d) f32; ids (n_pad,) i32 (-1 = padding); q (B, d); order
+    (B, NB) int, each query's block order; init_scores / init_rows (B, k)
+    the carried top-k; c_half (B,) the Condition-A thresholds. Step t visits
+    block order[b, t]; it is live when Condition A has not stopped the walk
+    and, in scan mode (``n_sel`` (B,) given), t < n_sel[b], or in
+    progressive mode (``block_gap`` (B, NB), ``block_max_l2sq`` (NB,),
+    ``q_l2sq`` (B,) given) the block qualifies (`scan_qualify`) under the
+    running k-th score. A live step scores the block's rows, merges the
+    valid ones into the top-k (ties to the carried entry, then to the lower
+    row), counts a page and its valid rows, and updates Condition A. The
+    walk is ``budget`` steps (at most NB); steps after every query stopped
+    are no-ops and are skipped. The scores are one GEMM up front.
+
+    Returns (top_s (B, k) f32, top_r (B, k) i32, pages (B,) i32,
+    cand (B,) i32, done_a (B,) bool).
+    """
+    progressive = block_gap is not None
+    b, nb = order.shape
+    dev = q.device
+    scores = (x.float() @ q.float().T).T.reshape(b, nb, page_rows)
+    valid = (ids >= 0).view(nb, page_rows)
+    top_s = init_scores.float().clone()
+    top_r = init_rows.int().clone()
+    pages = torch.zeros(b, dtype=torch.int32, device=dev)
+    cand = torch.zeros(b, dtype=torch.int32, device=dev)
+    done = top_s[:, k - 1] >= c_half
+    if progressive:
+        steps = min(budget, nb)
+    else:
+        steps = min(budget, int(n_sel.max())) if b else 0
+    ar = torch.arange(b, device=dev)
+    offs = torch.arange(page_rows, device=dev, dtype=torch.int32)
+    for t in range(steps):
+        blk = order[:, t].long()
+        if progressive:
+            live = scan_qualify(block_gap[ar, blk], block_max_l2sq[blk],
+                                top_s[:, k - 1], q_l2sq, c, x_p, cs_prune)
+        else:
+            live = t < n_sel
+        live = live & ~done
+        v = valid[blk] & live[:, None]                           # (B, p)
+        s = torch.where(v, scores[ar, blk], torch.full_like(scores[:, 0], NEG_INF))
+        r = torch.where(v, (blk.int() * page_rows)[:, None] + offs,
+                        torch.full_like(v, -1, dtype=torch.int32))
+        cat_s = torch.cat([top_s, s], dim=1)
+        srt, idx = torch.sort(cat_s, dim=1, descending=True, stable=True)
+        new_r = torch.cat([top_r, r], dim=1).gather(1, idx[:, :k])
+        top_s = torch.where(live[:, None], srt[:, :k], top_s)
+        top_r = torch.where(live[:, None], new_r, top_r)
+        pages += live.int()
+        cand += v.sum(dim=1, dtype=torch.int32)
+        done = done | (top_s[:, k - 1] >= c_half)
+        if t % 64 == 63 and bool(done.all()):
+            break
+    return top_s.contiguous(), top_r.contiguous(), pages, cand, done
+
+
 _U32 = 0xFFFFFFFF
 
 

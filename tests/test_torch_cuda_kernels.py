@@ -40,6 +40,13 @@ in its output and cache after the tokens and ``cache_len`` change in
 place, counts its kernels at each replay, and after `update()` is
 captured again over the engine's copy of the embed table, giving the
 eager engine's tokens; a decode function that cannot be captured raises.
+`scan_blocks` (the block walk of the scan and progressive searches) is held
+bit for bit against its plain version on integer data, in both modes, from
+an empty and from a carried round-1 top-k, at budgets that walk everything
+and that truncate, with the Condition-A stop mid-walk and blocks skipped by
+the progressive test. `ops.mips_topk` on the card equals its plain route
+on integer data on both of its routes (block_mips at k <= 128, mips_score
+and a stable top-k above).
 """
 import numpy as np
 import pytest
@@ -671,7 +678,8 @@ def test_search_graph_counts_the_kernels_of_each_replay(cuda, card_index):
     delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
     assert delta == {"binary_probe_lb": 0, "block_mips": 2 * n,
                      "decode_attention": 0, "mips_score": 0,
-                     "quick_probe_select": n, "sketch_scores": n}, delta
+                     "quick_probe_select": n, "scan_blocks": 0,
+                     "sketch_scores": n}, delta
 
 
 # -- the serve engine's captured decode step ----------------------------------
@@ -826,3 +834,150 @@ def test_decode_graph_capture_that_fails_raises(cuda, card_model):
             g(params, cache, _tokens(cfg, 4, seed=1 + i))
         assert g.graph is None and g.captures == 0
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- scan_blocks
+
+def _walk_inputs(rng, nb, p, d, b, k, progressive, carried, stop_q=0.999,
+                 sel_frac=0.3):
+    """Integer-valued inputs of one block walk (exact scores, exact ties):
+    padding rows, duplicate rows, c_half at the ``stop_q`` quantile of each
+    query's scores. Scan mode: a random selection, its order and n_sel.
+    Progressive mode: gaps in [0, 40), about the radii of the running k-th
+    score, so blocks drop out as it grows. ``carried`` starts from a round-1
+    top-k of random rows (some queries already at c_half)."""
+    n = nb * p
+    x = rng.randint(-3, 4, (n, d)).astype(np.float32)
+    dup = rng.choice(n, n // 8, replace=False)
+    x[dup] = x[rng.choice(n, len(dup))]
+    ids = np.where(rng.rand(n) > 0.1, np.arange(n), -1).astype(np.int32)
+    q = rng.randint(-3, 4, (b, d)).astype(np.float32)
+    s = q @ x.T
+    c_half = np.quantile(s, stop_q, axis=1).astype(np.float32)
+    init_s = np.full((b, k), -np.inf, np.float32)
+    init_r = np.full((b, k), -1, np.int32)
+    if carried:
+        live = np.nonzero(ids >= 0)[0]
+        for i in range(b):
+            m = min(k, len(live) // 2)
+            m = m if i % 3 else max(1, m // 2)                # some tails empty
+            rows = np.sort(rng.choice(live, m, replace=False))
+            sc = s[i, rows]
+            o = np.argsort(-sc, kind="stable")
+            init_s[i, :m], init_r[i, :m] = sc[o], rows[o]
+        init_s[0, :] = np.maximum(init_s[0, :], c_half[0])   # done at the start
+    args = dict(x=x, ids=ids, q=q, init_scores=init_s, init_rows=init_r,
+                c_half=c_half)
+    if progressive:
+        gap = rng.uniform(0, 40, (b, nb)).astype(np.float32)
+        args.update(order=np.argsort(gap, axis=1, kind="stable").astype(np.int32),
+                    block_gap=gap,
+                    block_max_l2sq=rng.uniform(0, 2 * d * 4, nb).astype(np.float32),
+                    q_l2sq=(q * q).sum(1).astype(np.float32))
+    else:
+        mask = rng.rand(b, nb) < sel_frac
+        args.update(order=np.argsort(~mask, axis=1, kind="stable").astype(np.int32),
+                    n_sel=mask.sum(1).astype(np.int32))
+    return args
+
+
+def _check_walk(cuda, args, **kw):
+    t = {name: torch.from_numpy(a).to(cuda) for name, a in args.items()}
+    pos = [t.pop(n) for n in ("x", "ids", "q", "order", "init_scores",
+                              "init_rows", "c_half")]
+    got = ops.scan_blocks(*pos, **t, **kw, use_kernels=True)
+    want = ops.scan_blocks(*pos, **t, **kw, use_kernels=False)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("top_s", "top_r", "pages", "cand", "done_a"), got,
+                          want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy(),
+                                      err_msg=name)
+    return got
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["scan", "progressive"])
+@pytest.mark.parametrize("carried", [False, True], ids=["round1", "carried"])
+@pytest.mark.parametrize("nb,p,d,b,k,budget", [
+    (200, 8, 128, 64, 10, 200),      # the main path's widths, full budget
+    (200, 8, 128, 64, 10, 37),       # a budget that truncates
+    (300, 8, 128, 5, 1, 300),        # k = 1
+    (60, 32, 32, 7, 33, 60),         # page_rows 32 (d = 32)
+    (50, 1, 300, 3, 5, 50),          # page_rows 1, depth in 5 slices
+    (40, 64, 16, 4, 100, 40),        # k above a page
+    (20, 256, 4, 3, 10, 20),         # one block a chunk
+    (30, 8, 33, 6, 700, 30),         # k above a chunk's rows, d odd
+    (100, 8, 64, 3, 2058, 100),      # the stream's over-fetched k
+])
+def test_scan_blocks_kernel_bitwise_on_integer_data(cuda, progressive, carried,
+                                                   nb, p, d, b, k, budget):
+    rng = np.random.RandomState(nb * 7 + k + int(progressive))
+    args = _walk_inputs(rng, nb, p, d, b, k, progressive, carried)
+    for cs in ([False, True] if progressive else [False]):
+        kw = dict(k=k, page_rows=p, budget=budget)
+        if progressive:
+            kw.update(c=0.9, x_p=7.0, cs_prune=cs)
+        got = _check_walk(cuda, args, **kw)
+    if carried:
+        assert bool(got[4][0]) and int(got[2][0]) == 0   # stopped before a step
+
+
+def test_scan_blocks_kernel_stops_and_skips(cuda):
+    """The Condition-A stop fires mid-walk for some queries, and in
+    progressive mode some blocks are skipped under the running k-th
+    score."""
+    rng = np.random.RandomState(5)
+    args = _walk_inputs(rng, 400, 8, 64, 32, 10, False, False, stop_q=0.99,
+                        sel_frac=0.9)
+    got = _check_walk(cuda, args, k=10, page_rows=8, budget=400)
+    n_sel = torch.from_numpy(args["n_sel"]).to(cuda)
+    assert bool((got[4] & (got[2] < n_sel)).any()), "no stop fired"
+    args = _walk_inputs(rng, 400, 8, 64, 32, 10, True, False, stop_q=1.0)
+    got = _check_walk(cuda, args, k=10, page_rows=8, budget=400, c=0.9,
+                      x_p=7.0, cs_prune=True)
+    assert bool((got[2] < 400).any()), "no block was skipped"
+
+
+def test_scan_blocks_kernel_rejects_what_it_does_not_take(cuda):
+    rng = np.random.RandomState(0)
+    args = _walk_inputs(rng, 20, 8, 32, 3, 4, False, False)
+    t = {name: torch.from_numpy(a).to(cuda) for name, a in args.items()}
+    pos = [t.pop(n) for n in ("x", "ids", "q", "order", "init_scores",
+                              "init_rows", "c_half")]
+    with pytest.raises(ValueError):                       # page_rows
+        ops.scan_blocks(*pos, **t, k=4, page_rows=16, budget=20,
+                        use_kernels=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = [a for a in pos]
+        big[4] = torch.full((3, 40_000), float("-inf"), device=cuda)
+        big[5] = torch.full((3, 40_000), -1, dtype=torch.int32, device=cuda)
+        ops.scan_blocks(*big, **t, k=40_000, page_rows=8, budget=20,
+                        use_kernels=True)
+    with pytest.raises(ValueError):                       # neither mode
+        ops.scan_blocks(*pos, k=4, page_rows=8, budget=20, use_kernels=True)
+
+
+@pytest.mark.parametrize("r,b,d,k", [(5000, 64, 128, 10), (4099, 7, 33, 128),
+                                     (100, 4, 8, 120), (300, 3, 16, 290),
+                                     (100, 5, 32, 129)])
+def test_mips_topk_kernel_route_equals_plain(cuda, r, b, d, k):
+    """`ops.mips_topk` on the card (block_mips for k <= 128, mips_score and a
+    stable top-k above) against its plain route, on integer data: equal
+    rows and scores; fewer valid rows than k leave -1 / -inf slots."""
+    rng = np.random.RandomState(r + k)
+    x = torch.from_numpy(rng.randint(-3, 4, (r, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.randint(-3, 4, (b, d)).astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(r) > 0.1).to(cuda)
+    before = dict(ops.LAUNCHES)
+    got = ops.mips_topk(x, q, valid, k, use_kernels=True)
+    name = "block_mips" if k <= ops.BLOCK_MIPS_MAX_K else "mips_score"
+    assert ops.LAUNCHES[name] == before[name] + 1
+    want = ops.mips_topk(x, q, valid, k, use_kernels=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+    if k > int(valid.sum()):          # the slots past the valid rows
+        if k <= ops.BLOCK_MIPS_MAX_K:
+            assert bool(((got[1] == -1) & (got[0] == float("-inf"))).any())
+        else:
+            assert bool((got[0] == -1e30).any())

@@ -6,7 +6,8 @@
   engine) run on the card by default and raise without one instead of
   falling back to the CPU;
 - asking for the kernels on CPU tensors raises;
-- what is not ported yet raises, naming its ROADMAP item.
+- what is not ported yet (the ``sharded`` backend, MoE configs) raises,
+  naming its ROADMAP item; the runtime's modes and backends are all taken.
 """
 import dataclasses
 import os
@@ -85,6 +86,16 @@ def test_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert torch.isfinite(scores).all()
     ids2, _, _ = pm.search(q)
     assert torch.equal(ids, ids2)
+    ids3, _, st3 = pm.search_progressive(q)
+    assert ids3.device.type == "cpu" and st3.pages.shape == (4,)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.build(x)                                  # the default: promips
+    for backend in ("exact", "h2alsh", "pq", "rangelsh"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            api.build(x, backend=backend)
+    s = api.build(x, device="cpu", m=6)
+    assert s.name == "promips" and s.search(q, k=3).ids.shape == (4, 3)
+    assert api.build(x, backend="exact", device="cpu").search(q).ids.shape == (4, 10)
 
 
 def test_stream_entry_points_default_to_the_card_and_raise_without_it(no_card):
@@ -128,8 +139,8 @@ def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
 def test_unported_configs_and_backends_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("qwen3-32b")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        api.build(mf_factors(100, 8, 4, seed=0), backend="promips", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
+        api.build(mf_factors(100, 8, 4, seed=0), backend="sharded", device="cpu")
     moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               moe=MoECfg(4, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -137,14 +148,16 @@ def test_unported_configs_and_backends_name_the_roadmap():
 
 
 def test_runtime_config_rejects_what_is_not_ported():
+    """Every mode and backend of the JAX runtime is ported now: they are
+    accepted, and only unknown values raise."""
     assert RuntimeConfig(verification="batched").verification == "batched"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig(mode="progressive")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        RuntimeConfig(verification="scan")
+    assert RuntimeConfig(mode="progressive").mode == "progressive"
+    assert RuntimeConfig(verification="scan").verification == "scan"
     assert RuntimeConfig(obs=True).obs is True    # the span tracer is ported
     with pytest.raises(ValueError):
         RuntimeConfig(verification="nope")
+    with pytest.raises(ValueError):
+        RuntimeConfig(mode="nope")
     with pytest.raises(ValueError):
         RuntimeConfig(prefilter_eps=0.0)
 
@@ -177,7 +190,18 @@ def test_use_kernels_true_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.decode_attention(torch.zeros((2, 1, 2, 32)), kv, kv, lens,
                              use_kernels=True)
+    order = torch.arange(2, dtype=torch.int32).repeat(2, 1)
+    ids = torch.arange(16, dtype=torch.int32)
+    n_sel = torch.full((2,), 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.scan_blocks(x, ids, q, order, init_s, init_r, c_half, k=3,
+                        page_rows=8, budget=2, n_sel=n_sel, use_kernels=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.mips_topk(x, q, valid, 3, use_kernels=True)
     before = dict(ops.LAUNCHES)
+    ops.scan_blocks(x, ids, q, order, init_s, init_r, c_half, k=3,
+                    page_rows=8, budget=2, n_sel=n_sel)
+    ops.mips_topk(x, q, valid, 3)
     ops.block_mips(x, valid, q, slots, sel, init_s, init_r, c_half, k=3,
                    page_rows=8)                       # CPU: plain, no launch
     ops.mips_score(x, q, valid)
