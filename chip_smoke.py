@@ -119,8 +119,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1939,7 +1941,7 @@ def stream_from_index(pm):
     meta = dict(meta=dataclasses.asdict(pm.meta), build_kwargs=dict(BUILD),
                 delta_capacity=pm.meta.n // 2, next_id=pm.meta.n, wal_seq=0,
                 auto_compact=False)
-    return MutableProMIPS.from_state(arrays, meta, device="cuda")
+    return MutableProMIPS.from_state(arrays, meta, device=DEVICE)
 
 
 def stream_search(st, use_kernels=None):
@@ -2678,6 +2680,542 @@ def phase_serve():
     return launches
 
 
+# ---------------------------------------------------------------- phase 7
+
+N_SHARDS = 4
+
+
+def counted(fn):
+    """``fn()`` with every launch count set to 0 just before it and read just
+    after: (its result, the launches it made)."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    for name in ops.LAUNCHES:
+        ops.LAUNCHES[name] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(ops.LAUNCHES)
+
+
+def require_launched(label, launches, kernels):
+    require(all(launches[name] > 0 for name in kernels),
+            f"[{label}] a kernel of the path was not launched: {launches}")
+
+
+def shard_flips(views, q):
+    """The kernel path against the plain one, shard by shard: ``views`` is
+    one (arrays, meta, k) a shard. Returns (prefilter cut flips {query:
+    {(shard, block): margin}}, Quick-Probe flips {query: least margin})."""
+    from repro_torch.core import search_device as sd
+    flips, probe = {}, {}
+    for s, (arrays, meta, k) in enumerate(views):
+        mask0 = sd.select_frontend(arrays, meta, q)[-1]
+        est_bnd = sd.prefilter_round1(arrays, q, mask0, k, meta.page_rows,
+                                      SEARCH["prefilter_eps"], False)
+        cut, _ = prefilter_flips(arrays, q, mask0, est_bnd, k)
+        for b, blocks in cut.items():
+            flips.setdefault(b, {}).update(
+                {(s, n): m for n, m in blocks.items()})
+        margins, _ = probe_flips(arrays, meta, q)
+        for b, m in margins.items():
+            probe[b] = min(probe.get(b, m), m)
+    return flips, probe
+
+
+class _Pages:
+    """The stats `compare_paths` reads, for a search that reports its pages
+    as one total."""
+
+    def __init__(self, pages):
+        import torch
+        self.pages = torch.as_tensor(pages)
+
+
+def quality(q, ids, scores, x_live, gids_live, c, p0):
+    """Recall@k of ``ids`` against an exact top-k over the live rows
+    ``x_live`` (global ids ``gids_live``, or their row numbers when None),
+    the Theorem-2 share of ``scores`` and its floor for this batch."""
+    k = ids.shape[1]
+    eidx, escores = exact_topk(x_live, q, k)
+    eids = (eidx if gids_live is None else gids_live[eidx]).cpu()
+    ids = ids.cpu()
+    recall = sum(len(set(ids[b].tolist()) & set(eids[b].tolist())) / k
+                 for b in range(q.shape[0])) / q.shape[0]
+    rate = success_rate(scores, escores, c)
+    return recall, rate, p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
+
+
+def phase_sharded_1m(pm, x, q):
+    """Cell sharded-1M: the n=1M rows in 4 shards (`build_sharded` on the
+    host), searched by `sharded_search` on one card, the shards in sequence:
+    fused (the main path's config), batched and the default progressive.
+    Returns the launches of each mode's search."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core import search_graph
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.sharded import (build_sharded,
+                                          device_put_sharded_index,
+                                          sharded_search)
+    label = "sharded-1M"
+    k = SEARCH["k"]
+    t0 = time.perf_counter()
+    sh = build_sharded(x.cpu().numpy(), N_SHARDS, **BUILD)
+    build_s = time.perf_counter() - t0
+    a = sh.arrays
+    t0 = time.perf_counter()
+    dsh = device_put_sharded_index(sh, DEVICE)
+    torch.cuda.synchronize()
+    meta = dsh.meta
+    real = {
+        "rows": (a.ids >= 0).sum(axis=1).tolist(),
+        "groups": (a.g_count > 0).sum(axis=1).tolist(),
+        "sub-partitions": (a.sp_center[..., 0] != np.float32(1e30)).sum(
+            axis=1).tolist(),
+        "blocks": (a.block_sp_idx >= 0).any(axis=2).sum(axis=1).tolist(),
+        "codewords": (a.sk_codebooks != 0).any(axis=(1, 3)).sum(
+            axis=1).tolist()}
+    log(f"[{label}] build_sharded {build_s:.1f} s (host, {N_SHARDS} shards), "
+        f"upload {time.perf_counter() - t0:.2f} s; common meta NB "
+        f"{meta.n_blocks} G {meta.n_groups} S {meta.n_subparts} K "
+        f"{meta.sk_codewords} n_pad {meta.n_pad}; real per shard {real}")
+    del sh, a
+
+    knobs = {key: v for key, v in SEARCH.items() if key != "k"}
+    cfgs = {"fused": RuntimeConfig(**knobs),
+            "batched": RuntimeConfig(verification="batched", **knobs),
+            "progressive": None}   # sharded_search's default
+
+    def search(mode, qb=q, use_kernels=None):
+        cfg = cfgs[mode]
+        if use_kernels is not None:
+            cfg = dataclasses.replace(cfg, use_kernels=use_kernels)
+        return sharded_search(dsh, qb, k, device=DEVICE, runtime=cfg)
+
+    def captures():
+        """CUDA graphs held for each shard's kernel-path fused searches."""
+        return [sum(len(e.graphs) for e in search_graph._GRAPHS.values()
+                    if e.arrays is view and e.cfg.on_kernels)
+                for view in dsh.shards]
+
+    def same(a, b):
+        return _same_bits(a[:2], b[:2]) and int(a[2]) == int(b[2])
+
+    # the plain path first: its graph keys are then the oldest, the ones
+    # the cache evicts once the kernel path's and the unsharded index's join
+    plain = search("fused", use_kernels=False)
+    runs, caps, launches = [], [], {}
+    for i in range(3):
+        out, used = counted(lambda: search("fused"))
+        runs.append(out)
+        caps.append(captures())
+        if i == 0:
+            launches["fused"] = used
+    require_launched(label, launches["fused"],
+                     ("quick_probe_select", "sketch_scores", "block_mips"))
+    require(all(same(r, runs[0]) for r in runs[1:]),
+            f"[{label}] the eager, capturing and replaying searches differ")
+    require(all(c == 0 for c in caps[0]) and all(c > 0 for c in caps[1])
+            and caps[2] == caps[1],
+            f"[{label}] graph captures per shard after each search {caps}: "
+            "want none, then some, then no more")
+    fused = runs[0]
+    with host_driver():
+        want = search("fused")
+    require(same(fused, want), f"[{label}] the fused sharded search differs "
+            "from the per-shard host driver merged by the same rule")
+    batched, launches["batched"] = counted(lambda: search("batched"))
+    require_launched(label, launches["batched"],
+                     ("quick_probe_select", "sketch_scores", "mips_score"))
+    require(same(fused, batched), f"[{label}] fused and batched differ in "
+            "ids, scores or pages")
+    progressive, launches["progressive"] = counted(
+        lambda: search("progressive"))
+    require_launched(label, launches["progressive"], ("scan_blocks",))
+    log(f"[{label}] launches of one sharded search: " + "; ".join(
+        f"{mode} {{{', '.join(f'{n}: {c}' for n, c in used.items() if c)}}}"
+        for mode, used in launches.items()))
+    log(f"[{label}] fused = per-shard host driver = batched bit for bit (ids, "
+        f"scores, pages {int(fused[2])}); graph captures per shard after the "
+        f"eager, capturing and replaying searches {caps}")
+
+    # -- the kernel path against the plain path
+    n_pad = meta.n_pad
+    pos = torch.full((x.shape[0],), -1, dtype=torch.long, device=DEVICE)
+    live = dsh.arrays.ids >= 0
+    flat = torch.arange(live.numel(), device=DEVICE).view(live.shape)
+    pos[dsh.arrays.ids[live].long()] = flat[live]
+    pos = pos.cpu()
+    flips, probe = shard_flips([(view, meta, k) for view in dsh.shards], q)
+    differ, notes, pages_diff = compare_paths(
+        q, fused[0], _Pages(fused[2]), plain[0], _Pages(plain[2]), flips,
+        lambda i: x[i.clamp(min=0).long()],
+        lambda r: (int(pos[r]) // n_pad, int(pos[r]) % n_pad // meta.page_rows),
+        probe)
+    log(f"[{label}] kernel vs plain path: {len(differ)} of {q.shape[0]} "
+        f"queries differ in ids; pages {int(fused[2])} vs {int(plain[2])}; "
+        f"prefilter cut flips (query: {{(shard, block): est+bnd-tau}}) "
+        f"{flips if flips else 'none'}; Quick-Probe flips "
+        f"{probe if probe else 'none'}")
+    for note in notes:
+        log(f"[{label}]   {note}")
+
+    # -- quality against an exact top-k over the 1M rows
+    for mode, out in (("fused", fused), ("progressive", progressive)):
+        ids, scores, pages = out
+        recall, rate, floor = quality(q, ids, scores, x, None, meta.c, meta.p)
+        # the default progressive search's budget of 64 blocks truncates:
+        # its share is reported, not held to the floor
+        require(mode != "fused" or rate >= floor,
+                f"[{label}] Theorem-2 floor missed: {rate} < {floor}")
+        log(f"[{label}] {mode}: recall@10 {recall:.4f}, theorem-2 success "
+            f"{rate:.4f} (floor {floor:.4f}), pages_mean "
+            f"{int(pages) / q.shape[0]:.2f} over {N_SHARDS} shards")
+
+    # -- time per batch, in turns with the unsharded index on the same
+    # queries: one pass of each first (it captures its batches' variants)
+    unsharded = lambda qb: pm.search(qb, **SEARCH)   # noqa: E731
+    sharded = lambda qb: search("fused", qb)          # noqa: E731
+    time_batches(unsharded)
+    time_batches(sharded)
+    caps_before = captures()
+    turns = [(name, fn) + time_batches(fn) for name, fn in (
+        ("unsharded", unsharded), ("sharded", sharded),
+        ("sharded", sharded), ("unsharded", unsharded))]
+    require(captures() == caps_before, f"[{label}] a timed replay captured: "
+            f"{caps_before} -> {captures()}")
+    for name, _, med, times in turns:
+        log(f"[{label}] search time per batch of {N_QUERIES}, {name} "
+            f"(graph driver): median {med:.3f} ms (range {times[0]:.3f}-"
+            f"{times[-1]:.3f}) {['%.3f' % t for t in times]}")
+    phase_profile(sharded, q, f"{label} fused")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 8
+
+def sharded_stream_state(label, s, q, cfg, path_kernels):
+    """One state of a `sharded` facade index: a counted search held against
+    the plain path (flips per shard, at each shard's over-fetched k),
+    against an exact top-k over the live rows (recall >= 0.99, no dead id)
+    and the Theorem-2 floor. Returns (ids, scores, stats, launches)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.search_common import next_pow2
+    res, launches = counted(lambda: s.search(q, runtime=cfg))
+    require_launched(label, launches, path_kernels)
+    plain = s.search(q, runtime=dataclasses.replace(cfg, use_kernels=False))
+    gids, rows = s.alive_items()
+    x_alive = torch.from_numpy(rows).to(DEVICE)
+    gids_t = torch.from_numpy(gids).to(DEVICE)
+    pos_of = torch.full((int(gids.max()) + 1,), -1, dtype=torch.long,
+                        device=DEVICE)
+    pos_of[gids_t] = torch.arange(len(gids), device=DEVICE)
+    block_of, views = {}, []
+    for sh_i, shard in enumerate(s.inner.shards):
+        snap = shard.snapshot()
+        meta = snap.meta
+        k_base = min(cfg.k + (next_pow2(snap.n_base_dead)
+                              if snap.n_base_dead else 0), meta.n_pad)
+        views.append((snap.arrays, meta, k_base))
+        live_rows = snap.base_alive.nonzero().flatten()
+        for g, r in zip(snap.arrays.ids[live_rows].tolist(),
+                        live_rows.tolist()):
+            block_of[g] = (sh_i, r // meta.page_rows)
+    flips, probe = shard_flips(views, q)
+    ids_k = torch.from_numpy(res.ids).to(DEVICE)
+    ids_p = torch.from_numpy(plain.ids).to(DEVICE)
+    differ, notes, _ = compare_paths(
+        q, ids_k, _Pages(res.stats["pages"]), ids_p,
+        _Pages(plain.stats["pages"]), flips,
+        lambda i: x_alive[pos_of[i.clamp(min=0).long()]],
+        lambda r: block_of.get(r, -1), probe)
+    log(f"[{label}] launches {launches}; kernel vs plain path: {len(differ)} "
+        f"of {q.shape[0]} queries differ in ids; pages {res.stats['pages']} "
+        f"vs {plain.stats['pages']}; prefilter cut flips at k_base "
+        f"{flips if flips else 'none'}; Quick-Probe flips "
+        f"{probe if probe else 'none'}")
+    for note in notes:
+        log(f"[{label}]   {note}")
+    require(set(res.ids.ravel().tolist()) <= set(gids.tolist()),
+            f"[{label}] a search returned an id that is not alive")
+    scores = torch.from_numpy(res.scores).to(DEVICE)
+    recall, rate, floor = quality(q, ids_k, scores, x_alive, gids_t,
+                                  s.guarantee.c, s.guarantee.p0)
+    require(rate >= floor, f"[{label}] Theorem-2 floor missed: {rate} < {floor}")
+    require(recall >= 0.99, f"[{label}] recall@10 {recall} < 0.99")
+    med, times = time_batches(lambda qb: s.search(qb, runtime=cfg))
+    log(f"[{label}] recall@10 {recall:.4f} over {len(gids)} live rows; "
+        f"theorem-2 success {rate:.4f} (floor {floor:.4f}); pages "
+        f"{res.stats['pages']} ({res.stats['pages'] / q.shape[0]:.2f} a "
+        f"query), exhausted {res.stats['exhausted']}; search time per batch "
+        f"of {N_QUERIES}: median {med:.3f} ms (range {times[0]:.3f}-"
+        f"{times[-1]:.3f})")
+    return res, launches
+
+
+def _same_result(a, b):
+    """Two `SearchResult`s equal bit for bit: ids, scores, every stats field
+    but the wall time."""
+    import numpy as np
+    stats = [{k: v for k, v in r.stats.items() if k != "wall_time_s"}
+             for r in (a, b)]
+    return (np.array_equal(a.ids, b.ids)
+            and np.array_equal(a.scores.view(np.int32), b.scores.view(np.int32))
+            and stats[0] == stats[1])
+
+
+def phase_sharded_stream_100k(x100k, q, tmp):
+    """Cell sharded-stream-100k: the `sharded` backend (4 shards on the card)
+    through `api.build`, the compact-100k writes, `compact()`, and a save /
+    `api.load` round trip on the card. Returns the churned search's
+    launches."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core.runtime import RuntimeConfig
+    label = "sharded-stream-100k"
+    k = SEARCH["k"]
+    t0 = time.perf_counter()
+    s = api.build(x100k.cpu().numpy(), backend="sharded",
+                  guarantee=api.GuaranteeConfig(c=BUILD["c"], p0=BUILD["p"],
+                                                k=k),
+                  seed=BUILD["seed"], page_bytes=4096, n_shards=N_SHARDS,
+                  m=BUILD["m"], k_p=BUILD["k_p"], k_sp=BUILD["k_sp"],
+                  norm_strata=BUILD["norm_strata"], prefilter=True,
+                  prefilter_eps=SEARCH["prefilter_eps"], device=DEVICE)
+    log(f"[{label}] api.build(backend='sharded', n_shards={N_SHARDS}) "
+        f"{time.perf_counter() - t0:.1f} s (host); shards of "
+        f"{[sh.meta.n for sh in s.inner.shards]} rows, runtime {s.runtime}")
+    cfg = RuntimeConfig(**{key: v for key, v in SEARCH.items() if key != "k"},
+                        k=k)
+    n = x100k.shape[0]
+    n_ins = -(-n // 9)
+    t0 = time.perf_counter()
+    s.insert(np.arange(n, n + n_ins), corpus_rows(n_ins, seed=3))
+    victims = np.random.RandomState(6).choice(n, 400, replace=False)
+    s.delete(victims[:200])
+    s.update(victims[200:], corpus_rows(200, seed=4))
+    per_shard = [(sh.delta_fraction, sh._n_base_dead) for sh in s.inner.shards]
+    log(f"[{label}] {n_ins} inserts, 200 deletes, 200 updates in "
+        f"{time.perf_counter() - t0:.3f} s (host); per shard (delta fraction, "
+        f"base tombstones) {[(round(f, 4), d) for f, d in per_shard]}")
+    kernels = ("quick_probe_select", "block_mips", "sketch_scores",
+               "mips_score")
+    _, launches = sharded_stream_state(f"{label} churned", s, q, cfg,
+                                       kernels)
+    saved = {}
+    for state in ("churned", "compacted"):
+        if state == "compacted":
+            t0 = time.perf_counter()
+            s.compact()
+            log(f"[{label}] compact() {time.perf_counter() - t0:.1f} s (host "
+                f"rebuild of {N_SHARDS} shards)")
+            sharded_stream_state(f"{label} compacted", s, q, cfg,
+                                 kernels[:3])
+        path = os.path.join(tmp, f"{label}-{state}")
+        t0 = time.perf_counter()
+        s.save(path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = api.load(path, device=DEVICE)
+        load_s = time.perf_counter() - t0
+        want, got = s.search(q, runtime=cfg), loaded.search(q, runtime=cfg)
+        require(_same_result(got, want) and loaded.runtime == s.runtime,
+                f"[{label}] {state}: the loaded index's search differs from "
+                "the saved one's")
+        require(_same_result(loaded.search(q), s.search(q)),
+                f"[{label}] {state}: the loaded index's default search differs")
+        saved[state] = (save_s, load_s, api.saved_bytes(path))
+        del loaded
+    for state, (save_s, load_s, nbytes) in saved.items():
+        log(f"[{label}] {state}: save {save_s:.2f} s, api.load on the card "
+            f"{load_s:.2f} s, saved_bytes {nbytes}; the loaded search equals "
+            f"the saved index's bit for bit (ids, scores, every stats field)")
+    log(f"[{label}] maintenance_status {s.maintenance_status()}")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 9
+
+def _wal_boundaries(path):
+    """Byte offset of every record boundary of a WAL file (the first just
+    past the magic)."""
+    from repro_torch.robust.wal import _HDR, WAL_MAGIC
+    with open(path, "rb") as f:
+        blob = f.read()
+    offs = [len(WAL_MAGIC)]
+    while offs[-1] + _HDR.size <= len(blob):
+        length, _ = _HDR.unpack_from(blob, offs[-1])
+        offs.append(offs[-1] + _HDR.size + length)
+    require(offs[-1] == len(blob), f"{path}: the log does not end on a record")
+    return blob, offs
+
+
+def _cut_copy(wal_dir, dst, nbytes):
+    """A durability directory at ``dst`` whose log is the first ``nbytes``
+    of ``wal_dir``'s; the snapshot is linked, not copied."""
+    os.makedirs(dst)
+    os.symlink(os.path.join(wal_dir, "snapshot"), os.path.join(dst, "snapshot"))
+    with open(os.path.join(wal_dir, "wal.log"), "rb") as f:
+        blob = f.read(nbytes)
+    with open(os.path.join(dst, "wal.log"), "wb") as f:
+        f.write(blob)
+    return dst
+
+
+def phase_durable_1m(pm1m, q1m, pm100k, q100k, tmp):
+    """Cell durable-stream-1M: a write-ahead-logged `promips-stream` over the
+    n=1M index takes phase 5's state-B writes and is recovered on the card
+    from its full log and from one whose last record is torn; then a short
+    logged stream at n=100k with a compaction, recovered from cuts right
+    after its begin and its commit markers. Returns the launches of the
+    recovered stream's search."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.api.adapters import StreamSearcher
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.robust import read_records, recover, verify_dir
+    label = "durable-stream-1M"
+    k = SEARCH["k"]
+    cfg = RuntimeConfig(**{key: v for key, v in SEARCH.items() if key != "k"},
+                        k=k)
+
+    def result(stream, q):
+        return stream.search(q, k=k, runtime=cfg)
+
+    wd = os.path.join(tmp, "wal-1m")
+    live = StreamSearcher(stream_from_index(pm1m), cfg)
+    t0 = time.perf_counter()
+    live.enable_wal(wd)
+    save_s = time.perf_counter() - t0
+    snap = os.path.join(wd, "snapshot")
+    t0 = time.perf_counter()
+    require(verify_dir(snap), f"[{label}] the snapshot has no manifest")
+    verify_s = time.perf_counter() - t0
+    log(f"[{label}] enable_wal: snapshot save {save_s:.2f} s, "
+        f"{api.saved_bytes(snap)} bytes, verify {verify_s:.2f} s")
+
+    # phase 5's state-B writes
+    n = pm1m.meta.n
+    n_ins = -(-n // 9)
+    rows = corpus_rows(n_ins, seed=3)
+    rng = np.random.RandomState(5)
+    base_ids = rng.choice(n, 2_000, replace=False)
+    upd = corpus_rows(1_000, seed=4)
+    delta_del = rng.choice(np.arange(n, n + n_ins), 1_112, replace=False)
+    ops = [("insert", np.arange(n, n + n_ins), rows),
+           ("delete", base_ids[:1_000]),
+           ("update", base_ids[1_000:], upd),
+           ("delete", delta_del)]
+    n_rows = n_ins + 1_000 + 1_000 + 1_112
+
+    def apply(target, op):
+        getattr(target, op[0])(*op[1:])
+
+    def timed_writes(target, before_last=None):
+        total = 0.0
+        for i, op in enumerate(ops):
+            if i == len(ops) - 1 and before_last is not None:
+                before_last()
+            t0 = time.perf_counter()
+            apply(target, op)
+            total += time.perf_counter() - t0
+        return total
+
+    torn_want = []
+    wal_s = timed_writes(live, lambda: torn_want.append(result(live.inner,
+                                                               q1m)))
+    shadow = stream_from_index(pm1m)
+    plain_s = timed_writes(shadow)
+    want, launches = counted(lambda: result(live.inner, q1m))
+    require_launched(label, launches, ("quick_probe_select", "block_mips",
+                                       "sketch_scores", "mips_score"))
+    require(_same_bits(result(shadow, q1m), want),
+            f"[{label}] the logged stream's search differs from the same "
+            "writes without a log")
+    del shadow
+    wal_path = os.path.join(wd, "wal.log")
+    recs, good, clean = read_records(wal_path)
+    require(clean and good == os.path.getsize(wal_path),
+            f"[{label}] the live log does not end on a record")
+    log(f"[{label}] {n_rows} rows written in {len(ops)} calls: with the WAL "
+        f"{wal_s:.3f} s ({n_rows / wal_s:.0f} rows/s), without "
+        f"{plain_s:.3f} s ({n_rows / plain_s:.0f} rows/s); log "
+        f"{os.path.getsize(wal_path)} bytes, {len(recs)} records "
+        f"{[r.op for r in recs]}; wal_lag {live.wal_lag()}")
+
+    # -- recovery from the full log and from a torn last record
+    blob, offs = _wal_boundaries(wal_path)
+    cases = (("full log", wd, want),
+             ("torn last record", _cut_copy(
+                 wd, os.path.join(tmp, "torn"), (offs[-2] + offs[-1]) // 2),
+              torn_want[0]))
+    for name, directory, expect in cases:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = recover(directory, attach=False, device=DEVICE)
+        rec_s = time.perf_counter() - t0
+        got = result(rec.inner, q1m)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        require(_same_bits(got, expect),
+                f"[{label}] recovery from the {name} differs from the live "
+                "stream (ids, scores or a stats field)")
+        log(f"[{label}] recover() from the {name}: {rec_s:.2f} s (snapshot "
+            f"load, verify and replay of {rec.inner._wal_seq} records), "
+            f"{first_s:.2f} s to the first answered search; equal bit for "
+            f"bit to the live stream"
+            f"{' before its last record' if 'torn' in name else ''}")
+        del rec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- n=100k: cuts right after a compaction's begin and commit markers
+    label = "durable-stream-100k"
+    wd = os.path.join(tmp, "wal-100k")
+    live = StreamSearcher(stream_from_index(pm100k), cfg)
+    live.enable_wal(wd)
+    shadow = stream_from_index(pm100k)
+    n = pm100k.meta.n
+    ops = [("insert", np.arange(n, n + 2_000), corpus_rows(2_000, seed=7)),
+           ("delete", np.arange(0, n, n // 100)),
+           ("compact",),
+           ("insert", np.arange(n + 2_000, n + 2_500),
+            corpus_rows(500, seed=8)),
+           ("delete", np.arange(n, n + 2_000, 100))]
+    shadow_at = {}
+    t0 = time.perf_counter()
+    for i, op in enumerate(ops):
+        apply(live, op)
+        apply(shadow, op)
+        if i == 1:
+            shadow_at["compact_begin"] = result(shadow, q100k)
+        elif i == 2:
+            shadow_at["compact_commit"] = result(shadow, q100k)
+    log(f"[{label}] {len(ops)} ops on a logged stream and on a shadow "
+        f"without a log, one compact() each: {time.perf_counter() - t0:.1f} s")
+    wal_path = os.path.join(wd, "wal.log")
+    recs, _, _ = read_records(wal_path)
+    _, offs = _wal_boundaries(wal_path)
+    for marker, want in shadow_at.items():
+        cut = [r.op for r in recs].index(marker) + 1
+        directory = _cut_copy(wd, os.path.join(tmp, marker), offs[cut])
+        t0 = time.perf_counter()
+        rec = recover(directory, attach=False, device=DEVICE)
+        rec_s = time.perf_counter() - t0
+        require(_same_bits(result(rec.inner, q100k), want),
+                f"[{label}] recovery cut after {marker} differs from the "
+                "shadow stream at that point")
+        log(f"[{label}] cut after record {cut} ({marker}): recover() "
+            f"{rec_s:.2f} s, equal bit for bit to the shadow stream")
+    require(_same_bits(result(live.inner, q100k), result(shadow, q100k)),
+            f"[{label}] the logged stream differs from its shadow at the end")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2722,7 +3260,6 @@ def main() -> int:
     log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_compact_100k(pm100k, q100k)
-    del pm100k
     log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -2734,11 +3271,9 @@ def main() -> int:
                                                          x100k, q100k, timer)
     records.append(scan_rec)
     launches.update(mode_launches)
-    del x1m, x100k, q100k
     log(f"[phase 4b] {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     stream_launches = phase_stream_1m(pm1m, q1m)
-    del pm1m, q1m
     from repro_torch.core import search_graph
     search_graph.clear_graphs()      # their pools hold the n=1M scratch
     gc.collect()
@@ -2748,6 +3283,29 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_launches = phase_serve()
     log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    sharded_launches = phase_sharded_1m(pm1m, x1m, q1m)
+    del x1m
+    search_graph.clear_graphs()
+    log(f"[phase 7, sharded-1M] {time.perf_counter() - t0:.1f} s")
+    # the snapshots and logs of phases 8-9, in the gitignored build/ dir
+    tmp = tempfile.mkdtemp(prefix="durability-",
+                           dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        sharded_stream_launches = phase_sharded_stream_100k(x100k, q100k, tmp)
+        del x100k
+        log(f"[phase 8, sharded-stream-100k] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        durable_launches = phase_durable_1m(pm1m, q1m, pm100k, q100k, tmp)
+        log(f"[phase 9, durable-stream-1M] {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("[launches] one search of each new path: sharded-1M "
+        f"{sharded_launches}; sharded-stream-100k (churned) "
+        f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "
+        f"{durable_launches}")
 
     # each kernel's count from the path whose shapes its record was timed
     # at: the static main path for block_mips, sketch_scores and

@@ -15,5 +15,8 @@ same search over its base and scores its delta with a third kernel,
 the dense transformer of `models` (its attention through
 `kernels.decode_attention`) and picks tokens with exact logits or with the
 batched ProMIPS search over the output embedding (`api`, ``promips-stream``;
-the frontend's Quick-Probe through `kernels.binary_probe`).
+the frontend's Quick-Probe through `kernels.binary_probe`). Durability
+(`robust.wal`, `robust.snapshot`, `api` ``save`` / ``load``) and the sharded
+search (`core.sharded`, the ``sharded`` backend) keep the JAX package's
+formats and run the same kernels.
 """

@@ -4,22 +4,26 @@
                   verification by default; opts select mode="progressive",
                   norm_adaptive, cs_prune, verification="batched"/"scan"),
                   or with ``search_path="host"`` the paper's numpy search
-  promips-stream  stream.MutableProMIPS (mutation + compaction), the one
-                  the serve engine builds
+  promips-stream  stream.MutableProMIPS (mutation + compaction, the
+                  write-ahead log), the one the serve engine builds
+  sharded         core.sharded.MutableShardedProMIPS (range-routed shards,
+                  mutation, host-side k x shards merge)
   exact           baselines.ExactMIPS (ground-truth full scan)
   h2alsh          baselines.H2ALSH
   pq              baselines.PQBased
   rangelsh        baselines.RangeLSH
 
-``sharded`` is ROADMAP Queue 1 item 9. The ProMIPS family derives m from the
+The ProMIPS family derives m from the
 `GuaranteeConfig` (the Section V-B cost model, unless the caller gives
 ``m``) and x_p = Psi_m^{-1}(p0) inside `build_index` from the same (c, p0);
 the baselines take (c, p0) as tuning hints only and compute on the host,
-as in the JAX package.
+as in the JAX package. Every adapter's `state()` is the JAX adapter's, so
+a directory saved by either package loads in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -30,6 +34,8 @@ from ..core.index import IndexArrays, IndexMeta, ProMIPSIndex
 from ..core.promips import ProMIPS
 from ..core.runtime import RuntimeConfig
 from ..core.runtime import search as runtime_search
+from ..core.sharded import MutableShardedProMIPS
+from ..robust.wal import WriteAheadLog
 from ..stream.mutable import MutableProMIPS
 from ..tune import cache as tune_cache
 from .base import Searcher
@@ -70,6 +76,23 @@ def _runtime_from_opts(guarantee: GuaranteeConfig, mode: str,
         cs_prune=bool(cs_prune) if cs_prune is not None else False,
         prefilter=bool(prefilter), prefilter_eps=float(prefilter_eps),
         obs=bool(obs))
+
+
+def _runtime_state(cfg: RuntimeConfig) -> dict:
+    """A `RuntimeConfig` as the JAX package saves one: its ``use_pallas``
+    field carries ``use_kernels`` (None: the kernels where the device has
+    them)."""
+    state = dataclasses.asdict(cfg)
+    state["use_pallas"] = state.pop("use_kernels")
+    return state
+
+
+def _runtime_from_state(state: dict) -> RuntimeConfig:
+    """Inverse of `_runtime_state`; reads either package's saves."""
+    state = dict(state)
+    if "use_pallas" in state:
+        state["use_kernels"] = state.pop("use_pallas")
+    return RuntimeConfig(**state)
 
 
 def _host_queries(queries) -> np.ndarray:
@@ -173,14 +196,13 @@ class PromipsSearcher(Searcher):
         arrays = {f: np.asarray(getattr(self.pm.index.arrays, f))
                   for f in IndexArrays._fields}
         return arrays, dict(meta=dataclasses.asdict(self.pm.meta),
-                            runtime=dataclasses.asdict(self.runtime),
+                            runtime=_runtime_state(self.runtime),
                             search_path=self.search_path)
 
     @classmethod
     def from_state(cls, arrays, meta, device="cuda") -> "PromipsSearcher":
-        """The searcher of a `state()` pair, its arrays on ``device``.
-        Runtime fields the port does not have (the JAX ``use_pallas``) are
-        dropped: the port picks the kernels by device."""
+        """The searcher of a `state()` pair (either package's), its arrays on
+        ``device``."""
         names = {f.name for f in dataclasses.fields(IndexMeta)}
         index = ProMIPSIndex(
             arrays=IndexArrays(**{f: np.asarray(arrays[f])
@@ -188,10 +210,8 @@ class PromipsSearcher(Searcher):
             meta=IndexMeta(**{k: v for k, v in meta["meta"].items()
                               if k in names}),
             layout=None)
-        fields = {f.name for f in dataclasses.fields(RuntimeConfig)}
-        runtime = RuntimeConfig(**{k: v for k, v in meta["runtime"].items()
-                                   if k in fields})
-        return cls(ProMIPS(index, device=device), runtime,
+        return cls(ProMIPS(index, device=device),
+                   _runtime_from_state(meta["runtime"]),
                    meta.get("search_path", "device"))
 
 
@@ -262,6 +282,39 @@ class StreamSearcher(_MutableMixin, Searcher):
     def flush(self, timeout=None) -> None:
         self.inner.join_compaction(timeout)
 
+    # -- durability (robust/wal.py) ------------------------------------------
+    def enable_wal(self, wal_dir: str, fsync: str = "os") -> str:
+        """Make this index crash-safe: write an initial checksummed snapshot
+        under ``wal_dir/snapshot`` and attach a write-ahead log at
+        ``wal_dir/wal.log``; every later acknowledged mutation is logged
+        before it is applied. `repro_torch.robust.recover(wal_dir)` restores
+        the exact state after a crash."""
+        self.flush()
+        self.save(os.path.join(wal_dir, "snapshot"))
+        self.inner.mark_wal_floor()
+        self.inner.attach_wal(
+            WriteAheadLog(os.path.join(wal_dir, "wal.log"), fsync=fsync,
+                          fresh=True))
+        self._wal_dir = wal_dir
+        return wal_dir
+
+    def checkpoint(self) -> str:
+        """Fold the WAL into a fresh snapshot: save (atomic, checksummed),
+        then truncate the log. A crash at any point is safe: the snapshot
+        persists ``wal_seq`` and replay skips records at or below it, so
+        dying between the save and the truncate only replays no-ops."""
+        if getattr(self, "_wal_dir", None) is None:
+            raise RuntimeError("no WAL attached (build with wal_dir= or "
+                               "call enable_wal() first)")
+        self.flush()
+        self.save(os.path.join(self._wal_dir, "snapshot"))
+        self.inner.mark_wal_floor()
+        self.inner._wal.reset()
+        return self._wal_dir
+
+    def wal_lag(self) -> int:
+        return self.inner.wal_lag()
+
     def maintenance_status(self) -> dict:
         """Compaction + WAL health for the serve engine's `health()`."""
         comp = (self.inner.compactor.status()
@@ -274,6 +327,110 @@ class StreamSearcher(_MutableMixin, Searcher):
         base = self.inner.meta.index_bytes
         delta = self.inner._delta
         return base + delta.x.nbytes + delta.gids.nbytes + delta.alive.nbytes
+
+    def state(self) -> Tuple[dict, dict]:
+        self.flush()
+        arrays, meta = self.inner.state_dict()
+        return arrays, dict(meta, runtime=_runtime_state(self.runtime))
+
+    @classmethod
+    def from_state(cls, arrays, meta, device="cuda") -> "StreamSearcher":
+        return cls(MutableProMIPS.from_state(arrays, meta, device=device),
+                   _runtime_from_state(meta["runtime"]))
+
+
+@register
+class ShardedSearcher(_MutableMixin, Searcher):
+    """Range-routed multi-shard streaming index (host k x shards merge)."""
+
+    name = "sharded"
+    capabilities = Capabilities(guaranteed=True, supports_mutation=True,
+                                supports_sharding=True, prefilter=True)
+
+    def __init__(self, sharded: MutableShardedProMIPS, runtime: RuntimeConfig):
+        self.inner = sharded
+        self.runtime = runtime
+
+    @classmethod
+    def build(cls, x, *, guarantee, seed, page_bytes, n_shards=2, m=None,
+              mode="two_phase", verification=None, norm_adaptive=None,
+              cs_prune=None, budget=None, budget2=None, norm_strata=1,
+              prefilter=False, prefilter_eps=None, obs=False,
+              delta_capacity=None, auto_compact=False, device="cuda",
+              **index_opts) -> "ShardedSearcher":
+        # m* and the tuned knobs follow the per-shard corpus size: each
+        # shard owns its own Quick-Probe group table over ~n / n_shards rows
+        n_shard = max(len(x) // max(int(n_shards), 1), 1)
+        plan = guarantee.derive(n_shard)
+        sharded = MutableShardedProMIPS(
+            x, int(n_shards), delta_capacity=delta_capacity,
+            auto_compact=auto_compact, device=device,
+            m=plan.m if m is None else int(m), c=guarantee.c, p=guarantee.p0,
+            page_bytes=page_bytes, seed=seed, norm_strata=int(norm_strata),
+            **index_opts)
+        return cls(sharded, _runtime_from_opts(
+            guarantee, mode, verification, norm_adaptive, cs_prune, budget,
+            budget2, prefilter, prefilter_eps, obs,
+            shape=(n_shard, int(x.shape[1])),
+            device=sharded.shards[0].device))
+
+    def _search(self, queries, k, runtime: Optional[RuntimeConfig] = None
+                ) -> Tuple[np.ndarray, np.ndarray, dict]:
+        cfg = self.runtime if runtime is None else runtime
+        ids, scores, stats = self.inner.search(queries, k=k, runtime=cfg)
+        return ids, scores, stats.to_dict()
+
+    def alive_items(self):
+        gids, rows = [], []
+        for shard in self.inner.shards:
+            g, r = shard.alive_items()
+            gids.append(g)
+            rows.append(r)
+        return np.concatenate(gids), np.concatenate(rows)
+
+    def flush(self, timeout=None) -> None:
+        for shard in self.inner.shards:
+            shard.join_compaction(timeout)
+
+    @property
+    def dim(self) -> int:
+        return self.inner.shards[0].d
+
+    def maintenance_status(self) -> dict:
+        """Per-shard compaction health rolled up worst-case (any shard's
+        latched error shows in ``compaction``), the per-shard detail beside
+        it; the sharded index keeps no WAL."""
+        per = [s.compactor.status() if s.compactor is not None else None
+               for s in self.inner.shards]
+        live = [p for p in per if p is not None]
+        comp = None
+        if live:
+            comp = {
+                "in_flight": any(p["in_flight"] for p in live),
+                "runs": sum(p["runs"] for p in live),
+                "failures": sum(p["failures"] for p in live),
+                "retries": sum(p["retries"] for p in live),
+                "error_latched": any(p["error_latched"] for p in live),
+                "last_error": next((p["last_error"] for p in live
+                                    if p["last_error"]), None),
+                "shards": per,
+            }
+        return {"compaction": comp, "wal_attached": False, "wal_lag": 0}
+
+    @property
+    def index_bytes(self) -> int:
+        return sum(s.meta.index_bytes for s in self.inner.shards)
+
+    def state(self) -> Tuple[dict, dict]:
+        self.flush()
+        arrays, meta = self.inner.state_dict()
+        return arrays, dict(meta, runtime=_runtime_state(self.runtime))
+
+    @classmethod
+    def from_state(cls, arrays, meta, device="cuda") -> "ShardedSearcher":
+        return cls(MutableShardedProMIPS.from_state(arrays, meta,
+                                                    device=device),
+                   _runtime_from_state(meta["runtime"]))
 
 
 # ---------------------------------------------------------------------------
@@ -333,7 +490,8 @@ class _BaselineSearcher(Searcher):
         return {"x": self._x}, dict(ctor=self._ctor)
 
     @classmethod
-    def from_state(cls, arrays, meta) -> "_BaselineSearcher":
+    def from_state(cls, arrays, meta, device=None) -> "_BaselineSearcher":
+        # ``device`` was resolved by `Searcher.load`; the engine is numpy
         x = np.ascontiguousarray(arrays["x"], np.float32)
         ctor = dict(meta["ctor"])
         return cls(cls.inner_cls(**ctor).build(x), x, ctor)
@@ -369,5 +527,6 @@ class RangeLSHSearcher(_BaselineSearcher):
     inner_cls = RangeLSH
 
 
-__all__ = ["PromipsSearcher", "StreamSearcher", "ExactSearcher",
-           "H2ALSHSearcher", "PQSearcher", "RangeLSHSearcher"]
+__all__ = ["PromipsSearcher", "StreamSearcher", "ShardedSearcher",
+           "ExactSearcher", "H2ALSHSearcher", "PQSearcher",
+           "RangeLSHSearcher"]

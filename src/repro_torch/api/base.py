@@ -11,34 +11,50 @@ capability-gated mutation stubs.
 Queries may be torch tensors (the serve engine passes its hidden states on
 the card, checked on static properties only, with no host copy) or
 anything numpy takes. Results come back as numpy arrays, as in the JAX
-package. `save` / `load` (checksummed snapshot directories, with the
-``state()`` / ``from_state()`` pair behind them) are not ported yet and
-raise (ROADMAP Queue 1 item 8).
+package.
+
+Persistence is the JAX package's on-disk format: one directory holding
+``arrays.npz`` (the backend's ``state()`` arrays, `np.savez_compressed`),
+``meta.json`` (the header below, with the backend's meta) and the
+checksummed ``manifest.json`` of `robust.snapshot`, written atomically. So
+each package loads the other's saves. `load` puts the index on a device,
+the card unless ``device="cpu"``.
 """
 from __future__ import annotations
 
 import abc
+import dataclasses
+import json
+import os
 import time
 from typing import ClassVar, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..core.index import resolve_device
+from ..robust.snapshot import (CorruptSnapshotError, verify_dir,
+                               write_atomic_dir)
 from .types import Capabilities, GuaranteeConfig, SearchResult
+
+FORMAT_NAME = "repro.api-index"
+FORMAT_VERSION = 1
+_ARRAYS_FILE = "arrays.npz"
+_META_FILE = "meta.json"
 
 
 class UnsupportedOperation(NotImplementedError):
-    """A capability-gated or not yet ported operation was called."""
+    """A capability-gated operation was called on a backend lacking it."""
 
 
 class Searcher(abc.ABC):
-    """Backend-agnostic index handle: build -> search -> (mutate)."""
+    """Backend-agnostic index handle: build -> search -> (mutate) -> save."""
 
     name: ClassVar[str]
     capabilities: ClassVar[Capabilities] = Capabilities()
 
-    # re-stamped by `registry.build`; the defaults keep a directly
-    # constructed adapter usable
+    # re-stamped by the registry's build() and load(); the defaults keep a
+    # directly constructed or from_state()-restored adapter usable
     guarantee: GuaranteeConfig = GuaranteeConfig()
     seed: int = 0
     build_seconds: float = 0.0
@@ -153,17 +169,92 @@ class Searcher(abc.ABC):
         return None
 
     # -- persistence ---------------------------------------------------------
-    def save(self, path: str) -> str:
-        raise UnsupportedOperation(
-            "save() writes checksummed snapshot directories, which are not "
-            "ported yet (ROADMAP Queue 1 item 8)")
+    @abc.abstractmethod
+    def state(self) -> Tuple[dict, dict]:
+        """(arrays, meta): host numpy arrays for ``arrays.npz`` (the index's
+        host copy, never its device tensors) and a JSON-able backend meta
+        dict, in the JAX package's layout. Together they must rebuild a
+        searcher whose searches are bit-identical to this one's."""
 
     @classmethod
-    def load(cls, path: str) -> "Searcher":
-        raise UnsupportedOperation(
-            "load() reads checksummed snapshot directories, which are not "
-            "ported yet (ROADMAP Queue 1 item 8); `convert.stream_from_dir` "
-            "and `convert.index_from_dir` read a JAX save directory")
+    @abc.abstractmethod
+    def from_state(cls, arrays: dict, meta: dict,
+                   device="cuda") -> "Searcher":
+        """Inverse of :meth:`state`, the index on ``device``."""
+
+    def save(self, path: str) -> str:
+        """Persist to ``path`` (a directory): arrays.npz + meta.json +
+        manifest.json, written atomically (temp dir + rename) with per-file
+        SHA256 checksums; a crash mid-save leaves the previous snapshot
+        intact."""
+        arrays, backend_meta = self.state()
+        header = {
+            "format": FORMAT_NAME,
+            "version": FORMAT_VERSION,
+            "backend": self.name,
+            "seed": int(self.seed),
+            "guarantee": dataclasses.asdict(self.guarantee),
+            "backend_meta": backend_meta,
+        }
+
+        def _write_meta(p):
+            with open(p, "w") as f:
+                json.dump(header, f, indent=1)
+
+        write_atomic_dir(path, {
+            _ARRAYS_FILE: lambda p: np.savez_compressed(p, **arrays),
+            _META_FILE: _write_meta,
+        }, manifest_extra={"format": FORMAT_NAME,
+                           "version": FORMAT_VERSION})
+        return path
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "Searcher":
+        """The searcher saved at ``path`` (verified against its manifest),
+        its index on ``device``."""
+        device = resolve_device(device)
+        header = read_header(path)
+        if header["backend"] != cls.name:
+            raise ValueError(f"index at {path!r} was saved by backend "
+                             f"{header['backend']!r}, not {cls.name!r} "
+                             "(use repro_torch.api.load to dispatch)")
+        with np.load(os.path.join(path, _ARRAYS_FILE)) as z:
+            arrays = {key: z[key] for key in z.files}
+        obj = cls.from_state(arrays, header["backend_meta"], device=device)
+        obj.guarantee = GuaranteeConfig(**header["guarantee"])
+        obj.seed = int(header["seed"])
+        obj.build_seconds = 0.0
+        return obj
 
 
-__all__ = ["Searcher", "UnsupportedOperation"]
+def saved_bytes(path: str) -> int:
+    """On-disk footprint of a saved index directory."""
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return total
+
+
+def read_header(path: str) -> dict:
+    """Parse and validate the ``meta.json`` header of a saved index.
+
+    Integrity first: every manifest-listed file is re-hashed and a mismatch
+    raises `CorruptSnapshotError` naming the failing file (a manifest-less
+    directory loads unverified, with a warning)."""
+    meta_path = os.path.join(path, _META_FILE)
+    if not os.path.exists(meta_path):
+        raise FileNotFoundError(f"no saved index at {path!r} "
+                                f"(missing {_META_FILE})")
+    verify_dir(path)
+    with open(meta_path) as f:
+        header = json.load(f)
+    if header.get("format") != FORMAT_NAME:
+        raise ValueError(f"{meta_path}: not a {FORMAT_NAME} file")
+    if header.get("version") != FORMAT_VERSION:
+        raise ValueError(f"{meta_path}: format version "
+                         f"{header.get('version')!r} != {FORMAT_VERSION}")
+    return header
+
+
+__all__ = ["Searcher", "UnsupportedOperation", "CorruptSnapshotError",
+           "read_header", "saved_bytes", "FORMAT_NAME", "FORMAT_VERSION"]

@@ -1,22 +1,19 @@
-"""Backend registry: names -> `Searcher` classes, and the `build(x,
-backend=...)` entry point; port of `repro.api.registry` (without `load`,
-which waits for the snapshot format, ROADMAP Queue 1 item 8)."""
+"""Backend registry: names -> `Searcher` classes, plus the two facade entry
+points `build(x, backend=...)` and `load(path)`; port of
+`repro.api.registry`."""
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional, Tuple, Type
+from typing import Dict, Iterator, Optional, Tuple, Type
 
 import numpy as np
 
 from ..core.index import resolve_device
 from ..tune import cache as tune_cache
-from .base import Searcher, UnsupportedOperation
+from .base import Searcher, read_header
 from .types import Capabilities, GuaranteeConfig
 
 _REGISTRY: Dict[str, Type[Searcher]] = {}
-
-# backends of the JAX package the port has not taken yet
-NOT_PORTED = ("sharded",)
 
 
 def register(cls: Type[Searcher]) -> Type[Searcher]:
@@ -39,19 +36,20 @@ def get_backend(name: str) -> Type[Searcher]:
     try:
         return _REGISTRY[name]
     except KeyError:
-        if name in NOT_PORTED:
-            raise UnsupportedOperation(
-                f"backend {name!r} is not ported yet (ROADMAP Queue 1 item "
-                f"9); registered: {', '.join(backends())}") from None
         raise ValueError(f"unknown backend {name!r}; registered backends: "
                          f"{', '.join(backends())}") from None
+
+
+def iter_backends() -> Iterator[Tuple[str, Type[Searcher]]]:
+    for name in backends():
+        yield name, _REGISTRY[name]
 
 
 def build(x: np.ndarray, backend: str = "promips", *,
           guarantee: Optional[GuaranteeConfig] = None,
           seed: int = 0, page_bytes: Optional[int] = None,
-          wal_dir: Optional[str] = None, device="cuda",
-          **opts) -> Searcher:
+          wal_dir: Optional[str] = None, wal_fsync: str = "os",
+          device="cuda", **opts) -> Searcher:
     """Build an index over ``x`` with the named backend, its search on
     ``device`` (the card by default; pass ``device="cpu"`` for the plain
     path). ``device`` is resolved before any backend builds, so the default
@@ -60,17 +58,19 @@ def build(x: np.ndarray, backend: str = "promips", *,
 
     ``guarantee`` is the declarative contract (c, p0, k); ``seed`` makes the
     build reproducible; ``opts`` are backend-specific (e.g. ``m=8``,
-    ``norm_strata=4``). ``page_bytes=None`` consults the tuning cache for
-    this data shape on ``device`` and takes the hand-picked 4096 on a miss.
-    ``wal_dir`` raises until the write-ahead
-    log is ported (ROADMAP Queue 1 item 8).
+    ``norm_strata=4``, ``n_shards=4``). ``page_bytes=None`` consults the
+    tuning cache for this data shape on ``device`` and takes the
+    hand-picked 4096 on a miss.
+
+    ``wal_dir`` (mutable ``promips-stream`` only) makes the index
+    crash-safe: an initial checksummed snapshot plus a write-ahead log land
+    under that directory, every acknowledged mutation is logged before it
+    is applied, and `repro_torch.robust.recover(wal_dir)` restores the exact
+    pre-crash state. ``wal_fsync`` picks the durability/latency trade
+    ("always" | "os" | "never").
     """
     cls = get_backend(backend)
     device = resolve_device(device)
-    if wal_dir is not None:
-        raise UnsupportedOperation(
-            "wal_dir= needs the write-ahead log, which is not ported yet "
-            "(ROADMAP Queue 1 item 8)")
     guarantee = GuaranteeConfig() if guarantee is None else guarantee
     x = np.ascontiguousarray(x, np.float32)
     if x.ndim != 2:
@@ -84,7 +84,23 @@ def build(x: np.ndarray, backend: str = "promips", *,
     searcher.guarantee = guarantee
     searcher.seed = int(seed)
     searcher.build_seconds = time.perf_counter() - t0
+    if wal_dir is not None:
+        # after the guarantee/seed stamps, so that the initial snapshot's
+        # header carries them
+        if not hasattr(searcher, "enable_wal"):
+            raise ValueError(f"backend {backend!r} does not support wal_dir= "
+                             "(write-ahead logging needs a mutable "
+                             "promips-stream index)")
+        searcher.enable_wal(wal_dir, fsync=wal_fsync)
     return searcher
 
 
-__all__ = ["register", "backends", "get_backend", "build"]
+def load(path: str, device="cuda") -> Searcher:
+    """Load a saved index (the port's or the JAX package's), dispatching on
+    the backend recorded in meta.json; its index on ``device``."""
+    header = read_header(path)
+    return get_backend(header["backend"]).load(path, device=device)
+
+
+__all__ = ["register", "backends", "get_backend", "iter_backends", "build",
+           "load"]

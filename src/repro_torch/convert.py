@@ -16,6 +16,13 @@ A streaming index's state is the JAX `MutableProMIPS.state_dict()` pair:
 `stream_from_dir` reads a ``promips-stream`` save directory (the same
 arrays in ``arrays.npz``, the state meta under ``backend_meta``).
 
+A sharded streaming index's state is the JAX
+`MutableShardedProMIPS.state_dict()` pair (each shard's stream state under
+a ``shard{i}_`` prefix, plus the routing bounds): `sharded_from_state`
+restores it as the port's `MutableShardedProMIPS`, and `sharded_from_dir`
+reads a ``sharded`` save directory. (`api.load` reads every backend's save
+directory, the runtime settings included.)
+
 A model's state is its parameter pytree: `params_from_jax` takes the JAX
 `models.transformer.init_params` tree (numpy or JAX arrays) as the port's
 parameters, which keep the JAX layouts, so every leaf is copied bit for bit.
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from .core.index import IndexArrays, IndexMeta, resolve_device, to_device
+from .core.sharded import MutableShardedProMIPS
 from .models.transformer import check_supported
 from .stream.mutable import MutableProMIPS
 
@@ -93,6 +101,21 @@ def stream_from_dir(path: str, device="cuda") -> MutableProMIPS:
     save directory (its runtime settings are not carried)."""
     arrays, backend_meta = _read_dir(path, "promips-stream")
     return stream_from_state(arrays, backend_meta, device)
+
+
+def sharded_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
+                       device="cuda") -> MutableShardedProMIPS:
+    """The port's `MutableShardedProMIPS` on ``device`` from the JAX
+    `MutableShardedProMIPS.state_dict()` output (no rebuild)."""
+    return MutableShardedProMIPS.from_state(dict(arrays), dict(meta),
+                                            device=device)
+
+
+def sharded_from_dir(path: str, device="cuda") -> MutableShardedProMIPS:
+    """The port's `MutableShardedProMIPS` on ``device`` from a ``sharded``
+    save directory (its runtime settings are not carried)."""
+    arrays, backend_meta = _read_dir(path, "sharded")
+    return sharded_from_state(arrays, backend_meta, device)
 
 
 def _param_keys(cfg) -> dict:

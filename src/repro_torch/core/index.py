@@ -279,11 +279,12 @@ def to_device(arrays: IndexArrays, device) -> IndexArrays:
     Float arrays stay float32 and integer arrays int32, except the group
     codes, which become int64 (the XOR/shift arithmetic of Quick-Probe).
     Raises on sketch codes outside the codebooks: the sketch kernel indexes
-    its table with them unchecked.
+    its table with them unchecked. Stacked shards (a leading shard axis on
+    every array, `core.sharded`) convert alike.
     """
     dev = resolve_device(device)
     codes = np.asarray(arrays.sk_codes)
-    n_codewords = np.asarray(arrays.sk_codebooks).shape[1]
+    n_codewords = np.asarray(arrays.sk_codebooks).shape[-2]
     if codes.size and (codes.min() < 0 or codes.max() >= n_codewords):
         raise ValueError(f"sk_codes outside [0, {n_codewords})")
     out = {}

@@ -21,10 +21,10 @@ check, so production code pays nothing.
 ``REPRO_FAULTS="wal.append:1:0:1,compaction.rebuild:0.5"``.
 
 The set of valid names is the declared :data:`FAULT_POINTS` inventory,
-the JAX package's (the port places ``compaction.rebuild`` and
-``serve.decode``; the WAL and snapshot points wait for their modules);
-arming an undeclared name raises, so a typo'd fault silently never firing
-cannot happen.
+the JAX package's, each threaded at the same site (``wal.append`` and
+``wal.torn`` in `robust.wal`, ``snapshot.write`` in `robust.snapshot`,
+``compaction.rebuild`` and ``serve.decode``); arming an undeclared name
+raises, so a typo'd fault silently never firing cannot happen.
 """
 from __future__ import annotations
 

@@ -15,9 +15,9 @@ applied. Past a churn fraction, compaction rebuilds the base on the host
 >>> ids, scores, stats = st.search(queries, k=10)
 >>> st.compact()                        # fold delta + tombstones into the base
 
-The write-ahead-log hooks (`attach_wal`, `_wal_append`, ...) are kept so that
-the state and the op order match the JAX package's; they do nothing while
-no log is attached.
+With a write-ahead log attached (`attach_wal`, `robust.wal`), every write
+and compaction marker is logged before it is applied, in the JAX package's
+order; the hooks do nothing while no log is attached.
 """
 from __future__ import annotations
 
@@ -134,7 +134,7 @@ class MutableProMIPS:
                 and not self._defer_trigger and not self._wal_replaying):
             self.compactor.maybe_trigger(self)
 
-    # -- durability hooks (no-ops while no log is attached) ------------------
+    # -- durability (robust/wal.py; no-ops while no log is attached) ---------
     def _init_wal_state(self) -> None:
         self._wal = None             # attached write-ahead log, if any
         self._wal_seq = 0            # seq of the last record logged

@@ -9,8 +9,8 @@ bit for bit on the host engines and within 1e-5 relative (+1e-6) on the
 device search (both packages rescore the winners with their own einsum).
 `PromipsSearcher.state()` carried across with `convert.promips_from_state`
 and through the port's own `from_state`: equal arrays and the same
-results. `backends()` lists every JAX backend but ``sharded``, which
-raises naming its ROADMAP item. `ops.mips_topk`: its block_mips route (k <=
+results. `backends()` lists every JAX backend, and ``sharded`` builds.
+`ops.mips_topk`: its block_mips route (k <=
 128) against the Pallas route in interpret mode on tie-free data (equal
 rows, scores within 1e-5 relative, -1 / -inf past the valid rows), and
 against the oracle route (mips_score + top-k) at k <= 128 and k > 128.
@@ -91,10 +91,13 @@ def test_build_matches_jax(data, jax_clean, case):
 
 
 def test_backends_list_all_but_sharded():
-    assert set(api.backends()) == set(jax_api.backends()) - {"sharded"}
-    with pytest.raises(api.UnsupportedOperation, match="ROADMAP"):
-        api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
-                  device="cpu")
+    """Every JAX backend is registered, ``sharded`` too: it builds and
+    searches (its parity is `tests/test_torch_sharded.py`'s)."""
+    assert api.backends() == jax_api.backends()
+    s = api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
+                  device="cpu", m=4, n_shards=2)
+    assert isinstance(s, api.ShardedSearcher) and s.n == 100
+    assert s.search(mf_factors(2, 8, 4, seed=1), k=3).ids.shape == (2, 3)
 
 
 def test_promips_state_round_trips(data, jax_clean):

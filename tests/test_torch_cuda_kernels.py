@@ -47,6 +47,14 @@ and that truncate, with the Condition-A stop mid-walk and blocks skipped by
 the progressive test. `ops.mips_topk` on the card equals its plain route
 on integer data on both of its routes (block_mips at k <= 128, mips_score
 and a stable top-k above).
+The sharded search runs on three padded shards of integer data (every
+padding rule of `build_sharded` applies): `sharded_search` on the kernels
+equals the plain versions on the card and on the CPU bit for bit in fused,
+batched and progressive mode; each shard's `quick_probe_select` and
+`sketch_scores` equal their plain versions; each shard's graphs are
+captured once, and the fused sharded search equals the per-shard host
+driver merged by the same rule; the streaming sharded index on the card
+equals the CPU's after churn and a compaction.
 """
 import numpy as np
 import pytest
@@ -981,3 +989,170 @@ def test_mips_topk_kernel_route_equals_plain(cuda, r, b, d, k):
             assert bool(((got[1] == -1) & (got[0] == float("-inf"))).any())
         else:
             assert bool((got[0] == -1e30).any())
+
+
+# -- the sharded search on padded shards --------------------------------------
+
+SHARD_CASES = {
+    "fused": dict(mode="two_phase", verification="fused", norm_adaptive=True,
+                  cs_prune=True),
+    "fused, prefilter": dict(mode="two_phase", verification="fused",
+                             prefilter=True, prefilter_eps=0.3,
+                             dense_frac=0.8),
+    "batched, prefilter": dict(mode="two_phase", verification="batched",
+                               prefilter=True, prefilter_eps=0.3),
+    "progressive": dict(mode="progressive", cs_prune=True, budget=64),
+}
+
+
+@pytest.fixture(scope="module")
+def padded_shards():
+    """Three shards of 960, 960 and 961 integer-valued rows (every score
+    exact in f32, whatever the summation order), where every padding rule of
+    `build_sharded` applies: rows with id -1, zero-count groups (shards 0
+    and 2), sub-partition centers at 1e30 (shards 0 and 1), a padded block
+    and zero codewords (shards 0 and 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    from repro_torch.core.sharded import build_sharded, device_put_sharded_index
+    rng = np.random.RandomState(1)
+    x = rng.randint(-3, 4, (2881, 32)).astype(np.float32)
+    q = rng.randint(-3, 4, (16, 32)).astype(np.float32)
+    sh = build_sharded(x, 3, m=8, c=0.9, p=0.7, norm_strata=4, seed=0)
+    a = sh.arrays
+    assert (a.g_count == 0).any() and (a.sp_center == np.float32(1e30)).any()
+    assert (a.ids < 0).sum(axis=1).min() > 0
+    return (device_put_sharded_index(sh, "cuda"),
+            device_put_sharded_index(sh, "cpu"), torch.from_numpy(q))
+
+
+@pytest.mark.parametrize("case", list(SHARD_CASES))
+def test_sharded_search_kernels_equal_plain_on_padded_shards(cuda,
+                                                              padded_shards,
+                                                              case):
+    """`sharded_search` on the kernels, on the plain versions on the card
+    and on the CPU: ids, scores and pages equal bit for bit (integer data:
+    every score is exact, so only a frontend or sketch flip could move a
+    result, and none does here)."""
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.sharded import sharded_search
+    on_card, on_cpu, q = padded_shards
+    cfg = RuntimeConfig(**SHARD_CASES[case])
+    before = dict(ops.LAUNCHES)
+    got = sharded_search(on_card, q.to(cuda), 10, device=cuda, runtime=cfg)
+    torch.cuda.synchronize()
+    launched = {k: ops.LAUNCHES[k] - before[k] for k in before}
+    plain = sharded_search(on_card, q.to(cuda), 10, device=cuda,
+                           runtime=RuntimeConfig(use_kernels=False,
+                                                 **SHARD_CASES[case]))
+    cpu = sharded_search(on_cpu, q, 10, device="cpu", runtime=cfg)
+    for name, want in (("plain on the card", plain), ("cpu", cpu)):
+        assert torch.equal(got[0].cpu(), want[0].cpu()), f"{name}: ids"
+        assert torch.equal(got[1].cpu(), want[1].cpu()), f"{name}: scores"
+        assert int(got[2]) == int(want[2]), f"{name}: pages"
+    kernel = "scan_blocks" if case == "progressive" else (
+        "block_mips" if "fused" in case else "mips_score")
+    assert launched[kernel] >= 3, launched
+    if case != "progressive":
+        assert launched["quick_probe_select"] == 3, launched
+
+
+def test_sharded_padded_shard_kernels_equal_plain(cuda, padded_shards):
+    """Each shard's view on the card: `quick_probe_select` (zero-count
+    groups) gives the plain version's rows and Test-A flags, its radius
+    within 1e-6 relative; `sketch_scores` (zero codewords) within
+    1e-5 |q| |mu| + 1e-6 on the shard's real blocks (a padded block's codes
+    point at codeword 0, not at its zero centroid: the prefilter drops it
+    by its ids, in both packages)."""
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.quick_probe import quick_probe_batch
+    on_card, _, q = padded_shards
+    q = q.to(cuda)
+    meta = on_card.meta
+    for s, arrays in enumerate(on_card.shards):
+        table = sd._group_table(arrays)
+        q_proj = q @ arrays.a
+        q_l1 = q.abs().sum(dim=1)
+        rk, r0k, ok_k = quick_probe_batch(table, q_proj, q_l1, meta.c,
+                                          meta.x_p, True)
+        rp, r0p, ok_p = quick_probe_batch(table, q_proj, q_l1, meta.c,
+                                          meta.x_p, False)
+        assert torch.equal(rk, rp) and torch.equal(ok_k, ok_p), s
+        assert bool(((r0k - r0p).abs() <= 1e-6 * r0p.abs() + 1e-7).all()), s
+        sk = (q, arrays.sk_mu, arrays.sk_codebooks, arrays.sk_codes)
+        est_k = ops.sketch_scores(*sk, use_kernels=True)
+        est_p = ops.sketch_scores(*sk, use_kernels=False)
+        real = (arrays.ids.view(-1, meta.page_rows) >= 0).any(dim=1)
+        tol = (1e-5 * q.norm(dim=1)[:, None] * arrays.sk_mu.norm(dim=1)[None, :]
+               + 1e-6)
+        assert bool(((est_k - est_p).abs() <= tol)[:, real].all()), s
+
+
+def test_sharded_graphs_captured_once_per_shard(cuda, padded_shards):
+    """Three fused sharded searches through one device index, with no
+    graph held before them: each shard's stages run eagerly, then are
+    captured, then replay; the third search captures nothing, and all three
+    equal the per-shard host driver merged by the same rule, bit for bit."""
+    from repro_torch.core import search_graph as sg
+    from repro_torch.core.runtime import RuntimeConfig, _rescore
+    from repro_torch.core.search_fused import search_batch_fused
+    from repro_torch.core.sharded import sharded_search
+    on_card, _, q = padded_shards
+    q = q.to(cuda)
+    cfg = RuntimeConfig(**SHARD_CASES["fused, prefilter"])
+    nb = on_card.meta.n_blocks
+
+    def n_graphs():
+        return sum(len(e.graphs) for e in sg._GRAPHS.values()
+                   if any(e.arrays is v for v in on_card.shards))
+
+    sg.clear_graphs()     # earlier tests ran this key on these views
+    runs, counts = [], []
+    for _ in range(3):
+        runs.append(sharded_search(on_card, q, 10, device=cuda, runtime=cfg))
+        counts.append(n_graphs())
+    assert counts[0] == 0 and counts[1] > 0 and counts[2] == counts[1], counts
+    ids_all, s_all, pages = [], [], 0
+    for arrays in on_card.shards:
+        ids, _, st = search_batch_fused(
+            arrays, on_card.meta, q, k=10, budget=nb, budget2=nb,
+            prefilter=True, prefilter_eps=0.3, dense_frac=0.8)
+        ids_all.append(ids)
+        s_all.append(_rescore(arrays.x, st.rows, q))
+        pages += int(st.pages.sum())
+    best_s, pos = ref.topk_stable(torch.cat(s_all, dim=1), 10)
+    best_i = torch.cat(ids_all, dim=1).gather(1, pos)
+    for got in runs:
+        assert torch.equal(got[0], best_i) and torch.equal(got[1], best_s)
+        assert int(got[2]) == pages
+
+
+def test_mutable_sharded_on_the_card_equals_the_cpu(cuda):
+    """The streaming sharded index after churn and a compaction: the card
+    (kernels, `mips_score` on each shard's delta) gives the CPU's ids,
+    scores and stats on integer data."""
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.sharded import MutableShardedProMIPS
+    rng = np.random.RandomState(2)
+    x = rng.randint(-3, 4, (1500, 32)).astype(np.float32)
+    q = rng.randint(-3, 4, (8, 32)).astype(np.float32)
+    new = rng.randint(-3, 4, (60, 32)).astype(np.float32)
+    cfg = RuntimeConfig(prefilter=True, prefilter_eps=0.3)
+    kw = dict(m=8, c=0.9, p=0.7, norm_strata=4, seed=0, delta_capacity=128)
+    card = MutableShardedProMIPS(x, 3, device=cuda, **kw)
+    cpu = MutableShardedProMIPS(x, 3, device="cpu", **kw)
+    for st in (card, cpu):
+        st.insert(np.arange(1500, 1560), new)
+        st.delete([2, 700, 1400, 1555])
+        st.update([9, 1501], new[:2] * 2)
+    before = ops.LAUNCHES["mips_score"]
+    for step in ("churned", "compacted"):
+        if step == "compacted":
+            card.compact()
+            cpu.compact()
+        got = card.search(q, k=10, runtime=cfg)
+        want = cpu.search(q, k=10, runtime=cfg)
+        assert np.array_equal(got[0], want[0]), step
+        assert np.array_equal(got[1], want[1]), step
+        assert got[2] == want[2], step
+    assert ops.LAUNCHES["mips_score"] - before == 3   # the churned search

@@ -6,8 +6,10 @@
   engine) run on the card by default and raise without one instead of
   falling back to the CPU;
 - asking for the kernels on CPU tensors raises;
-- what is not ported yet (the ``sharded`` backend, MoE configs) raises,
-  naming its ROADMAP item; the runtime's modes and backends are all taken.
+- what is not ported yet (the MoE configs) raises, naming its ROADMAP
+  item; the runtime's modes and the registry's backends are all taken;
+- `save` / `load`, `recover`, `sharded_search` and the ``sharded`` backend
+  also run on the card unless ``device="cpu"`` is passed.
 """
 import dataclasses
 import os
@@ -26,9 +28,13 @@ from repro_torch.configs import MoECfg, get_config
 from repro_torch.convert import stream_from_state
 from repro_torch.core.promips import ProMIPS
 from repro_torch.core.runtime import RuntimeConfig, search
+from repro_torch.core.sharded import (MutableShardedProMIPS, build_sharded,
+                                      device_put_sharded_index,
+                                      sharded_search)
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.robust import recover
 from repro_torch.serve import DecodeEngine
 from repro_torch.stream import MutableProMIPS
 
@@ -116,6 +122,36 @@ def test_stream_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert st.snapshot().delta_x.device.type == "cpu"
 
 
+def test_durability_and_sharded_entry_points_default_to_the_card(no_card,
+                                                                  tmp_path):
+    x = mf_factors(600, 32, 8, seed=0)
+    q = mf_factors(4, 32, 8, seed=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.build(x, backend="sharded", n_shards=2, m=6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        MutableShardedProMIPS(x, 2, m=6)
+    sh = build_sharded(x, 2, m=6, seed=0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_put_sharded_index(sh)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sharded_search(sh, q, 5)
+    assert sharded_search(sh, q, 5, device="cpu")[0].device.type == "cpu"
+    wd = str(tmp_path / "wal")
+    s = api.build(x, backend="promips-stream", m=6, device="cpu", wal_dir=wd)
+    s.insert([900], x[:1])
+    path = str(tmp_path / "snapshot")
+    s.save(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.load(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        api.get_backend("promips-stream").load(path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        recover(wd)
+    loaded = api.load(path, device="cpu")
+    assert loaded.inner.snapshot().delta_x.device.type == "cpu"
+    assert recover(wd, device="cpu").n == s.n
+
+
 def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
     cfg = get_config("tinyllama-1.1b").reduced()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -139,8 +175,11 @@ def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
 def test_unported_configs_and_backends_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("qwen3-32b")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        api.build(mf_factors(100, 8, 4, seed=0), backend="sharded", device="cpu")
+    # every backend is ported: ``sharded`` builds and searches
+    assert "sharded" in api.backends()
+    s = api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
+                  device="cpu", m=4, n_shards=2)
+    assert s.search(mf_factors(2, 8, 4, seed=1), k=3).ids.shape == (2, 3)
     moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               moe=MoECfg(4, 2))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
