@@ -108,6 +108,25 @@ first 4 queries). The B sweep of mips_score (B = 1..64 at the serve tile
 and at the stream delta's shape, the small path, the tile path and
 torch.matmul + masked_fill_ in turns) prints one line per shape; its
 crossover sets the kernel's B_SMALL.
+Phases 7-9 (sharded-1M, sharded-stream-100k, durable-stream-1M) are
+described at their functions. Then:
+  10. the autotuner (`tune.search.tune_point`) at the LARGE_N point on the
+      card, writing its entry into a temporary copy of
+      results/tune/tuning.json: every candidate with a status and none in
+      error, the key naming the card and torch, the JAX entry unchanged as
+      text, the cache-driven search equal bit for bit to the explicit tuned
+      one, the tuned search equal to the hand-picked one in ids and scores,
+      the cache off equal to the explicit hand-picked search; each
+      candidate's ratio and verdict, the two medians in turns, the stage
+      cutouts against `launch.roofline`'s bound; then `python -m
+      repro_torch.tune` in a subprocess;
+  11. the paper's four dataset proxies (netflix, yahoo and p53 at full size,
+      sift at 200,000 rows) through `api.build(backend="promips")` with the
+      quickstart's guarantee and the main path's knobs: kernels against the
+      plain path (ids equal, scores within REL / ABS, flips reported), the
+      progressive mode, recall, overall ratio and the Theorem-2 share
+      against an exact top-k, pages, medians, launches and peak memory;
+      then examples/quickstart_torch.py in a subprocess.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -139,9 +158,8 @@ JAX_CPU_RECORD_100K = dict(pages_mean=1386.14, pages_frac=0.111, recall=0.9984)
 # the kernels' plain versions may set it to "cpu"; the run itself needs the
 # card)
 DEVICE = "cuda"
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and fp32 (non-tensor) FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FP32 = 67e12
+# the bounds' constants (H100 SXM, NVIDIA data sheet) and counts live in
+# src/repro_torch/launch/roofline.py
 # kernel vs plain version: |difference| <= REL * ||q|| * ||row|| + ABS
 REL, ABS = 1e-5, 1e-6
 
@@ -310,64 +328,53 @@ def check_block_mips(args, k, page_rows, got, want):
                          worst_cnt_margin=worst)
 
 
+def _bound(rec):
+    """(ms, "bytes" or "operations") of a `launch.roofline` record."""
+    return (1e3 * rec["roofline_s"],
+            "operations" if rec["bound"] == "compute" else "bytes")
+
+
 def block_mips_bound_ms(args, k, page_rows):
-    """Least time for one round: bytes (selected pages, flags, queries,
-    carried and written top-k, cnt) over HBM rate vs fp32 operations (every
-    selected (query, page) pair scored once) over the fp32 rate."""
+    """Least time for one round (`roofline.block_mips`): the pages any query
+    selects, every selected (query, page) pair scored once."""
+    from repro_torch.launch import roofline
     x, valid, q, slots, sel, init_s, init_r, c_half = args
     b, d = q.shape
-    n_slots = slots.shape[0]
-    pages_read = int(sel.any(dim=0).sum())
-    nbytes = (pages_read * page_rows * (d * 4 + 1) + b * d * 4 + n_slots * 4
-              + b * n_slots + 2 * b * k * 8 + b * 4 + b * n_slots * 4 + b * 8)
-    ops = 2.0 * d * page_rows * float(sel.sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(roofline.block_mips(b, d, k, page_rows, slots.shape[0],
+                                      int(sel.any(dim=0).sum()),
+                                      int(sel.sum())))
 
 
 def mips_score_bound_ms(x, q):
-    """Rows read once, scores written once, over the HBM rate, against
-    2 R B d fp32 operations over the fp32 rate."""
-    r, d = x.shape
-    b = q.shape[0]
-    nbytes = r * d * 4 + b * d * 4 + r + r * b * 4
-    ops = 2.0 * r * b * d
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """`roofline.mips_score`: rows read once, scores written once, against
+    2 R B d fp32 operations."""
+    from repro_torch.launch import roofline
+    return _bound(roofline.mips_score(x.shape[0], q.shape[0], x.shape[1]))
 
 
 def sketch_bound_ms(q, codebooks, codes):
+    from repro_torch.launch import roofline
     b, d = q.shape
     m, kcw, sub_d = codebooks.shape
-    nb = codes.shape[0]
-    nbytes = nb * m * 4 + m * kcw * sub_d * 4 + b * d * 4 + b * nb * 4
-    ops = 2.0 * b * m * kcw * sub_d + float(b) * nb * m
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(roofline.sketch_scores(b, d, codes.shape[0], m, kcw, sub_d))
 
 
 def binary_probe_bound_ms(b, g, m):
-    """Codes (int64), query codes and projections read once, bounds
-    written once, against one multiply-add per bit and the scale."""
-    nbytes = g * 8 + b * 8 + b * m * 4 + b * g * 4
-    ops = float(b) * g * (2 * m + 1)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """`roofline.binary_probe_lb`: codes, query codes and projections read
+    once, bounds written once, one multiply-add per bit."""
+    from repro_torch.launch import roofline
+    return _bound(roofline.binary_probe_lb(b, g, m))
 
 
 def decode_attention_bound_ms(q, k, cache_len):
-    """The cache rows each sequence needs (cache_len of them, all S when it
-    is 0) read once for K and V, q read and the output written once, against
-    2 dh operations for the score and 2 dh for P.V per (position, query
-    row)."""
+    """`roofline.decode_attention` over the cache rows each sequence needs
+    (cache_len of them, all S when it is 0)."""
+    from repro_torch.launch import roofline
     b, kh, g, dh = q.shape
     s = k.shape[1]
     n = cache_len.clamp(max=s)
     rows = int(n.masked_fill(n <= 0, s).sum())
-    nbytes = 2 * rows * kh * dh * 4 + 2 * q.numel() * 4 + b * 4
-    ops = float(rows) * kh * g * 4 * dh
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return _bound(roofline.decode_attention(b, kh, g, dh, rows))
 
 
 def check_binary_probe(timer, label, codes, q_proj):
@@ -412,15 +419,11 @@ def check_binary_probe(timer, label, codes, q_proj):
 
 
 def quick_probe_bound_ms(b, g, m):
-    """The group table's codes (int64), min-l1 values and counts and the
-    batch's projections and l1 norms read once, the chosen group's
-    representative read once per query, three outputs written once per
-    query; against one multiply-add per bit and about ten operations of
-    Test A per (query, group)."""
-    nbytes = g * (8 + 4 + 4) + b * (m * 4 + 4) + b * (m * 4 + 4) + b * 9
-    ops = float(b) * g * (2 * m + 10)
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    """`roofline.quick_probe_select`: the group table and the batch read
+    once, three outputs a query; a multiply-add per bit and about ten
+    operations of Test A per (query, group)."""
+    from repro_torch.launch import roofline
+    return _bound(roofline.quick_probe_select(b, g, m))
 
 
 def probe_chain(table, q_proj, q_l1, c, x_p):
@@ -1084,12 +1087,22 @@ def prefilter_flips(arrays, q, mask0, est_bnd, k):
     return out, float(diff.max())
 
 
+def _hex(t):
+    return [float(v).hex() for v in t.flatten().tolist()]
+
+
 def probe_flips(arrays, meta, q):
     """Hold the frontend's Quick-Probe on the kernel against the plain one:
     the bounds within 1e-6 |lb| + 1e-7, and the chosen group (its
     representative row and Test A) equal. A query whose choice differs is
     a flip only if the plain bounds put the two groups within tolerance of
-    each other, or one of them within tolerance of the Test-A threshold.
+    each other, or one of them within tolerance of the Test-A threshold;
+    the two groups' bounds under both paths are printed in hex. Where the
+    group is the same, the radius differs from the plain one in its last
+    ulps (the kernel sums its m squares in index order, torch's reduction
+    in its own); a round-1 block that this moves across its sphere test must
+    have a sub-partition whose distance lies between the two cuts (margin 0:
+    the radius's own difference moves it, nothing else), printed in hex.
     Returns ({query: normalized margin}, max |d lb|)."""
     import torch
     from repro_torch.core import search_device as sd
@@ -1121,15 +1134,17 @@ def probe_flips(arrays, meta, q):
                          / (tol[b, gk] + tol[b, gp]))]
         margins += [float((val[b, g] - meta.x_p).abs() / tol_val[b, g])
                     for g in (gk, gp)]
+        log(f"[probe] query {b}: kernel group {gk} (Test A {bool(ok_k[b])}), "
+            f"plain group {gp} (Test A {bool(ok_p[b])}); bounds of the two "
+            f"groups, kernel {_hex(lb_k[b, [gk, gp]])}, plain "
+            f"{_hex(lb_p[b, [gk, gp]])}; normalized margins {margins}")
         require(min(margins) <= 1.0,
                 f"query {b}: the Quick-Probe group differs between kernel "
                 f"(group {gk}) and plain (group {gp}) with no bound within "
                 f"tolerance (normalized margins {margins})")
         out[b] = min(margins)
-    # the same group: the radius sums its m squares in another order than
-    # torch's reduction; a round-1 block whose sphere test that moves is a
-    # flip only if one of its sub-partitions lies within the two radii's
-    # difference (plus 1e-6 relative) of its cut
+    # the same group: a round-1 block whose sphere test the radius's last
+    # ulps move is a flip at margin 0, a sub-partition between the cuts
     same = ((rk == rp) & (ok_k == ok_p)).nonzero().flatten()
     r_tol = 1e-6 * r0p.abs() + 1e-7
     r_err = (r0k - r0p).abs()
@@ -1145,17 +1160,24 @@ def probe_flips(arrays, meta, q):
             continue
         sp = arrays.block_sp_idx[n]
         sp = sp[sp >= 0].long()
-        cut = r0p[b] + arrays.sp_radius[sp]
-        margin = float(((d_sp[b, sp] - cut).abs()
-                        / (2 * r_err[b] + 1e-6 * cut.abs())).min())
-        require(margin <= 1.0,
+        dist = d_sp[b, sp]
+        cut_k = r0k[b] + arrays.sp_radius[sp]
+        cut_p = r0p[b] + arrays.sp_radius[sp]
+        apart = (dist <= cut_k) != (dist <= cut_p)
+        require(bool(apart.any()),
                 f"query {b} block {n}: the round-1 masks under the kernel's "
-                f"and the plain radius differ {margin} tolerances from the cut")
-        moved.setdefault(b, {})[n] = margin
-        out[b] = min(out.get(b, margin), margin)
+                f"and the plain radius differ, but no sub-partition lies "
+                f"between the two cuts")
+        i = int(apart.nonzero()[0])
+        log(f"[probe] query {b} block {n}: radius kernel "
+            f"{_hex(r0k[b])[0]} plain {_hex(r0p[b])[0]}; sub-partition "
+            f"{int(sp[i])} at distance {_hex(dist[i])[0]} between the cuts "
+            f"{_hex(cut_k[i])[0]} (kernel) and {_hex(cut_p[i])[0]} (plain)")
+        moved.setdefault(b, {})[n] = 0.0
+        out[b] = 0.0
     if moved:
-        log(f"[probe] round-1 blocks moved by the radius's last ulp (query: "
-            f"{{block: normalized margin}}): {moved}")
+        log(f"[probe] round-1 blocks moved by the radius's last ulps (query: "
+            f"{{block: margin}}): {moved}")
     return out, float(diff.max())
 
 
@@ -1332,16 +1354,20 @@ def time_turns(label, search, q):
     phase_profile(search, q, f"{label} graph driver")
 
 
-def time_batches(search, n_batches=5):
+def time_batches(search, n_batches=5, queries=None):
     """Median time of one search batch (CUDA events around the whole call
     ``search(queries)``, which synchronizes with the host each round), after
-    one warm-up."""
+    one warm-up. ``queries(seed)`` makes each batch (default: the LARGE_N
+    recipe's, seeds 2, 3, ...)."""
     import torch
     from repro_torch.data.synthetic import mf_factors
+    if queries is None:
+        def queries(seed):
+            return mf_factors(N_QUERIES, RECIPE["d"], RECIPE["rank"],
+                              decay=RECIPE["decay"], seed=seed)
     times = []
     for i in range(n_batches + 1):
-        qb = torch.from_numpy(mf_factors(N_QUERIES, RECIPE["d"], RECIPE["rank"],
-                                         decay=RECIPE["decay"], seed=2 + i)).cuda()
+        qb = torch.from_numpy(queries(2 + i)).cuda()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -1633,24 +1659,20 @@ def check_walk(label, args, kw, got, want, meta):
 
 
 def scan_blocks_bound_ms(args, kw, got):
-    """Least time of a scan walk: the pages it reads (the union over the
-    batch of the walked prefixes, each page's rows and ids read once), the
-    order entries walked, queries and top-k in and out, over the HBM rate;
-    against 2 d page_rows fp32 operations per (query, page) walked."""
+    """Least time of a scan walk (`roofline.scan_blocks`): the union over
+    the batch of the walked prefixes read once, 2 d page_rows fp32
+    operations per (query, page) walked. Returns (ms, bound_by, union)."""
     import torch
+    from repro_torch.launch import roofline
     x, ids, q, order = args[:4]
     b, d = q.shape
-    pr, k = kw["page_rows"], kw["k"]
     pages = got[2].long()
     steps = torch.arange(order.shape[1], device=order.device)[None, :]
     walked = order.long()[steps < pages[:, None]]
     union = int(walked.unique().numel())
-    nbytes = (union * pr * (d * 4 + 4) + int(pages.sum()) * 4 + b * d * 4
-              + 4 * b * k * 8 + b * 13)
-    ops = 2.0 * d * pr * float(pages.sum())
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_FP32
-    return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", union)
+    ms, bound_by = _bound(roofline.scan_blocks(b, d, kw["k"], kw["page_rows"],
+                                               union, int(pages.sum())))
+    return ms, bound_by, union
 
 
 def flip_check(label, want, got, x, q, c_half, k):
@@ -1712,6 +1734,7 @@ def phase_modes(pm, x, q, x100k, q100k, timer):
     from repro_torch.core.runtime import RuntimeConfig
     from repro_torch.core.runtime import search as runtime_search
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     k, meta, arrays = SEARCH["k"], pm.meta, pm.arrays
     p0 = meta.p
     floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
@@ -1848,8 +1871,10 @@ def phase_modes(pm, x, q, x100k, q100k, timer):
         tk_ms = timer.ms(lambda: torch.topk(s, k))
         both_ms = timer.ms(lambda: torch.topk(torch.matmul(q, x.T), k))
         del s
-        nbytes = x.numel() * 4 + x.shape[0] + q.numel() * 4 + 2 * q.shape[0] * k * 4
-        t_b, t_o = nbytes / PEAK_BYTES, 2.0 * x.shape[0] * q.shape[0] * x.shape[1] / PEAK_FP32
+        bound = roofline.cost(
+            2.0 * x.shape[0] * q.shape[0] * x.shape[1],
+            x.numel() * 4 + x.shape[0] + q.numel() * 4 + 2 * q.shape[0] * k * 4)
+        t_b, t_o = bound["t_memory_s"], bound["t_compute_s"]
         log(f"[mips_topk n=1M B={q.shape[0]} k={k}] block_mips route, one "
             f"launch: rows equal to the plain route, max|d score| {err:.3g}; "
             f"{int((~exact_ok).sum())} queries differ from the exact top-k "
@@ -2896,11 +2921,35 @@ def phase_sharded_1m(pm, x, q):
 
 # ---------------------------------------------------------------- phase 8
 
-def sharded_stream_state(label, s, q, cfg, path_kernels):
+def probe_bits(arrays, meta, q, b):
+    """Query ``b``'s Quick-Probe on the kernel and on the plain path, in
+    hex: the chosen group, its bound under each and the radius under each
+    (`ROADMAP.md` Queue 3 item 7)."""
+    from repro_torch.core import search_device as sd
+    from repro_torch.core.quick_probe import pack_codes, quick_probe_batch
+    from repro_torch.kernels import ops
+    table = sd._group_table(arrays)
+    q_proj = q @ arrays.a
+    q_l1 = q.abs().sum(dim=1)
+    out = []
+    for use in (True, False):
+        row, radius, ok = quick_probe_batch(table, q_proj, q_l1, meta.c,
+                                            meta.x_p, use)
+        g = int((table.rep_row == row[b]).nonzero()[0])
+        lb = ops.binary_probe_lb(table.code, pack_codes(q_proj), q_proj,
+                                 use_kernels=use)[b, g]
+        out.append(f"{'kernel' if use else 'plain'} group {g} (Test A "
+                   f"{bool(ok[b])}) bound {_hex(lb)[0]} radius "
+                   f"{_hex(radius[b])[0]}")
+    return "; ".join(out)
+
+
+def sharded_stream_state(label, s, q, cfg, path_kernels, tie_query=None):
     """One state of a `sharded` facade index: a counted search held against
     the plain path (flips per shard, at each shard's over-fetched k),
     against an exact top-k over the live rows (recall >= 0.99, no dead id)
-    and the Theorem-2 floor. Returns (ids, scores, stats, launches)."""
+    and the Theorem-2 floor; ``tie_query``'s Quick-Probe printed in hex a
+    shard. Returns (ids, scores, stats, launches)."""
     import dataclasses
     import torch
     from repro_torch.core.search_common import next_pow2
@@ -2925,6 +2974,10 @@ def sharded_stream_state(label, s, q, cfg, path_kernels):
                         live_rows.tolist()):
             block_of[g] = (sh_i, r // meta.page_rows)
     flips, probe = shard_flips(views, q)
+    if tie_query is not None:
+        for sh_i, (arrays, meta, _) in enumerate(views):
+            log(f"[{label}] query {tie_query}, shard {sh_i}: "
+                f"{probe_bits(arrays, meta, q, tie_query)}")
     ids_k = torch.from_numpy(res.ids).to(DEVICE)
     ids_p = torch.from_numpy(plain.ids).to(DEVICE)
     differ, notes, _ = compare_paths(
@@ -3003,8 +3056,10 @@ def phase_sharded_stream_100k(x100k, q, tmp):
         f"base tombstones) {[(round(f, 4), d) for f, d in per_shard]}")
     kernels = ("quick_probe_select", "block_mips", "sketch_scores",
                "mips_score")
+    # query 57: where a round-1 block once moved by the plain radius's
+    # last ulp (ROADMAP Queue 3 item 7)
     _, launches = sharded_stream_state(f"{label} churned", s, q, cfg,
-                                       kernels)
+                                       kernels, tie_query=57)
     saved = {}
     for state in ("churned", "compacted"):
         if state == "compacted":
@@ -3216,6 +3271,341 @@ def phase_durable_1m(pm1m, q1m, pm100k, q100k, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 10
+
+# the tuner's workload at the LARGE_N point: the CLI's build defaults (=
+# BUILD) and search options, with the main path's prefilter
+TUNE_SEARCH = dict(k=10, norm_adaptive=True, cs_prune=True, prefilter=True,
+                   prefilter_eps=0.1)
+
+
+def phase_tuner(pm, q):
+    """Phase 10: `tune.search.tune_point` at the LARGE_N point on the card
+    (`make_cutout(100_000, 128, 64)` is the n=100k index ``pm`` and its
+    queries ``q``, the same rows, seeds and build), writing into a temporary
+    copy of the committed cache; the cache-driven search against the
+    explicit one; then the CLI in a subprocess. Returns the tuner's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.tune import cache, cutout, space
+    from repro_torch.tune import search as tsearch
+    label = "tuner"
+    tmp = tempfile.mkdtemp(prefix="tune-", dir=os.path.join(ROOT, "build"))
+    saved_env = os.environ.get(cache.ENV_VAR)
+    try:
+        path = os.path.join(tmp, "tuning.json")
+        shutil.copyfile(os.path.join(ROOT, "results", "tune", "tuning.json"),
+                        path)
+        with open(path) as f:
+            before_text = f.read()
+        before = json.loads(before_text)["entries"]
+        x, qc = cutout.make_cutout(100_000, 128, N_QUERIES)
+        require(np.array_equal(qc, q.cpu().numpy()),
+                f"[{label}] the cutout's queries are not the n=100k cell's")
+        t0 = time.perf_counter()
+        entry, launches = counted(lambda: tsearch.tune_point(
+            x, qc, build_opts=dict(BUILD), search_opts=dict(TUNE_SEARCH),
+            device=DEVICE, budget_s=90.0, reps=5, include_build=False,
+            stages=True, roofline=True, write=True, path=path,
+            progress=lambda msg: log(f"[{label}] {msg}")))
+        tune_s = time.perf_counter() - t0
+        require_launched(label, launches, ("block_mips", "sketch_scores",
+                                           "quick_probe_select"))
+        trace = entry["trace"]
+        for rec in trace["candidates"]:
+            status = rec.get("status")
+            require(status and not status.startswith("error"),
+                    f"[{label}] candidate {rec} has no status or failed")
+            if "ratio_incumbent_over_candidate" in rec:
+                log(f"[{label}] {rec['knob']}={rec['value']!r}: incumbent/"
+                    f"candidate x{rec['ratio_incumbent_over_candidate']:.4f} "
+                    f"({rec['incumbent_us_per_query']:.3f} vs "
+                    f"{rec['candidate_us_per_query']:.3f} us a query), parity "
+                    f"kept, {status}; search bound {rec['roofline_s'] * 1e6:.3f}"
+                    f" us ({rec['bound']}), roofline_frac "
+                    f"{rec['roofline_frac']:.4f}")
+            else:
+                log(f"[{label}] {rec.get('knob')}={rec.get('value')!r}: "
+                    f"{status}")
+        summary = trace["summary"]
+        best = entry["runtime"]
+        log(f"[{label}] tune_point {tune_s:.1f} s (budget 90 s; "
+            f"{summary['n_candidates']} candidates measured): tuned {best}, "
+            f"build {entry['build']}; tuned x"
+            f"{summary['speedup_tuned_vs_default']:.4f} vs hand-picked "
+            f"({summary['best_us_per_query']:.3f} vs "
+            f"{summary['baseline_us_per_query']:.3f} us a query); launches "
+            f"{launches}")
+        for stage, rec in trace["stages_best"].items():
+            if stage == "_tile":
+                log(f"[{label}] stage cutout: round-1 tile {rec}")
+                continue
+            log(f"[{label}] stage {stage}: {rec['us']:.3f} us, bound "
+                f"{rec['roofline_s'] * 1e6:.4f} us ({rec['bound']}; "
+                f"{rec['flops']:.4g} flops, {rec['bytes']:.4g} bytes), "
+                f"roofline_frac {rec['roofline_frac']:.4f}")
+
+        # -- the written key names the card and torch; the JAX entry stays
+        key = space.shape_key(100_000, 128, DEVICE)
+        require(entry["key"] == key
+                and f"cuda-{torch.cuda.get_device_name(0)}" in key
+                and key.endswith(f":torch{torch.__version__}"),
+                f"[{label}] written key {entry.get('key')!r} does not name the "
+                f"card and torch")
+        with open(path) as f:
+            after = json.load(f)
+        require(set(after["entries"]) == set(before) | {key},
+                f"[{label}] the cache's keys are {sorted(after['entries'])}")
+        written = after["entries"].pop(key)
+        require(json.dumps(after, indent=1, sort_keys=True) + "\n"
+                == before_text,
+                f"[{label}] the JAX entries changed as text")
+        log(f"[{label}] wrote {key!r} (platform {written['key']['platform']!r}"
+            f", torch {written['key']['torch_version']}); the JAX entries "
+            f"{sorted(before)} unchanged as text")
+
+        # -- the runtime reads it: knobs left None = the tuned knobs
+        # passed explicitly; the tuned search = the hand-picked one; no
+        # cache = the explicit hand-picked search
+        baseline = dict(space.HAND_PICKED["runtime"],
+                        prefilter_eps=TUNE_SEARCH["prefilter_eps"])
+        tuned_fn = tsearch._search_fn(pm, q, TUNE_SEARCH, best)
+        hand_fn = tsearch._search_fn(pm, q, TUNE_SEARCH, baseline)
+        os.environ[cache.ENV_VAR] = path
+        cache.clear_memo()
+        from_cache = pm.search(q, **TUNE_SEARCH)
+        explicit = pm.search(q, **TUNE_SEARCH, dense_frac=best["dense_frac"],
+                             tile_cap=(pm.meta.n_blocks if best["tile_cap"]
+                                       is None else best["tile_cap"]))
+        require(_same_bits(from_cache, explicit),
+                f"[{label}] the cache-driven search differs from the explicit "
+                f"tuned one")
+        tuned, hand = tuned_fn(), hand_fn()
+        require(torch.equal(tuned[0], hand[0]) and torch.equal(tuned[1],
+                                                               hand[1]),
+                f"[{label}] the tuned search differs from the hand-picked one "
+                f"in ids or scores")
+        os.environ[cache.ENV_VAR] = ""
+        cache.clear_memo()
+        require(_same_bits(pm.search(q, **TUNE_SEARCH), hand),
+                f"[{label}] with the cache off, the search differs from the "
+                f"explicit hand-picked one")
+        turns = []
+        for name, fn in (("hand-picked", hand_fn), ("tuned", tuned_fn),
+                         ("tuned", tuned_fn), ("hand-picked", hand_fn)):
+            med, times = time_batches(lambda qb, f=fn: f())
+            turns.append(f"{name} {med:.3f} ms ({times[0]:.3f}-"
+                         f"{times[-1]:.3f})")
+        log(f"[{label}] cache-driven = explicit tuned search bit for bit (ids, "
+            f"scores, every stats field); tuned = hand-picked in ids and "
+            f"scores; cache off = explicit hand-picked bit for bit. Medians "
+            f"of 5 batches of {N_QUERIES} in turns: {'; '.join(turns)}")
+
+        # -- the CLI, as a user runs it
+        out = os.path.join(tmp, "cli.json")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.tune", "--n", "20000",
+             "--prefilter", "--budget-s", "20", "--out", out],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+            text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        require(proc.returncode == 0,
+                f"[{label}] python -m repro_torch.tune exited "
+                f"{proc.returncode}: {proc.stderr[-2000:]}")
+        cli_key = space.shape_key(20_000, 128, DEVICE)
+        with open(out) as f:
+            cli_entry = json.load(f)["entries"].get(cli_key)
+        require(cli_entry is not None and not any(
+            r["status"].startswith("error")
+            for r in cli_entry["trace"]["candidates"]),
+            f"[{label}] the CLI did not write {cli_key!r} cleanly")
+        log(f"[{label}] python -m repro_torch.tune --n 20000 --prefilter "
+            f"--budget-s 20 --out <tmp>: exit 0 in {cli_s:.1f} s, wrote "
+            f"{cli_key!r}: runtime {cli_entry['runtime']}")
+    finally:
+        if saved_env is None:
+            os.environ.pop(cache.ENV_VAR, None)
+        else:
+            os.environ[cache.ENV_VAR] = saved_env
+        cache.clear_memo()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches
+
+
+# ---------------------------------------------------------------- phase 11
+
+# the paper's four proxies (Table III): full size, but SIFT at its scaled
+# 200,000 rows (the n=1M SIFT-shaped index runs in phase 4)
+DATASET_CELLS = (("netflix", False), ("yahoo", False), ("p53", False),
+                 ("sift", True))
+QUICKSTART = dict(c=0.9, p0=0.5, k=10, m=6)
+
+
+def phase_datasets():
+    """Phase 11: each dataset proxy through `api.build(backend="promips")`
+    with the quickstart's guarantee and the main path's knobs, searched on
+    the kernels and on the plain path (ids equal, scores within REL / ABS,
+    flips reported), the progressive mode, quality against an exact top-k;
+    then `examples/quickstart_torch.py` in a subprocess. Returns the
+    launches of each dataset's search."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import search_device as sd
+    from repro_torch.core import search_graph
+    from repro_torch.core.metrics import overall_ratio
+    from repro_torch.core.runtime import RuntimeConfig
+    from repro_torch.core.runtime import search as _runtime_search
+    from repro_torch.data.synthetic import paper_dataset, paper_queries
+    k = QUICKSTART["k"]
+
+    def runtime_search(arrays, meta, q, cfg):
+        return _runtime_search(arrays, meta, q, cfg, device=DEVICE)
+
+    cfg = RuntimeConfig(**{key: v for key, v in SEARCH.items() if key != "k"},
+                        k=k)
+    guarantee = api.GuaranteeConfig(c=QUICKSTART["c"], p0=QUICKSTART["p0"],
+                                    k=k)
+    p0 = guarantee.p0
+    floor = p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / N_QUERIES)
+    all_launches = {}
+    for name, scaled in DATASET_CELLS:
+        label = f"dataset {name}"
+        t0 = time.perf_counter()
+        x = paper_dataset(name, scaled=scaled)
+        qn = paper_queries(name, N_QUERIES)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        s = api.build(x, backend="promips", guarantee=guarantee, seed=0,
+                      m=QUICKSTART["m"], prefilter=True,
+                      prefilter_eps=SEARCH["prefilter_eps"], device=DEVICE)
+        build_s = time.perf_counter() - t0
+        pm = s.pm
+        meta = pm.meta
+        xt = torch.from_numpy(x).cuda()
+        q = torch.from_numpy(qn).cuda()
+        del x
+        log(f"[{label}] {tuple(xt.shape)} ({'scaled' if scaled else 'full'}),"
+            f" made in {gen_s:.1f} s; api.build(backend='promips', m 6, c 0.9,"
+            f" p0 0.5) {build_s:.1f} s on the host: NB {meta.n_blocks} G "
+            f"{meta.n_groups} S {meta.n_subparts} page_rows {meta.page_rows} "
+            f"sketch M {meta.sk_subspaces} K {meta.sk_codewords}")
+
+        # -- the kernels, counted, with the peak memory
+        gc.collect()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (ids, scores, st), launches = counted(
+            lambda: runtime_search(pm.arrays, meta, q, cfg))
+        peak = torch.cuda.max_memory_allocated()
+        require_launched(label, launches, ("block_mips", "sketch_scores",
+                                           "quick_probe_select"))
+        require(ids.shape == (N_QUERIES, k)
+                and bool(torch.isfinite(scores).all()),
+                f"[{label}] output has the wrong shape or non-finite scores")
+        facade = s.search(qn, runtime=cfg)
+        require(np.array_equal(facade.ids, ids.cpu().numpy()),
+                f"[{label}] the facade's ids differ from the runtime's")
+
+        # -- the plain path on the card: ids equal, scores within REL / ABS
+        ids_p, scores_p, st_p = runtime_search(
+            pm.arrays, meta, q, dataclasses.replace(cfg, use_kernels=False))
+        mask0 = sd.select_frontend(pm.arrays, meta, q)[-1]
+        est_bnd = sd.prefilter_round1(pm.arrays, q, mask0, k, meta.page_rows,
+                                      SEARCH["prefilter_eps"], False)
+        flips, sk_err = prefilter_flips(pm.arrays, q, mask0, est_bnd, k)
+        probe, lb_err = probe_flips(pm.arrays, meta, q)
+        row_of_id = torch.full((xt.shape[0],), -1, dtype=torch.long)
+        live = (pm.arrays.ids >= 0).cpu()
+        row_of_id[pm.arrays.ids.cpu()[live].long()] = live.nonzero().flatten()
+        differ, notes, pages_diff = compare_paths(
+            q, ids, st, ids_p, st_p, flips,
+            lambda i: xt[i.clamp(min=0).long()],
+            lambda r: int(row_of_id[r]) // meta.page_rows, probe)
+        require(torch.equal(ids, ids_p),
+                f"[{label}] ids differ between kernels and plain path: "
+                f"{notes}")
+        tol = (REL * xt[ids.clamp(min=0).long()].double().norm(dim=-1)
+               * q.double().norm(dim=-1)[:, None] + ABS)
+        err = (scores.double() - scores_p.double()).abs()
+        require(bool((err <= tol).all()),
+                f"[{label}] scores beyond REL/ABS by {float((err - tol).max())}")
+        log(f"[{label}] kernel vs plain path: ids equal; max|d score| "
+            f"{float(err.max()):.3g}; {pages_diff} queries differ in pages; "
+            f"sketch max|d| {sk_err:.3g}, binary_probe_lb max|d| {lb_err:.3g}; "
+            f"prefilter cut flips {flips if flips else 'none'}; Quick-Probe "
+            f"flips {probe if probe else 'none'}")
+
+        # -- quality against the exact top-k
+        eids, escores = exact_topk(xt, q, k)
+        recall = sum(len(set(ids[b].tolist()) & set(eids[b].tolist())) / k
+                     for b in range(N_QUERIES)) / N_QUERIES
+        ratio = float(np.mean([overall_ratio(a, e) for a, e in zip(
+            scores.cpu().numpy(), escores.cpu().numpy())]))
+        rate = success_rate(scores, escores, guarantee.c)
+        require(rate >= floor, f"[{label}] Theorem-2 floor missed: {rate} < "
+                               f"{floor}")
+        med, times = time_batches(
+            lambda qb: runtime_search(pm.arrays, meta, qb, cfg),
+            queries=lambda seed: paper_queries(name, N_QUERIES, seed=seed))
+
+        # -- the progressive mode: full budget on the kernels, and against
+        # the plain walk at budget 256 (the plain walk at full budget takes
+        # minutes)
+        prog = RuntimeConfig(k=k, mode="progressive", cs_prune=True)
+        (ids_g, scores_g, st_g), l_prog = counted(
+            lambda: runtime_search(pm.arrays, meta, q, prog))
+        require_launched(f"{label} progressive", l_prog, ("scan_blocks",))
+        prog256 = dataclasses.replace(prog, budget=256)
+        got = runtime_search(pm.arrays, meta, q, prog256)
+        want = runtime_search(pm.arrays, meta, q,
+                              dataclasses.replace(prog256, use_kernels=False))
+        require(torch.equal(got[0], want[0])
+                and torch.equal(got[2].pages, want[2].pages),
+                f"[{label}] progressive at budget 256: kernels and plain "
+                f"path differ")
+        recall_g = sum(len(set(ids_g[b].tolist()) & set(eids[b].tolist())) / k
+                       for b in range(N_QUERIES)) / N_QUERIES
+        med_g, times_g = time_batches(
+            lambda qb: runtime_search(pm.arrays, meta, qb, prog), n_batches=3,
+            queries=lambda seed: paper_queries(name, N_QUERIES, seed=seed))
+        log(f"[{label}] fused: recall@10 {recall:.4f}, overall ratio "
+            f"{ratio:.4f}, theorem-2 share {rate:.4f} (floor {floor:.4f}), "
+            f"pages a query {float(st.pages.double().mean()):.2f} of "
+            f"{meta.n_blocks}, exhausted {int(st.exhausted.sum())}; median "
+            f"batch {med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}); "
+            f"launches {launches}; peak memory {peak / 2**20:.1f} MiB "
+            f"({resident / 2**20:.1f} MiB before the search)")
+        log(f"[{label}] progressive (full budget, Cauchy-Schwarz): recall@10 "
+            f"{recall_g:.4f}, pages a query "
+            f"{float(st_g.pages.double().mean()):.2f}, median batch "
+            f"{med_g:.3f} ms (range {times_g[0]:.3f}-{times_g[-1]:.3f}), "
+            f"launches {l_prog}; at budget 256 kernels = plain path in ids "
+            f"and pages")
+        all_launches[name] = launches
+        del s, pm, xt, q
+        search_graph.clear_graphs()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join("examples", "quickstart_torch.py")],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=SRC), capture_output=True,
+        text=True, timeout=600)
+    require(proc.returncode == 0 and "bit-identical=True" in proc.stdout,
+            f"examples/quickstart_torch.py exited {proc.returncode}: "
+            f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    for line in proc.stdout.strip().splitlines():
+        log(f"[quickstart_torch] {line}")
+    log(f"[quickstart_torch] exit 0 in {time.perf_counter() - t0:.1f} s")
+    return all_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3302,10 +3692,21 @@ def main() -> int:
         log(f"[phase 9, durable-stream-1M] {time.perf_counter() - t0:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    tuner_launches = phase_tuner(pm100k, q100k)
+    log(f"[phase 10, tuner] {time.perf_counter() - t0:.1f} s")
+    del pm1m, q1m, pm100k, q100k
+    search_graph.clear_graphs()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dataset_launches = phase_datasets()
+    log(f"[phase 11, datasets] {time.perf_counter() - t0:.1f} s")
     log("[launches] one search of each new path: sharded-1M "
         f"{sharded_launches}; sharded-stream-100k (churned) "
         f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "
-        f"{durable_launches}")
+        f"{durable_launches}; the tuner's whole run {tuner_launches}; the "
+        f"datasets' fused searches {dataset_launches}")
 
     # each kernel's count from the path whose shapes its record was timed
     # at: the static main path for block_mips, sketch_scores and

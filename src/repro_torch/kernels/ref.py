@@ -322,7 +322,8 @@ def quick_probe_select_ref(code, min_l1, count, rep_proj, rep_row, q_proj,
     (`torch.argmin` returns the first minimum, as `jnp` does); with none
     passing, the largest tested value. Returns (rep_row (B,), radius (B,),
     test_a_passed (B,)): the chosen group's representative row, the distance
-    from its projection to the query's, and whether any group passed."""
+    from its projection to the query's (its squares summed in index order),
+    and whether any group passed."""
     m = q_proj.shape[-1]
     weights = torch.ones((), dtype=torch.int64, device=q_proj.device) << torch.arange(
         m, dtype=torch.int64, device=q_proj.device)
@@ -339,9 +340,18 @@ def quick_probe_select_ref(code, min_l1, count, rep_proj, rep_row, q_proj,
     best_val = torch.argmax(torch.where(valid[None, :], val, -inf), dim=1)
     chosen = torch.where(any_pass, first_pass, best_val)            # (B,)
 
-    rep = rep_proj[chosen]                                          # (B, m)
-    radius = torch.sqrt(((rep - q_proj) ** 2).sum(dim=-1))
-    return rep_row[chosen], radius, any_pass
+    diff = rep_proj[chosen] - q_proj                                # (B, m)
+    # the m squares summed in index order, each step rounded, and a
+    # correctly rounded root (through f64, exact for an f32 argument): the
+    # JAX package's order on the CPU and the kernel's, so the radius is
+    # bit-identical to both. A torch reduction may order the sum otherwise
+    # and torch's CPU sqrt may miss by an ulp, which can move a round-1
+    # block whose sub-partition sits exactly at its sphere cut.
+    r2 = torch.zeros(q_proj.shape[0], dtype=torch.float32,
+                     device=q_proj.device)
+    for i in range(m):
+        r2 = r2 + diff[:, i] * diff[:, i]
+    return rep_row[chosen], torch.sqrt(r2.double()).float(), any_pass
 
 
 def decode_attention_ref(q, k, v, cache_len, block: int = 1024):

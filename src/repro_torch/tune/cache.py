@@ -21,14 +21,20 @@ key or field resolves to `space.HAND_PICKED`. Reads are memoized on (path,
 mtime, size), and a memoized path is stat'ed again at most once every
 `RECHECK_S` seconds (a stat costs tens of microseconds on some file systems,
 and it would otherwise run on every search); `clear_memo` makes the next read
-stat at once. Writing entries waits for the tuner (ROADMAP Queue 1 item 10).
+stat at once. `save_entry` (the tuner's writer, `tune.search.tune_point`)
+adds or replaces the entry under the port's own key and drops the memo, so
+the next lookup reads it.
 """
 from __future__ import annotations
 
 import json
 import os
+import subprocess
 import time
+from datetime import datetime, timezone
 from typing import Any, Dict, Optional
+
+import torch
 
 from . import space
 
@@ -113,5 +119,78 @@ def resolved(section: str, n: int, d: int, *, device,
     return out
 
 
+def _git_sha() -> str:
+    try:
+        return subprocess.run(
+            ["git", "rev-parse", "HEAD"], cwd=_REPO_ROOT, capture_output=True,
+            text=True, timeout=10, check=True).stdout.strip()
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+
+
+def _read_for_write(path: str) -> dict:
+    """The file's contents, read afresh (not through the memo, which may be
+    up to `RECHECK_S` old); {} when it does not exist. A file that exists
+    but does not parse raises: a writer must not replace other keys'
+    entries with nothing."""
+    try:
+        with open(path) as f:
+            data = json.load(f)
+    except FileNotFoundError:
+        return {}
+    if not isinstance(data, dict) or not isinstance(
+            data.get("entries", {}), dict):
+        raise ValueError(f"tuning cache {path} is not a cache document")
+    return data
+
+
+def save_entry(n: int, d: int, *, device, runtime: Optional[dict] = None,
+               build: Optional[dict] = None, serve: Optional[dict] = None,
+               trace=None, path: Optional[str] = None) -> str:
+    """Write the entry for this point's shape key on ``device`` (the port's
+    key: ``cuda-<device name>`` or ``cpu``, then ``torch<version>``),
+    stamped with the git commit and a UTC timestamp, and return the key.
+
+    Only that key is added or replaced: every other entry, the JAX
+    package's included, is written back as it was read, in the JAX writer's
+    layout (``indent=1``, sorted keys), so a JAX entry stays equal parsed and
+    as text. The file is written beside its target and renamed into place,
+    and the memo is dropped, so the runtime's next lookup sees the entry."""
+    if path is None:
+        path = cache_path() or DEFAULT_PATH
+    key = space.shape_key(n, d, device)
+    data = _read_for_write(path)
+    data.setdefault("version", 1)
+    entries = data.setdefault("entries", {})
+    entry: Dict[str, Any] = {
+        "key": {"n_bucket": space.n_bucket(n), "d": int(d),
+                "platform": space.platform(device),
+                "torch_version": torch.__version__},
+        "provenance": {
+            "commit": _git_sha(),
+            "ts": datetime.now(timezone.utc).isoformat(timespec="seconds"),
+        },
+    }
+    for name, section in (("runtime", runtime), ("build", build),
+                          ("serve", serve)):
+        if section is not None:
+            entry[name] = dict(section)
+    if trace is not None:
+        entry["trace"] = trace
+    entries[key] = entry
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=1, sort_keys=True)
+            f.write("\n")
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    _memo.pop(path, None)
+    return key
+
+
 __all__ = ["ENV_VAR", "DEFAULT_PATH", "RECHECK_S", "cache_path", "clear_memo", "load",
-           "lookup", "resolved"]
+           "lookup", "resolved", "save_entry"]

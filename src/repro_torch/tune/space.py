@@ -11,8 +11,7 @@ default, and the section of a tuning-cache entry it lands in:
 
 Cache entries are keyed by `shape_key(n, d, device)`: the pow2 n-bucket,
 exact d, the device (``cuda-<device name>`` or ``cpu``) and the torch
-version (`tune.cache` reads them; the tuner that writes them is ROADMAP
-Queue 1 item 10).
+version (`tune.cache` reads and writes them; `tune.search` measures them).
 """
 from __future__ import annotations
 
@@ -35,17 +34,23 @@ def shape_key(n: int, d: int, device) -> str:
     ``torch<version>``, which keeps it apart from every JAX key (those end
     in ``jax<version>``). A cache tuned on another card or torch build
     never matches and falls back to the hand-picked defaults."""
+    return (f"n{n_bucket(n)}:d{int(d)}:{platform(device)}"
+            f":torch{torch.__version__}")
+
+
+def platform(device) -> str:
+    """The platform part of a key: ``cuda-<device name>`` for a CUDA
+    device, the device type otherwise."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    return f"n{n_bucket(n)}:d{int(d)}:{_platform(device)}"
+    return _platform(device)
 
 
 @functools.lru_cache(maxsize=None)
 def _platform(device: torch.device) -> str:
-    name = (f"cuda-{torch.cuda.get_device_name(device)}"
+    return (f"cuda-{torch.cuda.get_device_name(device)}"
             if device.type == "cuda" else device.type)
-    return f"{name}:torch{torch.__version__}"
 
 
 @dataclass(frozen=True)
@@ -111,4 +116,5 @@ def knob(name: str) -> Knob:
     raise KeyError(f"unknown knob: {name!r}")
 
 
-__all__ = ["Knob", "KNOBS", "HAND_PICKED", "knob", "n_bucket", "shape_key"]
+__all__ = ["Knob", "KNOBS", "HAND_PICKED", "knob", "n_bucket", "platform",
+           "shape_key"]

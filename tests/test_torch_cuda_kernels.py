@@ -21,9 +21,12 @@ query-group size of the kernel (8, 4, 2 and 1, chosen by B).
 `binary_probe_lb` is bit for bit on integer-valued projections (every
 partial sum is exact) and within 1e-6 relative on float ones.
 `quick_probe_select` (the fused Quick-Probe) gives its plain version's
-representative rows and Test-A flags, with the radius within 1e-6
-relative, on exact ties, padding groups, no group passing, m = 1 and
-m = 30; it is one launch a call and two calls are equal bit for bit.
+representative rows, Test-A flags and radius bit for bit (both sum the m
+squares in index order and round the root correctly), on exact ties,
+padding groups, no group passing, m = 1 and m = 30, and at a round-1
+sphere cut that a last-ulp radius difference would move; it is one launch
+a call (under torch.profiler, between sentinel kernels, a session that
+lost records taken again) and two calls are equal bit for bit.
 The in-graph fused driver (`core/search_graph.py`) captures its stages as
 CUDA graphs: replayed after the caller's query tensor changed in place it
 equals the host driver bit for bit, with and without the kernels and under
@@ -502,19 +505,45 @@ def test_decode_attention_kernel_on_two_streams(cuda):
         assert torch.equal(out, alone[i % 4]), i
 
 
+def _cuda_kernels_of(fn, sessions=3):
+    """The CUDA kernels and copies of one call of ``fn`` as torch.profiler
+    sees them. The call sits between sentinel kernels (short spins, three
+    before and one after): torch.profiler can drop the first records of
+    a session, which the leading sentinels absorb. A
+    session whose trace does not end with the trailing sentinel, or holds
+    no record of the call, lost records and is taken again, up to
+    ``sessions`` times (`chip_smoke.cuda_kernels_of`)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        names = [e.name for e in events]
+        kernels = [n for n in names if "spin_kernel" not in n]
+        if names and "spin_kernel" in names[-1] and kernels:
+            return kernels
+    pytest.fail(f"torch.profiler lost records in {sessions} sessions in a "
+                f"row (last trace: {names})")
+
+
 def test_decode_attention_kernel_is_one_launch(cuda):
     """One CUDA kernel per call, as the profiler sees it."""
     rng = np.random.RandomState(7)
     args = _attention_inputs(rng, 8, 4, 8, 64, 32768,
                              [32768, 1, 20000, 4097, 64, 65, 31000, 12345], cuda)
     ops.decode_attention(*args, use_kernels=True)   # build, tickets
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        ops.decode_attention(*args, use_kernels=True)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _cuda_kernels_of(
+        lambda: ops.decode_attention(*args, use_kernels=True))
     assert len(kernels) == 1 and "da_kernel" in kernels[0], kernels
 
 
@@ -575,8 +604,9 @@ def test_quick_probe_select_kernel(cuda, g, m, b, flavor):
     assert got[0].dtype == torch.int32 and got[2].dtype == torch.bool
     assert torch.equal(got[0], want[0]), "rep_row"
     assert torch.equal(got[2], want[2]), "test_a_passed"
-    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
-                               rtol=1e-6, atol=0)
+    # the radius: the same squares, summed in the same index order, the
+    # same correctly rounded root
+    assert torch.equal(got[1], want[1]), "radius"
     if flavor == "none pass":
         assert not bool(got[2].any())
     else:
@@ -592,14 +622,8 @@ def test_quick_probe_select_kernel_is_one_launch_and_rejects(cuda):
     t = [torch.from_numpy(a).to(cuda) for a in table]
     q = [torch.from_numpy(q_proj).to(cuda), torch.from_numpy(q_l1).to(cuda)]
     ops.quick_probe_select(*t, *q, 0.9, x_p, use_kernels=True)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        ops.quick_probe_select(*t, *q, 0.9, x_p, use_kernels=True)
-        torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _cuda_kernels_of(
+        lambda: ops.quick_probe_select(*t, *q, 0.9, x_p, use_kernels=True))
     assert len(kernels) == 1 and "quick_probe_kernel" in kernels[0], kernels
     with pytest.raises(ValueError):          # int32 codes
         ops.quick_probe_select(t[0].int(), *t[1:], *q, 0.9, x_p,
@@ -609,6 +633,32 @@ def test_quick_probe_select_kernel_is_one_launch_and_rejects(cuda):
                                torch.zeros((4493, 31), device=cuda), t[4],
                                torch.zeros((64, 31), device=cuda), q[1], 0.9,
                                x_p, use_kernels=True)
+
+
+def test_quick_probe_select_radius_at_a_sphere_cut(cuda):
+    """Where a sub-partition's distance equals the plain radius plus its own
+    radius exactly (the round-1 cut of `search_common.sphere_select`), the
+    kernel's radius selects it too: the two radii are equal bit for bit.
+    A radius an ulp off (a torch reduction's sum order) could drop it."""
+    from repro_torch.core.search_common import sphere_select
+    rng = np.random.RandomState(57)
+    table, q_proj, q_l1, x_p = _probe_table(rng, 4493, 16, 64, "float")
+    args = ([torch.from_numpy(t).to(cuda) for t in table]
+            + [torch.from_numpy(q_proj).to(cuda),
+               torch.from_numpy(q_l1).to(cuda), 0.9, x_p])
+    got = ops.quick_probe_select(*args, use_kernels=True)
+    want = ops.quick_probe_select(*args, use_kernels=False)
+    assert torch.equal(got[1], want[1])
+    sp_radius = torch.from_numpy(rng.uniform(0.5, 3.0, 256).astype(
+        np.float32)).to(cuda)
+    d_sp = want[1][:, None] + sp_radius[None, :]         # exactly at the cut
+    sel_p = sphere_select(d_sp, sp_radius[None, :], want[1][:, None])
+    sel_k = sphere_select(d_sp, sp_radius[None, :], got[1][:, None])
+    assert bool(sel_p.all()) and torch.equal(sel_k, sel_p)
+    below = torch.nextafter(want[1], torch.zeros_like(want[1]))
+    assert not bool(sphere_select(d_sp, sp_radius[None, :],
+                                  below[:, None]).all()), \
+        "the cut is an exact tie: an ulp less radius drops a sub-partition"
 
 
 @pytest.fixture(scope="module")

@@ -9,7 +9,10 @@
 - what is not ported yet (the MoE configs) raises, naming its ROADMAP
   item; the runtime's modes and the registry's backends are all taken;
 - `save` / `load`, `recover`, `sharded_search` and the ``sharded`` backend
-  also run on the card unless ``device="cpu"`` is passed.
+  also run on the card unless ``device="cpu"`` is passed;
+- so do the tuner (`tune.search.tune_point`, the ``python -m
+  repro_torch.tune`` CLI) and `examples/quickstart_torch.py`, which imports
+  neither `jax` nor `repro` either.
 """
 import dataclasses
 import os
@@ -40,6 +43,7 @@ from repro_torch.stream import MutableProMIPS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
+QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
 
 
 def _modules():
@@ -60,12 +64,28 @@ def test_import_pulls_in_neither_jax_nor_repro():
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(_modules()) >= 40
+    for name in ("repro_torch.launch.roofline", "repro_torch.tune.cutout",
+                 "repro_torch.tune.search", "repro_torch.tune.__main__"):
+        assert name in _modules()
+
+
+def test_quickstart_example_pulls_in_neither_jax_nor_repro():
+    code = (
+        "import runpy, sys\n"
+        f"runpy.run_path({QUICKSTART!r}, run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or 'repro_torch.api' not in sys.modules else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_sources_do_not_name_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b|"
                          r"from\s+repro[.\s])", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
@@ -150,6 +170,22 @@ def test_durability_and_sharded_entry_points_default_to_the_card(no_card,
     loaded = api.load(path, device="cpu")
     assert loaded.inner.snapshot().delta_x.device.type == "cpu"
     assert recover(wd, device="cpu").n == s.n
+
+
+def test_tuner_and_quickstart_default_to_the_card(no_card, tmp_path):
+    from repro_torch.tune import cutout, search as tsearch
+    from repro_torch.tune.__main__ import main as tune_main
+    x, q = cutout.make_cutout(600, 16, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tsearch.tune_point(x, q, build_opts=dict(m=6), search_opts={})
+    out = str(tmp_path / "tuning.json")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tune_main(["--n", "600", "--d", "16", "--out", out])
+    assert not os.path.exists(out)
+    import runpy
+    quickstart = runpy.run_path(QUICKSTART, run_name="not_main")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart["main"]([])
 
 
 def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):

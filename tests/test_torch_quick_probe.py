@@ -3,8 +3,10 @@ version of the `quick_probe_select` kernel, on the CPU) against the JAX
 package's `core.quick_probe.quick_probe_batch` on the same group tables.
 
 Held: the chosen representative row and the Test-A flag equal, the radius
-within 1e-6 relative (the sum over m runs in another order in the two
-frameworks). The tables are made with numpy from a seed, in cases that
+within 1e-6 relative and, since the plain version sums the m squares in
+the JAX reduction's index order and takes a correctly rounded root, equal
+bit for bit (also at the sharded-stream-100k tie of `chip_smoke.py`, where
+an ulp of the radius moved a round-1 block on the card). The tables are made with numpy from a seed, in cases that
 reach each rule of the choice: exact ties among the bounds (integer
 projections, where every sum is exact and the first index must win),
 padding groups (count 0) that would win if they counted, no group passing
@@ -118,6 +120,23 @@ def test_quick_probe_select_ref_matches_jax(name):
         assert any(tied), "no query chose among tied bounds"
 
 
+@pytest.mark.parametrize("name", list(CASES))
+def test_quick_probe_select_radius_is_the_jax_radius_bit_for_bit(name):
+    seed, g, m, b, flavor = CASES[name]
+    table, q_proj, q_l1, x_p = _table(np.random.RandomState(seed + 100), g, m,
+                                      b, flavor)
+    t = {key: torch.from_numpy(v.astype(np.int64) if key == "code" else v)
+         for key, v in table.items()}
+    _, radius, _ = ref.quick_probe_select_ref(
+        t["code"], t["min_l1"], t["count"], t["rep_proj"], t["rep_row"],
+        torch.from_numpy(q_proj), torch.from_numpy(q_l1), C, x_p)
+    jtable = JaxGroupTable(**{key: jnp.asarray(v) for key, v in table.items()})
+    _, jradius, _ = jax_quick_probe(jtable, jnp.asarray(q_proj),
+                                    jnp.asarray(q_l1), C, x_p)
+    np.testing.assert_array_equal(radius.numpy().view(np.int32),
+                                  np.asarray(jradius).view(np.int32))
+
+
 def test_quick_probe_select_dispatches_by_device():
     """On CPU tensors `ops.quick_probe_select` is the plain version, and
     asking for the kernel there raises."""
@@ -132,3 +151,38 @@ def test_quick_probe_select_dispatches_by_device():
         assert torch.equal(a, w)
     with pytest.raises(ValueError, match="use_kernels=True needs CUDA"):
         ops.quick_probe_select(*args, use_kernels=True)
+
+
+def test_sharded_stream_100k_radius_is_the_jax_radius():
+    """The shards of `chip_smoke.py`'s sharded-stream-100k cell (the LARGE_N
+    rows, 4 shards, the cell's seeds), where the card once saw query 57's
+    round-1 block move by the plain radius's last ulp: every query's group,
+    Test A and radius equal to the JAX `quick_probe_batch`'s bit for bit on
+    every shard."""
+    from repro_torch import api
+    from repro_torch.core import search_device as sd
+    from repro_torch.data.synthetic import mf_factors
+    x = mf_factors(100_000, 128, 16, decay=0.5, norm_tail=0.6, seed=0)
+    q = torch.from_numpy(mf_factors(64, 128, 16, decay=0.5, seed=1))
+    s = api.build(x, backend="sharded", guarantee=api.GuaranteeConfig(
+        c=0.9, p0=0.6, k=10), seed=0, page_bytes=4096, n_shards=4, m=16,
+        k_p=8, k_sp=8, norm_strata=8, prefilter=True, prefilter_eps=0.1,
+        device="cpu")
+    for shard in s.inner.shards:
+        snap = shard.snapshot()
+        table = sd._group_table(snap.arrays)
+        q_proj = q @ snap.arrays.a
+        q_l1 = q.abs().sum(dim=1)
+        got = quick_probe_batch(table, q_proj, q_l1, snap.meta.c,
+                                snap.meta.x_p)
+        jtable = JaxGroupTable(
+            code=jnp.asarray(table.code.numpy().astype(np.uint32)),
+            **{f: jnp.asarray(getattr(table, f).numpy())
+               for f in ("min_l1", "rep_proj", "rep_row", "count")})
+        want = jax_quick_probe(jtable, jnp.asarray(q_proj.numpy()),
+                               jnp.asarray(q_l1.numpy()), snap.meta.c,
+                               snap.meta.x_p)
+        for a, w in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(got[1].numpy().view(np.int32),
+                                      np.asarray(want[1]).view(np.int32))
