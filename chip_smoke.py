@@ -126,7 +126,18 @@ described at their functions. Then:
       plain path (ids equal, scores within REL / ABS, flips reported), the
       progressive mode, recall, overall ratio and the Theorem-2 share
       against an exact top-k, pages, medians, launches and peak memory;
-      then examples/quickstart_torch.py in a subprocess.
+      then examples/quickstart_torch.py in a subprocess;
+  12. training (no kernel: the JAX training attention is jnp under a
+      custom_vjp, and so is the port's): (a) three `make_train_step` steps
+      of each of the four dense configs, reduced, on the card and on the
+      CPU from one set of parameters (TF32 off), losses, grad norms and
+      every leaf of params, mu, nu (and the int8 residuals) held within
+      `train.parity`'s tolerance; (b) `launch.train.main` at tinyllama-1.1b's
+      full width, 8 steps of 8 x 256 tokens with checkpoints at steps 4 and
+      8 under build/: the loss falls, both steps complete, a rerun from
+      step_4 reproduces steps 4-7; step time, tokens/s, peak memory, each
+      checkpoint's bytes and seconds, two identical steps compared leaf by
+      leaf, and one step's device time by op under torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -3606,6 +3617,328 @@ def phase_datasets():
     return all_launches
 
 
+# ---------------------------------------------------------------- phase 12
+
+# 12a: the four dense configs, reduced; 48 tokens (h2o-danube's reduced
+# window is 32), microbatches 2, remat full / dots, compression on qwen3
+TRAIN_PARITY = (("tinyllama-1.1b", "full", False), ("phi4-mini-3.8b", "dots", False),
+                ("qwen3-32b", "dots", True), ("h2o-danube-3-4b", "full", False))
+# 12b: launch.train.main at tinyllama-1.1b's full width
+TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
+              "--microbatches", "2", "--steps", "8", "--ckpt-every", "4",
+              "--log-every", "1"]
+# card = CPU: losses, grad norms, lrs and every leaf within the tolerance of
+# `train.parity` (GRAD_TOL, relative to each leaf's largest; the parameters
+# beyond Adam's allowance; compression's flips within FLIP_MARGIN)
+
+
+def _cpu_to_card(tree):
+    from repro_torch import tree as tree_lib
+    return tree_lib.map(lambda t: t.to(DEVICE), tree)
+
+
+def phase_train_parity(card):
+    """Phase 12a: three `make_train_step` steps of each reduced dense config
+    on the card and on `device="cpu"` from one set of parameters (made on
+    the CPU, copied to the card), TF32 off (PyTorch's default, set again in
+    phase 1). Without compression both run free; with it each card step
+    starts from the CPU state (an int8 flip moves a parameter by up to a
+    step, and the difference would grow), flips counted with margins."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, parity
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "TF32 is on for matmuls: card = CPU needs full f32")
+    log(f"[train parity] TF32 for matmuls: "
+        f"{torch.backends.cuda.matmul.allow_tf32} (PyTorch's default)")
+    tol = parity.GRAD_TOL
+    for name, remat, compress in TRAIN_PARITY:
+        cfg = get_config(name).reduced()
+        tcfg = loop.TrainCfg(lr=1e-3, warmup=2, total_steps=20, microbatches=2,
+                             remat=remat, compress_grads=compress)
+        cpu = loop.init_state(T.init_params(cfg, seed=0, device="cpu"), tcfg)
+        gpu = _cpu_to_card(cpu)
+        step = loop.make_train_step(cfg, tcfg)
+        stream = TokenStream(vocab=cfg.vocab, batch=4, seq=48, seed=1)
+        allowance = None
+        for i in range(3):
+            batch = stream.batch_at(i)
+            if compress:
+                gpu = _cpu_to_card(cpu)
+            gpu, gm = step(gpu, batch)
+            cpu, cm = step(cpu, batch)
+            errs = {k: parity.rel(gm[k], cm[k]) for k in ("loss", "grad_norm", "lr")}
+            allowance = parity.adam_allowance(allowance, cpu, float(cm["lr"]))
+            r = parity.compare_states(gpu, cpu, allowance=allowance)
+            log(f"[train parity {name}] step {i} ({remat}, microbatches 2"
+                f"{', compressed' if compress else ''}): loss {float(gm['loss']):.6f}; "
+                f"max rel diff loss {errs['loss']:.3e} grad_norm "
+                f"{errs['grad_norm']:.3e} lr {errs['lr']:.3e} params "
+                f"{r['params']:.3e} mu {r['mu']:.3e} nu {r['nu']:.3e}"
+                + (f" ef {r['ef']:.3e}" if compress else "")
+                + f"; Adam allowance used by {r['allowed']} elements; flips "
+                f"{r['flips']} (largest margin {r['flip_margin']:.3e}); worst "
+                f"{r['worst']} (on {card})")
+            for key in ("loss", "grad_norm", "lr", "params", "mu", "nu", "ef"):
+                got = errs.get(key, r.get(key, 0.0))
+                require(got <= tol, f"[train parity {name}] step {i}: {key} "
+                        f"differs by {got:.3e} > {tol:.0e} between card and CPU")
+            require(r["flip_margin"] <= parity.FLIP_MARGIN,
+                    f"[train parity {name}] step {i}: a flip {r['flip_margin']:.3e} "
+                    f"from its rounding boundary > {parity.FLIP_MARGIN:.2e}")
+
+
+def _timed_train_main(argv, times, ckpts, restores):
+    """`launch.train.main(argv)` with each step timed (host clock to a
+    synchronize), each checkpoint's host copy and write timed and sized,
+    and each restore timed."""
+    import torch
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.launch import train as launch_train
+    make_step, save, restore = (launch_train.make_train_step, ckpt_lib.save,
+                                ckpt_lib.restore)
+
+    def timed_make(*a, **kw):
+        fn = make_step(*a, **kw)
+
+        def run(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def timed_save(ckpt_dir, step, tree, *, blocking=True):
+        import threading
+        t0 = time.perf_counter()
+        writer = save(ckpt_dir, step, tree, blocking=False)
+        rec = dict(step=step, copy_s=time.perf_counter() - t0)
+
+        def finish():
+            writer.join()
+            rec["write_s"] = time.perf_counter() - t0
+            path = os.path.join(ckpt_dir, f"step_{step}")
+            rec["bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                               for f in os.listdir(path))
+            ckpts.append(rec)
+        done = threading.Thread(target=finish)
+        done.start()
+        if blocking:
+            done.join()
+            return None
+        return done
+
+    def timed_restore(*a, **kw):
+        t0 = time.perf_counter()
+        out = restore(*a, **kw)
+        torch.cuda.synchronize()
+        restores.append(time.perf_counter() - t0)
+        return out
+
+    launch_train.make_train_step = timed_make
+    ckpt_lib.save, ckpt_lib.restore = timed_save, timed_restore
+    try:
+        return launch_train.main(argv)
+    finally:
+        launch_train.make_train_step = make_step
+        ckpt_lib.save, ckpt_lib.restore = save, restore
+
+
+def train_gemm_flops(cfg, tokens):
+    """The 2-D matmul FLOPs of one train step under remat full: the
+    forward, the backward (twice the forward) and the recompute of each
+    layer's GEMMs but ``w_down`` (whose output the backward never reads)."""
+    d, ff, dh = cfg.d_model, cfg.d_ff, cfg.head_dim_
+    layer = 2 * (2 * d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh
+                 + 3 * d * ff)
+    fwd = tokens * (cfg.n_layers * layer + 2 * d * cfg.vocab_padded)
+    return 3 * fwd + tokens * cfg.n_layers * (layer - 2 * ff * d)
+
+
+def _train_profile(cfg, state, batch, card):
+    """One donated train step under torch.profiler: device time by aten op
+    (the GEMMs ``aten::mm``, the attention einsums ``aten::bmm``, the
+    embedding backward), the AdamW update (a ``record_function`` range
+    around `adamw_update`) and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.train import loop
+    update = loop.adamw_update
+
+    def ranged(*a, **kw):
+        with record_function("adamw_update"):
+            return update(*a, **kw)
+
+    loop.adamw_update = ranged
+    try:
+        tcfg = loop.TrainCfg(lr=3e-4, warmup=10, total_steps=8, microbatches=2)
+        step = loop.make_train_step(cfg, tcfg, donate=True)
+        state, _ = step(state, batch)            # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        loop.adamw_update = update
+    by_kernel = {}
+    for e in prof.events():
+        # the range's own span on the device timeline is no kernel
+        if e.device_type != DeviceType.CUDA or e.name == "adamw_update":
+            continue
+        name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name[5:] if name.startswith("void ") else name
+        total, count = by_kernel.get(name[:70], (0.0, 0))
+        by_kernel[name[:70]] = (total + e.time_range.end - e.time_range.start,
+                                count + 1)
+    busy_ms = sum(t for t, _ in by_kernel.values()) / 1e3
+    if busy_ms == 0:
+        log("[train profile] device time not measured: the trace holds no "
+            "CUDA events")
+        return state
+    ops = {}
+    for ev in prof.key_averages():
+        dev = getattr(ev, "device_time_total", None)
+        if dev is None:
+            dev = ev.cuda_time_total
+        ops[ev.key] = (dev / 1e3, ev.count)
+    log(f"[train profile] one step of tinyllama-1.1b at full width (batch 8 x "
+        f"256 tokens, microbatches 2, remat full): wall {wall_ms:.3f} ms under "
+        f"the profiler, device busy {busy_ms:.3f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f} (on {card})")
+    for key, label in (("aten::mm", "GEMMs (aten::mm)"),
+                       ("aten::bmm", "attention einsums (aten::bmm)"),
+                       ("adamw_update", "optimizer (adamw_update range)"),
+                       ("aten::embedding_dense_backward", "embedding backward"),
+                       ("aten::embedding_backward", "embedding backward (outer)")):
+        t, c = ops.get(key, (0.0, 0))
+        log(f"[train profile]   {t:9.3f} ms  x{c:<5d} {label} "
+            f"({100 * t / busy_ms:.1f}% of busy)")
+    for name, (t, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"[train profile]   kernel {t / 1e3:9.3f} ms  x{c:<5d} {name}")
+    from repro_torch.launch.roofline import PEAK_FP32
+    flops = train_gemm_flops(cfg, batch["tokens"].size)
+    mm_ms = ops.get("aten::mm", (0.0, 0))[0]
+    if mm_ms:
+        log(f"[train profile] GEMM FLOPs {flops:.4e} (analytic): "
+            f"{flops / mm_ms / 1e9:.2f} TFLOP/s in aten::mm, "
+            f"{flops / mm_ms / 1e9 / (PEAK_FP32 / 1e12):.3f} of the f32 peak "
+            f"{PEAK_FP32 / 1e12:.0f} TFLOP/s; their least time "
+            f"{1e3 * flops / PEAK_FP32:.3f} ms (operations) against the "
+            f"step's device busy {busy_ms:.3f} ms (on {card})")
+    return state
+
+
+def phase_train_full(card, tmp):
+    """Phase 12b: `launch.train.main` at tinyllama-1.1b's full width (22
+    layers, d 2048, 32 heads, 4 KV heads, d_ff 5632, vocab 32,000): 8 steps
+    of batch 8 x 256 tokens in 2 microbatches, checkpoints every 4 steps
+    under the gitignored build/. The loss falls; step_4 and step_8 are
+    complete; a second run from step_4 (step_8 removed) reproduces steps
+    4-7's losses bit for bit, or within 1e-5 relative with the leaves of
+    two identical steps that differ named. Then two identical steps from
+    one state (embedding backward and GEMMs deterministic?) and a profile."""
+    import gc
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, parity
+    cfg = get_config("tinyllama-1.1b")
+    ckpt = os.path.join(tmp, "ckpt")
+    free = shutil.disk_usage(tmp).free
+    state_bytes = 3 * 4 * cfg.param_count()
+    log(f"[train] {cfg.name}: {cfg.param_count():,} parameters, train state "
+        f"{state_bytes / 1e9:.2f} GB in f32; {free / 1e9:.1f} GB free on the "
+        f"checkpoint disk")
+    require(free > 2.2 * state_bytes, "not enough disk for two checkpoints")
+    torch.cuda.reset_peak_memory_stats()
+    times, ckpts, restores = [], [], []
+    t0 = time.perf_counter()
+    argv = TRAIN_FULL + ["--device", DEVICE, "--ckpt-dir", ckpt]
+    losses = _timed_train_main(argv, times, ckpts,
+                               restores)
+    run1_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(times)[len(times) // 2]
+    tokens = 8 * 256
+    log(f"[train] run 1: {len(losses)} steps in {run1_s:.1f} s; losses "
+        f"{[round(x, 6) for x in losses]}; step times "
+        f"{[round(x, 4) for x in times]} s; median {med:.4f} s = "
+        f"{tokens / med:,.0f} tokens/s; first step {times[0]:.4f} s; peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated) (on {card})")
+    for rec in ckpts:
+        log(f"[train] checkpoint step_{rec['step']}: {rec['bytes']:,} bytes, "
+            f"host copy {rec['copy_s']:.2f} s, written in {rec['write_s']:.2f} "
+            f"s ({rec['bytes'] / rec['write_s'] / 1e9:.2f} GB/s) (on {card})")
+    require(len(losses) == 8 and all(math.isfinite(x) for x in losses),
+            f"run 1 losses {losses}")
+    require(losses[-1] < losses[0], f"the loss does not fall: {losses}")
+    require(ckpt_lib.latest_step(ckpt) == 8, "step_8 is not the latest step")
+    for step in (4, 8):
+        require(os.path.exists(os.path.join(ckpt, f"step_{step}", ".complete")),
+                f"step_{step} is not complete")
+    shutil.rmtree(os.path.join(ckpt, "step_8"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    times2, ckpts2 = [], []
+    t0 = time.perf_counter()
+    resumed = _timed_train_main(argv, times2,
+                                ckpts2, restores)
+    log(f"[train] run 2 from step_4: {len(resumed)} steps in "
+        f"{time.perf_counter() - t0:.1f} s; restore {restores[-1]:.2f} s; "
+        f"losses {[round(x, 6) for x in resumed]} (on {card})")
+    require(len(resumed) == 4, f"the resumed run ran {len(resumed)} steps")
+    exact = resumed == losses[4:]
+    gap = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses[4:]))
+    log(f"[train] resumed steps 4-7 = run 1's: bit for bit {exact}, largest "
+        f"relative gap {gap:.3e}")
+    require(ckpt_lib.latest_step(ckpt) == 8, "run 2 did not write step_8")
+    shutil.rmtree(ckpt)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two identical steps from one state: what a rerun relies on
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    tcfg = loop.TrainCfg(lr=3e-4, warmup=10, total_steps=8, microbatches=2)
+    state = loop.init_state(T.init_params(cfg, generator=gen, device=DEVICE), tcfg)
+    batch = TokenStream(vocab=cfg.vocab, batch=8, seq=256).batch_at(0)
+    step = loop.make_train_step(cfg, tcfg)
+    a, ma = step(state, batch)
+    b, mb = step(state, batch)
+    names = parity.leaf_names(state.params)
+    differ = [f"{part} {names[i % len(names)]}"
+              for part, la, lb in (("params", a.params, b.params),
+                                   ("mu", a.opt.mu, b.opt.mu),
+                                   ("nu", a.opt.nu, b.opt.nu))
+              for i, (x, y) in enumerate(zip(tree_lib.leaves(la), tree_lib.leaves(lb)))
+              if not torch.equal(x, y)]
+    same_loss = float(ma["loss"]) == float(mb["loss"])
+    log(f"[train] two identical steps: loss equal {same_loss}, leaves that "
+        f"differ: {differ or 'none'} (embed's gradient is F.embedding's "
+        f"backward)")
+    if not exact:
+        require(gap <= 1e-5, f"resumed losses differ by {gap:.3e} > 1e-5")
+        log(f"[train] the resume is not bit for bit; leaves of two identical "
+            f"steps that differ: {differ}")
+    del a, b
+    gc.collect()
+    state = _train_profile(cfg, state, batch, card)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=med, tokens_s=tokens / med, peak=peak, ckpts=ckpts)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3702,6 +4035,18 @@ def main() -> int:
     t0 = time.perf_counter()
     dataset_launches = phase_datasets()
     log(f"[phase 11, datasets] {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_train_parity(card)
+    log(f"[phase 12a, train parity] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    try:
+        phase_train_full(card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[phase 12b, train tinyllama-1.1b] {time.perf_counter() - t0:.1f} s")
     log("[launches] one search of each new path: sharded-1M "
         f"{sharded_launches}; sharded-stream-100k (churned) "
         f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "

@@ -24,8 +24,11 @@ reads a ``sharded`` save directory. (`api.load` reads every backend's save
 directory, the runtime settings included.)
 
 A model's state is its parameter pytree: `params_from_jax` takes the JAX
-`models.transformer.init_params` tree (numpy or JAX arrays) as the port's
-parameters, which keep the JAX layouts, so every leaf is copied bit for bit.
+`models.transformer.init_params` tree (numpy or JAX arrays) of any of the
+four dense decoders as the port's parameters, which keep the JAX layouts,
+so every leaf is copied bit for bit. A trainer's state is the JAX
+`train.loop.TrainState`: `train_state_from_jax` carries its parameters,
+AdamW moments and count, error-feedback residuals and step across.
 """
 from __future__ import annotations
 
@@ -39,8 +42,11 @@ import torch
 
 from .core.index import IndexArrays, IndexMeta, resolve_device, to_device
 from .core.sharded import MutableShardedProMIPS
+from .distributed.compression import ErrorFeedback
 from .models.transformer import check_supported
 from .stream.mutable import MutableProMIPS
+from .train.loop import TrainState
+from .train.optimizer import AdamWState
 
 _FORMAT_NAME = "repro.api-index"
 
@@ -159,3 +165,23 @@ def params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
                          f"{params['blocks']['ln1'].shape[0]} layers, the "
                          f"config ({cfg.name}) {cfg.n_layers}")
     return params
+
+
+def train_state_from_jax(state, cfg, device="cuda"):
+    """The port's `train.loop.TrainState` on ``device`` from the JAX
+    `TrainState` (params, ``opt.mu`` / ``opt.nu`` / ``opt.count``, ``ef``
+    or None, ``step``), every leaf bit for bit."""
+    dev = resolve_device(device)
+
+    def scalar(x):
+        return torch.from_numpy(np.array(x, dtype=np.int32, copy=True)).to(dev)
+
+    ef = None
+    if state.ef is not None:
+        ef = ErrorFeedback(residual=params_from_jax(state.ef.residual, cfg, dev))
+    return TrainState(
+        params=params_from_jax(state.params, cfg, dev),
+        opt=AdamWState(mu=params_from_jax(state.opt.mu, cfg, dev),
+                       nu=params_from_jax(state.opt.nu, cfg, dev),
+                       count=scalar(state.opt.count)),
+        ef=ef, step=scalar(state.step))

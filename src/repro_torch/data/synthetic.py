@@ -1,13 +1,15 @@
-"""Deterministic synthetic vector corpora (numpy copy of
-`repro.data.synthetic`'s vector half: the same seed gives the same floats).
+"""Deterministic synthetic corpora and token streams (numpy copy of
+`repro.data.synthetic`: the same seed gives the same floats and tokens).
 
 Shape-matched proxies of the paper's four datasets (Table III): Netflix and
 Yahoo PureSVD MF factors, P53 wide biology vectors, SIFT descriptors. The
 MF-style generator gives low effective rank and long-tail norms, the regime
 the paper's conditions and the norm-adaptive extensions are sensitive to.
-The token streams for LM training wait for the training slice.
+`TokenStream` and `lm_batch` feed the LM trainer.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -58,4 +60,41 @@ def paper_queries(name: str, n_queries: int = 100, *, seed: int = 1):
     return q
 
 
-__all__ = ["DATASETS", "mf_factors", "paper_dataset", "paper_queries"]
+# ---------------------------------------------------------------------------
+# LM token pipeline
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TokenStream:
+    """Deterministic zipf-ish token stream; batch(step) is pure in (seed, step)."""
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+    zipf_a: float = 1.3
+
+    def batch_at(self, step: int, host: int = 0, n_hosts: int = 1):
+        rng = np.random.RandomState((self.seed * 1_000_003 + step * 97 + host) % 2**31)
+        b_local = self.batch // n_hosts
+        raw = rng.zipf(self.zipf_a, size=(b_local, self.seq + 1))
+        tokens = (raw % (self.vocab - 1)).astype(np.int32) + 1
+        return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:].copy()}
+
+
+def lm_batch(cfg, shape, step: int = 0, seed: int = 0):
+    """Concrete batch for one (arch, shape) cell (smoke/benchmark scale)."""
+    stream = TokenStream(vocab=cfg.vocab, batch=shape.global_batch, seq=shape.seq_len, seed=seed)
+    batch = stream.batch_at(step)
+    if cfg.frontend == "vision":
+        rng = np.random.RandomState(seed + 7)
+        batch["patches"] = rng.standard_normal(
+            (shape.global_batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    if cfg.frontend == "audio":
+        rng = np.random.RandomState(seed + 11)
+        batch["frames"] = rng.standard_normal(
+            (shape.global_batch, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+__all__ = ["DATASETS", "TokenStream", "lm_batch", "mf_factors",
+           "paper_dataset", "paper_queries"]

@@ -1,6 +1,8 @@
-"""Launch-side analysis of the port; `roofline` is the counterpart of the
-JAX package's `repro.launch.roofline.kernel_cost` (the mesh, the cell specs
-and the dry run wait for ROADMAP Queue 1 item 12)."""
+"""Launch-side code of the port: `roofline` is the counterpart of the JAX
+package's `repro.launch.roofline.kernel_cost`, and `train` the training
+driver (`python -m repro_torch.launch.train`). The mesh waits for the
+multi-card training slice (ROADMAP Queue 1 item 17), the cell specs and
+the dry run for item 12."""
 from . import roofline
 from .roofline import HBM_BW, PEAK_FP32, cost
 

@@ -1,8 +1,10 @@
 """GQA attention; port of `repro.models.attention` for the dense decoder.
 
-The prefill path (`attention_train`) is the JAX package's blockwise causal
-online softmax in plain torch ops; the JAX package computes it in jnp with
-no Pallas kernel, so the port has no kernel for it either. The decode path
+The training and prefill path (`attention_train`) is the JAX package's
+blockwise causal online softmax in plain torch ops, with the JAX
+``custom_vjp`` backward as a `torch.autograd.Function` (`_FlashCore`); the
+JAX package computes both in jnp with no Pallas kernel, so the port has no
+kernel for them either. The decode path
 (`flash_decode`) is `kernels.ops.decode_attention`: the hand-written CUDA
 kernel on CUDA tensors, its plain version (the arithmetic of the JAX
 `flash_decode`) elsewhere.
@@ -61,28 +63,27 @@ def _mask_for(s, block, blk_idx, *, window: int, bidirectional: bool, device):
     return mask & (kv_pos[None, :] < s)
 
 
-def _flash_causal(q, k, v, *, window: int = 0, block: int = 512,
-                  bidirectional: bool = False):
-    """Blockwise online-softmax attention, q (B, S, H, dh), k and v
-    (B, S, KH, dh) -> (B, S, H, dh): the JAX `_flash_causal` forward, with
-    K/V zero-padded to whole blocks and masked as there."""
-    b, s, h, dh = q.shape
-    kh = k.shape[2]
-    g = h // kh
-    qf = (q.reshape(b, s, kh, g, dh) * dh ** -0.5).float().permute(0, 2, 3, 1, 4)
-    nblk = -(-s // block)
-    pad = nblk * block - s
-    kf = F.pad(k.float(), (0, 0, 0, 0, 0, pad))
-    vf = F.pad(v.float(), (0, 0, 0, 0, 0, pad))
-    m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, kh, g, s, dh), dtype=torch.float32, device=q.device)
-    for i in range(nblk):
+def _kv_blocks(x, block):
+    """(B, S, KH, dh) zero-padded to whole blocks: (B, nblk * block, KH, dh)."""
+    pad = -(-x.shape[1] // block) * block - x.shape[1]
+    return F.pad(x, (0, 0, 0, 0, 0, pad))
+
+
+def _flash_fwd_impl(qf, k, v, window, bidirectional, block):
+    """qf: (B, KH, G, S, dh) pre-scaled f32; k, v: (B, S, KH, dh) f32.
+    Online-softmax forward over KV blocks; returns (out (B, KH, G, S, dh),
+    lse (B, KH, G, S))."""
+    b, kh, g, s, dh = qf.shape
+    kf, vf = _kv_blocks(k, block), _kv_blocks(v, block)
+    m = torch.full((b, kh, g, s), NEG_INF, dtype=torch.float32, device=qf.device)
+    l = torch.zeros((b, kh, g, s), dtype=torch.float32, device=qf.device)
+    acc = torch.zeros((b, kh, g, s, dh), dtype=torch.float32, device=qf.device)
+    for i in range(kf.shape[1] // block):
         k_blk = kf[:, i * block:(i + 1) * block]
         v_blk = vf[:, i * block:(i + 1) * block]
         scores = torch.einsum("bkgsd,btkd->bkgst", qf, k_blk)
         mask = _mask_for(s, block, i, window=window,
-                         bidirectional=bidirectional, device=q.device)
+                         bidirectional=bidirectional, device=qf.device)
         scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
         m_new = torch.maximum(m, scores.amax(dim=-1))
         alpha = torch.exp(m - m_new)
@@ -90,12 +91,73 @@ def _flash_causal(q, k, v, *, window: int = 0, block: int = 512,
         l = alpha * l + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgst,btkd->bkgsd", p, v_blk)
         m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    l_safe = torch.clamp(l, min=1e-30)
+    return acc / l_safe[..., None], m + torch.log(l_safe)
+
+
+def _flash_bwd_impl(qf, k, v, out, lse, d_out, window, bidirectional, block):
+    """The JAX `_flash_bwd`: the scores recomputed block by block from
+    (out, lse), so memory stays linear in S. Returns (dqf, dk, dv)."""
+    s = qf.shape[3]
+    kf, vf = _kv_blocks(k, block), _kv_blocks(v, block)
+    delta = torch.sum(d_out * out, dim=-1)                  # (B, KH, G, S)
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for i in range(kf.shape[1] // block):
+        k_blk = kf[:, i * block:(i + 1) * block]
+        v_blk = vf[:, i * block:(i + 1) * block]
+        scores = torch.einsum("bkgsd,btkd->bkgst", qf, k_blk)
+        mask = _mask_for(s, block, i, window=window,
+                         bidirectional=bidirectional, device=qf.device)
+        scores = torch.where(mask, scores, torch.full_like(scores, NEG_INF))
+        p = torch.exp(scores - lse[..., None])              # (B, KH, G, S, t)
+        dvs.append(torch.einsum("bkgst,bkgsd->btkd", p, d_out))
+        dp = torch.einsum("bkgsd,btkd->bkgst", d_out, v_blk)
+        ds = p * (dp - delta[..., None])
+        dq = dq + torch.einsum("bkgst,btkd->bkgsd", ds, k_blk)
+        dks.append(torch.einsum("bkgst,bkgsd->btkd", ds, qf))
+    return dq, torch.cat(dks, dim=1)[:, :s], torch.cat(dvs, dim=1)[:, :s]
+
+
+class _FlashCore(torch.autograd.Function):
+    """The JAX ``_flash_core`` custom_vjp: the forward keeps only (qf, k, v,
+    out, lse) for the backward, which streams the KV blocks again. Autograd
+    records neither block loop."""
+
+    @staticmethod
+    def forward(ctx, qf, k, v, window, bidirectional, block):
+        out, lse = _flash_fwd_impl(qf, k, v, window, bidirectional, block)
+        ctx.save_for_backward(qf, k, v, out, lse)
+        ctx.cfg = (window, bidirectional, block)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, d_out):
+        qf, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd_impl(qf, k, v, out, lse, d_out.contiguous(),
+                                     *ctx.cfg)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_causal(q, k, v, *, window: int = 0, block: int = 512,
+                  bidirectional: bool = False):
+    """Blockwise online-softmax attention, q (B, S, H, dh), k and v
+    (B, S, KH, dh) -> (B, S, H, dh): the JAX `_flash_causal`, with K/V
+    zero-padded to whole blocks and masked as there. Forward and backward
+    both stream KV blocks (`_FlashCore`): activation memory is O(S)."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    g = h // kh
+    qf = (q.reshape(b, s, kh, g, dh) * dh ** -0.5).float().permute(0, 2, 3, 1, 4)
+    out = _FlashCore.apply(qf, k.float(), v.float(), window, bidirectional,
+                           block)
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
 def attention_train(params, cfg, x, positions, *, bidirectional: bool = False):
-    """Full (prefill) attention. x: (B, S, d) -> ((B, S, d), (k, v))."""
+    """Full (training / prefill) attention. x: (B, S, d) -> ((B, S, d),
+    (k, v))."""
     q, k, v = _project_qkv(params, cfg, x, positions)
     window = cfg.window if cfg.attn == "swa" else 0
     out = _flash_causal(q, k, v, window=window, bidirectional=bidirectional)

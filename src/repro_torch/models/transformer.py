@@ -1,6 +1,7 @@
-"""The dense decoder (``block_pattern == "attn"`` without MoE); port of the
-serving half of `repro.models.transformer`: `init_params`, `prefill`,
-`init_cache` and `decode_step`.
+"""The dense decoder (``block_pattern == "attn"`` without MoE); port of
+`repro.models.transformer` for it: `init_params`, the training loss
+(`loss_fn`, `cross_entropy`, the remat policies), `prefill`, `init_cache`
+and `decode_step`.
 
 Parameters are the JAX package's pytree as a dict of tensors: ``embed``
 (vocab_padded, d), ``final_norm`` (d,), ``unembed`` (d, vocab_padded) when
@@ -13,15 +14,22 @@ in JAX. Unlike JAX's functional update, `decode_step` writes the new K/V
 and lengths into the cache tensors in place (no copy of the whole cache per
 step) and returns the same dict, so the three tensors never change
 identity and a CUDA graph captured over them stays valid. Other block
-patterns, MoE and modality frontends raise `NotImplementedError` (ROADMAP
-Queue 1 item 12).
+patterns (recurrent, hybrid, encoder-decoder), MoE and modality frontends
+raise `NotImplementedError` (ROADMAP Queue 1 item 12).
+
+`loss_fn` runs the layers on `torch.unbind` views of the stacked leaves,
+so the backward stacks each leaf's layer gradients once (the JAX scan's
+transpose) instead of adding a full-size gradient per layer.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.index import resolve_device
 from . import attention as attn_lib
@@ -35,7 +43,8 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: only the dense attention decoder is ported (block "
             f"pattern {cfg.block_pattern!r}, moe {cfg.moe is not None}, "
-            f"frontend {cfg.frontend!r}); the rest is ROADMAP Queue 1 item 12")
+            f"frontend {cfg.frontend!r}); MoE, recurrent, hybrid, "
+            f"encoder-decoder and frontend models are ROADMAP Queue 1 item 12")
 
 
 def _stacked(n: int, fn):
@@ -79,13 +88,6 @@ def init_params(cfg, *, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (views, no copy)."""
-    if isinstance(tree, dict):
-        return {key: _layer(val, i) for key, val in tree.items()}
-    return tree[i]
-
-
 def _logits(params, cfg, x):
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     logits = (x @ w).float()
@@ -95,21 +97,91 @@ def _logits(params, cfg, x):
     return logits
 
 
-def _attn_backbone(params, cfg, x, positions, *, collect_kv: bool = False):
-    """The attention blocks over a whole sequence. Returns (x, kv) with kv
-    the stacked (L, B, S, KH, dh) keys and values when ``collect_kv``."""
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
-        h, (k, v) = attn_lib.attention_train(
+def cross_entropy(logits, labels):
+    """Stable CE with label -1 = ignore. logits (..., V) f32, labels (...,)."""
+    valid = labels >= 0
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    nll = torch.where(valid, lse - ll, torch.zeros_like(lse))
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of the 2-D matmuls (the weight GEMMs), recompute
+    the rest: `checkpoint_dots_with_no_batch_dims`. The attention einsums
+    are batched (``aten.bmm``) and are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, policy: Optional[str]):
+    if policy in (None, "none"):
+        return fn
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(policy)
+
+
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked parameter tree, each leaf split with
+    `torch.unbind` (views, no copy; under autograd the backward stacks the
+    layer gradients once)."""
+    if isinstance(tree, dict):
+        parts = {key: _unstack(val, n) for key, val in tree.items()}
+        return [{key: parts[key][i] for key in tree} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _attn_backbone(params, cfg, x, positions, *, remat="full",
+                   collect_kv: bool = False):
+    """The attention blocks over a whole sequence, each under the ``remat``
+    policy. Returns (x, kv) with kv the stacked (L, B, S, KH, dh) keys and
+    values when ``collect_kv``."""
+
+    def block(x, lp):
+        h, kv = attn_lib.attention_train(
             lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
         x = x + h
         x = x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+        return x, (kv if collect_kv else None)
+
+    step = _maybe_remat(block, remat)
+    ks, vs = [], []
+    for lp in _unstack(params["blocks"], cfg.n_layers):
+        x, kv = step(x, lp)
         if collect_kv:
-            ks.append(k)
-            vs.append(v)
+            ks.append(kv[0])
+            vs.append(kv[1])
     kv = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     return x, kv
+
+
+def _embed_inputs(params, cfg, batch):
+    """Token embedding (text only: frontends are not ported). Returns (x,
+    label_offset). `F.embedding`, not advanced indexing: its CUDA backward
+    is deterministic (`chip_smoke.py` phase 12b runs two identical steps)."""
+    return F.embedding(batch["tokens"].long(), params["embed"]), 0
+
+
+def loss_fn(params, cfg, batch, *, remat: str = "full"):
+    """batch: tokens (B, S) int, labels (B, S) int (-1 ignored), tensors on
+    the parameters' device. Returns (loss, {"loss", "aux"})."""
+    check_supported(cfg)
+    x, _ = _embed_inputs(params, cfg, batch)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, _ = _attn_backbone(params, cfg, x, positions, remat=remat)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = cross_entropy(_logits(params, cfg, x), batch["labels"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
@@ -149,8 +221,7 @@ def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
         pos_write = pos_write % kv_len
     att_len = torch.clamp(new_len, max=kv_len)
     positions = (new_len - 1)[:, None]
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
+    for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
         kc, vc = cache["k"][i], cache["v"][i]
         h_in = rms_norm(x, lp["ln1"], cfg.norm_eps)
         # q, k and v of this token in one projection: the JAX decode_step
@@ -181,7 +252,8 @@ def prefill(params, cfg, batch, max_len: int):
     kv_len = min(max_len, cfg.window) if cfg.attn == "swa" else max_len
     x = params["embed"][tokens]
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x, (ks, vs) = _attn_backbone(params, cfg, x, positions, collect_kv=True)
+    x, (ks, vs) = _attn_backbone(params, cfg, x, positions, remat="none",
+                                 collect_kv=True)
     if s > kv_len:
         ks, vs = ks[:, :, -kv_len:], vs[:, :, -kv_len:]
     else:
@@ -193,5 +265,5 @@ def prefill(params, cfg, batch, max_len: int):
     return cache, _logits(params, cfg, x)[:, 0]
 
 
-__all__ = ["check_supported", "decode_step", "init_cache", "init_params",
-           "prefill"]
+__all__ = ["check_supported", "cross_entropy", "decode_step", "init_cache",
+           "init_params", "loss_fn", "prefill"]

@@ -12,7 +12,10 @@
   also run on the card unless ``device="cpu"`` is passed;
 - so do the tuner (`tune.search.tune_point`, the ``python -m
   repro_torch.tune`` CLI) and `examples/quickstart_torch.py`, which imports
-  neither `jax` nor `repro` either.
+  neither `jax` nor `repro` either;
+- and the trainer: `launch.train.main`, the `train.loop` state (its
+  parameters come from `init_params`), `distributed.checkpoint.restore`
+  and `examples/train_lm_torch.py` (no `jax`, no `repro` either).
 """
 import dataclasses
 import os
@@ -44,6 +47,7 @@ from repro_torch.stream import MutableProMIPS
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
+TRAIN_LM = os.path.join(ROOT, "examples", "train_lm_torch.py")
 
 
 def _modules():
@@ -65,27 +69,39 @@ def test_import_pulls_in_neither_jax_nor_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     assert len(_modules()) >= 40
     for name in ("repro_torch.launch.roofline", "repro_torch.tune.cutout",
-                 "repro_torch.tune.search", "repro_torch.tune.__main__"):
+                 "repro_torch.tune.search", "repro_torch.tune.__main__",
+                 "repro_torch.launch.train", "repro_torch.train.loop",
+                 "repro_torch.train.optimizer",
+                 "repro_torch.distributed.checkpoint",
+                 "repro_torch.distributed.compression"):
         assert name in _modules()
 
 
-def test_quickstart_example_pulls_in_neither_jax_nor_repro():
+def _imports_neither_jax_nor_repro(path, module):
     code = (
         "import runpy, sys\n"
-        f"runpy.run_path({QUICKSTART!r}, run_name='not_main')\n"
+        f"runpy.run_path({path!r}, run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"
-        "sys.exit(1 if bad or 'repro_torch.api' not in sys.modules else 0)\n")
+        f"sys.exit(1 if bad or {module!r} not in sys.modules else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_quickstart_example_pulls_in_neither_jax_nor_repro():
+    _imports_neither_jax_nor_repro(QUICKSTART, "repro_torch.api")
+
+
+def test_train_example_pulls_in_neither_jax_nor_repro():
+    _imports_neither_jax_nor_repro(TRAIN_LM, "repro_torch.launch.train")
+
+
 def test_sources_do_not_name_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b|"
                          r"from\s+repro[.\s])", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART]
+    files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, TRAIN_LM]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
@@ -208,9 +224,40 @@ def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert eng.cache["k"].device.type == "cpu" and eng.steps == 2
 
 
+def test_trainer_entry_points_default_to_the_card(no_card, tmp_path):
+    from repro_torch.distributed import checkpoint
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.train import loop
+    import runpy
+    cfg = get_config("tinyllama-1.1b").reduced()
+    ckpt = str(tmp_path / "ckpt")
+    args = ["--reduced", "--steps", "2", "--batch", "2", "--seq", "16",
+            "--ckpt-dir", ckpt]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(args)
+    assert not os.path.exists(ckpt)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.init_state(T.init_params(cfg), loop.TrainCfg())
+    state = loop.init_state(T.init_params(cfg, device="cpu"), loop.TrainCfg())
+    state, metrics = loop.make_train_step(cfg, loop.TrainCfg())(
+        state, {"tokens": np.ones((2, 8), np.int32),
+                "labels": np.ones((2, 8), np.int32)})
+    assert state.params["embed"].device.type == "cpu"
+    assert metrics["loss"].device.type == "cpu"
+    assert len(train_main(args + ["--device", "cpu"])) == 2
+    with pytest.raises(RuntimeError, match="CUDA"):
+        checkpoint.restore(ckpt, 2, state)
+    assert int(checkpoint.restore(ckpt, 2, state, device="cpu").step) == 2
+    example = runpy.run_path(TRAIN_LM, run_name="not_main")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        example["main"](["--steps", "1", "--ckpt-dir", str(tmp_path / "ex")])
+
+
 def test_unported_configs_and_backends_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen3-32b")
+        get_config("qwen2-moe-a2.7b")
+    for name in ("phi4-mini-3.8b", "qwen3-32b", "h2o-danube-3-4b"):
+        assert get_config(name).name == name      # the dense configs are in
     # every backend is ported: ``sharded`` builds and searches
     assert "sharded" in api.backends()
     s = api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
