@@ -29,10 +29,19 @@ line):
   4b. on the same n=1M index, the promips backend in every mode at full
      budget (fused, batched, scan, progressive): scan = batched = fused in
      ids and every counter, or each difference a tie or a flip with its
-     margin; the scan_blocks kernel against its plain walk on the same
-     inputs (scores within tolerance on equal rows, differing rows exact
+     margin; the steps each query walked (mean, p50, p99, max and the
+     query that sets it) in every timed batch of the scan and progressive
+     modes, and one scan batch profiled; the scan_blocks kernel against
+     its plain walk on the same inputs, bit for bit in all five outputs (and within check_walk's
+     account: scores within tolerance on equal rows, differing rows exact
      ties, a differing walk explained by a flip and, in scan mode, each
-     output the top-k of its own walk); ops.mips_topk over the corpus; the
+     output the top-k of its own walk), at full budget and at budgets 256
+     and 4,096, each walk's lengths and its bound over the union of the
+     blocks it read; the full-budget progressive walk on the modes run's
+     own inputs against the jump walk (`jump_walk`, the plain function
+     one merged step a pass, itself held to the step loop at the two
+     budgets) and against the modes run's walk and ids; ops.mips_topk over
+     the corpus; the
      facade with the four baselines on the n=100k rows; the paper's host
      search in a forked child process pinned to one core, away from the
      thread that drives the card;
@@ -1358,7 +1367,7 @@ def time_turns(label, search, q):
         f"{['%.3f' % t for t in times0]}")
     for name, med, times in runs:
         log(f"[{label}] search time per batch of {N_QUERIES}, {name} driver: "
-            f"median {med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}) "
+            f"median {med:.3f} ms (range {min(times):.3f}-{max(times):.3f}) "
             f"{['%.3f' % t for t in times]}")
     with host_driver():
         phase_profile(search, q, f"{label} host driver")
@@ -1368,8 +1377,9 @@ def time_turns(label, search, q):
 def time_batches(search, n_batches=5, queries=None):
     """Median time of one search batch (CUDA events around the whole call
     ``search(queries)``, which synchronizes with the host each round), after
-    one warm-up. ``queries(seed)`` makes each batch (default: the LARGE_N
-    recipe's, seeds 2, 3, ...)."""
+    one warm-up, and every batch's time in the batches' order.
+    ``queries(seed)`` makes each batch (default: the LARGE_N recipe's, seeds
+    2, 3, ...)."""
     import torch
     from repro_torch.data.synthetic import mf_factors
     if queries is None:
@@ -1388,8 +1398,7 @@ def time_batches(search, n_batches=5, queries=None):
         b.synchronize()
         if i:
             times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2], times
+    return sorted(times)[len(times) // 2], times
 
 
 def phase_profile(search, q, label):
@@ -1442,7 +1451,7 @@ MODES = (("two_phase/fused", dict(verification="fused", prefilter=True,
          ("two_phase/scan", dict(verification="scan", prefilter=True,
                                  prefilter_eps=0.1)),
          ("progressive", dict(mode="progressive", cs_prune=True)))
-WALK_BUDGETS = (256, 4096)            # and scan at full budget
+WALK_BUDGETS = (256, 4096)            # and every walk at full budget
 HOST_QUERIES, INCREMENTAL_QUERIES = 8, 2
 FACADE_BACKENDS = (("promips", dict(mode="progressive")), ("exact", {}),
                    ("h2alsh", {}), ("pq", {}), ("rangelsh", {}))
@@ -1669,21 +1678,110 @@ def check_walk(label, args, kw, got, want, meta):
     return max_err, flips, ties
 
 
-def scan_blocks_bound_ms(args, kw, got):
-    """Least time of a scan walk (`roofline.scan_blocks`): the union over
-    the batch of the walked prefixes read once, 2 d page_rows fp32
-    operations per (query, page) walked. Returns (ms, bound_by, union)."""
-    import torch
+def walk_lengths(pages):
+    """The live steps (pages) each query walked: mean, p50, p99, max and the
+    query that sets the max."""
+    p = pages.double().cpu()
+    srt = p.sort().values
+    n = srt.numel()
+    return (f"mean {float(p.mean()):.1f} p50 {float(srt[n // 2]):.0f} p99 "
+            f"{float(srt[min(n - 1, (99 * n) // 100)]):.0f} max "
+            f"{float(srt[-1]):.0f} (query {int(p.argmax())})")
+
+
+def visited_bound_ms(args, kw, visited):
+    """Least time of a walk whose (B, NB) visited-block mask is known
+    (`roofline.scan_blocks` over the union of the visited blocks). Returns
+    (ms, bound_by, union)."""
     from repro_torch.launch import roofline
-    x, ids, q, order = args[:4]
-    b, d = q.shape
-    pages = got[2].long()
-    steps = torch.arange(order.shape[1], device=order.device)[None, :]
-    walked = order.long()[steps < pages[:, None]]
-    union = int(walked.unique().numel())
-    ms, bound_by = _bound(roofline.scan_blocks(b, d, kw["k"], kw["page_rows"],
-                                               union, int(pages.sum())))
+    q = args[2]
+    union = int(visited.any(dim=0).sum())
+    ms, bound_by = _bound(roofline.scan_blocks(
+        q.shape[0], q.shape[1], kw["k"], kw["page_rows"], union,
+        int(visited.sum())))
     return ms, bound_by, union
+
+
+def jump_walk(args, kw):
+    """The plain walk's function (`ref.scan_blocks_ref`, from a carried
+    top-k sorted descending) computed by jumps: while a query's k-th score
+    holds, the liveness of all its remaining steps is one tensor test, and
+    the walk jumps to the first live step whose best valid row beats the
+    k-th score and merges it as the plain walk's step does. One pass per
+    merged step instead of one per step, so the full-budget progressive
+    walk has a plain result and its visited blocks. Returns the five
+    outputs and the (B, NB) visited mask."""
+    import torch
+    from repro_torch.kernels import ref
+    x, ids, q, order, init_s, init_r, c_half = args
+    k, pr = kw["k"], kw["page_rows"]
+    prog = kw.get("block_gap") is not None
+    b, nb = order.shape
+    dev = q.device
+    steps = min(kw["budget"], nb)
+    o = order[:, :steps].long()
+    ar = torch.arange(b, device=dev)
+    offs = torch.arange(pr, device=dev, dtype=torch.int32)
+    valid = (ids >= 0).view(nb, pr)
+    scores = (x.float() @ q.float().T).T.reshape(b, nb, pr)
+    s_o = torch.where(valid[o], scores[ar[:, None], o],
+                      torch.full((), float("-inf"), device=dev))
+    smax = s_o.amax(dim=2)
+    del s_o
+    vc = valid.sum(dim=1, dtype=torch.int32)[o]
+    tidx = torch.arange(steps, device=dev)[None, :]
+    if prog:
+        lim = torch.full((b,), steps, dtype=torch.long, device=dev)
+        gap_o = kw["block_gap"].gather(1, o)
+        m_o = kw["block_max_l2sq"][o]
+        ql = kw["q_l2sq"][:, None]
+    else:
+        lim = kw["n_sel"].long().clamp(max=steps)
+    top_s, top_r = init_s.float().clone(), init_r.int().clone()
+    done = top_s[:, k - 1] >= c_half
+    cur = torch.zeros(b, dtype=torch.long, device=dev)
+    pages = torch.zeros(b, dtype=torch.int32, device=dev)
+    cand = torch.zeros(b, dtype=torch.int32, device=dev)
+    visited = torch.zeros((b, nb), dtype=torch.bool, device=dev)
+    while True:
+        active = ~done & (cur < lim)
+        if not bool(active.any()):
+            break
+        s_k = top_s[:, k - 1]
+        live = (tidx >= cur[:, None]) & (tidx < lim[:, None]) & active[:, None]
+        if prog:
+            live &= ref.scan_qualify(gap_o, m_o, s_k[:, None], ql, kw["c"],
+                                     kw["x_p"], kw["cs_prune"])
+        beat = live & (smax > s_k[:, None])
+        has = beat.any(dim=1)
+        f = torch.where(has, beat.int().argmax(dim=1), lim)
+        counted = live & (tidx <= f[:, None])
+        pages += counted.sum(dim=1, dtype=torch.int32)
+        cand += (counted * vc).sum(dim=1, dtype=torch.int32)
+        visited.scatter_(1, o, visited.gather(1, o) | counted)
+        idx = has.nonzero().flatten()
+        if idx.numel():
+            blk = o[idx, f[idx]]
+            v = valid[blk]
+            sv = torch.where(v, scores[idx, blk],
+                             torch.full((), float("-inf"), device=dev))
+            rv = torch.where(v, (blk.int() * pr)[:, None] + offs,
+                             torch.full_like(v, -1, dtype=torch.int32))
+            srt, si = torch.sort(torch.cat([top_s[idx], sv], dim=1), dim=1,
+                                 descending=True, stable=True)
+            top_r[idx] = torch.cat([top_r[idx], rv], dim=1).gather(1, si[:, :k])
+            top_s[idx] = srt[:, :k]
+            done[idx] |= top_s[idx, k - 1] >= c_half[idx]
+        cur = torch.where(active, torch.where(has, f + 1, lim), cur)
+    return top_s, top_r, pages, cand, done, visited
+
+
+def same_walk(got, want):
+    """The five walk outputs (top_s, top_r, pages, cand, done) equal bit
+    for bit."""
+    import torch
+    return all(g.dtype == w.dtype and torch.equal(g, w)
+               for g, w in zip(got[:5], want[:5]))
 
 
 def flip_check(label, want, got, x, q, c_half, k):
@@ -1771,38 +1869,79 @@ def phase_modes(pm, x, q, x100k, q100k, timer):
         c_half = sc.condition_a_threshold(arrays.max_l2sq,
                                           (q * q).sum(dim=1), meta.c)
         facade = PromipsSearcher(pm, RuntimeConfig(k=k))
-        runs, launches = {}, {}
+        runs, launches, run_walk = {}, {}, None
+        walk_call = ops.scan_blocks
         for label, knobs in MODES:
             cfg = RuntimeConfig(k=k, **knobs)
-            for name in ops.LAUNCHES:
-                ops.LAUNCHES[name] = 0
-            out = runtime_search(arrays, meta, q, cfg, device=pm.device)
-            torch.cuda.synchronize()
-            launches[label] = dict(ops.LAUNCHES)
-            runs[label] = out
-            ids, scores, st = out
-            res = facade.search(q, runtime=cfg)
-            require(np.array_equal(res.ids, ids.cpu().numpy()),
-                    f"[modes] {label}: the facade's ids differ from the "
-                    f"runtime's")
-            require(ids.shape == (q.shape[0], k)
-                    and bool(torch.isfinite(scores).all()),
-                    f"[modes] {label}: output has the wrong shape or "
-                    f"non-finite scores")
-            recall = float(np.mean([recall_at_k(ids[b].cpu().numpy(),
-                                                eids[b].cpu().numpy())
-                                    for b in range(q.shape[0])]))
-            rate = success_rate(scores, escores, meta.c)
-            med, times = time_batches(
-                lambda qb, cfg=cfg: runtime_search(arrays, meta, qb, cfg,
-                                                   device=pm.device))
+            # the walks of each timed search call (its rounds' pages and its
+            # stats); before the first, the progressive run's first walk in
+            # full for the full-budget walk check below
+            calls = []
+
+            def recorded(*a, **kw):
+                nonlocal run_walk
+                out = walk_call(*a, **kw)
+                if calls:
+                    calls[-1][0].append(out[2])
+                elif label == "progressive" and run_walk is None:
+                    run_walk = (a, kw, out)
+                return out
+
+            def timed(qb, cfg=cfg, calls=calls):
+                calls.append(([], None))
+                out = runtime_search(arrays, meta, qb, cfg, device=pm.device)
+                calls[-1] = (calls[-1][0], out[2])
+
+            ops.scan_blocks = recorded
+            try:
+                for name in ops.LAUNCHES:
+                    ops.LAUNCHES[name] = 0
+                out = runtime_search(arrays, meta, q, cfg, device=pm.device)
+                torch.cuda.synchronize()
+                launches[label] = dict(ops.LAUNCHES)
+                runs[label] = out
+                ids, scores, st = out
+                res = facade.search(q, runtime=cfg)
+                require(np.array_equal(res.ids, ids.cpu().numpy()),
+                        f"[modes] {label}: the facade's ids differ from the "
+                        f"runtime's")
+                require(ids.shape == (q.shape[0], k)
+                        and bool(torch.isfinite(scores).all()),
+                        f"[modes] {label}: output has the wrong shape or "
+                        f"non-finite scores")
+                recall = float(np.mean([recall_at_k(ids[b].cpu().numpy(),
+                                                    eids[b].cpu().numpy())
+                                        for b in range(q.shape[0])]))
+                rate = success_rate(scores, escores, meta.c)
+                med, times = time_batches(timed)
+            finally:
+                ops.scan_blocks = walk_call
             log(f"[modes n=1M {label}] recall {recall:.4f} theorem-2 success "
                 f"{rate:.4f} (floor {floor:.4f}) pages_mean "
                 f"{float(st.pages.double().mean()):.2f} used_round2 "
                 f"{int(st.used_round2.sum())} exhausted "
                 f"{int(st.exhausted.sum())}; batch of {q.shape[0]}: median "
-                f"{med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}); "
+                f"{med:.3f} ms (range {min(times):.3f}-{max(times):.3f}); "
                 f"launches {launches[label]}")
+            # each timed batch's walks (the warm-up's first): the live steps
+            # a query walked; scan walks round 2 only when a query needs it
+            require(len(calls) == len(times) + 1,
+                    f"[modes] {label}: {len(calls)} search calls recorded for "
+                    f"{len(times)} timed batches and a warm-up")
+            for i, (t, (pages, bst)) in enumerate(zip(times, calls[1:])):
+                n_walks = (1 + int(bool(bst.used_round2.any()))
+                           if label == "two_phase/scan" else
+                           int(label == "progressive"))
+                require(len(pages) == n_walks, f"[modes] {label}: batch "
+                        f"{i + 1} made {len(pages)} walks, not {n_walks}")
+                if pages:
+                    log(f"[modes n=1M {label}] batch {i + 1}: {t:.3f} ms; "
+                        + "; ".join(f"walk {r + 1} steps {walk_lengths(p)}"
+                                    for r, p in enumerate(pages)))
+            if label == "two_phase/scan":    # where a scan batch's time goes
+                phase_profile(lambda qb, cfg=cfg: runtime_search(
+                    arrays, meta, qb, cfg, device=pm.device), q,
+                    f"modes n=1M {label}")
             require(rate >= floor, f"[modes] {label}: Theorem-2 floor missed: "
                     f"{rate} < {floor}")
         for label in ("two_phase/scan", "progressive"):
@@ -1816,40 +1955,68 @@ def phase_modes(pm, x, q, x100k, q100k, timer):
                 + (f", but for flips (query: normalized margin) {flips}"
                    if flips else ", every query"))
 
-        # -- the walk kernel against its plain version on the same inputs
+        # -- the walk kernel against its plain version on the same inputs:
+        # bit for bit (and within check_walk's account of ties and flips);
+        # the full-budget progressive walk, whose step loop would take
+        # minutes, on the modes run's own inputs against the jump walk
         scan_rec = None
+        from repro_torch.kernels import ref
         for budget in (meta.n_blocks,) + WALK_BUDGETS:
             for label, args, kw in walk_inputs(pm, q, budget):
-                if budget == meta.n_blocks and label == "progressive":
-                    continue
+                prog = label == "progressive"
+                full = budget == meta.n_blocks
+                if full and prog:
+                    args, kw, walked = run_walk
+                    kw = {n: v for n, v in kw.items() if n != "use_kernels"}
                 got = ops.scan_blocks(*args, **kw, use_kernels=True)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()    # the plain walk, timed once
-                want = ops.scan_blocks(*args, **kw, use_kernels=False)
+                if full and prog:
+                    want = jump_walk(args, kw)
+                else:
+                    want = ref.scan_blocks_ref(*args, **kw)
                 torch.cuda.synchronize()
                 plain_ms = 1e3 * (time.perf_counter() - t0)
-                err, flips, ties = check_walk(label, args, kw, got, want,
-                                              meta)
+                tag = f"[kernel scan_blocks: {label}, budget {budget}]"
+                if full and prog:
+                    err, flips, ties, visited = 0.0, {}, 0, want[5]
+                    require(same_walk(got, walked), f"{tag} differs from "
+                            f"the modes run's walk on the same inputs")
+                    run_ids = runs["progressive"][0]
+                    require(torch.equal(run_ids, torch.where(
+                        got[1] >= 0, arrays.ids[got[1].clamp(min=0).long()],
+                        torch.full_like(got[1], -1))),
+                        f"{tag}: ids differ from the modes run's")
+                else:
+                    err, flips, ties = check_walk(label, args, kw, got,
+                                                  want[:5], meta)
+                    jw = jump_walk(args, kw)
+                    require(same_walk(jw, want),
+                            f"{tag}: the jump walk differs from the step loop")
+                    visited = jw[5]
+                require(same_walk(got, want), f"{tag}: the kernel's walk "
+                        f"differs from the plain walk's bits")
                 ms = timer.ms(lambda: ops.scan_blocks(*args, **kw,
                                                       use_kernels=True))
-                line = (f"[kernel scan_blocks: {label}, budget {budget}] "
-                        f"pages/query {float(got[2].float().mean()):.1f} "
-                        f"done_a {int(got[4].sum())}: max|d top_s|={err:.3g} "
-                        f"tie slots {ties} walk flips (query: normalized "
-                        f"margin) {flips if flips else 'none'}  device "
-                        f"{ms:.4f} ms  "
-                        f"plain {plain_ms:.4f} ms")
-                if label.startswith("scan"):
-                    bound, by, union = scan_blocks_bound_ms(args, kw, got)
-                    line += (f"  bound {bound:.4f} ms ({by}; {union} distinct "
-                             f"pages read)")
-                    if scan_rec is None:     # the full-budget scan, round 1
-                        scan_rec = dict(
-                            name="scan_blocks", route="cuda",
-                            source="src/repro_torch/kernels/csrc/scan_blocks.cu",
-                            replaces=SCAN_REPLACES, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                            library_ms=None)
+                line = (f"{tag} pages/query "
+                        f"{float(got[2].float().mean()):.1f} "
+                        f"done_a {int(got[4].sum())}: bit for bit, max|d "
+                        f"top_s|={err:.3g} tie slots {ties} walk flips "
+                        f"{flips if flips else 'none'}; walk steps "
+                        f"{walk_lengths(got[2])}  device {ms:.4f} ms  "
+                        f"plain {plain_ms:.4f} ms"
+                        + (" (jump walk; equal to the modes run's walk and "
+                           "ids)" if full and prog else ""))
+                bound, by, union = visited_bound_ms(args, kw, visited)
+                line += (f"  bound {bound:.4f} ms ({by}; {union} distinct "
+                         f"pages read)")
+                if scan_rec is None:     # the full-budget scan, round 1
+                    scan_rec = dict(
+                        name="scan_blocks", route="cuda",
+                        source="src/repro_torch/kernels/csrc/scan_blocks.cu",
+                        replaces=SCAN_REPLACES, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                        library_ms=None)
                 log(line)
 
         # -- ops.mips_topk over the whole corpus
@@ -2924,8 +3091,8 @@ def phase_sharded_1m(pm, x, q):
             f"{caps_before} -> {captures()}")
     for name, _, med, times in turns:
         log(f"[{label}] search time per batch of {N_QUERIES}, {name} "
-            f"(graph driver): median {med:.3f} ms (range {times[0]:.3f}-"
-            f"{times[-1]:.3f}) {['%.3f' % t for t in times]}")
+            f"(graph driver): median {med:.3f} ms (range {min(times):.3f}-"
+            f"{max(times):.3f}) {['%.3f' % t for t in times]}")
     phase_profile(sharded, q, f"{label} fused")
     return launches
 
@@ -3015,8 +3182,8 @@ def sharded_stream_state(label, s, q, cfg, path_kernels, tie_query=None):
         f"theorem-2 success {rate:.4f} (floor {floor:.4f}); pages "
         f"{res.stats['pages']} ({res.stats['pages'] / q.shape[0]:.2f} a "
         f"query), exhausted {res.stats['exhausted']}; search time per batch "
-        f"of {N_QUERIES}: median {med:.3f} ms (range {times[0]:.3f}-"
-        f"{times[-1]:.3f})")
+        f"of {N_QUERIES}: median {med:.3f} ms (range {min(times):.3f}-"
+        f"{max(times):.3f})")
     return res, launches
 
 
@@ -3406,8 +3573,8 @@ def phase_tuner(pm, q):
         for name, fn in (("hand-picked", hand_fn), ("tuned", tuned_fn),
                          ("tuned", tuned_fn), ("hand-picked", hand_fn)):
             med, times = time_batches(lambda qb, f=fn: f())
-            turns.append(f"{name} {med:.3f} ms ({times[0]:.3f}-"
-                         f"{times[-1]:.3f})")
+            turns.append(f"{name} {med:.3f} ms ({min(times):.3f}-"
+                         f"{max(times):.3f})")
         log(f"[{label}] cache-driven = explicit tuned search bit for bit (ids, "
             f"scores, every stats field); tuned = hand-picked in ids and "
             f"scores; cache off = explicit hand-picked bit for bit. Medians "
@@ -3588,13 +3755,13 @@ def phase_datasets():
             f"{ratio:.4f}, theorem-2 share {rate:.4f} (floor {floor:.4f}), "
             f"pages a query {float(st.pages.double().mean()):.2f} of "
             f"{meta.n_blocks}, exhausted {int(st.exhausted.sum())}; median "
-            f"batch {med:.3f} ms (range {times[0]:.3f}-{times[-1]:.3f}); "
+            f"batch {med:.3f} ms (range {min(times):.3f}-{max(times):.3f}); "
             f"launches {launches}; peak memory {peak / 2**20:.1f} MiB "
             f"({resident / 2**20:.1f} MiB before the search)")
         log(f"[{label}] progressive (full budget, Cauchy-Schwarz): recall@10 "
             f"{recall_g:.4f}, pages a query "
             f"{float(st_g.pages.double().mean()):.2f}, median batch "
-            f"{med_g:.3f} ms (range {times_g[0]:.3f}-{times_g[-1]:.3f}), "
+            f"{med_g:.3f} ms (range {min(times_g):.3f}-{max(times_g):.3f}), "
             f"launches {l_prog}; at budget 256 kernels = plain path in ids "
             f"and pages")
         all_launches[name] = launches

@@ -150,8 +150,11 @@ def library() -> ctypes.CDLL:
             lib.mips_score_b_small.argtypes = []
             lib.mips_score_b_small.restype = i32
             lib.scan_blocks_launch.argtypes = (
-                [ptr] * 16 + [i32] * 8 + [ctypes.c_float] * 2 + [ptr])
+                [ptr] * 16 + [i32] * 8 + [ctypes.c_float] * 2
+                + [ptr, ctypes.c_longlong, ptr])
             lib.scan_blocks_launch.restype = i32
+            lib.scan_blocks_scratch_bytes.argtypes = [i32] * 4
+            lib.scan_blocks_scratch_bytes.restype = ctypes.c_longlong
             lib.scan_blocks_smem_bytes.argtypes = [i32] * 2
             lib.scan_blocks_smem_bytes.restype = ctypes.c_longlong
             lib.scan_blocks_max_smem.argtypes = []

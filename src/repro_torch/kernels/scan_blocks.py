@@ -1,9 +1,11 @@
 """Wrapper of the CUDA `scan_blocks` kernel (`csrc/scan_blocks.cu`): the
-block walk of the scan and progressive searches, one CTA per query, the
-counterpart of the `lax.scan` bodies of `repro.core.search_device`
-(`_scan_blocks`, `search_batch_progressive`), which have no Pallas kernel.
-Its plain version is `ref.scan_blocks_ref`; `ops.scan_blocks` picks
-between them by device.
+block walk of the scan and progressive searches, each query's walk split
+into segments scored on every SM; the scan stop is found by counting the
+rows >= c_half and the progressive walk replayed from per-step records. The
+counterpart of the `lax.scan` bodies of
+`repro.core.search_device` (`_scan_blocks`, `search_batch_progressive`),
+which have no Pallas kernel. Its plain version is `ref.scan_blocks_ref`;
+`ops.scan_blocks` picks between them by device.
 """
 from __future__ import annotations
 
@@ -12,7 +14,9 @@ import torch
 from . import build
 from .build import require
 
-MAX_PAGE_ROWS = 256   # rows the kernel scores per chunk (NR in the source)
+MAX_PAGE_ROWS = 256   # rows the kernel scores per tile (R in the source)
+# the most scratch one launch takes: a larger batch is walked in parts
+SCRATCH_CAP = 1 << 30
 
 
 def scan_blocks(x, ids, q, order, init_scores, init_rows, c_half, *, k: int,
@@ -26,7 +30,8 @@ def scan_blocks(x, ids, q, order, init_scores, init_rows, c_half, *, k: int,
     init_scores (B, k) f32; init_rows (B, k) i32; c_half (B,) f32; scan
     mode with n_sel (B,) i32, progressive mode with block_gap (B, NB) f32,
     block_max_l2sq (NB,) f32 and q_l2sq (B,) f32. Raises where the top-k
-    and the query do not fit in one CTA's shared memory."""
+    does not fit in one CTA's shared memory. A batch whose scratch would
+    pass `SCRATCH_CAP` is walked in parts, one launch (and one count) each."""
     if not x.is_cuda:
         raise ValueError(f"scan_blocks kernel needs CUDA tensors, got {x.device}")
     progressive = block_gap is not None
@@ -63,27 +68,38 @@ def scan_blocks(x, ids, q, order, init_scores, init_rows, c_half, *, k: int,
     lib = build.library()
     smem = lib.scan_blocks_smem_bytes(d, k)
     if smem > lib.scan_blocks_max_smem():
-        raise ValueError(f"scan_blocks kernel: the top-k (k={k}) and the query "
-                         f"(d={d}) need {smem} bytes of shared memory, above "
+        raise ValueError(f"scan_blocks kernel: the top-k (k={k}) and the "
+                         f"staging ring need {smem} bytes of shared memory, above "
                          f"the {lib.scan_blocks_max_smem()} a CTA may have")
     top_s = torch.empty((b, k), dtype=torch.float32, device=dev)
     top_r = torch.empty((b, k), dtype=torch.int32, device=dev)
     pages = torch.empty((b,), dtype=torch.int32, device=dev)
     cand = torch.empty((b,), dtype=torch.int32, device=dev)
     done = torch.empty((b,), dtype=torch.bool, device=dev)
+    # the scratch (segment flags, step records, row scores) follows from the
+    # shapes alone, so a call reads nothing back and can be captured
+    part = max(1, min(b, SCRATCH_CAP // lib.scan_blocks_scratch_bytes(
+        1, nb, page_rows, budget)))
+    scratch = torch.empty(
+        (lib.scan_blocks_scratch_bytes(part, nb, page_rows, budget),),
+        dtype=torch.uint8, device=dev)
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
+    def ptr(t, lo):
+        return None if t is None else t[lo:].data_ptr()
 
     with torch.cuda.device(dev):
-        err = lib.scan_blocks_launch(
-            x.data_ptr(), ids.data_ptr(), q.data_ptr(), order.data_ptr(),
-            ptr(n_sel), ptr(block_gap), ptr(block_max_l2sq), ptr(q_l2sq),
-            init_scores.data_ptr(), init_rows.data_ptr(), c_half.data_ptr(),
-            top_s.data_ptr(), top_r.data_ptr(), pages.data_ptr(),
-            cand.data_ptr(), done.data_ptr(), b, d, nb, k, page_rows,
-            budget, int(progressive), int(cs_prune), float(c), float(x_p),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "scan_blocks")
-    build.count_launch("scan_blocks")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for lo in range(0, b, part):
+            n = min(part, b - lo)
+            err = lib.scan_blocks_launch(
+                x.data_ptr(), ids.data_ptr(), ptr(q, lo), ptr(order, lo),
+                ptr(n_sel, lo), ptr(block_gap, lo),
+                None if block_max_l2sq is None else block_max_l2sq.data_ptr(),
+                ptr(q_l2sq, lo), ptr(init_scores, lo), ptr(init_rows, lo),
+                ptr(c_half, lo), ptr(top_s, lo), ptr(top_r, lo),
+                ptr(pages, lo), ptr(cand, lo), ptr(done, lo), n, d, nb, k,
+                page_rows, budget, int(progressive), int(cs_prune), float(c),
+                float(x_p), scratch.data_ptr(), scratch.numel(), stream)
+            build.check(err, "scan_blocks")
+            build.count_launch("scan_blocks")
     return top_s, top_r, pages, cand, done

@@ -47,7 +47,11 @@ eager engine's tokens; a decode function that cannot be captured raises.
 bit for bit against its plain version on integer data, in both modes, from
 an empty and from a carried round-1 top-k, at budgets that walk everything
 and that truncate, with the Condition-A stop mid-walk and blocks skipped by
-the progressive test. `ops.mips_topk` on the card equals its plain route
+the progressive test; with one walk 100x the others', at B 1, 64 and 200
+(below and above the SM count, B 200 in parts), with stops on a segment's
+last and first step, at d 300 and 5,408, at every page_rows from 1 to 256,
+from a carried top-k of ties, twice in a row on one reused scratch, and at
+the largest k whose top-k fits in shared memory. `ops.mips_topk` on the card equals its plain route
 on integer data on both of its routes (block_mips at k <= 128, mips_score
 and a stable top-k above).
 The sharded search runs on three padded shards of integer data (every
@@ -1013,6 +1017,156 @@ def test_scan_blocks_kernel_rejects_what_it_does_not_take(cuda):
                         use_kernels=True)
     with pytest.raises(ValueError):                       # neither mode
         ops.scan_blocks(*pos, k=4, page_rows=8, budget=20, use_kernels=True)
+    # the largest k whose top-k fits beside the staging ring runs; one more
+    # is refused
+    from repro_torch.kernels import build
+    lib = build.library()
+    k_max = (lib.scan_blocks_max_smem() - lib.scan_blocks_smem_bytes(32, 0)) // 8
+    assert lib.scan_blocks_smem_bytes(32, k_max) <= lib.scan_blocks_max_smem()
+    big = [a for a in pos]
+    big[4] = torch.full((3, k_max + 1), float("-inf"), device=cuda)
+    big[5] = torch.full((3, k_max + 1), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.scan_blocks(*big, **t, k=k_max + 1, page_rows=8, budget=20,
+                        use_kernels=True)
+    big[4], big[5] = big[4][:, :k_max].contiguous(), big[5][:, :k_max].contiguous()
+    got = ops.scan_blocks(*big, **t, k=k_max, page_rows=8, budget=20,
+                          use_kernels=True)
+    want = ops.scan_blocks(*big, **t, k=k_max, page_rows=8, budget=20,
+                           use_kernels=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _walk_kw(args, k, p, budget, progressive):
+    kw = dict(k=k, page_rows=p, budget=budget)
+    if progressive:
+        kw.update(c=0.9, x_p=7.0, cs_prune=True)
+    return kw
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["scan", "progressive"])
+def test_scan_blocks_kernel_one_walk_a_hundred_times_longer(cuda, progressive):
+    """Query 0 walks about 100x the blocks the others walk (scan: its
+    selection; progressive: the blocks that qualify), no stop."""
+    rng = np.random.RandomState(11)
+    nb, p = 4000, 8
+    args = _walk_inputs(rng, nb, p, 32, 64, 10, progressive, False,
+                        sel_frac=0.01)
+    args["c_half"][:] = np.float32(1e9)
+    if progressive:
+        args["block_gap"][1:] = np.float32(1e6)
+        args["block_gap"][1:, rng.choice(nb, 40, replace=False)] = 0.0
+        args["block_gap"][0] = 0.0
+        args["order"] = np.argsort(args["block_gap"], axis=1,
+                                   kind="stable").astype(np.int32)
+    else:
+        args["n_sel"][0] = nb
+        args["order"][0] = np.arange(nb, dtype=np.int32)
+    got = _check_walk(cuda, args, **_walk_kw(args, 10, p, nb, progressive))
+    pages = got[2].cpu().numpy()
+    assert pages[0] >= 50 * np.median(pages[1:]), pages[:8]
+
+
+@pytest.mark.parametrize("b", [1, 64, 200])
+def test_scan_blocks_kernel_below_and_above_the_sm_count(cuda, b, monkeypatch):
+    """B 1, 64 and 200 (B = 200 walked in parts of 64 through a small
+    scratch cap, one launch counted a part), both modes, from a carried
+    top-k."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import scan_blocks as sb
+    nb, p = 300, 8
+    parts = 1
+    if b == 200:
+        per_query = build.library().scan_blocks_scratch_bytes(1, nb, p, nb)
+        monkeypatch.setattr(sb, "SCRATCH_CAP", 64 * per_query)
+        parts = 4
+    for progressive in (False, True):
+        rng = np.random.RandomState(b + int(progressive))
+        args = _walk_inputs(rng, nb, p, 64, b, 10, progressive, True)
+        before = ops.LAUNCHES["scan_blocks"]
+        _check_walk(cuda, args, **_walk_kw(args, 10, p, nb, progressive))
+        assert ops.LAUNCHES["scan_blocks"] == before + parts
+
+
+@pytest.mark.parametrize("progressive", [False, True], ids=["scan", "progressive"])
+def test_scan_blocks_kernel_stops_on_segment_boundaries(cuda, progressive):
+    """Condition A stops each query exactly on the last or the first step
+    of a segment (32 steps at page_rows 8): that step's block holds the
+    query's k = 8 best rows, scoring exactly c_half."""
+    rng = np.random.RandomState(17 + int(progressive))
+    nb, p, d, b, k = 200, 8, 32, 8, 8
+    args = _walk_inputs(rng, nb, p, d, b, k, progressive, False)
+    targets = [31, 32, 63, 64, 95, 96, 127, 128]
+    # query i meets block i (its k best rows) at step targets[i]
+    args["order"] = np.stack([
+        np.insert(rng.permutation(np.delete(np.arange(nb), i)), t, i)
+        for i, t in enumerate(targets)]).astype(np.int32)
+    if progressive:                 # every block qualifies at every step
+        args["block_gap"][:] = 0.0
+        args["block_max_l2sq"][:] = np.float32(1e6)
+    else:
+        args["n_sel"][:] = nb
+    for i in range(b):
+        rows = np.arange(i * p, i * p + p)
+        args["x"][rows] = 3.0 * np.sign(args["q"][i])
+        args["ids"][rows] = rows
+        args["c_half"][i] = 3.0 * np.abs(args["q"][i]).sum()
+    got = _check_walk(cuda, args, **_walk_kw(args, k, p, nb, progressive))
+    assert got[4].all() and got[2].cpu().tolist() == [t + 1 for t in targets]
+
+
+@pytest.mark.parametrize("d,p", [(300, 3), (5408, 1)])
+def test_scan_blocks_kernel_wide_rows(cuda, d, p):
+    for progressive in (False, True):
+        rng = np.random.RandomState(d + int(progressive))
+        args = _walk_inputs(rng, 90, p, d, 8, 10, progressive, True)
+        _check_walk(cuda, args, **_walk_kw(args, 10, p, 90, progressive))
+
+
+def test_scan_blocks_kernel_every_page_rows(cuda):
+    """Every page_rows the launcher takes (1..256), each walk longer than
+    two segments of 256 // page_rows steps."""
+    for p in range(1, 257):
+        nb = 2 * (256 // p) + 3
+        for progressive in (False, True):
+            rng = np.random.RandomState(p * 2 + int(progressive))
+            args = _walk_inputs(rng, nb, p, 8, 3, 5, progressive, p % 2 == 0,
+                                sel_frac=0.9)
+            _check_walk(cuda, args, **_walk_kw(args, 5, p, nb, progressive))
+
+
+def test_scan_blocks_kernel_carried_ties(cuda):
+    """Every row a copy of one of four rows and a carried top-k of tied
+    scores: entries that tie the k-th never enter, rows after ties."""
+    rng = np.random.RandomState(23)
+    for progressive in (False, True):
+        args = _walk_inputs(rng, 120, 8, 16, 6, 12, progressive, True)
+        base = args["x"][:4].copy()
+        args["x"] = base[rng.randint(0, 4, args["x"].shape[0])]
+        s = args["q"] @ args["x"].T
+        for i in range(6):
+            r = np.sort(rng.choice(np.nonzero(args["ids"] >= 0)[0], 12,
+                                   replace=False))
+            o = np.argsort(-s[i, r], kind="stable")
+            args["init_scores"][i], args["init_rows"][i] = s[i, r][o], r[o]
+        args["c_half"][:] = np.float32(1e9)
+        _check_walk(cuda, args, **_walk_kw(args, 12, 8, 120, progressive))
+
+
+def test_scan_blocks_kernel_back_to_back_on_one_scratch(cuda):
+    """Two calls in a row reuse one freed scratch (same shapes): each equals
+    its plain walk, and the first call again gives the same bits."""
+    rng = np.random.RandomState(29)
+    for progressive in (False, True):
+        a1 = _walk_inputs(rng, 300, 8, 32, 16, 10, progressive, True)
+        a2 = _walk_inputs(rng, 300, 8, 32, 16, 10, progressive, False)
+        kw = _walk_kw(a1, 10, 8, 300, progressive)
+        g1 = _check_walk(cuda, a1, **kw)
+        _check_walk(cuda, a2, **kw)
+        again = _check_walk(cuda, a1, **kw)
+        for x, y in zip(g1, again):
+            assert torch.equal(x, y)
 
 
 @pytest.mark.parametrize("r,b,d,k", [(5000, 64, 128, 10), (4099, 7, 33, 128),
