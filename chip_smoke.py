@@ -138,15 +138,37 @@ described at their functions. Then:
       then examples/quickstart_torch.py in a subprocess;
   12. training (no kernel: the JAX training attention is jnp under a
       custom_vjp, and so is the port's): (a) three `make_train_step` steps
-      of each of the four dense configs, reduced, on the card and on the
-      CPU from one set of parameters (TF32 off), losses, grad norms and
-      every leaf of params, mu, nu (and the int8 residuals) held within
-      `train.parity`'s tolerance; (b) `launch.train.main` at tinyllama-1.1b's
+      of each of the four dense configs and of the MoE, vision and
+      encoder-decoder configs, reduced, on the card and on the CPU from one
+      set of parameters (TF32 off; the last four each step from the CPU
+      state), losses, grad norms and every leaf of params, mu, nu (and the
+      int8 residuals) held within `train.parity`'s tolerance; (b) `launch.train.main` at tinyllama-1.1b's
       full width, 8 steps of 8 x 256 tokens with checkpoints at steps 4 and
       8 under build/: the loss falls, both steps complete, a rerun from
       step_4 reproduces steps 4-7; step time, tokens/s, peak memory, each
       checkpoint's bytes and seconds, two identical steps compared leaf by
       leaf, and one step's device time by op under torch.profiler.
+  13. serve-families: `serve.DecodeEngine` on phase 6's traffic at the
+      published widths of qwen2-moe-a2.7b (24 layers, 60 routed + 4
+      shared experts top-4, vocab 151,936; 56 GB of f32 parameters, made
+      with `init_params`'s peak held under their bytes + 3 GB) in exact and
+      ProMIPS modes, and of internvl2-2b (256 zero patches), whisper-base
+      (1,500 zero frames) and moonshot-v1-16b-a3b (12 of its 48 layers) in
+      exact mode: each mode's kernel path four times in turns (eager,
+      graph, graph, eager) with graph = eager bit for bit, the plain path
+      once, kernel tokens = plain tokens or a near-tie, `decode_attention`
+      once a layer a step, one step profiled on the graph (device time by
+      kernel class) and eagerly (by op: the expert einsums, the routing,
+      attention, the logits). qwen2-moe's vocab index is built in a child
+      process on the host, started before phase 12b (its embedding drawn
+      alone, the same bits), while phase 12b, its exact mode, the
+      internvl2, whisper and moonshot cells, `launch.serve.main`
+      (--reduced, qwen2-moe and whisper-base, both modes),
+      `examples/serve_lm_promips_torch.py` and
+      `examples/recsys_retrieval_torch.py` (its churn recall >= 0.99 every
+      round) run on the card; then its ProMIPS mode (the guarantee share,
+      `quick_probe_select` once and `mips_score` twice a search, pages per
+      searched row, three retired ids never emitted).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -770,6 +792,12 @@ def phase_kernels_serve(pm, q, timer):
                            seed=17)
     check_decode_attention(timer, "long_500k shape", 1, 524288, [524288],
                            seed=18)
+    # phase 13's decoder shapes: qwen2-moe / moonshot, internvl2, whisper
+    for seed, (kh, g, dh) in enumerate(((16, 1, 128), (8, 2, 128), (8, 1, 64)),
+                                       start=19):
+        check_decode_attention(timer, f"serve shape, KH {kh} G {g} dh {dh}",
+                               4, 512, [1, 37, 300, 512], seed=seed,
+                               kh=kh, g=g, dh=dh)
     torch.cuda.empty_cache()
     # mips_score at the serve search's tile: every vocab row at full budget
     xt = torch.from_numpy(mf_factors(32_000, 2048, 64, decay=0.5,
@@ -2433,12 +2461,34 @@ class SearchLog:
         return n, ok
 
 
+def exact_next_logits(params, cfg, prompt, out_tokens, t):
+    """The exact f32 logits (plain path) of the token that follows
+    ``out_tokens[:t]``: a prefill over the whole context (after the vision
+    stub's zero patches), or for an encoder-decoder the encoder's prefill
+    on zero frames, whose cache holds no prompt (as in the engine), then
+    ``out_tokens[:t]`` decoded one by one."""
+    import torch
+    from repro_torch.models import transformer as T
+    extra = T.stub_inputs(cfg, 1, device=DEVICE)
+    if cfg.block_pattern == "encdec":
+        tokens = torch.tensor([list(prompt)], device=DEVICE)
+        cache, lg = T.prefill(params, cfg, dict(extra, tokens=tokens),
+                              t + 1)
+        for tok in out_tokens[:t]:
+            lg, cache = T.decode_step(params, cfg, cache, torch.tensor(
+                [[tok]], dtype=torch.int32, device=DEVICE), use_kernels=False)
+        return lg[0]
+    ctx = list(prompt) + out_tokens[:t]
+    tokens = torch.tensor([ctx], device=DEVICE)
+    _, lg = T.prefill(params, cfg, dict(extra, tokens=tokens),
+                      len(ctx) + cfg.frontend_len)
+    return lg[0]
+
+
 def explain_token_diffs(label, params, cfg, reqs_a, reqs_b):
     """Each request's tokens on two paths: equal, or the first position
     where they part is a near-tie of the exact logits of the shared context
     (|l[a] - l[b]| <= LOGIT_TOL). Returns the notes of the differences."""
-    import torch
-    from repro_torch.models import transformer as T
     notes = []
     for i, (ra, rb) in enumerate(zip(reqs_a, reqs_b)):
         if ra.out_tokens == rb.out_tokens:
@@ -2447,11 +2497,9 @@ def explain_token_diffs(label, params, cfg, reqs_a, reqs_b):
                  if x != y)
         require(t > 0, f"[{label}] request {i}: the prefill tokens differ "
                 "(prefill runs no kernel)")
-        ctx = list(ra.prompt) + ra.out_tokens[:t]
-        tokens = torch.tensor([ctx], device=DEVICE)
-        _, lg = T.prefill(params, cfg, {"tokens": tokens}, len(ctx))
+        lg = exact_next_logits(params, cfg, ra.prompt, ra.out_tokens, t)
         a, b = ra.out_tokens[t], rb.out_tokens[t]
-        margin = float((lg[0, a] - lg[0, b]).abs())
+        margin = float((lg[a] - lg[b]).abs())
         require(margin <= LOGIT_TOL,
                 f"[{label}] request {i} parts at token {t}: {a} vs {b} with "
                 f"logit margin {margin} > {LOGIT_TOL}")
@@ -2575,7 +2623,8 @@ def serve_run(label, engine, prompts, new, searches, live, meta, cfg):
     peak = torch.cuda.max_memory_allocated()
     steps = engine.steps - steps0
     n_search = len(searches.rows)
-    rows_searched, ok = searches.guarantee(live, meta.c)
+    rows_searched, ok = (searches.guarantee(live, meta.c)
+                         if engine.logits_mode == "promips" else (0, 0))
     decoded = sum(len(r.out_tokens) - 1 for r in reqs)
     require(all(len(r.out_tokens) >= 1 and 0 <= min(r.out_tokens)
                 and max(r.out_tokens) < cfg.vocab for r in reqs),
@@ -3787,9 +3836,18 @@ def phase_datasets():
 # ---------------------------------------------------------------- phase 12
 
 # 12a: the four dense configs, reduced; 48 tokens (h2o-danube's reduced
-# window is 32), microbatches 2, remat full / dots, compression on qwen3
+# window is 32), microbatches 2, remat full / dots, compression on qwen3;
+# then the MoE (remat dots), vision and encoder-decoder configs (full)
 TRAIN_PARITY = (("tinyllama-1.1b", "full", False), ("phi4-mini-3.8b", "dots", False),
-                ("qwen3-32b", "dots", True), ("h2o-danube-3-4b", "full", False))
+                ("qwen3-32b", "dots", True), ("h2o-danube-3-4b", "full", False),
+                ("qwen2-moe-a2.7b", "dots", False),
+                ("moonshot-v1-16b-a3b", "dots", False),
+                ("internvl2-2b", "full", False), ("whisper-base", "full", False))
+# configs whose card steps each start from the CPU state: run free, the
+# parameter differences Adam's normalization allows move their moments past
+# GRAD_TOL by step 2 (6.0e-5 / 3.0e-5 / 1.9e-5 of the leaf's largest on the
+# CPU against JAX; internvl2-2b stays within 5e-6 and runs free)
+TRAIN_RESYNC = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "whisper-base")
 # 12b: launch.train.main at tinyllama-1.1b's full width
 TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
               "--microbatches", "2", "--steps", "8", "--ckpt-every", "4",
@@ -3805,12 +3863,15 @@ def _cpu_to_card(tree):
 
 
 def phase_train_parity(card):
-    """Phase 12a: three `make_train_step` steps of each reduced dense config
-    on the card and on `device="cpu"` from one set of parameters (made on
-    the CPU, copied to the card), TF32 off (PyTorch's default, set again in
-    phase 1). Without compression both run free; with it each card step
-    starts from the CPU state (an int8 flip moves a parameter by up to a
-    step, and the difference would grow), flips counted with margins."""
+    """Phase 12a: three `make_train_step` steps of each reduced config on
+    the card and on `device="cpu"` from one set of parameters (made on the
+    CPU, copied to the card), TF32 off (PyTorch's default, set again in
+    phase 1); the vision and encoder-decoder batches carry seeded patches
+    or frames. The dense configs without compression run free; with it,
+    and for the TRAIN_RESYNC configs, each card step starts from the CPU
+    state (an int8 flip moves a parameter by up to a step, an allowed Adam
+    difference moves the next gradients, and the difference would grow),
+    flips counted with margins."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
@@ -3829,18 +3890,28 @@ def phase_train_parity(card):
         gpu = _cpu_to_card(cpu)
         step = loop.make_train_step(cfg, tcfg)
         stream = TokenStream(vocab=cfg.vocab, batch=4, seq=48, seed=1)
+        resync = compress or name in TRAIN_RESYNC
         allowance = None
         for i in range(3):
             batch = stream.batch_at(i)
-            if compress:
+            stub = T.frontend_key(cfg)
+            if stub:
+                batch[stub] = __import__("numpy").random.RandomState(
+                    i).standard_normal((4, cfg.frontend_len, cfg.d_model)
+                                       ).astype("float32")
+            if resync:
                 gpu = _cpu_to_card(cpu)
+            if name in TRAIN_RESYNC:     # one step's allowance
+                allowance = None
             gpu, gm = step(gpu, batch)
             cpu, cm = step(cpu, batch)
             errs = {k: parity.rel(gm[k], cm[k]) for k in ("loss", "grad_norm", "lr")}
             allowance = parity.adam_allowance(allowance, cpu, float(cm["lr"]))
             r = parity.compare_states(gpu, cpu, allowance=allowance)
             log(f"[train parity {name}] step {i} ({remat}, microbatches 2"
-                f"{', compressed' if compress else ''}): loss {float(gm['loss']):.6f}; "
+                f"{', compressed' if compress else ''}"
+                f"{', from the CPU state' if resync else ''}): loss "
+                f"{float(gm['loss']):.6f}; "
                 f"max rel diff loss {errs['loss']:.3e} grad_norm "
                 f"{errs['grad_norm']:.3e} lr {errs['lr']:.3e} params "
                 f"{r['params']:.3e} mu {r['mu']:.3e} nu {r['nu']:.3e}"
@@ -4106,6 +4177,462 @@ def phase_train_full(card, tmp):
     return dict(step_s=med, tokens_s=tokens / med, peak=peak, ckpts=ckpts)
 
 
+# ---------------------------------------------------------------- phase 13
+
+# serve-families: each architecture at its published widths, on phase 6's
+# traffic; moonshot at 12 of its 48 layers (48 are 111 GB in f32)
+# (qwen2-moe in exact and promips modes, the others in exact mode)
+FAMILY_CELLS = (("qwen2-moe-a2.7b", None), ("internvl2-2b", None),
+                ("whisper-base", None), ("moonshot-v1-16b-a3b", 12))
+# init_params may take at most the parameters' bytes plus this
+INIT_SLACK_BYTES = 3e9
+# the serve CLI at --reduced, in process
+SERVE_CLI = (("qwen2-moe-a2.7b", "exact"), ("qwen2-moe-a2.7b", "promips"),
+             ("whisper-base", "exact"), ("whisper-base", "promips"))
+RECSYS_RECALL = 0.99
+# a child process builds the vocab index on the host (numpy) beside the
+# card's work and writes its state (`Searcher.state()`: one .npy an array,
+# the meta as JSON; `save`'s compressed, checksummed npz took 139 s to
+# write and 29 s to read back at this size); the card restores it with
+# `from_state`, no rebuild
+VOCAB_CHILD = r"""
+import json, os, sys, time
+emb_path, out_dir, kw = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+os.sched_setaffinity(0, json.loads(sys.argv[4]))  # before numpy's threads
+import numpy as np
+from repro_torch import api
+emb = np.load(emb_path)
+t0 = time.perf_counter()
+s = api.build(emb, backend="promips-stream",
+              guarantee=api.GuaranteeConfig(c=kw.pop("c"), p0=kw.pop("p")),
+              auto_compact=True, seed=kw.pop("seed"), device="cpu", **kw)
+build_s = time.perf_counter() - t0
+arrays, meta = s.state()
+os.makedirs(out_dir)
+for name, a in arrays.items():
+    np.save(os.path.join(out_dir, name + ".npy"), a)
+with open(os.path.join(out_dir, "meta.json"), "w") as f:
+    json.dump(meta, f)
+print(json.dumps({"build_s": build_s,
+                  "save_s": time.perf_counter() - t0 - build_s}), flush=True)
+"""
+
+
+class _NoSearch:
+    """The `SearchLog` stand-in of an exact-mode cell: no search runs."""
+    rows: list = []
+
+
+def start_vocab_build(emb, tmp):
+    """Start the vocab index's host build in a child process on every CPU
+    core but the first (numpy only, no card), over ``emb`` saved to
+    ``tmp``. Returns (process, state dir)."""
+    import numpy as np
+    emb_path = os.path.join(tmp, "vocab_embed.npy")
+    np.save(emb_path, emb)
+    out_dir = os.path.join(tmp, "vocab_index")
+    cores = sorted(os.sched_getaffinity(0))
+    child = cores[1:] or cores
+    env = dict(os.environ, PYTHONPATH=SRC,
+               OMP_NUM_THREADS=str(len(child)),
+               OPENBLAS_NUM_THREADS=str(len(child)),
+               MKL_NUM_THREADS=str(len(child)))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", VOCAB_CHILD, emb_path, out_dir,
+         json.dumps(VOCAB_INDEX), json.dumps(child)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    log(f"[serve-families vocab] host build of promips-stream over "
+        f"{emb.shape} ({VOCAB_INDEX}) started in a child process on cores "
+        f"{child}")
+    return proc, out_dir
+
+
+def start_family_vocab_build(tmp):
+    """qwen2-moe-a2.7b's embedding rows drawn alone on the card (the first
+    draw of `init_params` at the serve seed, so the same bits; phase 13
+    holds them against the parameters it makes) and the vocab index's host
+    build started over them (`start_vocab_build`). Called before phase 12b,
+    whose card-bound steps and checkpoint writes leave the host's cores to
+    the child."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    cfg = family_config(*FAMILY_CELLS[0])
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(SERVE["param_seed"])
+    emb = layers.init_tree(T.param_spec(cfg)["embed"], generator=gen,
+                           device=DEVICE)
+    rows = emb[:cfg.vocab].cpu().numpy()
+    del emb
+    torch.cuda.empty_cache()
+    return start_vocab_build(rows, tmp)
+
+
+def finish_vocab_build(build):
+    """Wait for the child; restore its index state on the card. Returns the
+    index (a ``promips-stream`` searcher)."""
+    import numpy as np
+    from repro_torch import api
+    proc, out_dir = build
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[serve-families vocab] the build child "
+            f"exited {proc.returncode}: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "meta.json")) as f:
+        meta = json.load(f)
+    arrays = {name[:-4]: np.load(os.path.join(out_dir, name))
+              for name in os.listdir(out_dir) if name.endswith(".npy")}
+    index = api.get_backend("promips-stream").from_state(arrays, meta,
+                                                         device=DEVICE)
+    load_s = time.perf_counter() - t0
+    meta = index.inner.meta
+    total = rec["build_s"] + rec["save_s"]
+    hid = max(total - waited, 0.0)
+    log(f"[serve-families vocab] host build {rec['build_s']:.1f} s + state "
+        f"written {rec['save_s']:.1f} s in the child; the parent waited "
+        f"{waited:.1f} s for it, so the card's work hid {hid:.1f} s "
+        f"({hid / total:.3f}); restored on the card in {load_s:.1f} s; "
+        f"page_rows={meta.page_rows} NB={meta.n_blocks} G={meta.n_groups} "
+        f"S={meta.n_subparts}")
+    return index
+
+
+def init_params_peak(cfg):
+    """`init_params` on the card with its peak `max_memory_allocated` over
+    what was resident, held to the parameters' bytes + INIT_SLACK_BYTES."""
+    import torch
+    from repro_torch.models import transformer as T
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, seed=SERVE["param_seed"], device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    n = sum(t.numel() for t in _leaves(params))
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    log(f"[serve-families {cfg.name}] {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}"
+        + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+           f"{cfg.moe.n_shared} shared" if cfg.moe else "")
+        + (f", encoder {cfg.enc_layers} layers" if cfg.enc_layers else "")
+        + (f", {cfg.frontend} stub of {cfg.frontend_len}" if cfg.frontend_len
+           else "")
+        + f", vocab {cfg.vocab} (padded {cfg.vocab_padded}): {n:,} f32 "
+        f"parameters ({nbytes / 1e9:.2f} GB) made on the card in {init_s:.1f} "
+        f"s; init_params peak {peak / 1e9:.3f} GB over the {resident / 1e9:.3f}"
+        f" GB resident (parameters + {(peak - nbytes) / 1e9:.3f} GB)")
+    require(peak <= nbytes + INIT_SLACK_BYTES,
+            f"[serve-families {cfg.name}] init_params peaked at {peak} bytes "
+            f"> the parameters' {nbytes} + {INIT_SLACK_BYTES:.0f}")
+    return params
+
+
+def _kernel_bucket(name):
+    low = name.lower()
+    if "da_kernel" in low or "decode_attention" in low:
+        return "attention (decode_attention)"
+    if re.search(r"gemm|xmma|cutlass|gemv", low):
+        return "GEMMs (cuBLAS)"
+    if re.search(r"sort|radix|bitonic|searchsorted", low):
+        return "sorts and searchsorted"
+    if re.search(r"gather|index|scatter", low):
+        return "gathers / scatters"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_family_step(engine, prompts, label):
+    """One decode step with every slot active under torch.profiler, on the
+    graph (device time by kernel class) and eagerly (self device time by
+    op: `aten::bmm` is the expert einsums, `aten::gather` the dispatch and
+    combine, `aten::sort` / `aten::searchsorted` the routing; ranges around
+    `flash_decode` and the logits)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    graphs = decode_graphs(engine)
+
+    def ranged(mod, attr, name):
+        fn = getattr(mod, attr)
+
+        def call(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        setattr(mod, attr, call)
+        return mod, attr, fn
+
+    for on in (True, False):
+        use_graphs(engine, graphs, on)
+        for p in prompts[:engine.b]:
+            engine.submit(p, max_new_tokens=6)
+        for _ in range(2):
+            engine.step()
+        torch.cuda.synchronize()
+        patched = [] if on else [ranged(A, "flash_decode", "attention"),
+                                 ranged(T, "_logits", "logits")]
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                engine.step()
+                torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            for mod, attr, fn in patched:
+                setattr(mod, attr, fn)
+        by_name = {}
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA or e.name in (
+                    "attention", "logits"):
+                continue
+            name = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+            name = name[5:] if name.startswith("void ") else name
+            total, count = by_name.get(name[:70], (0.0, 0))
+            by_name[name[:70]] = (total + e.time_range.end - e.time_range.start,
+                                  count + 1)
+        busy_ms = sum(t for t, _ in by_name.values()) / 1e3
+        how = "graph" if on else "eager"
+        if busy_ms == 0:
+            log(f"[profile {label} {how}] device time not measured: the trace "
+                "holds no CUDA events")
+            continue
+        log(f"[profile {label} {how}] one {engine.logits_mode} decode step, "
+            f"{engine.b} active slots: wall {wall_ms:.3f} ms under the "
+            f"profiler, device busy {busy_ms:.3f} ms, idle share "
+            f"{1 - busy_ms / wall_ms:.3f}")
+        if on:
+            buckets = {}
+            for name, (t, c) in by_name.items():
+                tb, cb = buckets.get(_kernel_bucket(name), (0.0, 0))
+                buckets[_kernel_bucket(name)] = (tb + t, cb + c)
+            for name, (t, c) in sorted(buckets.items(), key=lambda kv: -kv[1][0]):
+                log(f"[profile {label} graph]   {t / 1e3:9.3f} ms  x{c:<5d} "
+                    f"{name} ({100 * t / 1e3 / busy_ms:.1f}% of busy)")
+            for name, (t, c) in sorted(by_name.items(),
+                                       key=lambda kv: -kv[1][0])[:8]:
+                log(f"[profile {label} graph]   kernel {t / 1e3:9.3f} ms  "
+                    f"x{c:<5d} {name}")
+        else:
+            ops_t = {}
+            for ev in prof.key_averages():
+                # an op's own kernels; a range's, the kernels inside it
+                dev = (ev.device_time_total if ev.key in ("attention", "logits")
+                       else ev.self_device_time_total)
+                ops_t[ev.key] = (dev / 1e3, ev.count)
+            for key, what in (("aten::bmm", "batched matmuls (aten::bmm): the "
+                               "expert einsums, whisper's cross attention"),
+                              ("aten::mm", "2-D GEMMs: projections, shared "
+                               "experts, router, logits (aten::mm)"),
+                              ("logits", "of which the logits (_logits "
+                               "range)"),
+                              ("aten::gather", "dispatch / combine gathers "
+                               "(aten::gather)"),
+                              ("aten::sort", "routing sorts (aten::sort)"),
+                              ("aten::searchsorted", "expert runs "
+                               "(aten::searchsorted)"),
+                              ("attention", "attention (flash_decode range: "
+                               "decode_attention)")):
+                t, c = ops_t.get(key, (0.0, 0))
+                if c:
+                    log(f"[profile {label} eager]   {t:9.3f} ms  x{c:<5d} "
+                        f"{what} ({100 * t / busy_ms:.1f}% of busy)")
+        while engine.queue or engine.active.any():
+            engine.step()
+    use_graphs(engine, graphs, True)
+
+
+def family_config(name, n_layers=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+
+
+def serve_mode(label, cfg, params, mode, index=None):
+    """One mode of a serve-families cell: the kernel path four times in
+    turns (eager, graph, graph, eager) and the plain path once through its
+    graph, tokens held kernel against plain. Exact mode: one step
+    profiled. Promips mode (over ``index``): the guarantee share held, the
+    pages per searched row, and three retired ids never emitted. Returns
+    the kernel path's second graph run."""
+    from repro_torch.serve import DecodeEngine
+    prompts = serve_prompts(cfg.vocab, SERVE["n_requests"],
+                            SERVE["prompt_lens"], SERVE["traffic_seed"])
+    new = SERVE["max_new_tokens"]
+    eng_kw = dict(batch_slots=SERVE["batch_slots"], max_len=SERVE["max_len"],
+                  result_cache=0, device=DEVICE)
+    searches, live, meta = _NoSearch(), None, None
+    if mode == "promips":
+        meta = index.inner.meta
+        searches = SearchLog(index)
+        live = params["embed"][:cfg.vocab]
+    run_args = (prompts, new, searches, live, meta, cfg)
+    engine = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=None,
+                          index=index, **eng_kw)
+    turns = graph_turns(f"{label} {mode}/kernels", engine, *run_args)
+    plain = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=False,
+                         index=index, **eng_kw)
+    prun = serve_run(f"{label} {mode}/plain graph", plain, *run_args)
+    caps = {k: g.captures for k, g in decode_graphs(plain).items()}
+    require(max(caps.values()) == 1 and min(caps.values()) == 0,
+            f"[{label} {mode}/plain] captures {caps}, one variant once")
+    del plain
+    notes = explain_token_diffs(f"{label} {mode}", params, cfg,
+                                turns[2]["reqs"], prun["reqs"])
+    log(f"[{label} {mode}] kernel vs plain path: {len(notes)} of "
+        f"{len(prompts)} requests differ in tokens"
+        + "".join(f"; {n}" for n in notes))
+    r = turns[2]
+    if mode == "exact":
+        profile_family_step(engine, prompts, label)
+        return r
+    pages_row = engine.pages / max(engine.searched_rows, 1)
+    dense = cfg.vocab_padded * cfg.d_model * 4 // 4096
+    log(f"[{label} promips/kernels] {engine.searched_rows} rows searched in "
+        f"four runs: {pages_row:.1f} blocks per row of {meta.page_rows} x "
+        f"{cfg.d_model} f32 "
+        f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f} 4-KB "
+        f"pages) against the exact mode's dense scan of {dense} 4-KB pages; "
+        f"per search quick_probe_select "
+        f"{r['counts']['quick_probe_select'] / max(r['searches'], 1):.2f}, "
+        f"mips_score {r['counts']['mips_score'] / max(r['searches'], 1):.2f} "
+        f"launches")
+    emitted = [t for q in r["reqs"] for t in q.out_tokens[1:]
+               if t != engine.eos_id]
+    retired = [int(t) for t, _ in sorted(
+        ((t, emitted.count(t)) for t in set(emitted)),
+        key=lambda tc: (-tc[1], tc[0]))[:3]]
+    engine.delete(retired)
+    reqs, _, wall = run_traffic(engine, prompts, new)
+    hit = sorted({t for q in reqs for t in q.out_tokens} & set(retired))
+    log(f"[{label} promips mutation] deleted ids {retired} (the most "
+        f"emitted); the traffic again in {wall:.3f} s: retired ids emitted "
+        f"{hit or 'none'}")
+    require(not hit, f"[{label}] a deleted id was emitted: {hit}")
+    searches.rows.clear()
+    engine.join_compaction(timeout=600)
+    return r
+
+
+def family_cell(name, n_layers=None):
+    """An exact-mode serve-families cell: parameters made, served, freed.
+    Returns the kernel path's launches."""
+    import torch
+    t0 = time.perf_counter()
+    cfg = family_config(name, n_layers)
+    params = init_params_peak(cfg)
+    r = serve_mode(f"serve-{name}", cfg, params, "exact")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[serve-{name}] cell {time.perf_counter() - t0:.1f} s")
+    return dict(r["counts"], steps=r["steps"])
+
+
+def serve_entry_points():
+    """`launch.serve.main` at --reduced in process (SERVE_CLI), then the two
+    serving examples in process: tokens within the vocab, the kernels
+    launched; the recsys churn recall >= RECSYS_RECALL every round."""
+    import runpy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as launch_serve
+    for arch, mode in SERVE_CLI:
+        for k in ops.LAUNCHES:
+            ops.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        reqs = launch_serve.main(["--arch", arch, "--reduced",
+                                  "--logits-mode", mode, "--device", DEVICE])
+        counts = dict(ops.LAUNCHES)
+        log(f"[serve-cli {arch} --reduced {mode}] {len(reqs)} requests in "
+            f"{time.perf_counter() - t0:.1f} s; launches {counts}")
+        require(len(reqs) == 8 and all(
+            r.out_tokens and max(r.out_tokens) < 512 for r in reqs),
+            f"[serve-cli {arch} {mode}] requests {[r.out_tokens for r in reqs]}")
+        require(counts["decode_attention"] > 0 and (
+            mode == "exact" or (counts["quick_probe_select"] > 0
+                                and counts["mips_score"] > 0)),
+            f"[serve-cli {arch} {mode}] a kernel was not launched: {counts}")
+    t0 = time.perf_counter()
+    example = runpy.run_path(os.path.join(ROOT, "examples",
+                                          "serve_lm_promips_torch.py"),
+                             run_name="not_main")
+    res = example["main"](["--device", DEVICE])
+    require(set(res) == {"exact", "promips"} and len(res["exact"]) == 12,
+            "[serve_lm_promips_torch] results")
+    log(f"[serve_lm_promips_torch] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    example = runpy.run_path(os.path.join(ROOT, "examples",
+                                          "recsys_retrieval_torch.py"),
+                             run_name="not_main")
+    res = example["main"](["--device", DEVICE])
+    recalls = [rec for _, rec in res["rounds"]]
+    log(f"[recsys_retrieval_torch] backend {res['backend']}: ratio "
+        f"{res['ratio']:.4f} recall {res['recall']:.3f} total_pages "
+        f"{res['pages']}; churn recalls {recalls}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(all(r >= RECSYS_RECALL for r in recalls),
+            f"[recsys_retrieval_torch] a churn round's recall < "
+            f"{RECSYS_RECALL}: {recalls}")
+
+
+def phase_serve_families(tmp, build):
+    """Phase 13: the serve-families cells. qwen2-moe-a2.7b's vocab index is
+    built by the child process of ``build`` (`start_family_vocab_build`,
+    state under ``tmp``) while its exact mode, the internvl2, whisper and
+    moonshot cells, the serve CLI and the examples run on the card; then
+    its parameters are made again (the same seed: the same embedding) for
+    its promips mode. Returns each cell's launches."""
+    import numpy as np
+    import torch
+    launches = {}
+    qwen, internvl, whisper, moonshot = FAMILY_CELLS
+    t0 = time.perf_counter()
+    cfg = family_config(qwen[0], qwen[1])
+    label = f"serve-{cfg.name}"
+    params = init_params_peak(cfg)
+    exact = serve_mode(label, cfg, params, "exact")
+    launches[f"{cfg.name} exact"] = dict(exact["counts"],
+                                         steps=exact["steps"])
+    del params      # moonshot's 28.7 GB do not fit beside them
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{label}] exact mode and the parameters freed in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, n_layers in (internvl, whisper, moonshot):
+        launches[name] = family_cell(name, n_layers)
+    serve_entry_points()
+    t1 = time.perf_counter()
+    params = init_params_peak(cfg)
+    index = finish_vocab_build(build)
+    require(np.array_equal(np.load(os.path.join(tmp, "vocab_embed.npy")),
+                           params["embed"][:cfg.vocab].cpu().numpy()),
+            f"[{label}] the remade embedding differs from the indexed rows")
+    promips = serve_mode(label, cfg, params, "promips", index)
+    launches[f"{cfg.name} promips"] = dict(promips["counts"],
+                                           steps=promips["steps"],
+                                           searches=promips["searches"])
+    ka, kb = exact["tokens"], promips["tokens"]
+    tok_eq = sum(x == y for a, b in zip(ka, kb) for x, y in zip(a, b))
+    tok_n = sum(min(len(a), len(b)) for a, b in zip(ka, kb))
+    log(f"[{label}] exact vs promips (kernel paths, not gated): "
+        f"{sum(a == b for a, b in zip(ka, kb))} of {len(ka)} requests emit "
+        f"the same tokens; {tok_eq} of {tok_n} positions agree")
+    del params, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{label}] promips mode, from the parameters remade, in "
+        f"{time.perf_counter() - t1:.1f} s")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4207,13 +4734,31 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_train_parity(card)
     log(f"[phase 12a, train parity] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+    # phase 13's vocab index builds on the host from here on
+    families = tempfile.mkdtemp(prefix="families-",
+                                dir=os.path.join(ROOT, "build"))
+    build = None
     try:
-        phase_train_full(card, tmp)
+        build = start_family_vocab_build(families)
+        t0 = time.perf_counter()
+        tmp = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+        try:
+            phase_train_full(card, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"[phase 12b, train tinyllama-1.1b] {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        family_launches = phase_serve_families(families, build)
+        log(f"[phase 13, serve-families] {time.perf_counter() - t0:.1f} s")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[phase 12b, train tinyllama-1.1b] {time.perf_counter() - t0:.1f} s")
+        if build is not None and build[0].poll() is None:
+            build[0].kill()
+            build[0].wait()
+        shutil.rmtree(families, ignore_errors=True)
+    log(f"[launches] the serve-families cells' kernel paths (one traffic run "
+        f"each): {family_launches}")
     log("[launches] one search of each new path: sharded-1M "
         f"{sharded_launches}; sharded-stream-100k (churned) "
         f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "

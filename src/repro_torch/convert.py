@@ -24,11 +24,12 @@ reads a ``sharded`` save directory. (`api.load` reads every backend's save
 directory, the runtime settings included.)
 
 A model's state is its parameter pytree: `params_from_jax` takes the JAX
-`models.transformer.init_params` tree (numpy or JAX arrays) of any of the
-four dense decoders as the port's parameters, which keep the JAX layouts,
-so every leaf is copied bit for bit. A trainer's state is the JAX
-`train.loop.TrainState`: `train_state_from_jax` carries its parameters,
-AdamW moments and count, error-feedback residuals and step across.
+`models.transformer.init_params` tree (numpy or JAX arrays) of any
+attention-block model (dense, MoE, the vision stub, the encoder-decoder)
+as the port's parameters, which keep the JAX layouts, so every leaf is
+copied bit for bit. A trainer's state is the JAX `train.loop.TrainState`:
+`train_state_from_jax` carries its parameters, AdamW moments and count,
+error-feedback residuals and step across.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ import torch
 from .core.index import IndexArrays, IndexMeta, resolve_device, to_device
 from .core.sharded import MutableShardedProMIPS
 from .distributed.compression import ErrorFeedback
-from .models.transformer import check_supported
+from .models.transformer import Stacked, check_supported, param_spec
 from .stream.mutable import MutableProMIPS
 from .train.loop import TrainState
 from .train.optimizer import AdamWState
@@ -125,23 +126,22 @@ def sharded_from_dir(path: str, device="cuda") -> MutableShardedProMIPS:
 
 
 def _param_keys(cfg) -> dict:
-    """The parameter tree of a dense decoder, as nested key sets."""
-    attn = {"wq", "wk", "wv", "wo"} | ({"q_norm", "k_norm"} if cfg.qk_norm
-                                       else set())
-    keys = {"embed": None, "final_norm": None,
-            "blocks": {"ln1": None, "ln2": None,
-                       "attn": dict.fromkeys(attn),
-                       "mlp": dict.fromkeys(("w_gate", "w_up", "w_down"))}}
-    if not cfg.tie_embeddings:
-        keys["unembed"] = None
-    return keys
+    """The parameter tree of `transformer.param_spec` as nested key sets
+    (None at a leaf)."""
+    def keys(node):
+        if isinstance(node, Stacked):
+            node = node.spec
+        if isinstance(node, dict):
+            return {k: keys(v) for k, v in node.items()}
+        return None
+    return keys(param_spec(cfg))
 
 
 def params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
     """The port's parameters on ``device`` from the JAX package's
     `init_params(key, cfg)` tree: the same nested dict, every leaf copied
-    bit for bit (the ``blocks`` leaves keep their leading layer axis). Raises
-    on a tree that is not a dense decoder's."""
+    bit for bit (the stacked leaves keep their leading layer axis). Raises
+    on a tree that is not the config's."""
     check_supported(cfg)
     dev = resolve_device(device)
 

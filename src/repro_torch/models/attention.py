@@ -1,4 +1,5 @@
-"""GQA attention; port of `repro.models.attention` for the dense decoder.
+"""GQA attention and the encoder-decoder's cross attention; port of
+`repro.models.attention`.
 
 The training and prefill path (`attention_train`) is the JAX package's
 blockwise causal online softmax in plain torch ops, with the JAX
@@ -7,7 +8,8 @@ JAX package computes both in jnp with no Pallas kernel, so the port has no
 kernel for them either. The decode path
 (`flash_decode`) is `kernels.ops.decode_attention`: the hand-written CUDA
 kernel on CUDA tensors, its plain version (the arithmetic of the JAX
-`flash_decode`) elsewhere.
+`flash_decode`) elsewhere. Cross attention (`cross_attention`, over the
+encoder K/V of `encode_kv`) is plain torch, as it is `jnp` in JAX.
 """
 from __future__ import annotations
 
@@ -17,25 +19,26 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
-from .layers import apply_rope, dense_init, rms_norm
+from .layers import Leaf, apply_rope, init_tree, rms_norm
 
 NEG_INF = -1e30
 
 
+def attention_spec(cfg) -> dict:
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    spec = {"wq": Leaf((d, h * dh)), "wk": Leaf((d, kh * dh)),
+            "wv": Leaf((d, kh * dh)),
+            "wo": Leaf((h * dh, d), scale=(h * dh) ** -0.5)}
+    if cfg.qk_norm:
+        spec["q_norm"] = Leaf((dh,), ones=True)
+        spec["k_norm"] = Leaf((dh,), ones=True)
+    return spec
+
+
 def init_attention(cfg, *, generator=None, device,
                    dtype=torch.float32) -> dict:
-    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    kw = dict(generator=generator, device=device, dtype=dtype)
-    params = {
-        "wq": dense_init((d, h * dh), **kw),
-        "wk": dense_init((d, kh * dh), **kw),
-        "wv": dense_init((d, kh * dh), **kw),
-        "wo": dense_init((h * dh, d), scale=(h * dh) ** -0.5, **kw),
-    }
-    if cfg.qk_norm:
-        params["q_norm"] = torch.ones((dh,), dtype=dtype, device=device)
-        params["k_norm"] = torch.ones((dh,), dtype=dtype, device=device)
-    return params
+    return init_tree(attention_spec(cfg), generator=generator, device=device,
+                     dtype=dtype)
 
 
 def _project_qkv(params, cfg, x, positions):
@@ -198,5 +201,41 @@ def decode_kv(params, cfg, x, cache_len):
     return k_new, v_new
 
 
-__all__ = ["attention_decode", "attention_train", "decode_kv", "flash_decode",
+def cross_attention(params, cfg, x, enc_k, enc_v, enc_len):
+    """Decoder -> encoder attention (whisper). x (B, S, d); enc_k, enc_v
+    (B, T, KH, dh), the cached encoder K/V; enc_len (B,). Every target
+    position attends the first ``enc_len`` encoder positions (no causal
+    mask, no RoPE), as the JAX `cross_attention`: the scores in f32, K/V
+    repeated over each KV head's G query heads."""
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    g = h // kh
+    k = enc_k.float().repeat_interleave(g, dim=2)
+    v = enc_v.float().repeat_interleave(g, dim=2)
+    scores = torch.einsum("bshd,btkd->bhst", q.float() * dh ** -0.5, k)
+    mask = (torch.arange(enc_k.shape[1], device=x.device)[None, :]
+            < enc_len[:, None])
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhst,btkd->bshd", w, v)
+    return out.reshape(b, s, h * dh).to(x.dtype) @ params["wo"]
+
+
+def encode_kv(params, cfg, enc_out):
+    """The encoder output's K/V for cross attention, (B, T, KH, dh) each."""
+    b, t, _ = enc_out.shape
+    kh, dh = cfg.n_kv_heads, cfg.head_dim_
+    k = (enc_out @ params["wk"]).reshape(b, t, kh, dh)
+    v = (enc_out @ params["wv"]).reshape(b, t, kh, dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return k, v
+
+
+__all__ = ["attention_decode", "attention_spec", "attention_train",
+           "cross_attention", "decode_kv", "encode_kv", "flash_decode",
            "init_attention"]

@@ -7,29 +7,81 @@ layouts (a weight is (d_in, d_out) and applied as ``x @ w``), so that
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 
-def dense_init(shape, scale: Optional[float] = None, *,
-               generator: Optional[torch.Generator] = None, device,
-               dtype=torch.float32) -> torch.Tensor:
-    """Truncated-normal fan-in init: a standard normal cut to [-2, 2],
-    times ``scale`` (default fan_in ** -0.5), drawn from ``generator`` on
-    ``device`` (the generator's device). The draws differ from
-    `jax.random.truncated_normal`'s; parity tests carry the JAX parameters
-    across instead (`convert.params_from_jax`)."""
+class Leaf(NamedTuple):
+    """One parameter of a parameter spec: its shape, and either a norm
+    weight of ones or a `dense_init` draw at ``scale`` (None: fan-in)."""
+    shape: Tuple[int, ...]
+    scale: Optional[float] = None
+    ones: bool = False
+    dtype: Optional[torch.dtype] = None     # None: the tree's dtype
+
+
+def dense_init_(out: torch.Tensor, scale: Optional[float] = None, *,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fill ``out`` in place with a truncated-normal fan-in draw: a standard
+    normal cut to [-2, 2], times ``scale`` (default fan_in ** -0.5), drawn
+    from ``generator`` on ``out``'s device. An f32 ``out`` takes the draw
+    with no temporary. The draws differ from `jax.random.truncated_normal`'s;
+    parity tests carry the JAX parameters across instead
+    (`convert.params_from_jax`)."""
+    shape = tuple(out.shape)
     fan_in = shape[0] if len(shape) >= 2 else 1
     if scale is None:
         scale = fan_in ** -0.5
+    u = out if out.dtype == torch.float32 else torch.empty(
+        shape, dtype=torch.float32, device=out.device)
+    torch.rand(shape, generator=generator, out=u)
     # inverse-CDF sampling: u uniform in (Phi(-2), Phi(2)), x = Phi^-1(u)
     lo = 0.5 * (1.0 + torch.erf(torch.tensor(-2.0 / 2.0 ** 0.5))).item()
-    u = torch.rand(shape, generator=generator, device=device,
-                   dtype=torch.float32)
-    x = torch.erfinv(2.0 * (lo + (1.0 - 2.0 * lo) * u) - 1.0) * 2.0 ** 0.5
-    return (x.clamp_(-2.0, 2.0) * scale).to(dtype)
+    u.mul_(1.0 - 2.0 * lo).add_(lo).mul_(2.0).sub_(1.0).erfinv_()
+    u.mul_(2.0 ** 0.5).clamp_(-2.0, 2.0).mul_(scale)
+    if u is not out:
+        out.copy_(u)
+    return out
+
+
+def dense_init(shape, scale: Optional[float] = None, *,
+               generator: Optional[torch.Generator] = None, device,
+               dtype=torch.float32) -> torch.Tensor:
+    """A new ``shape`` tensor on ``device`` holding `dense_init_`'s draw."""
+    return dense_init_(torch.empty(shape, dtype=dtype, device=device), scale,
+                       generator=generator)
+
+
+def init_tree(spec, *, generator: Optional[torch.Generator] = None, device,
+              dtype=torch.float32, n: Optional[int] = None) -> dict:
+    """The parameters of ``spec`` (a nested dict of `Leaf`, or one `Leaf`)
+    on ``device``.
+    With ``n`` every leaf is stacked along a new leading axis of ``n``
+    layers (the JAX package's ``_stack_init`` layout): each stacked leaf is
+    allocated once and layer ``i`` is drawn into its slice, layer by layer
+    and within a layer in the spec's order, so no second copy of the layers
+    is ever live."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return {key: alloc(val) for key, val in node.items()}
+        shape = node.shape if n is None else (n, *node.shape)
+        make = torch.ones if node.ones else torch.empty
+        return make(shape, dtype=node.dtype or dtype, device=device)
+
+    def fill(node, t, i):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                fill(val, t[key], i)
+        elif not node.ones:
+            dense_init_(t if i is None else t[i], node.scale,
+                        generator=generator)
+
+    tree = alloc(spec)
+    for i in ([None] if n is None else range(n)):
+        fill(spec, tree, i)
+    return tree
 
 
 def rms_norm(x, weight, eps: float = 1e-5):
@@ -61,19 +113,21 @@ def swiglu(x, w_gate, w_up, w_down):
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def mlp_spec(d_model: int, d_ff: int) -> dict:
+    return {"w_gate": Leaf((d_model, d_ff)), "w_up": Leaf((d_model, d_ff)),
+            "w_down": Leaf((d_ff, d_model))}
+
+
 def init_mlp(d_model: int, d_ff: int, *, generator=None, device,
              dtype=torch.float32) -> dict:
-    kw = dict(generator=generator, device=device, dtype=dtype)
-    return {
-        "w_gate": dense_init((d_model, d_ff), **kw),
-        "w_up": dense_init((d_model, d_ff), **kw),
-        "w_down": dense_init((d_ff, d_model), **kw),
-    }
+    return init_tree(mlp_spec(d_model, d_ff), generator=generator,
+                     device=device, dtype=dtype)
 
 
 def apply_mlp(params, x):
     return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
 
 
-__all__ = ["apply_mlp", "apply_rope", "dense_init", "init_mlp", "rms_norm",
-           "rope_freqs", "swiglu"]
+__all__ = ["Leaf", "apply_mlp", "apply_rope", "dense_init", "dense_init_",
+           "init_mlp", "init_tree", "mlp_spec", "rms_norm", "rope_freqs",
+           "swiglu"]

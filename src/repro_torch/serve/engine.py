@@ -8,9 +8,11 @@ on the embedding rows, ``logits_mode="exact"`` with the dense h @ E^T.
 
 Continuous batching: ``batch_slots`` slots, refilled from the queue on every
 step; the requests admitted in one step are prefilled together, one
-`transformer.prefill` per distinct prompt length, and their cache rows are
-written into the batch cache at their slots (the port knows its cache
-layout: K/V carry the batch on axis 1, ``len`` on axis 0). The decode
+`transformer.prefill` per distinct prompt length (with the zero patches or
+frames a frontend model takes, as the JAX engine passes), and their rows of
+every cache leaf are written into the batch cache at their slots, along
+each leaf's batch axis, found once from the shapes of a one-row and a
+two-row cache (the JAX engine's ``_batch_axes``). The decode
 search runs over the active slots only, behind a `HotQueryCache` keyed on
 (degradation tier, float16 fingerprint of the hidden row).
 
@@ -131,8 +133,9 @@ class _DecodeGraph:
     ``(params, cache, token) -> (out, cache)``.
 
     The graph reads the tensors it was captured over: every leaf of
-    ``params``, the cache's ``len``, ``k`` and ``v`` (which `decode_step`
-    updates in place) and a static (B, 1) token buffer that each call
+    ``params``, every leaf of the cache (`decode_step` updates ``len``,
+    ``k`` and ``v`` in place; an encoder-decoder's encoder K/V and length
+    are read) and a static (B, 1) token buffer that each call
     fills. A call with tensors the graph was not captured over (the first
     call, or a new embed table after `DecodeEngine.update`) runs ``step``
     eagerly, which warms up cuBLAS and the allocator and allocates
@@ -160,7 +163,7 @@ class _DecodeGraph:
 
     def __call__(self, params, cache, token):
         key = (tuple(id(t) for t in _leaves(params))
-               + tuple(id(cache[name]) for name in ("len", "k", "v"))
+               + tuple(id(t) for t in _leaves(cache))
                + (tuple(token.shape),))
         dev = token.device
         with self.lock, torch.cuda.device(dev):
@@ -260,6 +263,14 @@ class DecodeEngine:
         self.cache = model_lib.init_cache(cfg, batch_slots, max_len,
                                           self.params["embed"].dtype,
                                           device=self.device)
+        # each cache leaf's batch axis: the one axis whose extent differs
+        # between a one-row and a two-row cache
+        probe = [model_lib.init_cache(cfg, b, max_len, device="meta")
+                 for b in (1, 2)]
+        self._batch_axes = {
+            name: next(ax for ax in range(t.dim())
+                       if t.shape[ax] != probe[1][name].shape[ax])
+            for name, t in probe[0].items()}
         self._embed_owned = False       # update() has copied the table
         self._decode = _eager_decode(cfg, False, use_kernels)
         self._decode_hidden = _eager_decode(cfg, True, use_kernels)
@@ -506,17 +517,23 @@ class DecodeEngine:
             self._prefill_group(group)
 
     def _prefill_group(self, group: List[Request]) -> None:
-        """One batched prefill over same-length prompts; each row goes into
-        its request's slot of the batch cache."""
+        """One batched prefill over same-length prompts; each row of every
+        cache leaf goes into its request's slot of the batch cache."""
+        g = len(group)
         tokens = torch.from_numpy(np.stack([r.prompt for r in group])).to(
             self.device)
-        cache_g, logits = model_lib.prefill(self.params, self.cfg,
-                                            {"tokens": tokens}, self.max_len)
+        batch = dict(model_lib.stub_inputs(
+            self.cfg, g, device=self.device, dtype=self.params["embed"].dtype),
+            tokens=tokens)
+        cache_g, logits = model_lib.prefill(self.params, self.cfg, batch,
+                                            self.max_len)
         self.prefill_calls += 1
         slots = torch.tensor([r.slot for r in group], device=self.device)
-        self.cache["k"][:, slots] = cache_g["k"].to(self.cache["k"].dtype)
-        self.cache["v"][:, slots] = cache_g["v"].to(self.cache["v"].dtype)
-        self.cache["len"][slots] = cache_g["len"]
+        for name, ax in self._batch_axes.items():
+            full = self.cache[name]
+            idx = [slice(None)] * full.dim()
+            idx[ax] = slots
+            full[tuple(idx)] = cache_g[name].to(full.dtype)
         lg = logits.float().cpu().numpy()
         lg[:, self.cfg.vocab:] = -np.inf   # the argmax lands on a vocab id
         if self.logits_mode == "promips":

@@ -390,6 +390,8 @@ def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
     (2, 2, 3, 32, 3000, [2999, 700]),             # G = 3 (a padded row group), dh 32
     (2, 1, 12, 64, 300, [300, 100]),              # G = 12 (a partial second group)
     (1, 4, 8, 64, 524288, [524288]),              # long_500k
+    (4, 16, 1, 128, 512, [1, 41, 300, 512]),      # qwen2-moe / moonshot decode
+    (4, 8, 2, 128, 512, [297, 300, 311, 512]),    # internvl2 decode (256 patches)
 ])
 def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
     rng = np.random.RandomState(b * s + g)
@@ -829,6 +831,66 @@ def test_decode_graph_counts_the_kernels_of_each_replay(cuda, card_model):
         delta = {k: ops.LAUNCHES[k] - before[k] for k in before}
         assert delta == dict({k: 0 for k in before},
                              decode_attention=n * per_call), delta
+
+
+@pytest.mark.parametrize("s", [1, 40])
+def test_apply_moe_on_the_card_is_deterministic(cuda, s):
+    """The MoE layer (gather dispatch, combine in sort order) twice on one
+    input, at the qwen2-moe reduced config, decode and prefill shapes (at
+    S 40 pairs drop): equal bit for bit, and within 1e-5 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    params = moe.init_moe(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    x = torch.from_numpy(np.random.RandomState(s).standard_normal(
+        (4, s, cfg.d_model)).astype(np.float32))
+    want, want_aux = moe.apply_moe(params, cfg, x)
+    p_card = {k: (v.cuda() if torch.is_tensor(v) else
+                  {kk: vv.cuda() for kk, vv in v.items()})
+              for k, v in params.items()}
+    outs = [moe.apply_moe(p_card, cfg, x.cuda()) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out, aux in outs[1:]:
+        assert torch.equal(out, outs[0][0]) and torch.equal(aux, outs[0][1])
+    got = outs[0][0].cpu()
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "whisper-base",
+                                  "internvl2-2b"])
+def test_decode_graph_of_the_new_families_bit_equal_to_eager(cuda, name):
+    """One `_DecodeGraph` over a reduced MoE, encoder-decoder or vision
+    model's cache (the encoder K/V in it): four calls, each equal to an
+    eager `decode_step` on a copy of the cache bit for bit, one capture,
+    `decode_attention` counted once a layer at each replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as engine_lib
+    cfg = get_config(name).reduced()
+    params = T.init_params(cfg, seed=0, device="cuda")
+    cache = T.init_cache(cfg, 4, 64, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for key, t in cache.items():
+        if t.dtype == torch.float32:
+            t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+    cache["len"].copy_(torch.tensor([1, 17, 40, 63], dtype=torch.int32))
+    if "enc_len" in cache:
+        cache["enc_len"].fill_(cfg.frontend_len)
+    ref_cache = {key: t.clone() for key, t in cache.items()}
+    g = engine_lib._DecodeGraph(engine_lib._eager_decode(cfg, False, None))
+    for i in range(4):
+        tok = _tokens(cfg, 4, seed=20 + i)
+        before = ops.LAUNCHES["decode_attention"]
+        got, _ = g(params, cache, tok)
+        want, _ = T.decode_step(params, cfg, ref_cache, tok)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"call {i}"
+        for key in cache:
+            assert torch.equal(cache[key], ref_cache[key]), (i, key)
+        if i >= 2:      # a replay counts its layers' launches
+            assert ops.LAUNCHES["decode_attention"] - before == 2 * cfg.n_layers
+    assert g.captures == 1
 
 
 @pytest.mark.parametrize("mode", ["exact", "promips"])

@@ -6,8 +6,9 @@
   engine) run on the card by default and raise without one instead of
   falling back to the CPU;
 - asking for the kernels on CPU tensors raises;
-- what is not ported yet (the MoE configs) raises, naming its ROADMAP
-  item; the runtime's modes and the registry's backends are all taken;
+- what is not ported yet (the recurrent configs and block patterns)
+  raises, naming its ROADMAP item; the runtime's modes and the registry's
+  backends are all taken;
 - `save` / `load`, `recover`, `sharded_search` and the ``sharded`` backend
   also run on the card unless ``device="cpu"`` is passed;
 - so do the tuner (`tune.search.tune_point`, the ``python -m
@@ -15,7 +16,11 @@
   neither `jax` nor `repro` either;
 - and the trainer: `launch.train.main`, the `train.loop` state (its
   parameters come from `init_params`), `distributed.checkpoint.restore`
-  and `examples/train_lm_torch.py` (no `jax`, no `repro` either).
+  and `examples/train_lm_torch.py` (no `jax`, no `repro` either);
+- and the serve driver `launch.serve.main`, the MoE / vision /
+  encoder-decoder models and the two serving examples
+  (`examples/serve_lm_promips_torch.py`,
+  `examples/recsys_retrieval_torch.py`), which import neither either.
 """
 import dataclasses
 import os
@@ -48,6 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")
 TRAIN_LM = os.path.join(ROOT, "examples", "train_lm_torch.py")
+SERVE_LM = os.path.join(ROOT, "examples", "serve_lm_promips_torch.py")
+RECSYS = os.path.join(ROOT, "examples", "recsys_retrieval_torch.py")
 
 
 def _modules():
@@ -73,7 +80,12 @@ def test_import_pulls_in_neither_jax_nor_repro():
                  "repro_torch.launch.train", "repro_torch.train.loop",
                  "repro_torch.train.optimizer",
                  "repro_torch.distributed.checkpoint",
-                 "repro_torch.distributed.compression"):
+                 "repro_torch.distributed.compression",
+                 "repro_torch.models.moe", "repro_torch.launch.serve",
+                 "repro_torch.configs.qwen2_moe_a2_7b",
+                 "repro_torch.configs.moonshot_v1_16b_a3b",
+                 "repro_torch.configs.internvl2_2b",
+                 "repro_torch.configs.whisper_base"):
         assert name in _modules()
 
 
@@ -98,10 +110,17 @@ def test_train_example_pulls_in_neither_jax_nor_repro():
     _imports_neither_jax_nor_repro(TRAIN_LM, "repro_torch.launch.train")
 
 
+@pytest.mark.parametrize("path,module", [
+    (SERVE_LM, "repro_torch.serve.engine"), (RECSYS, "repro_torch.api")])
+def test_serve_examples_pull_in_neither_jax_nor_repro(path, module):
+    _imports_neither_jax_nor_repro(path, module)
+
+
 def test_sources_do_not_name_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b|"
                          r"from\s+repro[.\s])", re.M)
-    files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, TRAIN_LM]
+    files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, TRAIN_LM,
+             SERVE_LM, RECSYS]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     for path in files:
@@ -224,6 +243,32 @@ def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
     assert eng.cache["k"].device.type == "cpu" and eng.steps == 2
 
 
+def test_new_families_and_serve_driver_default_to_the_card(no_card, capsys):
+    """The MoE, vision and encoder-decoder models build on the CPU when
+    asked (and an MoE config with MoECfg is taken); the serve driver and
+    the two serving examples raise naming CUDA without a card."""
+    import runpy
+    from repro_torch.launch.serve import main as serve_main
+    moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              moe=MoECfg(4, 2))
+    for cfg in (moe, get_config("whisper-base").reduced()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.init_params(cfg)
+        params = T.init_params(cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DecodeEngine(params, cfg)
+    argv = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--requests", "1",
+            "--max-new", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_main(argv)
+    assert len(serve_main(argv + ["--device", "cpu"])) == 1
+    for path in (SERVE_LM, RECSYS):
+        example = runpy.run_path(path, run_name="not_main")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            example["main"]([])
+    assert "served 1 requests" in capsys.readouterr().out
+
+
 def test_trainer_entry_points_default_to_the_card(no_card, tmp_path):
     from repro_torch.distributed import checkpoint
     from repro_torch.launch.train import main as train_main
@@ -255,7 +300,7 @@ def test_trainer_entry_points_default_to_the_card(no_card, tmp_path):
 
 def test_unported_configs_and_backends_name_the_roadmap():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("qwen2-moe-a2.7b")
+        get_config("zamba2-1.2b")
     for name in ("phi4-mini-3.8b", "qwen3-32b", "h2o-danube-3-4b"):
         assert get_config(name).name == name      # the dense configs are in
     # every backend is ported: ``sharded`` builds and searches
@@ -263,10 +308,10 @@ def test_unported_configs_and_backends_name_the_roadmap():
     s = api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
                   device="cpu", m=4, n_shards=2)
     assert s.search(mf_factors(2, 8, 4, seed=1), k=3).ids.shape == (2, 3)
-    moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                              moe=MoECfg(4, 2))
+    hybrid = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                                 block_pattern="zamba2")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(moe, device="cpu")
+        T.init_params(hybrid, device="cpu")
 
 
 def test_runtime_config_rejects_what_is_not_ported():
