@@ -103,9 +103,10 @@ vocab index's shape and at the n=1M index's; quick_probe_select one CUDA
 kernel a call, its representative rows and Test-A flags equal to the plain
 version's, its radius within 1e-6 relative, timed beside the chain of torch
 ops around binary_probe_lb that it replaced) and decode_attention (at the
-serve shape, where it must be one CUDA kernel a call, and at the JAX
+serve shape, where it must be one CUDA kernel a call, at the JAX
 package's decode shapes: decode_32k, S=32,768, at B=8 and at B=128 with
-seeded uniform lengths, and long_500k, B=1, S=524,288) against their plain
+seeded uniform lengths, and long_500k, B=1, S=524,288, and at the decoder
+shapes of phases 13 and 14) against their plain
 versions and against a second call (equal bit for bit), with the same four
 times and each time's share of the HBM rate, and mips_score at the serve
 search's tile (R=32,000, B=4, d=2,048). Two bit-for-bit checks fail the run
@@ -135,7 +136,9 @@ described at their functions. Then:
       plain path (ids equal, scores within REL / ABS, flips reported), the
       progressive mode, recall, overall ratio and the Theorem-2 share
       against an exact top-k, pages, medians, launches and peak memory;
-      then examples/quickstart_torch.py in a subprocess;
+      then examples/quickstart_torch.py in a subprocess. yahoo's index,
+      the longest host build, is built by a child process during phases
+      8-10 and restored from its state;
   12. training (no kernel: the JAX training attention is jnp under a
       custom_vjp, and so is the port's): (a) three `make_train_step` steps
       of each of the four dense configs and of the MoE, vision and
@@ -163,12 +166,24 @@ described at their functions. Then:
       process on the host, started before phase 12b (its embedding drawn
       alone, the same bits), while phase 12b, its exact mode, the
       internvl2, whisper and moonshot cells, `launch.serve.main`
-      (--reduced, qwen2-moe and whisper-base, both modes),
+      (--reduced, qwen2-moe, whisper-base, zamba2-1.2b and xlstm-1.3b,
+      both modes),
       `examples/serve_lm_promips_torch.py` and
       `examples/recsys_retrieval_torch.py` (its churn recall >= 0.99 every
       round) run on the card; then its ProMIPS mode (the guarantee share,
       `quick_probe_select` once and `mips_score` twice a search, pages per
       searched row, three retired ids never emitted).
+  14. serve-recurrent: the same on phase 6's traffic at the published
+      widths and depths of zamba2-1.2b (38 Mamba2 layers in 6 groups of 6
+      and a tail of 2, one shared attention + MLP block after each group:
+      `decode_attention` 6 times a step at KH 32, G 1, dh 64) in exact and
+      ProMIPS modes, and of xlstm-1.3b (6 groups of 7 mLSTM + 1 sLSTM
+      layers; no attention, so no kernel) in exact mode. zamba2's
+      embedding is tinyllama-1.1b's (the same first draw of the same
+      seed), so its ProMIPS mode searches phase 6's vocab index, restored
+      from the state phase 6 wrote right after its build (the indexed rows
+      held equal to zamba2's embed[:32000] bit for bit; a child process
+      builds it anew if they differ).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -792,9 +807,10 @@ def phase_kernels_serve(pm, q, timer):
                            seed=17)
     check_decode_attention(timer, "long_500k shape", 1, 524288, [524288],
                            seed=18)
-    # phase 13's decoder shapes: qwen2-moe / moonshot, internvl2, whisper
-    for seed, (kh, g, dh) in enumerate(((16, 1, 128), (8, 2, 128), (8, 1, 64)),
-                                       start=19):
+    # phase 13's decoder shapes: qwen2-moe / moonshot, internvl2, whisper;
+    # phase 14's: zamba2's shared attention
+    for seed, (kh, g, dh) in enumerate(((16, 1, 128), (8, 2, 128), (8, 1, 64),
+                                        (32, 1, 64)), start=19):
         check_decode_attention(timer, f"serve shape, KH {kh} G {g} dh {dh}",
                                4, 512, [1, 37, 300, 512], seed=seed,
                                kh=kh, g=g, dh=dh)
@@ -2410,6 +2426,17 @@ VOCAB_INDEX = dict(m=8, c=0.9, p=0.9, norm_strata=4, seed=0)
 LOGIT_TOL = 1e-4
 
 
+def attention_layers(cfg):
+    """The decoder's attention layers, each one `decode_attention` a step:
+    every layer of an attention model, the hybrid's shared block once a
+    group, none in the xLSTM."""
+    if cfg.block_pattern == "xlstm_7_1":
+        return 0
+    if cfg.block_pattern == "zamba2":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
+
+
 def serve_prompts(vocab, n, lens, seed):
     rng = __import__("numpy").random.RandomState(seed)
     return [rng.randint(1, vocab, size=lens[i % len(lens)]).astype("int32")
@@ -2464,16 +2491,18 @@ class SearchLog:
 def exact_next_logits(params, cfg, prompt, out_tokens, t):
     """The exact f32 logits (plain path) of the token that follows
     ``out_tokens[:t]``: a prefill over the whole context (after the vision
-    stub's zero patches), or for an encoder-decoder the encoder's prefill
-    on zero frames, whose cache holds no prompt (as in the engine), then
-    ``out_tokens[:t]`` decoded one by one."""
+    stub's zero patches); for an encoder-decoder (the encoder's prefill on
+    zero frames, whose cache holds no prompt) and a recurrent model (whose
+    prefill returns zero states), as in the engine, the prompt's prefill
+    then ``out_tokens[:t]`` decoded one by one."""
     import torch
     from repro_torch.models import transformer as T
     extra = T.stub_inputs(cfg, 1, device=DEVICE)
-    if cfg.block_pattern == "encdec":
+    if cfg.block_pattern != "attn":
         tokens = torch.tensor([list(prompt)], device=DEVICE)
         cache, lg = T.prefill(params, cfg, dict(extra, tokens=tokens),
-                              t + 1)
+                              t + 1 + (len(prompt) if cfg.block_pattern
+                                       in T.RECURRENT else 0))
         for tok in out_tokens[:t]:
             lg, cache = T.decode_step(params, cfg, cache, torch.tensor(
                 [[tok]], dtype=torch.int32, device=DEVICE), use_kernels=False)
@@ -2572,17 +2601,17 @@ def check_graph_bits(label, engine, graphs):
     require(g.graph is not None, f"[serve {label}] {variant} was never captured")
     tok = torch.from_numpy(np.random.RandomState(7).randint(
         1, engine.cfg.vocab, (engine.b, 1)).astype("int32")).to(DEVICE)
-    saved = {n: t.clone() for n, t in engine.cache.items()}
+    saved = [t.clone() for t in _leaves(engine.cache)]
     out_g = g(engine.params, engine.cache, tok)[0].clone()
-    cache_g = {n: t.clone() for n, t in engine.cache.items()}
-    for n, t in engine.cache.items():
-        t.copy_(saved[n])
+    cache_g = [t.clone() for t in _leaves(engine.cache)]
+    for t, s in zip(_leaves(engine.cache), saved):
+        t.copy_(s)
     out_e = g.step(engine.params, engine.cache, tok)[0]
     torch.cuda.synchronize()
     what = "hidden state" if variant == "_decode_hidden" else "logits"
     diff = float((out_g - out_e).abs().max())
     same = torch.equal(out_g, out_e) and all(
-        torch.equal(cache_g[n], engine.cache[n]) for n in saved)
+        torch.equal(a, b) for a, b in zip(cache_g, _leaves(engine.cache)))
     log(f"[serve {label}] a fixed step's {what} {tuple(out_g.shape)}, graph "
         f"replay vs eager: {'equal bit for bit' if same else 'DIFFER'} "
         f"(largest difference {diff:.3g})")
@@ -2639,10 +2668,10 @@ def serve_run(label, engine, prompts, new, searches, live, meta, cfg):
         f"launches {counts}; peak memory {peak / 2**20:.1f} MiB "
         f"({resident / 2**20:.1f} before + {(peak - resident) / 2**20:.1f})")
     if engine.use_kernels is None:
-        require(counts["decode_attention"] == cfg.n_layers * steps,
+        require(counts["decode_attention"] == attention_layers(cfg) * steps,
                 f"[serve {label}] decode_attention launched "
                 f"{counts['decode_attention']} times in {steps} steps of "
-                f"{cfg.n_layers} layers")
+                f"{attention_layers(cfg)} attention layers")
     else:
         require(not any(counts.values()),
                 f"[serve {label}] a kernel was launched: {counts}")
@@ -2738,8 +2767,10 @@ def traced_steps(engine, prompts, new):
     return rows
 
 
-def phase_serve():
-    """The serve cell. Returns the launches of the counted promips run."""
+def phase_serve(vocab_state):
+    """The serve cell. Writes the vocab index's state, as built, to
+    ``vocab_state`` (phase 14 serves zamba2-1.2b over it). Returns the
+    launches of the counted promips run."""
     import torch
     from repro_torch import api
     from repro_torch.configs import get_config
@@ -2766,6 +2797,10 @@ def phase_serve():
         f"{VOCAB_INDEX}): host build {time.perf_counter() - t0:.1f} s; "
         f"page_rows={meta.page_rows} NB={meta.n_blocks} G={meta.n_groups} "
         f"S={meta.n_subparts}")
+    t0 = time.perf_counter()
+    write_index_state(index, vocab_state)
+    log(f"[serve] its state written for phase 14 in "
+        f"{time.perf_counter() - t0:.1f} s")
     searches = SearchLog(index)
     prompts = serve_prompts(cfg.vocab, SERVE["n_requests"], SERVE["prompt_lens"],
                             SERVE["traffic_seed"])
@@ -3668,15 +3703,42 @@ def phase_tuner(pm, q):
 DATASET_CELLS = (("netflix", False), ("yahoo", False), ("p53", False),
                  ("sift", True))
 QUICKSTART = dict(c=0.9, p0=0.5, k=10, m=6)
+# the proxy whose host build (the longest, ~85 s) runs in a child process
+# during phases 8-10, beside their card and disk work
+PREBUILT_DATASET = "yahoo"
 
 
-def phase_datasets():
+def dataset_build_kw(shape):
+    """`api.build`'s arguments for a proxy of ``shape``: the promips
+    backend with the quickstart's guarantee and the main path's prefilter,
+    and the page size the tuning cache resolves on the card."""
+    from repro_torch.tune import cache as tune_cache
+    page_bytes = tune_cache.resolved("build", shape[0], shape[1],
+                                     device=DEVICE)["page_bytes"]
+    return dict(backend="promips", guarantee=dict(
+        c=QUICKSTART["c"], p0=QUICKSTART["p0"], k=QUICKSTART["k"]), seed=0,
+        m=QUICKSTART["m"], prefilter=True,
+        prefilter_eps=SEARCH["prefilter_eps"], page_bytes=int(page_bytes))
+
+
+def start_dataset_build(tmp):
+    """PREBUILT_DATASET's index, as phase 11 builds it, started in a child
+    process on the host (`start_host_build`)."""
+    from repro_torch.data.synthetic import paper_dataset
+    scaled = dict(DATASET_CELLS)[PREBUILT_DATASET]
+    x = paper_dataset(PREBUILT_DATASET, scaled=scaled)
+    return start_host_build(x, tmp, PREBUILT_DATASET,
+                            dataset_build_kw(x.shape))
+
+
+def phase_datasets(prebuilt):
     """Phase 11: each dataset proxy through `api.build(backend="promips")`
-    with the quickstart's guarantee and the main path's knobs, searched on
-    the kernels and on the plain path (ids equal, scores within REL / ABS,
-    flips reported), the progressive mode, quality against an exact top-k;
-    then `examples/quickstart_torch.py` in a subprocess. Returns the
-    launches of each dataset's search."""
+    with the quickstart's guarantee and the main path's knobs (PREBUILT_
+    DATASET's by the child of ``prebuilt``, `start_dataset_build`),
+    searched on the kernels and on the plain path (ids equal, scores within
+    REL / ABS, flips reported), the progressive mode, quality against an
+    exact top-k; then `examples/quickstart_torch.py` in a subprocess.
+    Returns the launches of each dataset's search."""
     import dataclasses
     import numpy as np
     import torch
@@ -3706,10 +3768,15 @@ def phase_datasets():
         qn = paper_queries(name, N_QUERIES)
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        s = api.build(x, backend="promips", guarantee=guarantee, seed=0,
-                      m=QUICKSTART["m"], prefilter=True,
-                      prefilter_eps=SEARCH["prefilter_eps"], device=DEVICE)
-        build_s = time.perf_counter() - t0
+        if name == PREBUILT_DATASET:
+            s, build_s = finish_host_build(prebuilt)
+            where = "in a child process during phases 8-10"
+        else:
+            kw = dataset_build_kw(x.shape)
+            s = api.build(x, guarantee=api.GuaranteeConfig(
+                **kw.pop("guarantee")), device=DEVICE, **kw)
+            build_s = time.perf_counter() - t0
+            where = "on the host"
         pm = s.pm
         meta = pm.meta
         xt = torch.from_numpy(x).cuda()
@@ -3717,7 +3784,7 @@ def phase_datasets():
         del x
         log(f"[{label}] {tuple(xt.shape)} ({'scaled' if scaled else 'full'}),"
             f" made in {gen_s:.1f} s; api.build(backend='promips', m 6, c 0.9,"
-            f" p0 0.5) {build_s:.1f} s on the host: NB {meta.n_blocks} G "
+            f" p0 0.5) {build_s:.1f} s {where}: NB {meta.n_blocks} G "
             f"{meta.n_groups} S {meta.n_subparts} page_rows {meta.page_rows} "
             f"sketch M {meta.sk_subspaces} K {meta.sk_codewords}")
 
@@ -4188,24 +4255,26 @@ FAMILY_CELLS = (("qwen2-moe-a2.7b", None), ("internvl2-2b", None),
 INIT_SLACK_BYTES = 3e9
 # the serve CLI at --reduced, in process
 SERVE_CLI = (("qwen2-moe-a2.7b", "exact"), ("qwen2-moe-a2.7b", "promips"),
-             ("whisper-base", "exact"), ("whisper-base", "promips"))
+             ("whisper-base", "exact"), ("whisper-base", "promips"),
+             ("zamba2-1.2b", "exact"), ("zamba2-1.2b", "promips"),
+             ("xlstm-1.3b", "exact"), ("xlstm-1.3b", "promips"))
 RECSYS_RECALL = 0.99
-# a child process builds the vocab index on the host (numpy) beside the
-# card's work and writes its state (`Searcher.state()`: one .npy an array,
-# the meta as JSON; `save`'s compressed, checksummed npz took 139 s to
-# write and 29 s to read back at this size); the card restores it with
-# `from_state`, no rebuild
-VOCAB_CHILD = r"""
+# a child process builds an index on the host (numpy) beside the card's
+# work and writes its state (`Searcher.state()`: one .npy an array, the
+# meta as JSON; `save`'s compressed, checksummed npz took 139 s to write
+# and 29 s to read back for phase 13's vocab index); the card restores it
+# with `from_state`, no rebuild
+BUILD_CHILD = r"""
 import json, os, sys, time
-emb_path, out_dir, kw = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+rows_path, out_dir, kw = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 os.sched_setaffinity(0, json.loads(sys.argv[4]))  # before numpy's threads
 import numpy as np
 from repro_torch import api
-emb = np.load(emb_path)
+rows = np.load(rows_path)
 t0 = time.perf_counter()
-s = api.build(emb, backend="promips-stream",
-              guarantee=api.GuaranteeConfig(c=kw.pop("c"), p0=kw.pop("p")),
-              auto_compact=True, seed=kw.pop("seed"), device="cpu", **kw)
+s = api.build(rows, backend=kw.pop("backend"),
+              guarantee=api.GuaranteeConfig(**kw.pop("guarantee")),
+              device="cpu", **kw)
 build_s = time.perf_counter() - t0
 arrays, meta = s.state()
 os.makedirs(out_dir)
@@ -4223,14 +4292,15 @@ class _NoSearch:
     rows: list = []
 
 
-def start_vocab_build(emb, tmp):
-    """Start the vocab index's host build in a child process on every CPU
-    core but the first (numpy only, no card), over ``emb`` saved to
-    ``tmp``. Returns (process, state dir)."""
+def start_host_build(rows, tmp, name, kw):
+    """Start `api.build` over ``rows`` (saved to ``tmp``) with ``kw`` (its
+    ``backend`` and ``guarantee`` fields included) in a child process on
+    every CPU core but the first (numpy only, no card; BUILD_CHILD).
+    Returns (process, state dir, backend, name)."""
     import numpy as np
-    emb_path = os.path.join(tmp, "vocab_embed.npy")
-    np.save(emb_path, emb)
-    out_dir = os.path.join(tmp, "vocab_index")
+    rows_path = os.path.join(tmp, f"{name}_rows.npy")
+    np.save(rows_path, rows)
+    out_dir = os.path.join(tmp, f"{name}_index")
     cores = sorted(os.sched_getaffinity(0))
     child = cores[1:] or cores
     env = dict(os.environ, PYTHONPATH=SRC,
@@ -4238,13 +4308,21 @@ def start_vocab_build(emb, tmp):
                OPENBLAS_NUM_THREADS=str(len(child)),
                MKL_NUM_THREADS=str(len(child)))
     proc = subprocess.Popen(
-        [sys.executable, "-c", VOCAB_CHILD, emb_path, out_dir,
-         json.dumps(VOCAB_INDEX), json.dumps(child)],
+        [sys.executable, "-c", BUILD_CHILD, rows_path, out_dir,
+         json.dumps(kw), json.dumps(child)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    log(f"[serve-families vocab] host build of promips-stream over "
-        f"{emb.shape} ({VOCAB_INDEX}) started in a child process on cores "
-        f"{child}")
-    return proc, out_dir
+    log(f"[host build {name}] {kw['backend']} over {rows.shape} ({kw}) "
+        f"started in a child process on cores {child}")
+    return proc, out_dir, kw["backend"], name
+
+
+def start_vocab_build(emb, tmp):
+    """The vocab index of ``emb`` with the engine's defaults (VOCAB_INDEX),
+    built by `start_host_build`."""
+    kw = dict(VOCAB_INDEX)
+    guarantee = dict(c=kw.pop("c"), p0=kw.pop("p"))
+    return start_host_build(emb, tmp, "vocab", dict(
+        kw, backend="promips-stream", auto_compact=True, guarantee=guarantee))
 
 
 def start_family_vocab_build(tmp):
@@ -4268,36 +4346,53 @@ def start_family_vocab_build(tmp):
     return start_vocab_build(rows, tmp)
 
 
-def finish_vocab_build(build):
-    """Wait for the child; restore its index state on the card. Returns the
-    index (a ``promips-stream`` searcher)."""
+def write_index_state(index, out_dir):
+    """A searcher's `state()` as BUILD_CHILD writes it: one .npy an array,
+    the meta as JSON."""
+    import numpy as np
+    arrays, meta = index.state()
+    os.makedirs(out_dir)
+    for name, a in arrays.items():
+        np.save(os.path.join(out_dir, name + ".npy"), a)
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def read_index_state(out_dir, backend="promips-stream"):
+    """The ``backend`` searcher of a state written by `write_index_state`
+    or BUILD_CHILD, restored on the card (no rebuild)."""
     import numpy as np
     from repro_torch import api
-    proc, out_dir = build
-    t0 = time.perf_counter()
-    out, err = proc.communicate(timeout=900)
-    waited = time.perf_counter() - t0
-    require(proc.returncode == 0, f"[serve-families vocab] the build child "
-            f"exited {proc.returncode}: {err[-3000:]}")
-    rec = json.loads(out.strip().splitlines()[-1])
-    t0 = time.perf_counter()
     with open(os.path.join(out_dir, "meta.json")) as f:
         meta = json.load(f)
     arrays = {name[:-4]: np.load(os.path.join(out_dir, name))
               for name in os.listdir(out_dir) if name.endswith(".npy")}
-    index = api.get_backend("promips-stream").from_state(arrays, meta,
-                                                         device=DEVICE)
+    return api.get_backend(backend).from_state(arrays, meta, device=DEVICE)
+
+
+def finish_host_build(build):
+    """Wait for a `start_host_build` child; restore its index state on the
+    card. Returns (the index, the child's build seconds)."""
+    proc, out_dir, backend, name = build
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[host build {name}] the child exited "
+            f"{proc.returncode}: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    index = read_index_state(out_dir, backend)
     load_s = time.perf_counter() - t0
-    meta = index.inner.meta
+    meta = (index.inner if backend == "promips-stream" else index.pm).meta
     total = rec["build_s"] + rec["save_s"]
     hid = max(total - waited, 0.0)
-    log(f"[serve-families vocab] host build {rec['build_s']:.1f} s + state "
-        f"written {rec['save_s']:.1f} s in the child; the parent waited "
+    log(f"[host build {name}] {rec['build_s']:.1f} s + state written "
+        f"{rec['save_s']:.1f} s in the child; the parent waited "
         f"{waited:.1f} s for it, so the card's work hid {hid:.1f} s "
         f"({hid / total:.3f}); restored on the card in {load_s:.1f} s; "
         f"page_rows={meta.page_rows} NB={meta.n_blocks} G={meta.n_groups} "
         f"S={meta.n_subparts}")
-    return index
+    return index, rec["build_s"]
 
 
 def init_params_peak(cfg):
@@ -4322,6 +4417,8 @@ def init_params_peak(cfg):
         + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
            f"{cfg.moe.n_shared} shared" if cfg.moe else "")
         + (f", encoder {cfg.enc_layers} layers" if cfg.enc_layers else "")
+        + (f", {cfg.block_pattern} blocks" if cfg.block_pattern in
+           ("xlstm_7_1", "zamba2") else "")
         + (f", {cfg.frontend} stub of {cfg.frontend_len}" if cfg.frontend_len
            else "")
         + f", vocab {cfg.vocab} (padded {cfg.vocab_padded}): {n:,} f32 "
@@ -4539,12 +4636,15 @@ def family_cell(name, n_layers=None):
 
 def serve_entry_points():
     """`launch.serve.main` at --reduced in process (SERVE_CLI), then the two
-    serving examples in process: tokens within the vocab, the kernels
-    launched; the recsys churn recall >= RECSYS_RECALL every round."""
+    serving examples in process: tokens within the vocab, the kernels of
+    each family's path launched (`decode_attention` where it has attention
+    layers, the search's in promips mode); the recsys churn recall >=
+    RECSYS_RECALL every round."""
     import runpy
     from repro_torch.kernels import ops
     from repro_torch.launch import serve as launch_serve
     for arch, mode in SERVE_CLI:
+        attends = attention_layers(family_config(arch).reduced()) > 0
         for k in ops.LAUNCHES:
             ops.LAUNCHES[k] = 0
         t0 = time.perf_counter()
@@ -4556,10 +4656,11 @@ def serve_entry_points():
         require(len(reqs) == 8 and all(
             r.out_tokens and max(r.out_tokens) < 512 for r in reqs),
             f"[serve-cli {arch} {mode}] requests {[r.out_tokens for r in reqs]}")
-        require(counts["decode_attention"] > 0 and (
+        require((counts["decode_attention"] > 0) == attends and (
             mode == "exact" or (counts["quick_probe_select"] > 0
                                 and counts["mips_score"] > 0)),
-            f"[serve-cli {arch} {mode}] a kernel was not launched: {counts}")
+            f"[serve-cli {arch} {mode}] the launches are not the path's: "
+            f"{counts}")
     t0 = time.perf_counter()
     example = runpy.run_path(os.path.join(ROOT, "examples",
                                           "serve_lm_promips_torch.py"),
@@ -4611,20 +4712,15 @@ def phase_serve_families(tmp, build):
     serve_entry_points()
     t1 = time.perf_counter()
     params = init_params_peak(cfg)
-    index = finish_vocab_build(build)
-    require(np.array_equal(np.load(os.path.join(tmp, "vocab_embed.npy")),
+    index, _ = finish_host_build(build)
+    require(np.array_equal(np.load(os.path.join(tmp, "vocab_rows.npy")),
                            params["embed"][:cfg.vocab].cpu().numpy()),
             f"[{label}] the remade embedding differs from the indexed rows")
     promips = serve_mode(label, cfg, params, "promips", index)
     launches[f"{cfg.name} promips"] = dict(promips["counts"],
                                            steps=promips["steps"],
                                            searches=promips["searches"])
-    ka, kb = exact["tokens"], promips["tokens"]
-    tok_eq = sum(x == y for a, b in zip(ka, kb) for x, y in zip(a, b))
-    tok_n = sum(min(len(a), len(b)) for a, b in zip(ka, kb))
-    log(f"[{label}] exact vs promips (kernel paths, not gated): "
-        f"{sum(a == b for a, b in zip(ka, kb))} of {len(ka)} requests emit "
-        f"the same tokens; {tok_eq} of {tok_n} positions agree")
+    log_mode_agreement(label, exact, promips)
     del params, index
     gc.collect()
     torch.cuda.empty_cache()
@@ -4633,9 +4729,99 @@ def phase_serve_families(tmp, build):
     return launches
 
 
+def log_mode_agreement(label, exact, promips):
+    """How far a cell's exact and promips kernel paths agree (not gated)."""
+    ka, kb = exact["tokens"], promips["tokens"]
+    tok_eq = sum(x == y for a, b in zip(ka, kb) for x, y in zip(a, b))
+    tok_n = sum(min(len(a), len(b)) for a, b in zip(ka, kb))
+    log(f"[{label}] exact vs promips (kernel paths, not gated): "
+        f"{sum(a == b for a, b in zip(ka, kb))} of {len(ka)} requests emit "
+        f"the same tokens; {tok_eq} of {tok_n} positions agree")
+
+
+# ---------------------------------------------------------------- phase 14
+
+# serve-recurrent: the recurrent families at their published widths and
+# depths on phase 6's traffic (zamba2 in exact and promips modes, xlstm in
+# exact mode)
+RECURRENT_CELLS = ("zamba2-1.2b", "xlstm-1.3b")
+
+
+def _indexed_rows_equal(index, rows):
+    """Whether ``index``'s live rows, by id, are ``rows`` bit for bit (ids
+    0..len(rows)-1)."""
+    import numpy as np
+    gids, got = index.alive_items()
+    order = np.argsort(gids, kind="stable")
+    return (np.array_equal(gids[order], np.arange(len(rows)))
+            and np.array_equal(got[order], rows))
+
+
+def restore_vocab_index(vocab_state, embed, label, tmp):
+    """Phase 6's vocab index, restored on the card from ``vocab_state``,
+    when its rows are ``embed`` (the rows the cell's engine searches) bit
+    for bit; otherwise one built over ``embed`` by a child process
+    (`start_vocab_build`). Returns the index."""
+    rows = embed.cpu().numpy()
+    t0 = time.perf_counter()
+    index = read_index_state(vocab_state)
+    same = _indexed_rows_equal(index, rows)
+    log(f"[{label} vocab] phase 6's index restored from its state in "
+        f"{time.perf_counter() - t0:.1f} s; its {len(rows)} rows "
+        + ("equal embed[:vocab] bit for bit" if same else
+           "DIFFER from embed[:vocab]: building one in a child process"))
+    if not same:
+        del index
+        index, _ = finish_host_build(start_vocab_build(
+            rows, tempfile.mkdtemp(prefix="rebuild-", dir=tmp)))
+        require(_indexed_rows_equal(index, rows),
+                f"[{label} vocab] the child's index does not hold the "
+                "cell's embedding rows")
+    return index
+
+
+def phase_serve_recurrent(vocab_state, tmp):
+    """Phase 14: the serve-recurrent cells. zamba2-1.2b in exact mode, then
+    over phase 6's vocab index in promips mode (its embedding is
+    tinyllama-1.1b's), with `decode_attention` six times a step and one
+    `quick_probe_select` and two `mips_score` a search; then xlstm-1.3b in
+    exact mode (no kernel). Returns each cell's launches."""
+    import torch
+    launches = {}
+    zamba, xlstm = RECURRENT_CELLS
+    t0 = time.perf_counter()
+    cfg = family_config(zamba)
+    label = f"serve-{cfg.name}"
+    params = init_params_peak(cfg)
+    exact = serve_mode(label, cfg, params, "exact")
+    launches[f"{cfg.name} exact"] = dict(exact["counts"], steps=exact["steps"])
+    index = restore_vocab_index(vocab_state, params["embed"][:cfg.vocab],
+                                label, tmp)
+    promips = serve_mode(label, cfg, params, "promips", index)
+    counts, n = promips["counts"], promips["searches"]
+    require(counts["quick_probe_select"] == n and counts["mips_score"] == 2 * n,
+            f"[{label} promips] {n} searches launched quick_probe_select "
+            f"{counts['quick_probe_select']} and mips_score "
+            f"{counts['mips_score']} times, not once and twice a search")
+    launches[f"{cfg.name} promips"] = dict(counts, steps=promips["steps"],
+                                           searches=n)
+    log_mode_agreement(label, exact, promips)
+    del params, index
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{label}] both modes in {time.perf_counter() - t0:.1f} s")
+    launches[xlstm] = family_cell(xlstm)
+    return launches
+
+
 def _leaves(tree):
+    """The tensors of a parameter or cache tree (dicts and tuples: the
+    sLSTM state is a tuple), in order."""
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -4697,68 +4883,86 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
 
-    t0 = time.perf_counter()
-    serve_launches = phase_serve()
-    log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    sharded_launches = phase_sharded_1m(pm1m, x1m, q1m)
-    del x1m
-    search_graph.clear_graphs()
-    log(f"[phase 7, sharded-1M] {time.perf_counter() - t0:.1f} s")
-    # the snapshots and logs of phases 8-9, in the gitignored build/ dir
-    tmp = tempfile.mkdtemp(prefix="durability-",
-                           dir=os.path.join(ROOT, "build"))
-    try:
-        t0 = time.perf_counter()
-        sharded_stream_launches = phase_sharded_stream_100k(x100k, q100k, tmp)
-        del x100k
-        log(f"[phase 8, sharded-stream-100k] {time.perf_counter() - t0:.1f} s")
-        t0 = time.perf_counter()
-        durable_launches = phase_durable_1m(pm1m, q1m, pm100k, q100k, tmp)
-        log(f"[phase 9, durable-stream-1M] {time.perf_counter() - t0:.1f} s")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    t0 = time.perf_counter()
-    tuner_launches = phase_tuner(pm100k, q100k)
-    log(f"[phase 10, tuner] {time.perf_counter() - t0:.1f} s")
-    del pm1m, q1m, pm100k, q100k
-    search_graph.clear_graphs()
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    dataset_launches = phase_datasets()
-    log(f"[phase 11, datasets] {time.perf_counter() - t0:.1f} s")
-    gc.collect()
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    phase_train_parity(card)
-    log(f"[phase 12a, train parity] {time.perf_counter() - t0:.1f} s")
-    # phase 13's vocab index builds on the host from here on
+    # phase 6's vocab index state, which phase 14 restores, and phase 13's
+    # child build, in the gitignored build/ dir
     families = tempfile.mkdtemp(prefix="families-",
                                 dir=os.path.join(ROOT, "build"))
-    build = None
+    vocab_state = os.path.join(families, "tinyllama_vocab_index")
+    build = dataset_build = None
     try:
+        t0 = time.perf_counter()
+        serve_launches = phase_serve(vocab_state)
+        log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        sharded_launches = phase_sharded_1m(pm1m, x1m, q1m)
+        del x1m
+        search_graph.clear_graphs()
+        log(f"[phase 7, sharded-1M] {time.perf_counter() - t0:.1f} s")
+        # phase 11's longest host build runs from here on
+        dataset_build = start_dataset_build(families)
+        # the snapshots and logs of phases 8-9, in the gitignored build/ dir
+        tmp = tempfile.mkdtemp(prefix="durability-",
+                               dir=os.path.join(ROOT, "build"))
+        try:
+            t0 = time.perf_counter()
+            sharded_stream_launches = phase_sharded_stream_100k(x100k, q100k,
+                                                                tmp)
+            del x100k
+            log(f"[phase 8, sharded-stream-100k] "
+                f"{time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            durable_launches = phase_durable_1m(pm1m, q1m, pm100k, q100k,
+                                                tmp)
+            log(f"[phase 9, durable-stream-1M] "
+                f"{time.perf_counter() - t0:.1f} s")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        t0 = time.perf_counter()
+        tuner_launches = phase_tuner(pm100k, q100k)
+        log(f"[phase 10, tuner] {time.perf_counter() - t0:.1f} s")
+        del pm1m, q1m, pm100k, q100k
+        search_graph.clear_graphs()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dataset_launches = phase_datasets(dataset_build)
+        log(f"[phase 11, datasets] {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_train_parity(card)
+        log(f"[phase 12a, train parity] {time.perf_counter() - t0:.1f} s")
+        # phase 13's vocab index builds on the host from here on
         build = start_family_vocab_build(families)
         t0 = time.perf_counter()
-        tmp = tempfile.mkdtemp(prefix="train-", dir=os.path.join(ROOT, "build"))
+        tmp = tempfile.mkdtemp(prefix="train-",
+                               dir=os.path.join(ROOT, "build"))
         try:
             phase_train_full(card, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
-        log(f"[phase 12b, train tinyllama-1.1b] {time.perf_counter() - t0:.1f} s")
+        log(f"[phase 12b, train tinyllama-1.1b] "
+            f"{time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         family_launches = phase_serve_families(families, build)
         log(f"[phase 13, serve-families] {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        recurrent_launches = phase_serve_recurrent(vocab_state, families)
+        log(f"[phase 14, serve-recurrent] {time.perf_counter() - t0:.1f} s")
     finally:
-        if build is not None and build[0].poll() is None:
-            build[0].kill()
-            build[0].wait()
+        for child in (build, dataset_build):
+            if child is not None and child[0].poll() is None:
+                child[0].kill()
+                child[0].wait()
         shutil.rmtree(families, ignore_errors=True)
     log(f"[launches] the serve-families cells' kernel paths (one traffic run "
-        f"each): {family_launches}")
+        f"each): {family_launches}; the serve-recurrent cells': "
+        f"{recurrent_launches}")
     log("[launches] one search of each new path: sharded-1M "
         f"{sharded_launches}; sharded-stream-100k (churned) "
         f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "

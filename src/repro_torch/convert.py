@@ -25,8 +25,8 @@ directory, the runtime settings included.)
 
 A model's state is its parameter pytree: `params_from_jax` takes the JAX
 `models.transformer.init_params` tree (numpy or JAX arrays) of any
-attention-block model (dense, MoE, the vision stub, the encoder-decoder)
-as the port's parameters, which keep the JAX layouts, so every leaf is
+model (dense, MoE, the vision stub, the encoder-decoder, the xLSTM and the
+Mamba2 hybrid) as the port's parameters, which keep the JAX layouts, so every leaf is
 copied bit for bit. A trainer's state is the JAX `train.loop.TrainState`:
 `train_state_from_jax` carries its parameters, AdamW moments and count,
 error-feedback residuals and step across.
@@ -160,10 +160,17 @@ def params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
         raise ValueError(f"params['embed'] has shape "
                          f"{tuple(params['embed'].shape)}, the config "
                          f"({cfg.name}) needs {(cfg.vocab_padded, cfg.d_model)}")
-    if params["blocks"]["ln1"].shape != (cfg.n_layers, cfg.d_model):
-        raise ValueError(f"params['blocks'] hold "
-                         f"{params['blocks']['ln1'].shape[0]} layers, the "
-                         f"config ({cfg.name}) {cfg.n_layers}")
+    # each layer stack's leading extents: (L,) for ``blocks``, (G, 7) and
+    # (G,) for the xLSTM's ``mlstm`` and ``slstm``, (G, every) and (rem,)
+    # for the hybrid's ``mamba`` and ``mamba_tail``
+    for key, node in param_spec(cfg).items():
+        if not (isinstance(node, Stacked) and isinstance(node.spec, dict)):
+            continue
+        want = (node.n,) if isinstance(node.n, int) else tuple(node.n)
+        got = tuple(params[key][next(iter(node.spec))].shape[:len(want)])
+        if got != want:
+            raise ValueError(f"params[{key!r}] hold {got} layers, the "
+                             f"config ({cfg.name}) {want}")
     return params
 
 

@@ -4,6 +4,9 @@ continuous-batching engine; counterpart of `repro.launch.serve`.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
       --reduced --requests 12 --logits-mode promips
 
+Every config of the registry runs, the recurrent ``--arch xlstm-1.3b`` and
+``--arch zamba2-1.2b`` included.
+
 The JAX driver's flags, plus ``--device`` (default ``cuda``: the card, and
 a `RuntimeError` naming CUDA without one; ``--device cpu`` runs the plain
 versions on the CPU). The parameters come from a `torch.Generator` seeded

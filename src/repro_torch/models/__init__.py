@@ -1,5 +1,5 @@
 """The models of the serve and training paths; port of `repro.models`
-(`layers`, `attention`, `moe`, `transformer`) for the ``attn`` block
-pattern (dense, MoE, the vision stub) and the ``encdec`` one (whisper).
-The recurrent families (`ssm`, `xlstm`, `scan_util`) wait for ROADMAP
-Queue 1 item 12."""
+(`layers`, `attention`, `moe`, `ssm`, `xlstm`, `scan_util`,
+`transformer`): the ``attn`` block pattern (dense, MoE, the vision stub),
+the ``encdec`` one (whisper), and the recurrent ``xlstm_7_1`` and
+``zamba2`` ones (served; their training is ROADMAP Queue 1 item 18)."""

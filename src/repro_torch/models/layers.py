@@ -7,7 +7,8 @@ layouts (a weight is (d_in, d_out) and applied as ``x @ w``), so that
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import itertools
+from typing import Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -15,11 +16,14 @@ import torch.nn.functional as F
 
 class Leaf(NamedTuple):
     """One parameter of a parameter spec: its shape, and either a norm
-    weight of ones or a `dense_init` draw at ``scale`` (None: fan-in)."""
+    weight of ones, a constant (``fill()``: a CPU tensor of ``shape``, the
+    same in every stacked layer) or a `dense_init` draw at ``scale`` (None:
+    fan-in)."""
     shape: Tuple[int, ...]
     scale: Optional[float] = None
     ones: bool = False
     dtype: Optional[torch.dtype] = None     # None: the tree's dtype
+    fill: Optional[Callable[[], torch.Tensor]] = None
 
 
 def dense_init_(out: torch.Tensor, scale: Optional[float] = None, *,
@@ -55,31 +59,36 @@ def dense_init(shape, scale: Optional[float] = None, *,
 
 
 def init_tree(spec, *, generator: Optional[torch.Generator] = None, device,
-              dtype=torch.float32, n: Optional[int] = None) -> dict:
+              dtype=torch.float32,
+              n: Union[int, Tuple[int, ...], None] = None) -> dict:
     """The parameters of ``spec`` (a nested dict of `Leaf`, or one `Leaf`)
     on ``device``.
-    With ``n`` every leaf is stacked along a new leading axis of ``n``
-    layers (the JAX package's ``_stack_init`` layout): each stacked leaf is
-    allocated once and layer ``i`` is drawn into its slice, layer by layer
-    and within a layer in the spec's order, so no second copy of the layers
-    is ever live."""
+    With ``n`` (a count or a tuple of counts) every leaf is stacked along
+    new leading axes of those extents (the JAX package's ``_stack_init``
+    layout; a tuple is its vmap of stacks, e.g. (groups, layers a group)):
+    each stacked leaf is allocated once and layer ``i`` (in row-major
+    order) is drawn into its slice, layer by layer and within a layer in
+    the spec's order, so no second copy of the layers is ever live."""
+    lead = () if n is None else (n,) if isinstance(n, int) else tuple(n)
+
     def alloc(node):
         if isinstance(node, dict):
             return {key: alloc(val) for key, val in node.items()}
-        shape = node.shape if n is None else (n, *node.shape)
         make = torch.ones if node.ones else torch.empty
-        return make(shape, dtype=node.dtype or dtype, device=device)
+        return make((*lead, *node.shape), dtype=node.dtype or dtype,
+                    device=device)
 
     def fill(node, t, i):
         if isinstance(node, dict):
             for key, val in node.items():
                 fill(val, t[key], i)
+        elif node.fill is not None:
+            t[i].copy_(node.fill())
         elif not node.ones:
-            dense_init_(t if i is None else t[i], node.scale,
-                        generator=generator)
+            dense_init_(t[i], node.scale, generator=generator)
 
     tree = alloc(spec)
-    for i in ([None] if n is None else range(n)):
+    for i in itertools.product(*(range(e) for e in lead)):
         fill(spec, tree, i)
     return tree
 

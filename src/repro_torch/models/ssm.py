@@ -1,0 +1,172 @@
+"""Mamba2-style selective state-space block (SSD), chunked for prefill and
+single-step for decode; port of `repro.models.ssm` in plain torch ops (the
+JAX block is `jnp` outside any Pallas kernel).
+
+The block: in_proj -> short depthwise causal conv -> per-head scalar decay
+a = exp(-exp(a_log) dt) -> state update h = a h + dt x B^T -> y = C h + D x
+-> gated RMS norm -> out_proj. State: (B, H, P, N), P the head dim, N
+``cfg.ssm.state_dim``; the conv state (B, K - 1, Cd) holds the last K - 1
+pre-conv inputs.
+
+``softplus`` is `jax.nn.softplus`, ``logaddexp(x, 0)``: `F.softplus`
+returns x itself above its threshold of 20.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Leaf, rms_norm
+from .scan_util import scan as _scan
+
+
+def softplus(x):
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _dims(cfg):
+    d = cfg.d_model
+    inner = cfg.ssm.expand * d
+    p = cfg.ssm.head_dim
+    h = inner // p
+    n = cfg.ssm.state_dim
+    return d, inner, h, p, n
+
+
+def mamba_spec(cfg) -> dict:
+    """One Mamba2 layer's leaves in the JAX `init_mamba`'s order; ``a_log``
+    (log of 1..16 spread over the heads), ``d_skip`` (ones) and
+    ``dt_bias`` (zeros) are f32 constants whatever the tree's dtype."""
+    d, inner, h, p, n = _dims(cfg)
+    f32 = torch.float32
+    return {
+        # order: [z(inner) | x(inner) | B(n) | C(n) | dt(h)]
+        "in_proj": Leaf((d, 2 * inner + 2 * n + h)),
+        "conv_w": Leaf((cfg.ssm.conv_dim, inner + 2 * n), scale=0.3),
+        "a_log": Leaf((h,), dtype=f32, fill=lambda: torch.log(
+            torch.linspace(1.0, 16.0, h, dtype=f32))),
+        "d_skip": Leaf((h,), dtype=f32, fill=lambda: torch.ones(h)),
+        "dt_bias": Leaf((h,), dtype=f32, fill=lambda: torch.zeros(h)),
+        "norm": Leaf((inner,), ones=True),
+        "out_proj": Leaf((inner, d)),
+    }
+
+
+def _split_proj(cfg, proj):
+    d, inner, h, p, n = _dims(cfg)
+    return (proj[..., :inner], proj[..., inner:2 * inner + 2 * n],
+            proj[..., 2 * inner + 2 * n:])
+
+
+def _causal_conv(xbc, conv_w, conv_state=None):
+    """Short depthwise causal conv. xbc: (B, S, Cd); conv_w: (K, Cd);
+    conv_state (B, K - 1, Cd) or None (zeros). Returns (silu(out), the new
+    conv state: the last K - 1 inputs)."""
+    k = conv_w.shape[0]
+    if conv_state is None:
+        pad = xbc.new_zeros((xbc.shape[0], k - 1, *xbc.shape[2:]))
+    else:
+        pad = conv_state
+    xp = torch.cat([pad.to(xbc.dtype), xbc], dim=1)
+    s = xbc.shape[1]
+    out = xp[:, 0:s] * conv_w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * conv_w[i]
+    new_state = xp[:, -(k - 1):] if k > 1 else pad
+    return F.silu(out), new_state
+
+
+def _pad_time(t, sp):
+    """``t`` (B, S, ...) zero-padded along S to ``sp`` rows."""
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, sp - t.shape[1]))
+
+
+def mamba_chunked(params, cfg, x, *, chunk: int = 256):
+    """Prefill pass. x: (B, S, d) -> ((B, S, d), (h (B, H, P, N), conv
+    state)). The sequence is zero-padded to whole chunks of ``chunk``, as
+    in JAX; each chunk adds the carried state's decayed contribution and
+    its own causal term."""
+    d, inner, h, p, n = _dims(cfg)
+    b, s, _ = x.shape
+    proj = x @ params["in_proj"]
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc, params["conv_w"])
+    xs = xbc[..., :inner].reshape(b, s, h, p)
+    bmat = xbc[..., inner:inner + n]
+    cmat = xbc[..., inner + n:]
+    dt = softplus(dt.float() + params["dt_bias"])                   # (B,S,H)
+    a = torch.exp(-torch.exp(params["a_log"])[None, None] * dt)     # (0, 1)
+
+    nchunk = -(-s // chunk)
+    sp = nchunk * chunk
+    if sp != s:
+        xs, bmat, cmat, dt, a = (_pad_time(t, sp)
+                                 for t in (xs, bmat, cmat, dt, a))
+    xs = xs.reshape(b, nchunk, chunk, h, p)
+    bmat = bmat.reshape(b, nchunk, chunk, n)
+    cmat = cmat.reshape(b, nchunk, chunk, n)
+    dt = dt.reshape(b, nchunk, chunk, h)
+    a = a.reshape(b, nchunk, chunk, h)
+
+    log_a = torch.log(torch.clamp(a, min=1e-20))
+    cum = torch.cumsum(log_a, dim=2)                               # (B,NC,L,H)
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+
+    def body(hstate, blk):
+        xs_c, b_c, c_c, dt_c, cum_c = blk
+        total = cum_c[:, -1]                                       # (B,H)
+        # inter-chunk: y_inter[t] = C_t . (decay(0..t) * h_in)
+        y_inter = torch.einsum("bln,bhpn->blhp", c_c, hstate) * torch.exp(
+            cum_c)[..., None]
+        # intra-chunk: causal kernel G[t,s] = exp(cum[t]-cum[s]) dt[s]; the
+        # mask before the product, as in JAX (above the diagonal exp may
+        # overflow)
+        rel = cum_c[:, :, None, :] - cum_c[:, None, :, :]          # (B,L,L,H)
+        g = torch.where(causal, torch.exp(rel), 0.0) * dt_c[:, None]
+        scores = torch.einsum("bln,bmn->blm", c_c, b_c)            # (B,L,L)
+        # "blm,blmh,bmhp->blhp" in two steps: no (B, L, L, H, P) temporary
+        w = (scores[..., None] * g).permute(0, 3, 1, 2)            # (B,H,L,L)
+        y_intra = torch.matmul(w, xs_c.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
+        # state update: h_out = decay_total h_in + sum_s decay(s..end) dt_s x_s b_s^T
+        decay_out = torch.exp(total[:, None] - cum_c)              # (B,L,H)
+        dx = dt_c[..., None] * xs_c                                # (B,L,H,P)
+        h_new = torch.exp(total)[..., None, None] * hstate + torch.einsum(
+            "blhp,bln->bhpn", decay_out[..., None] * dx, b_c)
+        return h_new, y_inter + y_intra
+
+    h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    blks = tuple(t.movedim(1, 0) for t in (xs, bmat, cmat, dt, cum))
+    h_fin, ys = _scan(body, h0, blks)
+    y = ys.movedim(0, 1).reshape(b, sp, h, p)[:, :s]
+    y = y + params["d_skip"][None, None, :, None] * xs.reshape(b, sp, h, p)[:, :s]
+    y = y.reshape(b, s, inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"], (h_fin, conv_state)
+
+
+def mamba_step(params, cfg, x, state):
+    """Decode step. x: (B, 1, d); state = (h (B, H, P, N), conv (B, K-1,
+    Cd)). Returns ((B, 1, d), (h, conv)), new tensors."""
+    d, inner, h, p, n = _dims(cfg)
+    b = x.shape[0]
+    hstate, conv_state = state
+    proj = x @ params["in_proj"]
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc, conv_state = _causal_conv(xbc, params["conv_w"], conv_state)
+    xbc = xbc[:, 0]
+    xs = xbc[..., :inner].reshape(b, h, p)
+    bmat = xbc[..., inner:inner + n]
+    cmat = xbc[..., inner + n:]
+    dt1 = softplus(dt[:, 0].float() + params["dt_bias"])           # (B,H)
+    a = torch.exp(-torch.exp(params["a_log"])[None] * dt1)
+    h_new = a[..., None, None] * hstate + (
+        (dt1[..., None] * xs.float())[..., None] * bmat.float()[:, None, None, :])
+    y = torch.einsum("bn,bhpn->bhp", cmat.float(), h_new)
+    y = y + params["d_skip"][None, :, None] * xs
+    y = y.reshape(b, 1, inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return y @ params["out_proj"], (h_new, conv_state)
+
+
+__all__ = ["mamba_chunked", "mamba_spec", "mamba_step", "softplus"]

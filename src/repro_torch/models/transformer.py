@@ -1,8 +1,12 @@
-"""The attention-block models; port of `repro.models.transformer` for the
-``"attn"`` block pattern (dense, MoE, the vision-stub frontend) and the
-``"encdec"`` one (whisper's encoder-decoder with its audio-stub frontend):
-`init_params`, the training loss (`loss_fn`, `cross_entropy`, the remat
-policies), `prefill`, `init_cache` and `decode_step`.
+"""The models of the serve and training paths; port of
+`repro.models.transformer` for every block pattern: ``"attn"`` (dense, MoE,
+the vision-stub frontend), ``"encdec"`` (whisper's encoder-decoder with its
+audio-stub frontend), ``"xlstm_7_1"`` (groups of seven mLSTM layers and one
+sLSTM layer) and ``"zamba2"`` (groups of Mamba2 layers, each followed by one
+attention + MLP block whose weights all groups share, and a tail of the
+layers left over): `init_params`, the training loss (`loss_fn`,
+`cross_entropy`, the remat policies), `prefill`, `init_cache` and
+`decode_step`.
 
 Parameters are the JAX package's pytree as a dict of tensors: ``embed``
 (vocab_padded, d), ``final_norm`` (d,), ``unembed`` (d, vocab_padded) when
@@ -11,17 +15,32 @@ the embeddings are untied, ``frontend_proj`` (d, d) with a frontend, and
 ``ln2``, ``attn``: ``wq wk wv wo``; ``mlp``: ``w_gate w_up w_down``, or
 ``moe``: ``router w_gate w_up w_down`` and ``shared``; the decoder of an
 encoder-decoder adds ``ln_x`` and ``xattn``). An encoder-decoder also has
-``enc_blocks`` and ``enc_norm``. The layers run as a Python loop where JAX
-scans.
+``enc_blocks`` and ``enc_norm``. The xLSTM has ``mlstm`` and ``ln_m``
+stacked (groups, 7), ``slstm`` and ``ln_s`` stacked (groups,); the hybrid
+``mamba`` and ``mamba_ln`` stacked (groups, shared_attn_every), with
+``mamba_tail`` and ``mamba_tail_ln`` (rem,) when the layers do not divide
+into groups, and ``shared``, one attention block. The layers run as a
+Python loop where JAX scans.
 
 The cache is ``{"len": (B,) int32, "k", "v": (L, B, max_len, KH, dh)}``, as
 in JAX; an encoder-decoder's adds the encoder K/V ``xk``, ``xv`` (L, B,
-frontend_len, KH, dh) and ``enc_len`` (B,). Unlike JAX's functional update,
-`decode_step` writes the new K/V and lengths into the cache tensors in
-place (no copy of the whole cache per step) and returns the same dict, so
-its tensors never change identity and a CUDA graph captured over them stays
-valid. The recurrent block patterns (``xlstm_7_1``, ``zamba2``) raise
-`NotImplementedError` (ROADMAP Queue 1 item 12).
+frontend_len, KH, dh) and ``enc_len`` (B,). The xLSTM's holds the mLSTM
+states ``mlstm_c`` (G, 7, B, H, P, P), ``mlstm_n`` and ``mlstm_m`` (-inf at
+the start), and ``slstm``, a tuple of four (G, B, H, P) tensors (h, c, n,
+m); the hybrid's ``mamba_h`` (G, every, B, H, P, N), ``mamba_conv``,
+``tail_h`` / ``tail_conv`` with a tail, and the shared block's K/V
+``shared_k``, ``shared_v`` (G, B, max_len, KH, dh). Unlike JAX's
+functional update, `decode_step` writes the new K/V, states and lengths
+into the cache tensors in place (no copy of the whole cache per step) and
+returns the same dict, so its tensors never change identity and a CUDA
+graph captured over them stays valid.
+
+The recurrent `prefill` keeps the JAX semantics
+(`src/repro/models/transformer.py:511-524`): it runs the chunked backbone
+for the last position's logits and returns `init_cache`'s zero states with
+``len`` = S, so decoding starts from zero recurrent state and the hybrid's
+shared attention attends S zero K/V rows. Their `loss_fn` raises
+`NotImplementedError` (ROADMAP Queue 1 item 18).
 
 `loss_fn` runs the layers on `torch.unbind` views of the stacked leaves,
 so the backward stacks each leaf's layer gradients once (the JAX scan's
@@ -30,7 +49,7 @@ transpose) instead of adding a full-size gradient per layer.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,19 +59,21 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from ..core.index import resolve_device
 from . import attention as attn_lib
 from . import moe as moe_lib
+from . import ssm as ssm_lib
+from . import xlstm as xlstm_lib
 from .layers import Leaf, apply_mlp, init_tree, mlp_spec, rms_norm
 
 MASKED = -1e30   # logits of the vocab padding rows
-PATTERNS = ("attn", "encdec")
+PATTERNS = ("attn", "encdec", "xlstm_7_1", "zamba2")
+RECURRENT = ("xlstm_7_1", "zamba2")
 
 
 def check_supported(cfg) -> None:
+    """Raise on a block pattern that is none of `PATTERNS` (the JAX
+    `init_params` raises ValueError on one)."""
     if cfg.block_pattern not in PATTERNS:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.block_pattern!r} block pattern is not "
-            f"ported; the port runs {PATTERNS} (dense, MoE, vision and "
-            f"encoder-decoder models); the recurrent xlstm_7_1 and zamba2 "
-            f"families are ROADMAP Queue 1 item 12")
+        raise ValueError(f"{cfg.name}: unknown block pattern "
+                         f"{cfg.block_pattern!r}; the patterns are {PATTERNS}")
 
 
 def _block_spec(cfg, *, cross: bool = False) -> dict:
@@ -73,27 +94,52 @@ def _block_spec(cfg, *, cross: bool = False) -> dict:
 
 
 class Stacked(NamedTuple):
-    """A spec's layer stack: ``n`` layers of the leaves of ``spec``."""
-    n: int
-    spec: dict
+    """A spec's layer stack: ``n`` layers of the leaves of ``spec`` (a
+    `Leaf` or a dict of them); a tuple ``n`` stacks along several leading
+    axes, as (groups, layers a group)."""
+    n: Union[int, Tuple[int, ...]]
+    spec: object
+
+
+def _zamba_groups(cfg):
+    """(groups, layers a group, tail layers) of the hybrid."""
+    every = cfg.shared_attn_every
+    return cfg.n_layers // every, every, cfg.n_layers % every
 
 
 def param_spec(cfg) -> dict:
     """The parameter tree as `Leaf` specs, in draw order: the embedding, the
     final norm, the unembedding when untied, ``frontend_proj`` with a
     frontend, then the stacks (`Stacked`): ``enc_blocks`` and ``enc_norm``
-    of an encoder-decoder, and ``blocks``."""
+    of an encoder-decoder, and ``blocks``; the xLSTM's ``mlstm``,
+    ``slstm``, ``ln_m`` and ``ln_s``; the hybrid's ``mamba``,
+    ``mamba_ln``, the tail's and ``shared``."""
+    check_supported(cfg)
     vp, d = cfg.vocab_padded, cfg.d_model
-    spec = {"embed": Leaf((vp, d), scale=0.02),
-            "final_norm": Leaf((d,), ones=True)}
+    ones = Leaf((d,), ones=True)
+    spec = {"embed": Leaf((vp, d), scale=0.02), "final_norm": ones}
     if not cfg.tie_embeddings:
         spec["unembed"] = Leaf((d, vp))
     if cfg.frontend != "none":
         spec["frontend_proj"] = Leaf((d, d))
     if cfg.block_pattern == "encdec":
         spec["enc_blocks"] = Stacked(cfg.enc_layers, _block_spec(cfg))
-        spec["enc_norm"] = Leaf((d,), ones=True)
+        spec["enc_norm"] = ones
         spec["blocks"] = Stacked(cfg.n_layers, _block_spec(cfg, cross=True))
+    elif cfg.block_pattern == "xlstm_7_1":
+        groups = cfg.n_layers // 8
+        spec["mlstm"] = Stacked((groups, 7), xlstm_lib.mlstm_spec(cfg))
+        spec["slstm"] = Stacked(groups, xlstm_lib.slstm_spec(cfg))
+        spec["ln_m"] = Stacked((groups, 7), ones)
+        spec["ln_s"] = Stacked(groups, ones)
+    elif cfg.block_pattern == "zamba2":
+        groups, every, rem = _zamba_groups(cfg)
+        spec["mamba"] = Stacked((groups, every), ssm_lib.mamba_spec(cfg))
+        spec["mamba_ln"] = Stacked((groups, every), ones)
+        if rem:
+            spec["mamba_tail"] = Stacked(rem, ssm_lib.mamba_spec(cfg))
+            spec["mamba_tail_ln"] = Stacked(rem, ones)
+        spec["shared"] = _block_spec(cfg)
     else:
         spec["blocks"] = Stacked(cfg.n_layers, _block_spec(cfg))
     return spec
@@ -172,6 +218,13 @@ def _unstack(tree, n: int):
     return list(torch.unbind(tree, 0))
 
 
+def _take(tree, *idx):
+    """Layer ``idx`` of a stacked tree: every leaf indexed (a view)."""
+    if isinstance(tree, dict):
+        return {key: _take(val, *idx) for key, val in tree.items()}
+    return tree[idx]
+
+
 def _ffn(lp, cfg, x):
     """The layer's MLP or MoE on the normed ``x``: (h, aux or None)."""
     h_in = rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -212,6 +265,48 @@ def _attn_backbone(params, cfg, x, positions, *, remat="full",
     return x, aux, kv
 
 
+def _xlstm_backbone(params, cfg, x):
+    """The xLSTM's groups over a whole sequence (prefill): seven mLSTM
+    layers (`mlstm_chunked`) and one sLSTM layer (`slstm_scan`) a group,
+    each a pre-norm residual; the final states are dropped, as in JAX."""
+    eps = cfg.norm_eps
+    for g in range(cfg.n_layers // 8):
+        for j in range(7):
+            h, _ = xlstm_lib.mlstm_chunked(
+                _take(params["mlstm"], g, j), cfg,
+                rms_norm(x, params["ln_m"][g, j], eps))
+            x = x + h
+        h, _ = xlstm_lib.slstm_scan(_take(params["slstm"], g), cfg,
+                                    rms_norm(x, params["ln_s"][g], eps))
+        x = x + h
+    return x
+
+
+def _zamba_backbone(params, cfg, x, positions):
+    """The hybrid over a whole sequence (prefill): each group's Mamba2
+    layers (`mamba_chunked`) then the shared block, then the tail's Mamba2
+    layers; the final states are dropped, as in JAX."""
+    eps = cfg.norm_eps
+    sp = params["shared"]
+    groups, every, rem = _zamba_groups(cfg)
+    for g in range(groups):
+        for j in range(every):
+            h, _ = ssm_lib.mamba_chunked(_take(params["mamba"], g, j), cfg,
+                                         rms_norm(x, params["mamba_ln"][g, j],
+                                                  eps))
+            x = x + h
+        h, _ = attn_lib.attention_train(sp["attn"], cfg,
+                                        rms_norm(x, sp["ln1"], eps), positions)
+        x = x + h
+        x = x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], eps))
+    for j in range(rem):
+        h, _ = ssm_lib.mamba_chunked(_take(params["mamba_tail"], j), cfg,
+                                     rms_norm(x, params["mamba_tail_ln"][j],
+                                              eps))
+        x = x + h
+    return x
+
+
 FRONTEND_KEYS = {"vision": "patches", "audio": "frames"}
 
 
@@ -247,8 +342,14 @@ def loss_fn(params, cfg, batch, *, remat: str = "full"):
     """batch: tokens (B, S) int, labels (B, S) int (-1 ignored), plus
     patches (B, F, d) for the vision stub or frames (B, F, d) for the
     encoder-decoder, tensors on the parameters' device. Returns
-    (loss + 0.01 * aux, {"loss", "aux"})."""
+    (loss + 0.01 * aux, {"loss", "aux"}). The recurrent patterns raise
+    `NotImplementedError` (ROADMAP Queue 1 item 18)."""
     check_supported(cfg)
+    if cfg.block_pattern in RECURRENT:
+        raise NotImplementedError(
+            f"{cfg.name}: training the recurrent {cfg.block_pattern!r} "
+            f"pattern is not ported (the port serves it); ROADMAP Queue 1 "
+            f"item 18")
     if cfg.block_pattern == "encdec":
         return _loss_encdec(params, cfg, batch, remat=remat)
     x, offset = _embed_inputs(params, cfg, batch)
@@ -300,14 +401,50 @@ def _loss_encdec(params, cfg, batch, *, remat="full"):
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
                device="cuda") -> dict:
+    """The zero cache of ``batch_size`` sequences, as the JAX
+    `init_cache`: K/V sized to ``max_len`` (the window under SWA); the
+    recurrent states in f32 (the conv states in ``dtype``), each
+    stabiliser m at -inf."""
     check_supported(cfg)
+    device = resolve_device(device)
     kh, dh = cfg.n_kv_heads, cfg.head_dim_
     kv_len = min(max_len, cfg.window) if cfg.attn == "swa" else max_len
+    f32 = dict(dtype=torch.float32, device=device)
+    cache = {"len": torch.zeros((batch_size,), dtype=torch.int32,
+                                device=device)}
+    if cfg.block_pattern == "xlstm_7_1":
+        groups, h = cfg.n_layers // 8, cfg.n_heads
+        p = cfg.d_model // h
+        cache["mlstm_c"] = torch.zeros((groups, 7, batch_size, h, p, p), **f32)
+        cache["mlstm_n"] = torch.zeros((groups, 7, batch_size, h, p), **f32)
+        cache["mlstm_m"] = torch.full((groups, 7, batch_size, h), -torch.inf,
+                                      **f32)
+        shape = (groups, batch_size, h, p)
+        cache["slstm"] = (torch.zeros(shape, **f32), torch.zeros(shape, **f32),
+                          torch.zeros(shape, **f32),
+                          torch.full(shape, -torch.inf, **f32))
+        return cache
+    if cfg.block_pattern == "zamba2":
+        groups, every, rem = _zamba_groups(cfg)
+        ssm = cfg.ssm
+        h = ssm.expand * cfg.d_model // ssm.head_dim
+        conv_c = ssm.expand * cfg.d_model + 2 * ssm.state_dim
+        state = (batch_size, h, ssm.head_dim, ssm.state_dim)
+        conv = (batch_size, ssm.conv_dim - 1, conv_c)
+        cache["mamba_h"] = torch.zeros((groups, every, *state), **f32)
+        cache["mamba_conv"] = torch.zeros((groups, every, *conv), dtype=dtype,
+                                          device=device)
+        if rem:
+            cache["tail_h"] = torch.zeros((rem, *state), **f32)
+            cache["tail_conv"] = torch.zeros((rem, *conv), dtype=dtype,
+                                             device=device)
+        k = torch.zeros((groups, batch_size, kv_len, kh, dh), dtype=dtype,
+                        device=device)
+        cache.update(shared_k=k, shared_v=torch.zeros_like(k))
+        return cache
     k = torch.zeros((cfg.n_layers, batch_size, kv_len, kh, dh), dtype=dtype,
                     device=device)
-    cache = {"len": torch.zeros((batch_size,), dtype=torch.int32,
-                                device=device),
-             "k": k, "v": torch.zeros_like(k)}
+    cache.update(k=k, v=torch.zeros_like(k))
     if cfg.block_pattern == "encdec":
         xk = torch.zeros((cfg.n_layers, batch_size, cfg.frontend_len, kh, dh),
                          dtype=dtype, device=device)
@@ -327,17 +464,17 @@ def _write_kv(cache_k, k_new, pos):
         k_new[:, 0].to(cache_k.dtype))
 
 
-def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
-                use_kernels: Optional[bool] = None):
-    """token: (B, 1) int. Returns (logits (B, vocab_padded) f32, cache); with
-    ``return_hidden`` the post-norm hidden state (B, d) instead of logits
-    (what the ProMIPS logit search queries). ``use_kernels`` goes to
-    `ops.decode_attention` (None: the kernel on CUDA tensors). An
+def _write_state(cache_state, new_state) -> None:
+    """Copy a layer's new recurrent state into its cache views, in place."""
+    for dst, src in zip(cache_state, new_state):
+        dst.copy_(src)
+
+
+def _decode_attn(params, cfg, cache, x, new_len, use_kernels):
+    """The attention blocks' decode (``attn`` and ``encdec``): each layer
+    writes this token's K/V into the cache and attends its rows; an
     encoder-decoder's layers also attend the cached encoder K/V."""
-    check_supported(cfg)
-    x = params["embed"][token.long()]                           # (B, 1, d)
     b = x.shape[0]
-    new_len = cache["len"] + 1
     kv_len = cache["k"].shape[2]
     pos_write = new_len - 1
     if cfg.attn == "swa":
@@ -362,6 +499,88 @@ def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
                 lp["xattn"], cfg, rms_norm(x, lp["ln_x"], cfg.norm_eps),
                 cache["xk"][i], cache["xv"][i], cache["enc_len"])
         x = x + _ffn(lp, cfg, x)[0]
+    return x
+
+
+def _decode_xlstm(params, cfg, cache, x):
+    """The xLSTM's decode: each mLSTM and sLSTM layer steps its state and
+    writes it back into the cache."""
+    eps = cfg.norm_eps
+    for g in range(cfg.n_layers // 8):
+        for j in range(7):
+            state = (cache["mlstm_c"][g, j], cache["mlstm_n"][g, j],
+                     cache["mlstm_m"][g, j])
+            h, new = xlstm_lib.mlstm_step(
+                _take(params["mlstm"], g, j), cfg,
+                rms_norm(x, params["ln_m"][g, j], eps), state)
+            _write_state(state, new)
+            x = x + h
+        state = tuple(t[g] for t in cache["slstm"])
+        h, new = xlstm_lib.slstm_step(_take(params["slstm"], g), cfg,
+                                      rms_norm(x, params["ln_s"][g], eps),
+                                      state)
+        _write_state(state, new)
+        x = x + h
+    return x
+
+
+def _mamba_decode(lp, ln, cfg, x, h_state, conv_state):
+    """One Mamba2 layer's decode step, its states written back in place."""
+    h, new = ssm_lib.mamba_step(lp, cfg, rms_norm(x, ln, cfg.norm_eps),
+                                (h_state, conv_state))
+    _write_state((h_state, conv_state), new)
+    return x + h
+
+
+def _decode_zamba(params, cfg, cache, x, new_len, use_kernels):
+    """The hybrid's decode: each group's Mamba2 layers, then the shared
+    block, which writes this token's K/V into the group's ``shared_k`` /
+    ``shared_v`` and attends its rows (`flash_decode`), then the tail."""
+    b = x.shape[0]
+    sp = params["shared"]
+    kv_len = cache["shared_k"].shape[2]
+    pos_write = new_len - 1     # JAX takes no window modulus here
+    att_len = torch.clamp(new_len, max=kv_len)
+    positions = (new_len - 1)[:, None]
+    groups, every, rem = _zamba_groups(cfg)
+    for g in range(groups):
+        for j in range(every):
+            x = _mamba_decode(_take(params["mamba"], g, j),
+                              params["mamba_ln"][g, j], cfg, x,
+                              cache["mamba_h"][g, j], cache["mamba_conv"][g, j])
+        kc, vc = cache["shared_k"][g], cache["shared_v"][g]
+        h_in = rms_norm(x, sp["ln1"], cfg.norm_eps)
+        q, k_new, v_new = attn_lib._project_qkv(sp["attn"], cfg, h_in,
+                                                positions)
+        _write_kv(kc, k_new, pos_write)
+        _write_kv(vc, v_new, pos_write)
+        att = attn_lib.flash_decode(q[:, 0], kc, vc, att_len,
+                                    use_kernels=use_kernels)
+        x = x + att.reshape(b, 1, -1) @ sp["attn"]["wo"]
+        x = x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+    for j in range(rem):
+        x = _mamba_decode(_take(params["mamba_tail"], j),
+                          params["mamba_tail_ln"][j], cfg, x,
+                          cache["tail_h"][j], cache["tail_conv"][j])
+    return x
+
+
+def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
+                use_kernels: Optional[bool] = None):
+    """token: (B, 1) int. Returns (logits (B, vocab_padded) f32, cache); with
+    ``return_hidden`` the post-norm hidden state (B, d) instead of logits
+    (what the ProMIPS logit search queries). ``use_kernels`` goes to
+    `ops.decode_attention` (None: the kernel on CUDA tensors); the xLSTM
+    runs no attention. Every cache leaf is updated in place."""
+    check_supported(cfg)
+    x = params["embed"][token.long()]                           # (B, 1, d)
+    new_len = cache["len"] + 1
+    if cfg.block_pattern == "xlstm_7_1":
+        x = _decode_xlstm(params, cfg, cache, x)
+    elif cfg.block_pattern == "zamba2":
+        x = _decode_zamba(params, cfg, cache, x, new_len, use_kernels)
+    else:
+        x = _decode_attn(params, cfg, cache, x, new_len, use_kernels)
     cache["len"].copy_(new_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
@@ -376,11 +595,24 @@ def prefill(params, cfg, batch, max_len: int):
     F + S positions) or frames (B, F, d) for an encoder-decoder, whose
     prefill runs the encoder only, as in JAX: the cache gets the encoder
     K/V and length 0, and the logits are those of the last encoder
-    position."""
+    position. A recurrent model's prefill runs its chunked backbone for the
+    logits and returns the zero cache with length S, as in JAX."""
     check_supported(cfg)
     tokens = batch["tokens"].long()
     b = tokens.shape[0]
     dtype = params["embed"].dtype
+    if cfg.block_pattern in RECURRENT:
+        x, _ = _embed_inputs(params, cfg, batch)
+        s = x.shape[1]
+        if cfg.block_pattern == "xlstm_7_1":
+            x = _xlstm_backbone(params, cfg, x)
+        else:
+            positions = torch.arange(s, device=tokens.device).expand(b, s)
+            x = _zamba_backbone(params, cfg, x, positions)
+        cache = init_cache(cfg, b, max_len, dtype, device=tokens.device)
+        cache["len"].fill_(s)
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        return cache, _logits(params, cfg, x)[:, 0]
     if cfg.block_pattern == "encdec":
         enc = _encode(params, cfg, batch["frames"], "none")
         f = enc.shape[1]
@@ -410,5 +642,5 @@ def prefill(params, cfg, batch, max_len: int):
     return cache, _logits(params, cfg, x)[:, 0]
 
 
-__all__ = ["PATTERNS", "check_supported", "cross_entropy", "decode_step",
+__all__ = ["PATTERNS", "RECURRENT", "check_supported", "cross_entropy", "decode_step",
            "init_cache", "init_params", "loss_fn", "prefill"]

@@ -1,0 +1,208 @@
+"""xLSTM blocks (arXiv:2405.04517); port of `repro.models.xlstm` in plain
+torch ops (the JAX blocks are `jnp` outside any Pallas kernel): the mLSTM
+(matrix memory, chunk-parallel) and the sLSTM (scalar memory with
+recurrent R weights, sequential).
+
+mLSTM state: C (B, H, P, P) matrix memory, n (B, H, P) normalizer and the
+log-space stabiliser m (B, H), which starts at -inf; exponential input
+gate, sigmoid forget gate. sLSTM state: the tuple (h, c, n, m), each
+(B, H, P), m starting at -inf. Every -inf path (``maximum`` with -inf,
+``exp(-inf) = 0``) gives JAX's values. ``softplus`` is ``logaddexp(x, 0)``
+(`ssm.softplus`), as `jax.nn.softplus`.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .layers import Leaf, rms_norm
+from .scan_util import scan as _scan
+from .ssm import _pad_time, softplus
+
+
+def _dims(cfg):
+    d = cfg.d_model
+    h = cfg.n_heads
+    return d, h, d // h
+
+
+def mlstm_spec(cfg) -> dict:
+    """One mLSTM layer's leaves in the JAX `init_mlstm`'s order. ``w_if``
+    (the input and forget gates' weights) is f32 whatever the tree's dtype;
+    ``if_bias`` is the f32 constant zeros(H), then 3 + 0.5 i / (H - 1)."""
+    d, h, p = _dims(cfg)
+    f32 = torch.float32
+    return {
+        "w_up": Leaf((d, 2 * d)),                   # [x_in | gate]
+        "wq": Leaf((d, d)), "wk": Leaf((d, d)), "wv": Leaf((d, d)),
+        "w_if": Leaf((d, 2 * h), scale=d ** -0.5, dtype=f32),
+        "if_bias": Leaf((2 * h,), dtype=f32, fill=lambda: torch.cat([
+            torch.zeros(h),
+            3.0 + torch.arange(h, dtype=f32) * 0.5 / max(h - 1, 1)])),
+        "norm": Leaf((d,), ones=True),
+        "w_down": Leaf((d, d)),
+    }
+
+
+def _gates(params, x, h):
+    """The mLSTM's log input gate and log forget gate (log sigmoid), f32."""
+    if_pre = x.float() @ params["w_if"] + params["if_bias"]
+    return if_pre[..., :h], -softplus(-if_pre[..., h:])
+
+
+def mlstm_chunked(params, cfg, x, *, chunk: int = 256):
+    """Prefill pass. x: (B, S, d) -> ((B, S, d), final (C, n, m)). The
+    sequence is zero-padded to whole chunks, as in JAX."""
+    d, h, p = _dims(cfg)
+    b, s, _ = x.shape
+    x_in, gate = (x @ params["w_up"]).chunk(2, dim=-1)
+    q = (x_in @ params["wq"]).reshape(b, s, h, p) * (p ** -0.5)
+    k = (x_in @ params["wk"]).reshape(b, s, h, p) * (p ** -0.5)
+    v = (x_in @ params["wv"]).reshape(b, s, h, p)
+    log_i, log_f = _gates(params, x, h)
+
+    nchunk = -(-s // chunk)
+    sp = nchunk * chunk
+    if sp != s:
+        q, k, v, log_i, log_f = (_pad_time(t, sp)
+                                 for t in (q, k, v, log_i, log_f))
+    blks = tuple(t.reshape(b, nchunk, chunk, *t.shape[2:]).movedim(1, 0)
+                 for t in (q, k, v, log_i, log_f))
+    causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                   device=x.device))[None, :, :, None]
+
+    def body(carry, blk):
+        c_st, n_st, m_st = carry      # (B,H,P,P), (B,H,P), (B,H)
+        q_c, k_c, v_c, li_c, lf_c = blk
+        cumf = torch.cumsum(lf_c, dim=1)                             # (B,L,H)
+        # stabiliser: running max of (cumf + m_in) vs intra log weights
+        log_in = cumf + m_st[:, None]                  # decay of the carry-in
+        intra = cumf[:, :, None, :] - cumf[:, None, :, :] + li_c[:, None, :, :]
+        intra = torch.where(causal, intra, -torch.inf)
+        m_new = torch.maximum(log_in, intra.amax(dim=2))             # (B,L,H)
+        e_in = torch.exp(log_in - m_new)
+        # inter-chunk contribution
+        y_inter = torch.einsum("blhp,bhpr->blhr", q_c, c_st) * e_in[..., None]
+        n_inter = torch.einsum("blhp,bhp->blh", q_c, n_st) * e_in
+        # intra-chunk
+        w = torch.exp(intra - m_new[:, :, None, :])                  # (B,L,L,H)
+        scores = torch.einsum("blhp,bmhp->blmh", q_c, k_c) * w
+        y_intra = torch.einsum("blmh,bmhr->blhr", scores, v_c)
+        n_intra = scores.sum(dim=2)                                  # (B,L,H)
+        denom = torch.maximum(torch.abs(n_inter + n_intra), torch.exp(-m_new))
+        y = (y_inter + y_intra) / denom[..., None]
+        # state to the next chunk
+        tot = cumf[:, -1]                                            # (B,H)
+        m_out = torch.maximum(tot + m_st,
+                              (tot[:, None] - cumf + li_c).amax(dim=1))
+        decay_out = torch.exp(tot[:, None] - cumf + li_c - m_out[:, None])
+        f_out = torch.exp(tot + m_st - m_out)
+        c_new = f_out[..., None, None] * c_st + torch.einsum(
+            "blhp,blhr->bhpr", decay_out[..., None] * k_c, v_c)
+        n_new = f_out[..., None] * n_st + torch.einsum(
+            "blh,blhp->bhp", decay_out, k_c)
+        return (c_new, n_new, m_out), y
+
+    kw = dict(dtype=torch.float32, device=x.device)
+    carry = (torch.zeros((b, h, p, p), **kw), torch.zeros((b, h, p), **kw),
+             torch.full((b, h), -torch.inf, **kw))
+    carry, ys = _scan(body, carry, blks)
+    y = ys.movedim(0, 1).reshape(b, sp, d)[:, :s].to(x.dtype)
+    y = rms_norm(y, params["norm"], cfg.norm_eps) * F.silu(gate)
+    return y @ params["w_down"], carry
+
+
+def mlstm_step(params, cfg, x, state):
+    """Decode step. x: (B, 1, d); state (C, n, m). Returns ((B, 1, d),
+    (C, n, m)), new tensors."""
+    d, h, p = _dims(cfg)
+    b = x.shape[0]
+    c_st, n_st, m_st = state
+    x_in, gate = (x @ params["w_up"]).chunk(2, dim=-1)
+    q = (x_in[:, 0] @ params["wq"]).reshape(b, h, p) * (p ** -0.5)
+    k = (x_in[:, 0] @ params["wk"]).reshape(b, h, p) * (p ** -0.5)
+    v = (x_in[:, 0] @ params["wv"]).reshape(b, h, p)
+    log_i, log_f = _gates(params, x[:, 0], h)
+    m_new = torch.maximum(log_f + m_st, log_i)
+    f_ = torch.exp(log_f + m_st - m_new)
+    i_ = torch.exp(log_i - m_new)
+    c_new = f_[..., None, None] * c_st + i_[..., None, None] * (
+        k[..., :, None] * v[..., None, :])
+    n_new = f_[..., None] * n_st + i_[..., None] * k
+    num = torch.einsum("bhp,bhpr->bhr", q, c_new)
+    den = torch.maximum(torch.abs((q * n_new).sum(dim=-1)), torch.exp(-m_new))
+    y = (num / den[..., None]).reshape(b, 1, d).to(x.dtype)
+    y = rms_norm(y, params["norm"], cfg.norm_eps) * F.silu(gate)
+    return y @ params["w_down"], (c_new, n_new, m_new)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM: scalar memory with recurrent weights, sequential by construction.
+# ---------------------------------------------------------------------------
+
+def slstm_spec(cfg) -> dict:
+    """One sLSTM layer's leaves in the JAX `init_slstm`'s order; ``bias``
+    is the f32 constant (zeros(2d), ones(d), zeros(d)): the forget gate's
+    pre-activation starts at 1."""
+    d, h, p = _dims(cfg)
+    return {
+        "w_gates": Leaf((d, 4 * d)),                # z, i, f, o pre-acts
+        "r_gates": Leaf((h, p, 4 * p), scale=p ** -0.5),
+        "bias": Leaf((4 * d,), dtype=torch.float32, fill=lambda: torch.cat([
+            torch.zeros(2 * d), torch.ones(d), torch.zeros(d)])),
+        "norm": Leaf((d,), ones=True),
+        "w_down": Leaf((d, d)),
+    }
+
+
+def _slstm_cell(params, cfg, wx_t, state):
+    """One step. wx_t: (B, 4d) input pre-activations; state (h, c, n, m)."""
+    d, h, p = _dims(cfg)
+    h_prev, c_prev, n_prev, m_prev = state
+    rh = torch.einsum("bhp,hpr->bhr", h_prev, params["r_gates"])    # (B,H,4P)
+    pre = wx_t.reshape(-1, h, 4 * p) + rh + params["bias"].reshape(h, 4 * p)
+    z, i_raw, f_raw, o = pre.float().chunk(4, dim=-1)
+    z = torch.tanh(z)
+    o = torch.sigmoid(o)
+    log_f = -softplus(-f_raw)
+    m_new = torch.maximum(log_f + m_prev, i_raw)
+    i_ = torch.exp(i_raw - m_new)
+    f_ = torch.exp(log_f + m_prev - m_new)
+    c_new = f_ * c_prev + i_ * z
+    n_new = f_ * n_prev + i_
+    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    return (h_new.to(wx_t.dtype), c_new, n_new, m_new)
+
+
+def slstm_scan(params, cfg, x):
+    """Prefill pass, a loop over time. x: (B, S, d) -> ((B, S, d), final
+    (h, c, n, m))."""
+    d, h, p = _dims(cfg)
+    b, s, _ = x.shape
+    wx = x @ params["w_gates"]                                      # (B,S,4d)
+    kw = dict(dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, h, p), dtype=x.dtype, device=x.device),
+             torch.zeros((b, h, p), **kw), torch.zeros((b, h, p), **kw),
+             torch.full((b, h, p), -torch.inf, **kw))
+
+    def body(st, wx_t):
+        st = _slstm_cell(params, cfg, wx_t, st)
+        return st, st[0]
+
+    state, hs = _scan(body, state, wx.movedim(1, 0))
+    y = hs.movedim(0, 1).reshape(b, s, d)
+    y = rms_norm(y, params["norm"], cfg.norm_eps)
+    return y @ params["w_down"], state
+
+
+def slstm_step(params, cfg, x, state):
+    """Decode step. x: (B, 1, d); state (h, c, n, m)."""
+    d, h, p = _dims(cfg)
+    b = x.shape[0]
+    state = _slstm_cell(params, cfg, x[:, 0] @ params["w_gates"], state)
+    y = rms_norm(state[0].reshape(b, 1, d), params["norm"], cfg.norm_eps)
+    return y @ params["w_down"], state
+
+
+__all__ = ["mlstm_chunked", "mlstm_spec", "mlstm_step", "slstm_scan",
+           "slstm_spec", "slstm_step"]

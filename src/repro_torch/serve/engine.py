@@ -119,11 +119,39 @@ def _eager_decode(cfg, return_hidden: bool, use_kernels) -> Callable:
 
 
 def _leaves(tree):
+    """The tensors of a parameter or cache tree (dicts and tuples, as a JAX
+    pytree: the sLSTM state is a tuple), in order."""
     if isinstance(tree, dict):
         for val in tree.values():
             yield from _leaves(val)
+    elif isinstance(tree, tuple):
+        for val in tree:
+            yield from _leaves(val)
     else:
         yield tree
+
+
+def _batch_axis(one, two):
+    """The batch axis of a cache leaf: the one axis whose extent differs
+    between its one-row and two-row probes (None if none does); a tuple
+    leaf gives a tuple of axes, as `jax.tree.map` does."""
+    if isinstance(one, tuple):
+        return tuple(_batch_axis(a, b) for a, b in zip(one, two))
+    return next((ax for ax in range(one.dim())
+                 if one.shape[ax] != two.shape[ax]), None)
+
+
+def _write_rows(full, rows, ax, slots) -> None:
+    """Write a prefill group's ``rows`` of a cache leaf into ``full`` at
+    ``slots`` along the batch axis ``ax``, in place (leaf by leaf through a
+    tuple)."""
+    if isinstance(full, tuple):
+        for f, r, a in zip(full, rows, ax):
+            _write_rows(f, r, a, slots)
+        return
+    idx = [slice(None)] * full.dim()
+    idx[ax] = slots
+    full[tuple(idx)] = rows.to(full.dtype)
 
 
 class _DecodeGraph:
@@ -134,8 +162,9 @@ class _DecodeGraph:
 
     The graph reads the tensors it was captured over: every leaf of
     ``params``, every leaf of the cache (`decode_step` updates ``len``,
-    ``k`` and ``v`` in place; an encoder-decoder's encoder K/V and length
-    are read) and a static (B, 1) token buffer that each call
+    ``k`` and ``v``, or a recurrent model's states and shared K/V, in
+    place; an encoder-decoder's encoder K/V and length are read) and a
+    static (B, 1) token buffer that each call
     fills. A call with tensors the graph was not captured over (the first
     call, or a new embed table after `DecodeEngine.update`) runs ``step``
     eagerly, which warms up cuBLAS and the allocator and allocates
@@ -267,10 +296,8 @@ class DecodeEngine:
         # between a one-row and a two-row cache
         probe = [model_lib.init_cache(cfg, b, max_len, device="meta")
                  for b in (1, 2)]
-        self._batch_axes = {
-            name: next(ax for ax in range(t.dim())
-                       if t.shape[ax] != probe[1][name].shape[ax])
-            for name, t in probe[0].items()}
+        self._batch_axes = {name: _batch_axis(t, probe[1][name])
+                            for name, t in probe[0].items()}
         self._embed_owned = False       # update() has copied the table
         self._decode = _eager_decode(cfg, False, use_kernels)
         self._decode_hidden = _eager_decode(cfg, True, use_kernels)
@@ -530,10 +557,7 @@ class DecodeEngine:
         self.prefill_calls += 1
         slots = torch.tensor([r.slot for r in group], device=self.device)
         for name, ax in self._batch_axes.items():
-            full = self.cache[name]
-            idx = [slice(None)] * full.dim()
-            idx[ax] = slots
-            full[tuple(idx)] = cache_g[name].to(full.dtype)
+            _write_rows(self.cache[name], cache_g[name], ax, slots)
         lg = logits.float().cpu().numpy()
         lg[:, self.cfg.vocab:] = -np.inf   # the argmax lands on a vocab id
         if self.logits_mode == "promips":

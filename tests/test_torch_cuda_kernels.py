@@ -392,6 +392,7 @@ def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
     (1, 4, 8, 64, 524288, [524288]),              # long_500k
     (4, 16, 1, 128, 512, [1, 41, 300, 512]),      # qwen2-moe / moonshot decode
     (4, 8, 2, 128, 512, [297, 300, 311, 512]),    # internvl2 decode (256 patches)
+    (4, 32, 1, 64, 512, [25, 41, 300, 512]),      # zamba2's shared attention
 ])
 def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
     rng = np.random.RandomState(b * s + g)

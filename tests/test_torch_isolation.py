@@ -6,9 +6,9 @@
   engine) run on the card by default and raise without one instead of
   falling back to the CPU;
 - asking for the kernels on CPU tensors raises;
-- what is not ported yet (the recurrent configs and block patterns)
-  raises, naming its ROADMAP item; the runtime's modes and the registry's
-  backends are all taken;
+- every config of the JAX registry resolves (the recurrent xLSTM and
+  Mamba2 hybrid too), an unknown block pattern raises; the runtime's modes
+  and the registry's backends are all taken;
 - `save` / `load`, `recover`, `sharded_search` and the ``sharded`` backend
   also run on the card unless ``device="cpu"`` is passed;
 - so do the tuner (`tune.search.tune_point`, the ``python -m
@@ -18,7 +18,7 @@
   parameters come from `init_params`), `distributed.checkpoint.restore`
   and `examples/train_lm_torch.py` (no `jax`, no `repro` either);
 - and the serve driver `launch.serve.main`, the MoE / vision /
-  encoder-decoder models and the two serving examples
+  encoder-decoder / recurrent models and the two serving examples
   (`examples/serve_lm_promips_torch.py`,
   `examples/recsys_retrieval_torch.py`), which import neither either.
 """
@@ -244,24 +244,34 @@ def test_serve_entry_points_default_to_the_card_and_raise_without_it(no_card):
 
 
 def test_new_families_and_serve_driver_default_to_the_card(no_card, capsys):
-    """The MoE, vision and encoder-decoder models build on the CPU when
-    asked (and an MoE config with MoECfg is taken); the serve driver and
-    the two serving examples raise naming CUDA without a card."""
+    """The MoE, vision, encoder-decoder and recurrent (xLSTM, Mamba2
+    hybrid) models build on the CPU when asked (and an MoE config with
+    MoECfg is taken), and so does their cache; the serve driver and the
+    two serving examples raise naming CUDA without a card."""
     import runpy
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.serve.engine import _leaves
     moe = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
                               moe=MoECfg(4, 2))
-    for cfg in (moe, get_config("whisper-base").reduced()):
+    for cfg in (moe, get_config("whisper-base").reduced(),
+                get_config("xlstm-1.3b").reduced(),
+                get_config("zamba2-1.2b").reduced()):
         with pytest.raises(RuntimeError, match="CUDA"):
             T.init_params(cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            T.init_cache(cfg, 2, 16)
         params = T.init_params(cfg, device="cpu")
         with pytest.raises(RuntimeError, match="CUDA"):
             DecodeEngine(params, cfg)
-    argv = ["--arch", "qwen2-moe-a2.7b", "--reduced", "--requests", "1",
-            "--max-new", "1"]
-    with pytest.raises(RuntimeError, match="CUDA"):
-        serve_main(argv)
-    assert len(serve_main(argv + ["--device", "cpu"])) == 1
+        eng = DecodeEngine(params, cfg, device="cpu", batch_slots=2,
+                           max_len=32)
+        assert all(t.device.type == "cpu" for t in _leaves(eng.cache))
+    for arch in ("qwen2-moe-a2.7b", "zamba2-1.2b", "xlstm-1.3b"):
+        argv = ["--arch", arch, "--reduced", "--requests", "1",
+                "--max-new", "1"]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve_main(argv)
+        assert len(serve_main(argv + ["--device", "cpu"])) == 1
     for path in (SERVE_LM, RECSYS):
         example = runpy.run_path(path, run_name="not_main")
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -299,19 +309,28 @@ def test_trainer_entry_points_default_to_the_card(no_card, tmp_path):
 
 
 def test_unported_configs_and_backends_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("zamba2-1.2b")
-    for name in ("phi4-mini-3.8b", "qwen3-32b", "h2o-danube-3-4b"):
-        assert get_config(name).name == name      # the dense configs are in
+    """Nothing of the registry is left unported: all ten configs resolve
+    (the recurrent xlstm-1.3b and zamba2-1.2b included) and pass
+    `check_supported`; an unknown arch or block pattern still raises."""
+    from repro_torch.configs import ARCH_IDS, all_configs
+    configs = all_configs()
+    assert tuple(configs) == ARCH_IDS and len(ARCH_IDS) == 10
+    for name, cfg in configs.items():
+        assert get_config(name) == cfg and cfg.name == name
+        T.check_supported(cfg)
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("mamba-2.8b")
     # every backend is ported: ``sharded`` builds and searches
     assert "sharded" in api.backends()
     s = api.build(mf_factors(100, 8, 4, seed=0), backend="sharded",
                   device="cpu", m=4, n_shards=2)
     assert s.search(mf_factors(2, 8, 4, seed=1), k=3).ids.shape == (2, 3)
-    hybrid = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                                 block_pattern="zamba2")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(hybrid, device="cpu")
+    odd = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                              block_pattern="rwkv")
+    for fn in (T.check_supported, lambda c: T.init_params(c, device="cpu"),
+               lambda c: T.init_cache(c, 1, 8, device="cpu")):
+        with pytest.raises(ValueError, match="block pattern 'rwkv'"):
+            fn(odd)
 
 
 def test_runtime_config_rejects_what_is_not_ported():
