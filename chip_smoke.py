@@ -145,12 +145,24 @@ described at their functions. Then:
       encoder-decoder configs, reduced, on the card and on the CPU from one
       set of parameters (TF32 off; the last four each step from the CPU
       state), losses, grad norms and every leaf of params, mu, nu (and the
-      int8 residuals) held within `train.parity`'s tolerance; (b) `launch.train.main` at tinyllama-1.1b's
-      full width, 8 steps of 8 x 256 tokens with checkpoints at steps 4 and
-      8 under build/: the loss falls, both steps complete, a rerun from
-      step_4 reproduces steps 4-7; step time, tokens/s, peak memory, each
-      checkpoint's bytes and seconds, two identical steps compared leaf by
-      leaf, and one step's device time by op under torch.profiler.
+      int8 residuals) held within `train.parity`'s tolerance, then of
+      xlstm-1.3b (8 layers, remat full) and zamba2-1.2b (5 layers: two
+      groups and a tail, remat dots), reduced, each step from the CPU
+      state, each leaf within twice the CPU step's own error (its spread
+      with the embedding scaled by 1 + 2^-23, or its distance from the
+      same step in f64, run in a child process) plus 1e-6
+      (`recurrent_step_tols`); (b) `launch.train.main` at
+      tinyllama-1.1b's full width, 8 steps of 8 x 256 tokens with
+      checkpoints at steps 4 and 8 under build/: the loss falls, both steps
+      complete, a rerun from step_4 reproduces steps 4-7; step time,
+      tokens/s, peak memory, each checkpoint's bytes and seconds, two
+      identical steps compared leaf by leaf, and one step's device time by
+      op under torch.profiler; (c) `launch.train.main` at the full width
+      and depth of zamba2-1.2b, then of xlstm-1.3b, 8 steps (xlstm 3, for
+      the time limit) of 8 x 256 tokens, no checkpoint: every loss and
+      grad norm finite, the last loss below the first; step time,
+      tokens/s, peak memory and one more step profiled by kernel class
+      with its kernel count.
   13. serve-families: `serve.DecodeEngine` on phase 6's traffic at the
       published widths of qwen2-moe-a2.7b (24 layers, 60 routed + 4
       shared experts top-4, vocab 151,936; 56 GB of f32 parameters, made
@@ -3915,6 +3927,10 @@ TRAIN_PARITY = (("tinyllama-1.1b", "full", False), ("phi4-mini-3.8b", "dots", Fa
 # GRAD_TOL by step 2 (6.0e-5 / 3.0e-5 / 1.9e-5 of the leaf's largest on the
 # CPU against JAX; internvl2-2b stays within 5e-6 and runs free)
 TRAIN_RESYNC = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "whisper-base")
+# then the recurrent configs, reduced (arch, layers or None, remat): xlstm's
+# one group, zamba2's two groups and tail; each card step from the CPU
+# state, within the tolerance of the step's own error (`recurrent_step_tols`)
+TRAIN_PARITY_RECURRENT = (("xlstm-1.3b", None, "full"), ("zamba2-1.2b", 5, "dots"))
 # 12b: launch.train.main at tinyllama-1.1b's full width
 TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
               "--microbatches", "2", "--steps", "8", "--ckpt-every", "4",
@@ -3922,6 +3938,14 @@ TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
 # card = CPU: losses, grad norms, lrs and every leaf within the tolerance of
 # `train.parity` (GRAD_TOL, relative to each leaf's largest; the parameters
 # beyond Adam's allowance; compression's flips within FLIP_MARGIN)
+# 12c: launch.train.main at the recurrent configs' full width and depth,
+# (arch, steps): xlstm-1.3b runs 3 steps, not 8, for the run's time limit:
+# its step takes about 15 s on an H100 (the sLSTM's 6 x 256 time steps,
+# forward, again under remat and backward, in each of 2 microbatches, each
+# a few host-bound kernels)
+TRAIN_RECURRENT = (("zamba2-1.2b", 8), ("xlstm-1.3b", 3))
+TRAIN_RECURRENT_ARGS = ["--batch", "8", "--seq", "256", "--microbatches", "2",
+                        "--log-every", "1"]
 
 
 def _cpu_to_card(tree):
@@ -3949,56 +3973,224 @@ def phase_train_parity(card):
     log(f"[train parity] TF32 for matmuls: "
         f"{torch.backends.cuda.matmul.allow_tf32} (PyTorch's default)")
     tol = parity.GRAD_TOL
-    for name, remat, compress in TRAIN_PARITY:
+    recurrent = start_recurrent_parity()
+    try:
+        for name, remat, compress in TRAIN_PARITY:
+            cfg = get_config(name).reduced()
+            tcfg = loop.TrainCfg(lr=1e-3, warmup=2, total_steps=20, microbatches=2,
+                                 remat=remat, compress_grads=compress)
+            cpu = loop.init_state(T.init_params(cfg, seed=0, device="cpu"), tcfg)
+            gpu = _cpu_to_card(cpu)
+            step = loop.make_train_step(cfg, tcfg)
+            stream = TokenStream(vocab=cfg.vocab, batch=4, seq=48, seed=1)
+            resync = compress or name in TRAIN_RESYNC
+            allowance = None
+            for i in range(3):
+                batch = stream.batch_at(i)
+                stub = T.frontend_key(cfg)
+                if stub:
+                    batch[stub] = __import__("numpy").random.RandomState(
+                        i).standard_normal((4, cfg.frontend_len, cfg.d_model)
+                                           ).astype("float32")
+                if resync:
+                    gpu = _cpu_to_card(cpu)
+                if name in TRAIN_RESYNC:     # one step's allowance
+                    allowance = None
+                gpu, gm = step(gpu, batch)
+                cpu, cm = step(cpu, batch)
+                errs = {k: parity.rel(gm[k], cm[k]) for k in ("loss", "grad_norm", "lr")}
+                allowance = parity.adam_allowance(allowance, cpu, float(cm["lr"]))
+                r = parity.compare_states(gpu, cpu, allowance=allowance)
+                log(f"[train parity {name}] step {i} ({remat}, microbatches 2"
+                    f"{', compressed' if compress else ''}"
+                    f"{', from the CPU state' if resync else ''}): loss "
+                    f"{float(gm['loss']):.6f}; "
+                    f"max rel diff loss {errs['loss']:.3e} grad_norm "
+                    f"{errs['grad_norm']:.3e} lr {errs['lr']:.3e} params "
+                    f"{r['params']:.3e} mu {r['mu']:.3e} nu {r['nu']:.3e}"
+                    + (f" ef {r['ef']:.3e}" if compress else "")
+                    + f"; Adam allowance used by {r['allowed']} elements; flips "
+                    f"{r['flips']} (largest margin {r['flip_margin']:.3e}); worst "
+                    f"{r['worst']} (on {card})")
+                for key in ("loss", "grad_norm", "lr", "params", "mu", "nu", "ef"):
+                    got = errs.get(key, r.get(key, 0.0))
+                    require(got <= tol, f"[train parity {name}] step {i}: {key} "
+                            f"differs by {got:.3e} > {tol:.0e} between card and CPU")
+                require(r["flip_margin"] <= parity.FLIP_MARGIN,
+                        f"[train parity {name}] step {i}: a flip {r['flip_margin']:.3e} "
+                        f"from its rounding boundary > {parity.FLIP_MARGIN:.2e}")
+        finish_recurrent_parity(recurrent, card)
+    finally:
+        if recurrent["child"].poll() is None:
+            recurrent["child"].kill()
+            recurrent["child"].wait()
+        shutil.rmtree(recurrent["tmp"], ignore_errors=True)
+
+
+PARTS = ("params", "mu", "nu")
+# the port's train step in f64 on the CPU: each of the payload's CPU states
+# stepped once, every f32 the port asks for read as f64 (the CPU tests
+# measure JAX's own error the same way, `tests/test_torch_recurrent_train.py`)
+F64_STEP_CHILD = r"""
+import sys
+import torch
+torch.float32 = torch.float64
+torch.Tensor.float = torch.Tensor.double
+from repro_torch import tree as tree_lib
+from repro_torch.train import loop
+payload = torch.load(sys.argv[1], weights_only=False)
+out = {}
+for key, cell in payload.items():
+    step = loop.make_train_step(cell["cfg"], cell["tcfg"])
+    out[key] = []
+    for state, batch in zip(cell["states"], cell["batches"]):
+        state = tree_lib.map(lambda t: t.double() if t.is_floating_point()
+                             else t, state)
+        new, m = step(state, batch)
+        out[key].append((new, {k: float(v) for k, v in m.items()}))
+torch.save(out, sys.argv[2])
+"""
+
+
+def _tree_parts(state):
+    from repro_torch import tree as tree_lib
+    return {name: tree_lib.leaves(state.params if name == "params"
+                                  else getattr(state.opt, name))
+            for name in PARTS}
+
+
+def recurrent_step_tols(new, m, moved, mm, exact, em):
+    """One CPU step's tolerances by the CPU tests' rule: per part (params,
+    mu, nu) and leaf, the larger of GRAD_TOL and twice the step's own error
+    plus 1e-6, its own error the larger of how far its result moves when
+    the embedding is scaled by (1 + 2^-23) (``moved``) and how far it lies
+    from the same step in f64 (``exact``), each relative to the leaf's
+    largest; the same for the loss and the grad norm."""
+    from repro_torch.train import parity
+
+    def tol(want, *others):
+        return max(parity.GRAD_TOL,
+                   2 * max(parity.rel(o, want) for o in others) + 1e-6)
+
+    got, mov, ex = _tree_parts(new), _tree_parts(moved), _tree_parts(exact)
+    tols = {name: [tol(w, a, b) for w, a, b in zip(got[name], mov[name],
+                                                    ex[name])]
+            for name in PARTS}
+    for key in ("loss", "grad_norm"):
+        tols[key] = tol(float(m[key]), float(mm[key]), em[key])
+    return tols
+
+
+def start_recurrent_parity():
+    """Phase 12a's recurrent cells (TRAIN_PARITY_RECURRENT), first half:
+    three CPU steps of each reduced config (4 x 48 tokens, microbatches
+    2), each also with the embedding scaled, and the same steps in f64 in
+    a child process (F64_STEP_CHILD), which runs while the card steps the
+    dense configs. Returns the cells, the child and its temp dir."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+    cells, payload = {}, {}
+    for name, n_layers, remat in TRAIN_PARITY_RECURRENT:
         cfg = get_config(name).reduced()
-        tcfg = loop.TrainCfg(lr=1e-3, warmup=2, total_steps=20, microbatches=2,
-                             remat=remat, compress_grads=compress)
-        cpu = loop.init_state(T.init_params(cfg, seed=0, device="cpu"), tcfg)
-        gpu = _cpu_to_card(cpu)
+        if n_layers:
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        tcfg = loop.TrainCfg(lr=1e-3, warmup=2, total_steps=20,
+                             microbatches=2, remat=remat)
         step = loop.make_train_step(cfg, tcfg)
         stream = TokenStream(vocab=cfg.vocab, batch=4, seq=48, seed=1)
-        resync = compress or name in TRAIN_RESYNC
-        allowance = None
+        states = [loop.init_state(T.init_params(cfg, seed=0, device="cpu"),
+                                  tcfg)]
+        batches, steps = [], []
         for i in range(3):
-            batch = stream.batch_at(i)
-            stub = T.frontend_key(cfg)
-            if stub:
-                batch[stub] = __import__("numpy").random.RandomState(
-                    i).standard_normal((4, cfg.frontend_len, cfg.d_model)
-                                       ).astype("float32")
-            if resync:
-                gpu = _cpu_to_card(cpu)
-            if name in TRAIN_RESYNC:     # one step's allowance
-                allowance = None
-            gpu, gm = step(gpu, batch)
-            cpu, cm = step(cpu, batch)
+            batches.append(stream.batch_at(i))
+            state = states[-1]
+            new, m = step(state, batches[-1])
+            scaled = state._replace(params=dict(
+                state.params, embed=state.params["embed"] * (1 + 2 ** -23)))
+            steps.append(((new, m), step(scaled, batches[-1])))
+            states.append(new)
+        cells[name] = dict(cfg=cfg, remat=remat, step=step, states=states,
+                           batches=batches, steps=steps)
+        payload[name] = dict(cfg=cfg, tcfg=tcfg, states=states[:3],
+                             batches=batches)
+    tmp = tempfile.mkdtemp(prefix="f64-", dir=os.path.join(ROOT, "build"))
+    src, dst = os.path.join(tmp, "payload.pt"), os.path.join(tmp, "f64.pt")
+    torch.save(payload, src)
+    child = subprocess.Popen(
+        [sys.executable, "-c", F64_STEP_CHILD, src, dst],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS=str(
+            max(1, len(os.sched_getaffinity(0)) - 1))))
+    return dict(cells=cells, child=child, tmp=tmp, dst=dst,
+                t0=time.perf_counter())
+
+
+def finish_recurrent_parity(rec, card):
+    """Phase 12a's recurrent cells, second half: each CPU step again on the
+    card from the CPU state, every leaf within `recurrent_step_tols` (the
+    parameters beyond one step's Adam allowance at mu's tolerance), the lr
+    within GRAD_TOL. The caller stops the child and removes its dir."""
+    import torch
+    from repro_torch.train import parity
+    cells, child = rec["cells"], rec["child"]
+    for cell in cells.values():
+        cell["gpu"] = []
+        for i in range(3):
+            gpu, gm = cell["step"](_cpu_to_card(cell["states"][i]),
+                                   cell["batches"][i])
+            cell["gpu"].append((_tree_to_cpu(gpu), gm))
+    child_log, _ = child.communicate(timeout=600)
+    require(child.returncode == 0, f"[train parity] the f64 child failed: "
+            f"{child_log[-2000:]}")
+    exact = torch.load(rec["dst"], weights_only=False)
+    log(f"[train parity] the recurrent cells' f64 steps (a child process) "
+        f"were read {time.perf_counter() - rec['t0']:.1f} s after it started")
+    for name, cell in cells.items():
+        cfg, remat = cell["cfg"], cell["remat"]
+        label = f"[train parity {name}, {cfg.n_layers} layers]"
+        for i in range(3):
+            ((cpu, cm), (moved, mm)), (gpu, gm) = cell["steps"][i], cell["gpu"][i]
+            tols = recurrent_step_tols(cpu, cm, moved, mm, *exact[name][i])
             errs = {k: parity.rel(gm[k], cm[k]) for k in ("loss", "grad_norm", "lr")}
-            allowance = parity.adam_allowance(allowance, cpu, float(cm["lr"]))
-            r = parity.compare_states(gpu, cpu, allowance=allowance)
-            log(f"[train parity {name}] step {i} ({remat}, microbatches 2"
-                f"{', compressed' if compress else ''}"
-                f"{', from the CPU state' if resync else ''}): loss "
-                f"{float(gm['loss']):.6f}; "
-                f"max rel diff loss {errs['loss']:.3e} grad_norm "
-                f"{errs['grad_norm']:.3e} lr {errs['lr']:.3e} params "
-                f"{r['params']:.3e} mu {r['mu']:.3e} nu {r['nu']:.3e}"
-                + (f" ef {r['ef']:.3e}" if compress else "")
-                + f"; Adam allowance used by {r['allowed']} elements; flips "
-                f"{r['flips']} (largest margin {r['flip_margin']:.3e}); worst "
-                f"{r['worst']} (on {card})")
-            for key in ("loss", "grad_norm", "lr", "params", "mu", "nu", "ef"):
-                got = errs.get(key, r.get(key, 0.0))
-                require(got <= tol, f"[train parity {name}] step {i}: {key} "
-                        f"differs by {got:.3e} > {tol:.0e} between card and CPU")
-            require(r["flip_margin"] <= parity.FLIP_MARGIN,
-                    f"[train parity {name}] step {i}: a flip {r['flip_margin']:.3e} "
-                    f"from its rounding boundary > {parity.FLIP_MARGIN:.2e}")
+            allowance = parity.adam_allowance(None, cpu, float(cm["lr"]),
+                                              grad_tol=tols["mu"])
+            r = parity.compare_states(gpu, cpu, allowance=allowance,
+                                      grad_tol={p: tols[p] for p in PARTS})
+            wide = sum(t > parity.GRAD_TOL for p in PARTS for t in tols[p])
+            log(f"{label} step {i} ({remat}, microbatches 2, from the CPU "
+                f"state): loss {float(gm['loss']):.6f}; max rel diff loss "
+                f"{errs['loss']:.3e} (bound {tols['loss']:.2e}) grad_norm "
+                f"{errs['grad_norm']:.3e} (bound {tols['grad_norm']:.2e}) lr "
+                f"{errs['lr']:.3e} params {r['params']:.3e} mu {r['mu']:.3e} "
+                f"nu {r['nu']:.3e}; the largest leaf error is "
+                f"{r['excess']:.3f} of its bound ({wide} of "
+                f"{3 * len(tols['mu'])} leaf bounds past "
+                f"{parity.GRAD_TOL:.0e}); worst {r['worst']} (on {card})")
+            for key in ("loss", "grad_norm"):
+                require(errs[key] <= tols[key], f"{label} step {i}: {key} "
+                        f"differs by {errs[key]:.3e} > {tols[key]:.2e} between "
+                        f"card and CPU")
+            require(errs["lr"] <= parity.GRAD_TOL, f"{label} step {i}: lr "
+                    f"differs")
+            require(r["excess"] <= 1.0, f"{label} step {i}: a leaf differs by "
+                    f"{r['excess']:.3f} of its bound between card and CPU ({r})")
 
 
-def _timed_train_main(argv, times, ckpts, restores):
+def _tree_to_cpu(tree):
+    from repro_torch import tree as tree_lib
+    return tree_lib.map(lambda t: t.cpu(), tree)
+
+
+def _timed_train_main(argv, times, ckpts, restores, held=None):
     """`launch.train.main(argv)` with each step timed (host clock to a
     synchronize), each checkpoint's host copy and write timed and sized,
-    and each restore timed."""
+    and each restore timed. With a dict ``held``, each step's grad norm is
+    appended to ``held["gnorms"]`` and the last state and the step
+    function are kept under "state" and "step"."""
     import torch
     from repro_torch.distributed import checkpoint as ckpt_lib
     from repro_torch.launch import train as launch_train
@@ -4014,6 +4206,9 @@ def _timed_train_main(argv, times, ckpts, restores):
             out = fn(state, batch)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
+            if held is not None:
+                held.setdefault("gnorms", []).append(float(out[1]["grad_norm"]))
+                held.update(state=out[0], step=fn)
             return out
         return run
 
@@ -4242,6 +4437,128 @@ def phase_train_full(card, tmp):
     gc.collect()
     torch.cuda.empty_cache()
     return dict(step_s=med, tokens_s=tokens / med, peak=peak, ckpts=ckpts)
+
+
+def _kernel_class(name):
+    """A device kernel's class: GEMM, the functor of an elementwise or
+    reduce kernel (add, Mul, Fill, sum, ...), or its base name."""
+    if re.search(r"gemm|gemv|xmma|cutlass", name, re.I):
+        return "GEMM"
+    found = re.search(r"CUDAFunctor_(\w+)", name)
+    if found:
+        return found.group(1)
+    found = [f for f in re.findall(r"(\w+?)_?[Ff]unctor\b", name)
+             if f not in ("Binary", "Unary", "CUDA")]
+    if found:
+        return found[-1]
+    found = re.search(r"(\w+)_kernel_cuda", name)
+    if found:
+        return found.group(1)
+    base = (name.replace("void ", "").replace("(anonymous namespace)::", "")
+            .replace("at::native::", ""))
+    return re.split(r"[<(]", base)[0][:48]
+
+
+def profile_train_step(label, step, state, batch, card):
+    """One train step under torch.profiler, device activity only, its
+    kineto events read directly (a step of the sLSTM's loop launches
+    hundreds of thousands of kernels: recording their host ops or building
+    the profiler's event tree costs minutes): wall, device busy and idle
+    share, the kernel count (device events but copies and fills), and
+    device time by kernel class and by kernel. Returns the state."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    by_kernel, by_class, copies = {}, {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        if name.startswith(("Memcpy", "Memset")):
+            copies += 1
+            continue
+        dur = e.duration_ns() / 1e3
+        for table, key in ((by_kernel, re.split(r"[(]", name.replace(
+                "void ", ""))[0][:70]), (by_class, _kernel_class(name))):
+            total, count = table.get(key, (0.0, 0))
+            table[key] = (total + dur, count + 1)
+    n_kernels = sum(c for _, c in by_kernel.values())
+    busy_ms = sum(t for t, _ in by_kernel.values()) / 1e3
+    read_s = time.perf_counter() - t0
+    if busy_ms == 0:
+        log(f"[{label} profile] device time not measured: the trace holds "
+            "no kernels")
+        return state
+    log(f"[{label} profile] one step (batch 8 x 256 tokens, microbatches 2, "
+        f"remat full): wall {wall_ms:.3f} ms under the profiler, device busy "
+        f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}; "
+        f"{n_kernels} kernels and {copies} copies / fills; the events took "
+        f"{read_s:.1f} s to read (on {card})")
+    for key, (t, c) in sorted(by_class.items(), key=lambda kv: -kv[1][0])[:8]:
+        log(f"[{label} profile]   {t / 1e3:10.3f} ms  x{c:<7d} {key} "
+            f"({100 * t / 1e3 / busy_ms:.1f}% of busy)")
+    for key, (t, c) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"[{label} profile]   kernel {t / 1e3:10.3f} ms  x{c:<7d} {key}")
+    return state
+
+
+def phase_train_recurrent(card):
+    """Phase 12c: `launch.train.main` at the full width and depth of
+    zamba2-1.2b and of xlstm-1.3b (random weights, seed 0), TRAIN_RECURRENT's
+    steps of 8 x 256 tokens in 2 microbatches under remat full, no
+    checkpoint. Every loss and grad norm finite, the last loss below the
+    first; median step time, tokens/s, peak memory and one more step
+    profiled."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    for name, steps in TRAIN_RECURRENT:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, held = [], {}
+        t0 = time.perf_counter()
+        losses = _timed_train_main(
+            ["--arch", name, "--steps", str(steps)] + TRAIN_RECURRENT_ARGS
+            + ["--device", DEVICE], times, [], [], held=held)
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        gnorms = held.get("gnorms", [])
+        med = sorted(times)[len(times) // 2]
+        tokens = 8 * 256
+        label = f"train {name}"
+        n_params = sum(t.numel() for t in tree_lib.leaves(held["state"].params))
+        log(f"[{label}] {n_params:,} parameters ({4 * n_params / 1e9:.2f} GB "
+            f"in f32); {len(losses)} "
+            f"steps in {run_s:.1f} s; losses {[round(x, 6) for x in losses]}; "
+            f"grad norms {[round(x, 4) for x in gnorms]}; step times "
+            f"{[round(x, 4) for x in times]} s; median {med:.4f} s = "
+            f"{tokens / med:,.1f} tokens/s; first step {times[0]:.4f} s; peak "
+            f"memory {peak / 2**30:.2f} GiB (max_memory_allocated) (on {card})")
+        require(len(losses) == steps and len(gnorms) == steps, f"[{label}] "
+                f"ran {len(losses)} steps")
+        require(all(math.isfinite(x) for x in losses + gnorms),
+                f"[{label}] a loss or grad norm is not finite: {losses} {gnorms}")
+        require(losses[-1] < losses[0], f"[{label}] the loss does not fall: "
+                f"{losses}")
+        batch = TokenStream(vocab=get_config(name).vocab, batch=8,
+                            seq=256).batch_at(steps)
+        t0 = time.perf_counter()
+        held["state"] = profile_train_step(label, held["step"], held["state"],
+                                           batch, card)
+        log(f"[{label}] the profiled step took {time.perf_counter() - t0:.1f} s "
+            f"with the trace")
+        del held
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 13
@@ -4946,6 +5263,10 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_train_recurrent(card)
+        log(f"[phase 12c, train zamba2-1.2b and xlstm-1.3b] "
+            f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         family_launches = phase_serve_families(families, build)
         log(f"[phase 13, serve-families] {time.perf_counter() - t0:.1f} s")

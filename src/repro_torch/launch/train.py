@@ -4,8 +4,9 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \\
       --steps 200 --batch 8 --seq 256 --reduced --ckpt-dir /tmp/ckpt
 
-It runs on the card unless ``--device cpu`` is given, and keeps the JAX
-driver's fault-tolerance story:
+Every config of the registry trains, the recurrent ``--arch xlstm-1.3b``
+and ``--arch zamba2-1.2b`` too. It runs on the card unless ``--device
+cpu`` is given, and keeps the JAX driver's fault-tolerance story:
   * auto-resume from the latest complete checkpoint (restart-safe);
   * deterministic data position = step index (no replay/skip after restart);
   * straggler monitor -> tightened checkpoint cadence while degraded;

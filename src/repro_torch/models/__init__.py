@@ -2,4 +2,4 @@
 (`layers`, `attention`, `moe`, `ssm`, `xlstm`, `scan_util`,
 `transformer`): the ``attn`` block pattern (dense, MoE, the vision stub),
 the ``encdec`` one (whisper), and the recurrent ``xlstm_7_1`` and
-``zamba2`` ones (served; their training is ROADMAP Queue 1 item 18)."""
+``zamba2`` ones (served and trained)."""

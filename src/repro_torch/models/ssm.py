@@ -81,6 +81,15 @@ def _pad_time(t, sp):
     return F.pad(t, (0, 0) * (t.dim() - 2) + (0, sp - t.shape[1]))
 
 
+def _intra_kernel(rel, causal, dt_c):
+    """A chunk's causal kernel G[t, s] = exp(cum[t] - cum[s]) dt[s] from
+    ``rel`` = cum[t] - cum[s] (B, L, L, H) and ``dt_c`` (B, L, H). The mask
+    goes inside the exp: above the diagonal exp(rel) may overflow, and
+    where(causal, exp(rel), 0) would send 0 * inf = NaN back to rel in the
+    backward; exp(-inf) = 0 gives the same forward bits."""
+    return torch.exp(torch.where(causal, rel, -torch.inf)) * dt_c[:, None]
+
+
 def mamba_chunked(params, cfg, x, *, chunk: int = 256):
     """Prefill pass. x: (B, S, d) -> ((B, S, d), (h (B, H, P, N), conv
     state)). The sequence is zero-padded to whole chunks of ``chunk``, as
@@ -119,11 +128,9 @@ def mamba_chunked(params, cfg, x, *, chunk: int = 256):
         # inter-chunk: y_inter[t] = C_t . (decay(0..t) * h_in)
         y_inter = torch.einsum("bln,bhpn->blhp", c_c, hstate) * torch.exp(
             cum_c)[..., None]
-        # intra-chunk: causal kernel G[t,s] = exp(cum[t]-cum[s]) dt[s]; the
-        # mask before the product, as in JAX (above the diagonal exp may
-        # overflow)
+        # intra-chunk: causal kernel G[t,s] = exp(cum[t]-cum[s]) dt[s]
         rel = cum_c[:, :, None, :] - cum_c[:, None, :, :]          # (B,L,L,H)
-        g = torch.where(causal, torch.exp(rel), 0.0) * dt_c[:, None]
+        g = _intra_kernel(rel, causal, dt_c)
         scores = torch.einsum("bln,bmn->blm", c_c, b_c)            # (B,L,L)
         # "blm,blmh,bmhp->blhp" in two steps: no (B, L, L, H, P) temporary
         w = (scores[..., None] * g).permute(0, 3, 1, 2)            # (B,H,L,L)

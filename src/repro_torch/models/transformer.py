@@ -39,8 +39,8 @@ The recurrent `prefill` keeps the JAX semantics
 (`src/repro/models/transformer.py:511-524`): it runs the chunked backbone
 for the last position's logits and returns `init_cache`'s zero states with
 ``len`` = S, so decoding starts from zero recurrent state and the hybrid's
-shared attention attends S zero K/V rows. Their `loss_fn` raises
-`NotImplementedError` (ROADMAP Queue 1 item 18).
+shared attention attends S zero K/V rows. `loss_fn` trains them through
+the same backbones, each group under the remat policy.
 
 `loss_fn` runs the layers on `torch.unbind` views of the stacked leaves,
 so the backward stacks each leaf's layer gradients once (the JAX scan's
@@ -265,45 +265,59 @@ def _attn_backbone(params, cfg, x, positions, *, remat="full",
     return x, aux, kv
 
 
-def _xlstm_backbone(params, cfg, x):
-    """The xLSTM's groups over a whole sequence (prefill): seven mLSTM
-    layers (`mlstm_chunked`) and one sLSTM layer (`slstm_scan`) a group,
-    each a pre-norm residual; the final states are dropped, as in JAX."""
+def _xlstm_backbone(params, cfg, x, *, remat="none"):
+    """The xLSTM's groups over a whole sequence: seven mLSTM layers
+    (`mlstm_chunked`) and one sLSTM layer (`slstm_scan`) a group, each a
+    pre-norm residual, the group under the ``remat`` policy (where JAX
+    puts it); the final states are dropped, as in JAX."""
     eps = cfg.norm_eps
-    for g in range(cfg.n_layers // 8):
-        for j in range(7):
-            h, _ = xlstm_lib.mlstm_chunked(
-                _take(params["mlstm"], g, j), cfg,
-                rms_norm(x, params["ln_m"][g, j], eps))
+    groups = cfg.n_layers // 8
+
+    def group(x, mlstm, ln_m, slstm, ln_s):
+        for lp, ln in zip(mlstm, ln_m):
+            h, _ = xlstm_lib.mlstm_chunked(lp, cfg, rms_norm(x, ln, eps))
             x = x + h
-        h, _ = xlstm_lib.slstm_scan(_take(params["slstm"], g), cfg,
-                                    rms_norm(x, params["ln_s"][g], eps))
-        x = x + h
+        h, _ = xlstm_lib.slstm_scan(slstm, cfg, rms_norm(x, ln_s, eps))
+        return x + h
+
+    step = _maybe_remat(group, remat)
+    for mlstm, ln_m, slstm, ln_s in zip(
+            _unstack(params["mlstm"], groups), _unstack(params["ln_m"], groups),
+            _unstack(params["slstm"], groups), _unstack(params["ln_s"], groups)):
+        x = step(x, _unstack(mlstm, 7), _unstack(ln_m, 7), slstm, ln_s)
     return x
 
 
-def _zamba_backbone(params, cfg, x, positions):
-    """The hybrid over a whole sequence (prefill): each group's Mamba2
-    layers (`mamba_chunked`) then the shared block, then the tail's Mamba2
-    layers; the final states are dropped, as in JAX."""
+def _zamba_backbone(params, cfg, x, positions, *, remat="none"):
+    """The hybrid over a whole sequence: each group's Mamba2 layers
+    (`mamba_chunked`) then the shared block, the group under the ``remat``
+    policy (where JAX puts it; the shared block's gradient sums over the
+    groups), then the tail's Mamba2 layers outside it; the final states are
+    dropped, as in JAX."""
     eps = cfg.norm_eps
-    sp = params["shared"]
     groups, every, rem = _zamba_groups(cfg)
-    for g in range(groups):
-        for j in range(every):
-            h, _ = ssm_lib.mamba_chunked(_take(params["mamba"], g, j), cfg,
-                                         rms_norm(x, params["mamba_ln"][g, j],
-                                                  eps))
-            x = x + h
+
+    def mamba(x, lp, ln):
+        h, _ = ssm_lib.mamba_chunked(lp, cfg, rms_norm(x, ln, eps))
+        return x + h
+
+    def group(x, layers, lns, sp):
+        for lp, ln in zip(layers, lns):
+            x = mamba(x, lp, ln)
         h, _ = attn_lib.attention_train(sp["attn"], cfg,
                                         rms_norm(x, sp["ln1"], eps), positions)
         x = x + h
-        x = x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], eps))
-    for j in range(rem):
-        h, _ = ssm_lib.mamba_chunked(_take(params["mamba_tail"], j), cfg,
-                                     rms_norm(x, params["mamba_tail_ln"][j],
-                                              eps))
-        x = x + h
+        return x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], eps))
+
+    step = _maybe_remat(group, remat)
+    for layers, lns in zip(_unstack(params["mamba"], groups),
+                           _unstack(params["mamba_ln"], groups)):
+        x = step(x, _unstack(layers, every), _unstack(lns, every),
+                 params["shared"])
+    if rem:
+        for lp, ln in zip(_unstack(params["mamba_tail"], rem),
+                          _unstack(params["mamba_tail_ln"], rem)):
+            x = mamba(x, lp, ln)
     return x
 
 
@@ -342,20 +356,22 @@ def loss_fn(params, cfg, batch, *, remat: str = "full"):
     """batch: tokens (B, S) int, labels (B, S) int (-1 ignored), plus
     patches (B, F, d) for the vision stub or frames (B, F, d) for the
     encoder-decoder, tensors on the parameters' device. Returns
-    (loss + 0.01 * aux, {"loss", "aux"}). The recurrent patterns raise
-    `NotImplementedError` (ROADMAP Queue 1 item 18)."""
+    (loss + 0.01 * aux, {"loss", "aux"}); aux is 0 but for MoE layers.
+    ``remat`` (none, full or dots) wraps each attention layer, each xLSTM
+    group and each hybrid group, as in JAX."""
     check_supported(cfg)
-    if cfg.block_pattern in RECURRENT:
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent {cfg.block_pattern!r} "
-            f"pattern is not ported (the port serves it); ROADMAP Queue 1 "
-            f"item 18")
     if cfg.block_pattern == "encdec":
         return _loss_encdec(params, cfg, batch, remat=remat)
     x, offset = _embed_inputs(params, cfg, batch)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
-    x, aux, _ = _attn_backbone(params, cfg, x, positions, remat=remat)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.block_pattern == "xlstm_7_1":
+        x = _xlstm_backbone(params, cfg, x, remat=remat)
+    elif cfg.block_pattern == "zamba2":
+        x = _zamba_backbone(params, cfg, x, positions, remat=remat)
+    else:
+        x, aux, _ = _attn_backbone(params, cfg, x, positions, remat=remat)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if offset:
         x = x[:, offset:]

@@ -170,7 +170,8 @@ def _slstm_cell(params, cfg, wx_t, state):
     f_ = torch.exp(log_f + m_prev - m_new)
     c_new = f_ * c_prev + i_ * z
     n_new = f_ * n_prev + i_
-    h_new = o * c_new / torch.clamp(n_new, min=1e-6)
+    # maximum, not clamp: at a tie it splits the gradient as jnp.maximum does
+    h_new = o * c_new / torch.maximum(n_new, n_new.new_full((), 1e-6))
     return (h_new.to(wx_t.dtype), c_new, n_new, m_new)
 
 

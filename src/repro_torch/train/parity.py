@@ -21,6 +21,12 @@ order part by more than that, and each is bounded apart:
   the half step in grid units (``|0.5 - |r| / scale|``); the largest margin
   is returned for the caller to hold to its bound. A residual's error is
   relative to what was quantized (127 scales), not to the residual.
+
+The tolerance is GRAD_TOL for every leaf unless the caller gives one a
+leaf (`leaf_tols`), or one a leaf for each part: the recurrent models
+amplify f32 rounding past GRAD_TOL, so their leaves are held to twice the
+reference's own measured error (`tests/test_torch_recurrent_train.py`,
+`chip_smoke.py` phase 12a).
 """
 from __future__ import annotations
 
@@ -55,32 +61,51 @@ def leaf_names(params) -> list:
     return names
 
 
-def adam_allowance(allowance, state, lr: float, *, b2: float = 0.95,
-                   eps: float = 1e-8) -> list:
+def leaf_tols(grad_tol, n: int) -> list:
+    """``grad_tol`` as ``n`` per-leaf tolerances: one number for every
+    leaf, or a sequence of one a leaf (in flatten order)."""
+    if np.ndim(grad_tol) == 0:
+        return [float(grad_tol)] * n
+    tols = [float(t) for t in grad_tol]
+    if len(tols) != n:
+        raise ValueError(f"{len(tols)} tolerances for {n} leaves")
+    return tols
+
+
+def adam_allowance(allowance, state, lr: float, *, grad_tol=GRAD_TOL,
+                   b2: float = 0.95, eps: float = 1e-8) -> list:
     """``allowance`` (per-leaf arrays, or None before the first step) plus
-    this step's share, from the reference ``state`` after the step and the
-    step's learning rate ``lr``."""
+    this step's share, from the reference ``state`` after the step, the
+    step's learning rate ``lr`` and the gradients' tolerance ``grad_tol``
+    (`leaf_tols`)."""
     bc2 = 1.0 - b2 ** int(state.opt.count)
+    nus = _np(tree_lib.leaves(state.opt.nu))
+    tols = leaf_tols(grad_tol, len(nus))
     out = []
-    for i, nu in enumerate(_np(tree_lib.leaves(state.opt.nu))):
+    for i, nu in enumerate(nus):
         r = np.sqrt(nu / bc2)
-        share = np.minimum(lr * GRAD_TOL * r.max() / (r + eps), 2.0 * lr)
+        share = np.minimum(lr * tols[i] * r.max() / (r + eps), 2.0 * lr)
         out.append(share if allowance is None else allowance[i] + share)
     return out
 
 
-def compare_states(got, want, *, allowance=None) -> dict:
+def compare_states(got, want, *, allowance=None, grad_tol=GRAD_TOL) -> dict:
     """``got`` against ``want`` (two `TrainState`s of one config, on any
     devices). Returns the largest relative errors {"params", "mu", "nu",
     "ef"} over the elements that did not flip, the parameters' beyond
     ``allowance`` (`adam_allowance`, or None for none); "allowed" (the
-    parameter elements whose error exceeds the plain tolerance GRAD_TOL but
-    not their allowance); "flips" (elements whose residuals differ by about
-    one int8 step) and "flip_margin" (the largest margin of a flip, 0.0
-    without one); and "worst" (the part and leaf of the largest error).
-    A leaf's int8 scale is taken as twice its largest residual (``|r| <=
-    scale / 2``; enough to tell a one-step difference from noise), and a
-    flip's own difference of residuals is its scale in its margin."""
+    parameter elements whose error exceeds their leaf's tolerance but not
+    their allowance); "excess" (the largest ratio of a leaf's error to its
+    tolerance over the parts: at most 1 when every leaf holds); "flips"
+    (elements whose residuals differ by about one int8 step) and
+    "flip_margin" (the largest margin of a flip, 0.0 without one); and
+    "worst" (the part and leaf of the largest error). A leaf's int8 scale
+    is taken as twice its largest residual (``|r| <= scale / 2``; enough to
+    tell a one-step difference from noise), and a flip's own difference of
+    residuals is its scale in its margin.
+    ``grad_tol`` is one tolerance for every part (`leaf_tols`), or a dict of
+    one a part ({"params", "mu", "nu", "ef"}; GRAD_TOL for a part left
+    out)."""
     names = leaf_names(want.params)
     parts = {"params": (got.params, want.params),
              "mu": (got.opt.mu, want.opt.mu), "nu": (got.opt.nu, want.opt.nu)}
@@ -100,21 +125,28 @@ def compare_states(got, want, *, allowance=None) -> dict:
                 step = np.abs(rg - rw)[flips[i]]
                 margin = max(margin, float(
                     np.abs(0.5 - np.abs(rw[flips[i]]) / step).max()))
+
+    def part_tols(part):
+        tol = (grad_tol.get(part, GRAD_TOL) if isinstance(grad_tol, dict)
+               else grad_tol)
+        return leaf_tols(tol, len(flips))
+
     out = {"flips": int(sum(f.sum() for f in flips)), "flip_margin": margin,
-           "allowed": 0, "worst": None}
+           "allowed": 0, "excess": 0.0, "worst": None}
     worst = -1.0
     for part, (g_tree, w_tree) in parts.items():
-        err = 0.0
+        err, tols = 0.0, part_tols(part)
         for i, (g, w) in enumerate(zip(_np(tree_lib.leaves(g_tree)),
                                        _np(tree_lib.leaves(w_tree)))):
             denom = max(127.0 * scales[i] if part == "ef" else np.abs(w).max(),
                         1e-30)
             d = np.abs(g - w)[~flips[i]]
             if part == "params" and allowance is not None:
-                out["allowed"] += int((d > GRAD_TOL * denom).sum())
+                out["allowed"] += int((d > tols[i] * denom).sum())
                 d = np.maximum(d - allowance[i][~flips[i]], 0.0)
             e = float(d.max(initial=0.0) / denom)
             err = max(err, e)
+            out["excess"] = max(out["excess"], e / tols[i])
             if e > worst:
                 worst, out["worst"] = e, f"{part} {names[i]}"
         out[part] = err
@@ -128,4 +160,4 @@ def rel(got, want) -> float:
 
 
 __all__ = ["FLIP_MARGIN", "GRAD_TOL", "adam_allowance", "compare_states", "leaf_names",
-           "rel"]
+           "leaf_tols", "rel"]

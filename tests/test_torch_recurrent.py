@@ -443,8 +443,18 @@ def test_launch_serve_main_matches_jax(jax_search, monkeypatch, capsys, name,
     assert capsys.readouterr().out.count("served 5 requests") == 2
 
 
-def test_loss_fn_names_the_training_item():
+def test_loss_fn_names_the_training_item(carried):
+    """The recurrent patterns train (ROADMAP Queue 1 item 18): a finite
+    loss and finite gradients for both configs (the values against JAX are
+    `tests/test_torch_recurrent_train.py`'s). zamba2 at S 12 is where the
+    SSD's unmasked exp overflowed into a NaN gradient."""
+    from repro_torch import tree as tree_lib
     for name in NAMES:
-        cfg = get_config(name).reduced()
-        with pytest.raises(NotImplementedError, match="item 18"):
-            T.loss_fn({}, cfg, {})
+        cfg, _, _, params = carried[name, None]
+        leaves = [p.detach().requires_grad_() for p in tree_lib.leaves(params)]
+        tokens = torch.from_numpy(_tokens(cfg)).long()
+        batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, dims=1)}
+        loss, _ = T.loss_fn(tree_lib.unflatten(params, leaves), cfg, batch)
+        grads = torch.autograd.grad(loss, leaves)
+        assert bool(torch.isfinite(loss))
+        assert all(bool(torch.isfinite(g).all()) for g in grads), name

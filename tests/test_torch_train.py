@@ -336,10 +336,12 @@ def test_remat_modes_agree_and_dots_keeps_the_weight_gemms(carried):
 
 
 def test_loss_fn_rejects_what_is_not_ported():
-    xlstm = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
-                                block_pattern="xlstm_7_1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.loss_fn({}, xlstm, {})
+    """Every block pattern trains; an unknown one raises ValueError, as
+    does an unknown remat policy."""
+    unknown = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                                  block_pattern="rwkv")
+    with pytest.raises(ValueError, match="unknown block pattern"):
+        T.loss_fn({}, unknown, {})
     with pytest.raises(ValueError):
         T._maybe_remat(lambda x: x, "nope")
 
