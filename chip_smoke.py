@@ -114,8 +114,8 @@ if they do not hold: mips_score's small-batch path against its tile path at
 the serve tile (1% of the rows invalid, exactly -1e30), and sketch_scores
 against the ordered LUT sum `ref.sketch_scores_lut_ref` at n=1M, at both of
 the kernel's query-group sizes there (8 for the batch of 64, 4 for its
-first 4 queries). The B sweep of mips_score (B = 1..64 at the serve tile
-and at the stream delta's shape, the small path, the tile path and
+first 4 queries). The B sweep of mips_score (B = 4, 8, 16, 64 at the
+serve tile and at the stream delta's shape, the small path, the tile path and
 torch.matmul + masked_fill_ in turns) prints one line per shape; its
 crossover sets the kernel's B_SMALL.
 Phases 7-9 (sharded-1M, sharded-stream-100k, durable-stream-1M) are
@@ -158,11 +158,21 @@ described at their functions. Then:
       tokens/s, peak memory, each checkpoint's bytes and seconds, two
       identical steps compared leaf by leaf, and one step's device time by
       op under torch.profiler; (c) `launch.train.main` at the full width
-      and depth of zamba2-1.2b, then of xlstm-1.3b, 8 steps (xlstm 3, for
-      the time limit) of 8 x 256 tokens, no checkpoint: every loss and
+      and depth of zamba2-1.2b, then of xlstm-1.3b, 8 and 2 steps (xlstm
+      2 for the time limit) of 8 x 256 tokens, no checkpoint: every loss and
       grad norm finite, the last loss below the first; step time,
       tokens/s, peak memory and one more step profiled by kernel class
-      with its kernel count.
+      with its kernel count (xlstm's at one group of 8 layers); (d) the sharded trainer as `torch.distributed`
+      gloo ranks, processes sharing the card: under 4 ranks at reduced
+      width `int8_psum` on CUDA tensors equal to CPU tensors bit for bit,
+      `launch.specs.build_cell`'s ZeRO-1 train step on mesh (2, 2) within
+      `train.parity` of the one-process step, `launch.train.main` saved
+      under 4 ranks and resumed under 2 (4 losses within 1e-5 of a
+      one-process resume); under 2 ranks at tinyllama-1.1b's full width
+      (mesh data 2, model 1) 3 steps of phase 12b's batch, each loss within
+      1e-5 of 12b's, with step times, tokens/s, each rank's peak memory and
+      the host seconds of its gradient collective; and which collectives
+      gloo runs on CUDA tensors directly.
   13. serve-families: `serve.DecodeEngine` on phase 6's traffic at the
       published widths of qwen2-moe-a2.7b (24 layers, 60 routed + 4
       shared experts top-4, vocab 151,936; 56 GB of f32 parameters, made
@@ -690,13 +700,10 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
             f"the same input differ in {int((got != again).sum())} entries")
     launches = ""
     if count_launches:
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            ops.decode_attention(*args, use_kernels=True)
-            torch.cuda.synchronize()
-        kernels = [e.name for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        # between sentinel kernels: the tracer can drop a session's first
+        # records (a bare session once traced none of this call's)
+        kernels, _ = cuda_kernels_of(
+            lambda: ops.decode_attention(*args, use_kernels=True), n_calls=1)
         require(len(kernels) == 1, f"decode_attention {label}: {len(kernels)} "
                 f"CUDA kernels in one call: {kernels}")
         launches = f"; one CUDA kernel a call ({kernels[0][:40]})"
@@ -754,6 +761,11 @@ def check_sketch_bitwise(q, codebooks, codes, est):
         "(ref.sketch_scores_lut_ref) with query groups of 8 and of 4")
 
 
+# the B of the sweep: the serve slots' 4, either side of B_SMALL's
+# crossover (8 / 16) and the main path's 64
+SWEEP_B = (4, 8, 16, 64)
+
+
 def sweep_mips_score(timer, shapes):
     """The B sweep of mips_score: at each (label, x) of ``shapes`` and each
     B, the small-batch path (for B <= B_SMALL), the tile path and
@@ -768,7 +780,7 @@ def sweep_mips_score(timer, shapes):
         r, d = x.shape
         valid = torch.ones(r, dtype=torch.bool, device=DEVICE)
         cells = []
-        for b in (1, 2, 4, 8, 16, 32, 64):
+        for b in SWEEP_B:
             qb = torch.randn((b, d), generator=gen, device=DEVICE)
             t_s = (timer.ms(lambda: ms._launch(x, qb, valid, ms.SMALL))
                    if b <= b_small else None)
@@ -3939,11 +3951,15 @@ TRAIN_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
 # `train.parity` (GRAD_TOL, relative to each leaf's largest; the parameters
 # beyond Adam's allowance; compression's flips within FLIP_MARGIN)
 # 12c: launch.train.main at the recurrent configs' full width and depth,
-# (arch, steps): xlstm-1.3b runs 3 steps, not 8, for the run's time limit:
-# its step takes about 15 s on an H100 (the sLSTM's 6 x 256 time steps,
-# forward, again under remat and backward, in each of 2 microbatches, each
-# a few host-bound kernels)
-TRAIN_RECURRENT = (("zamba2-1.2b", 8), ("xlstm-1.3b", 3))
+# (arch, steps): zamba2-1.2b runs 4 steps and xlstm-1.3b 2, not 8, for the
+# run's time limit: xlstm's step takes 11-15 s on an H100 (the sLSTM's 6 x
+# 256 time steps, forward, again under remat and backward, in each of 2
+# microbatches, each a few host-bound kernels)
+TRAIN_RECURRENT = (("zamba2-1.2b", 8), ("xlstm-1.3b", 2))
+# the profiled step's depth where it is cut: xlstm-1.3b's at one group (8
+# of its 48 layers, the same layers' kernels a group), as tracing the whole
+# model's 361,213 kernels took 63.7 s
+TRAIN_PROFILE_LAYERS = {"xlstm-1.3b": 8}
 TRAIN_RECURRENT_ARGS = ["--batch", "8", "--seq", "256", "--microbatches", "2",
                         "--log-every", "1"]
 
@@ -4212,10 +4228,10 @@ def _timed_train_main(argv, times, ckpts, restores, held=None):
             return out
         return run
 
-    def timed_save(ckpt_dir, step, tree, *, blocking=True):
+    def timed_save(ckpt_dir, step, tree, *, blocking=True, **kw):
         import threading
         t0 = time.perf_counter()
-        writer = save(ckpt_dir, step, tree, blocking=False)
+        writer = save(ckpt_dir, step, tree, blocking=False, **kw)
         rec = dict(step=step, copy_s=time.perf_counter() - t0)
 
         def finish():
@@ -4436,7 +4452,8 @@ def phase_train_full(card, tmp):
     del state
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(step_s=med, tokens_s=tokens / med, peak=peak, ckpts=ckpts)
+    return dict(step_s=med, tokens_s=tokens / med, peak=peak, ckpts=ckpts,
+                losses=losses)
 
 
 def _kernel_class(name):
@@ -4515,11 +4532,14 @@ def phase_train_recurrent(card):
     steps of 8 x 256 tokens in 2 microbatches under remat full, no
     checkpoint. Every loss and grad norm finite, the last loss below the
     first; median step time, tokens/s, peak memory and one more step
-    profiled."""
+    profiled (xlstm-1.3b's at TRAIN_PROFILE_LAYERS)."""
+    import dataclasses
     import torch
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
     for name, steps in TRAIN_RECURRENT:
         gc.collect()
         torch.cuda.empty_cache()
@@ -4551,6 +4571,18 @@ def phase_train_recurrent(card):
                 f"{losses}")
         batch = TokenStream(vocab=get_config(name).vocab, batch=8,
                             seq=256).batch_at(steps)
+        layers = TRAIN_PROFILE_LAYERS.get(name)
+        if layers:
+            del held["state"]
+            gc.collect()
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(get_config(name), n_layers=layers)
+            tcfg = loop.TrainCfg(lr=3e-4, warmup=10, total_steps=steps,
+                                 microbatches=2, remat="full")
+            held["step"] = loop.make_train_step(cfg, tcfg, donate=True)
+            held["state"] = loop.init_state(
+                T.init_params(cfg, seed=0, device=DEVICE), tcfg)
+            label = f"{label}, {layers} of {get_config(name).n_layers} layers"
         t0 = time.perf_counter()
         held["state"] = profile_train_step(label, held["step"], held["state"],
                                            batch, card)
@@ -4559,6 +4591,346 @@ def phase_train_recurrent(card):
         del held
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 12d
+
+# the sharded trainer as gloo ranks sharing the card: (a) reduced
+# tinyllama-1.1b under 4 ranks (int8_psum, build_cell's ZeRO-1 step on mesh
+# (2, 2), launch.train 4 ranks -> resumed under 2); (b) tinyllama-1.1b at
+# phase 12b's full widths under 2 ranks, mesh (data 2, model 1)
+RANKS_REDUCED = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "4",
+                 "--seq", "64", "--log-every", "0"]
+RANKS_CELL = ("train_small", 32, 8, "train")   # build_cell's train shape
+RANKS_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
+              "--microbatches", "2", "--steps", "3", "--model-parallel", "1",
+              "--log-every", "1"]
+RANKS_WAVE_S = 240   # a wave of rank processes ends within this or fails
+# the collectives gloo is asked to run on CUDA tensors directly (a report:
+# the port stages every collective through pinned host memory)
+RANKS_PROBE = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
+               "reduce_scatter", "reduce_scatter_tensor")
+
+RANKS_CHILD = r"""
+import dataclasses, datetime, json, os, sys, time
+import torch
+import torch.distributed as dist
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+from repro_torch import tree as tree_lib
+from repro_torch.configs import ShapeCfg, get_config
+from repro_torch.data.synthetic import TokenStream
+from repro_torch.distributed import checkpoint as ckpt_lib
+from repro_torch.distributed.compression import int8_psum
+from repro_torch.distributed.sharding import P, gather, shard, shard_shape
+from repro_torch.launch import specs, train as launch_train
+from repro_torch.launch.mesh import make_host_mesh, make_mesh_compat
+
+phase, tmp = sys.argv[1], sys.argv[2]
+reduced, cell, full, probes, device = json.loads(sys.argv[3])
+reduced, full = reduced + ["--device", device], full + ["--device", device]
+rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+store = os.path.join(tmp, f"store_{phase}")
+dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
+                        world_size=world, timeout=launch_train.TIMEOUT)
+dev = launch_train.rank_device(device)
+cuda = dev.type == "cuda"
+if cuda:
+    torch.cuda.set_device(dev)
+res = {"rank": rank, "device": str(dev)}
+
+def probe(name):
+    g = dist.new_group(list(range(world)), timeout=datetime.timedelta(seconds=15))
+    x = torch.ones(4 * world, device=dev)
+    if name == "all_reduce":
+        dist.all_reduce(x, group=g)
+    elif name == "broadcast":
+        dist.broadcast(x, 0, group=g)
+    elif name == "all_gather":
+        dist.all_gather([torch.empty_like(x) for _ in range(world)], x, group=g)
+    elif name == "all_gather_into_tensor":
+        dist.all_gather_into_tensor(torch.empty(world * x.numel(), device=dev), x, group=g)
+    elif name == "reduce_scatter":
+        dist.reduce_scatter(torch.empty(4, device=dev), list(x.chunk(world)), group=g)
+    else:
+        dist.reduce_scatter_tensor(torch.empty(4, device=dev), x, group=g)
+    torch.cuda.synchronize(dev)
+
+def sync():
+    if cuda:
+        torch.cuda.synchronize(dev)
+
+if phase == "four":
+    if cuda:
+        for name in probes:
+            try:
+                probe(name)
+                res[name] = "runs on CUDA tensors"
+            except Exception as e:   # the report of gloo's answer, not a fallback
+                res[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    m1 = make_mesh_compat((4,), ("data",))
+    x = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16) / 40.0
+    g = torch.Generator().manual_seed(0)
+    y = torch.randn(4096, 512, generator=g)
+    outs = {}
+    for name, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        got = int8_psum({"x": shard(x, P("data"), m1).to(d),
+                         "y": shard(y, P("data"), m1).to(d)}, "data", m1)
+        outs[name] = {k: gather(v, P("data"), m1).cpu() for k, v in got.items()}
+    res["int8_equal"] = all(torch.equal(outs["cuda"][k], outs["cpu"][k])
+                            for k in ("x", "y"))
+    want = x.reshape(4, 2, 16).sum(0).repeat(4, 1)
+    res["int8_err"] = float((outs["cuda"]["x"] - want).abs().max() / want.abs().max())
+
+    mesh = make_host_mesh(2)
+    res["zero_mesh"] = mesh.shape
+    cfg = get_config("tinyllama-1.1b").reduced()
+    shape = ShapeCfg(*cell)
+    fn, args, in_specs, _ = specs.build_cell(cfg, shape, mesh, microbatch_override=2)
+    st_specs = in_specs[0]
+    # the pieces of the abstract state, f32 where it carries bf16
+    target = tree_lib.map(lambda t, s: torch.empty(
+        shard_shape(s, t.shape, mesh),
+        dtype=torch.float32 if t.is_floating_point() else t.dtype, device=dev),
+        args[0], st_specs)
+    state = ckpt_lib.restore(os.path.join(tmp, "zero_init"), 0, target, dev,
+                             specs=st_specs, mesh=mesh)
+    stream = TokenStream(vocab=cfg.vocab, batch=shape.global_batch, seq=shape.seq_len)
+    res["zero_metrics"] = []
+    for i in range(3):
+        state, m = fn(state, stream.batch_at(i))
+        res["zero_metrics"].append({k: float(m[k]) for k in m})
+    ckpt_lib.save(os.path.join(tmp, "zero_out"), 3, state, specs=st_specs, mesh=mesh)
+    res["elastic_first"] = launch_train.main(
+        reduced + ["--steps", "8", "--ckpt-every", "4", "--ckpt-dir",
+                   os.path.join(tmp, "elastic")])
+else:
+    # started beside the four ranks: one reduced step loads the card's
+    # libraries while the resume waits for their checkpoint
+    launch_train.main(reduced + ["--steps", "1"])
+    go, deadline = os.path.join(tmp, "go_two"), time.time() + 600
+    while not os.path.exists(go) and time.time() < deadline:
+        time.sleep(0.2)
+    res["elastic_resumed"] = launch_train.main(
+        reduced + ["--steps", "12", "--ckpt-dir", os.path.join(tmp, "elastic")])
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    times, syncs = [], []
+    make = launch_train.make_train_step
+
+    def timed_make(*a, **kw):
+        fn = make(*a, **kw)
+        def run(state, batch):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            sync()
+            times.append(time.perf_counter() - t0)
+            syncs.append((out[1]["grad_sync_s"], out[1]["param_sync_s"]))
+            return out
+        return run
+    launch_train.make_train_step = timed_make
+    res["full_losses"] = launch_train.main(full)
+    res.update(step_s=times, grad_sync_s=[s[0] for s in syncs],
+               param_sync_s=[s[1] for s in syncs],
+               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+with open(os.path.join(tmp, f"{phase}_{rank}.json"), "w") as f:
+    json.dump(res, f)
+dist.destroy_process_group()
+"""
+
+
+def start_ranks(world, phase, tmp):
+    """``world`` rank processes of RANKS_CHILD's ``phase``, each in its own
+    session (killed as a group on failure)."""
+    arg = json.dumps([RANKS_REDUCED, RANKS_CELL, RANKS_FULL, RANKS_PROBE,
+                      DEVICE])
+    env = dict(os.environ, PYTHONPATH=SRC, WORLD_SIZE=str(world))
+    return [subprocess.Popen(
+        [sys.executable, "-c", RANKS_CHILD, phase, tmp, arg],
+        env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+        for r in range(world)]
+
+
+def finish_ranks(children, phase, tmp):
+    """Each rank's result; a rank that fails or outlasts RANKS_WAVE_S fails
+    the run after every rank of the wave is killed (a dead rank leaves the
+    others blocked in a collective)."""
+    failed = None
+    try:
+        deadline = time.perf_counter() + RANKS_WAVE_S
+        for rank, child in enumerate(children):
+            out, _ = child.communicate(
+                timeout=max(1.0, deadline - time.perf_counter()))
+            if child.returncode != 0 and failed is None:
+                failed = f"rank {rank} exited {child.returncode}:\n{out[-4000:]}"
+            elif rank == 0 and out.strip():
+                log("\n".join(f"[ranks {phase}] rank 0: {line}"
+                              for line in out.strip().splitlines()[-12:]))
+    except subprocess.TimeoutExpired:
+        failed = f"the {phase} ranks outlasted {RANKS_WAVE_S} s"
+    finally:
+        for child in children:
+            if child.poll() is None:
+                os.killpg(child.pid, 9)
+                child.wait()
+    require(failed is None, f"[ranks {phase}] {failed}")
+    results = []
+    for rank in range(len(children)):
+        with open(os.path.join(tmp, f"{phase}_{rank}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_train_ranks(card, full_losses):
+    """Phase 12d: the sharded trainer as `torch.distributed` gloo ranks,
+    processes sharing the card (every collective staged through pinned host
+    memory). (a) reduced tinyllama-1.1b under 4 ranks: `int8_psum` on CUDA
+    tensors equal bit for bit to the same call on CPU tensors;
+    `specs.build_cell`'s train step (ZeRO-1 on mesh (2, 2), batch 8 x 32 in
+    2 microbatches) for 3 steps from one state, within `train.parity` of
+    the one-process card step; `launch.train.main` 8 steps under 4 ranks
+    with checkpoints at 4 and 8, resumed under 2 ranks to step 12: 4
+    losses, within 1e-5 of a one-process resume of the same checkpoint.
+    (b) `launch.train.main` at tinyllama-1.1b's full width under 2 ranks
+    (mesh data 2, model 1; batch 8 x 256 in 2 microbatches, 3 steps): each
+    loss within 1e-5 of phase 12b's same step; step times, tokens/s, each
+    rank's peak memory and its seconds in the gradient collective a step.
+    The 4 ranks first report which collectives gloo runs on CUDA tensors
+    directly. The 2 ranks start beside the 4 and wait for their
+    checkpoint."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ShapeCfg, get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.launch import specs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop, parity
+    tol = parity.GRAD_TOL
+    full = get_config("tinyllama-1.1b")
+    n = full.param_count()
+    gib = 4 * n / 2**30
+    log(f"[ranks] reckoned peak a rank at full width (mesh data 2, model 1: "
+        f"every leaf whole on each rank, the JAX launcher's layout): params, "
+        f"gradients, the f32 accumulator, the clipped gradients, mu and nu, "
+        f"6 x {gib:.2f} GiB = {6 * gib:.1f} GiB, plus the activations of 2 "
+        f"sequences of 256 (phase 12b: 4): about {6 * gib + 2.5:.0f} GiB, "
+        f"{2 * (6 * gib + 2.5):.0f} GiB for both ranks")
+    tmp = tempfile.mkdtemp(prefix="ranks-", dir=os.path.join(ROOT, "build"))
+    two = []
+    try:
+        cfg = full.reduced()
+        cell = ShapeCfg(*RANKS_CELL)
+        tcfg = dataclasses.replace(specs.train_cfg_for(
+            cfg, cell, Mesh((2, 2), ("data", "model"), rank=None)), microbatches=2)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        state0 = loop.init_state(T.init_params(cfg, generator=gen, device=DEVICE),
+                                 tcfg)
+        ckpt_lib.save(os.path.join(tmp, "zero_init"), 0, state0)
+        t0 = time.perf_counter()
+        four = start_ranks(4, "four", tmp)
+        two = start_ranks(2, "two", tmp)
+        four = finish_ranks(four, "four", tmp)
+        log(f"[ranks four] {time.perf_counter() - t0:.1f} s for 4 ranks")
+        r0 = four[0]
+        if DEVICE == "cuda":
+            log(f"[ranks probe] gloo (torch {torch.__version__}) on CUDA "
+                f"tensors: " + "; ".join(f"{k}: {r0[k]}" for k in RANKS_PROBE))
+        log(f"[ranks four] int8_psum on CUDA tensors = on CPU tensors bit for "
+            f"bit: {[r['int8_equal'] for r in four]}; relative error of the "
+            f"int8 sum {r0['int8_err']:.3e}; ZeRO mesh {r0['zero_mesh']}")
+        require(all(r["int8_equal"] for r in four), "int8_psum differs between "
+                "CUDA and CPU tensors")
+        require(r0["int8_err"] < 0.02, f"int8_psum error {r0['int8_err']}")
+
+        # the one-process card step from the same state
+        step = loop.make_train_step(cfg, tcfg)
+        ref, allowance = state0, None
+        stream = TokenStream(vocab=cfg.vocab, batch=cell.global_batch,
+                             seq=cell.seq_len)
+        for i in range(3):
+            ref, m = step(ref, stream.batch_at(i))
+            got = r0["zero_metrics"][i]
+            errs = {k: parity.rel(got[k], m[k]) for k in ("loss", "grad_norm", "lr")}
+            log(f"[ranks zero] step {i}: loss {got['loss']:.6f} (one process "
+                f"{float(m['loss']):.6f}); rel diff {errs}; host seconds in "
+                f"the gradient reduce {got['grad_sync_s']:.4f}, in the gathers "
+                f"{got['param_sync_s']:.4f} (rank 0, on {card})")
+            for key, err in errs.items():
+                require(err <= tol, f"[ranks zero] step {i}: {key} differs by "
+                        f"{err:.3e}")
+            allowance = parity.adam_allowance(allowance, ref, float(m["lr"]))
+        sharded = ckpt_lib.restore(os.path.join(tmp, "zero_out"), 3, ref, DEVICE)
+        r = parity.compare_states(sharded, ref, allowance=allowance)
+        log(f"[ranks zero] after 3 steps, 4 ranks against one process: params "
+            f"{r['params']:.3e} mu {r['mu']:.3e} nu {r['nu']:.3e}; Adam "
+            f"allowance used by {r['allowed']} elements; worst {r['worst']}")
+        for part in ("params", "mu", "nu"):
+            require(r[part] <= tol, f"[ranks zero] {part} differs by "
+                    f"{r[part]:.3e} > {tol:.0e}")
+
+        first = r0["elastic_first"]
+        require(len(first) == 8 and all(math.isfinite(x) for x in first),
+                f"[ranks elastic] 4 ranks ran {first}")
+        shutil.copytree(os.path.join(tmp, "elastic"),
+                        os.path.join(tmp, "elastic_one"))
+        one = launch_train.main(RANKS_REDUCED + [
+            "--steps", "12", "--device", DEVICE, "--ckpt-dir",
+            os.path.join(tmp, "elastic_one")])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with open(os.path.join(tmp, "go_two"), "w") as f:
+            f.write("go")
+        two = finish_ranks(two, "two", tmp)
+        log(f"[ranks two] {time.perf_counter() - t0:.1f} s for 2 ranks after "
+            f"the four")
+        resumed = two[0]["elastic_resumed"]
+        gap = max((abs(a - b) / abs(b) for a, b in zip(resumed, one)), default=0)
+        log(f"[ranks elastic] 4 ranks: losses {[round(x, 6) for x in first]}; "
+            f"resumed under 2 ranks from step 8: {[round(x, 6) for x in resumed]}; "
+            f"one process from the same checkpoint: "
+            f"{[round(x, 6) for x in one]}; largest relative gap {gap:.3e}")
+        require(len(resumed) == 4 == len(one), f"resumed {len(resumed)} steps")
+        require(gap <= tol, f"[ranks elastic] resumed losses differ by {gap:.3e}")
+
+        losses = two[0]["full_losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, full_losses))
+        tokens = 8 * 256
+        for r in two:
+            med = sorted(r["step_s"])[len(r["step_s"]) // 2]
+            log(f"[ranks full] rank {r['rank']} ({r['device']}): step times "
+                f"{[round(x, 4) for x in r['step_s']]} s, median {med:.4f} s = "
+                f"{tokens / med:,.1f} tokens/s (both ranks' batch); host seconds "
+                f"in the gradient collective a step "
+                f"{[round(x, 4) for x in r['grad_sync_s']]}, in the parameter "
+                f"gathers {[round(x, 4) for x in r['param_sync_s']]}; peak "
+                f"memory {r['peak'] / 2**30:.2f} GiB (max_memory_allocated) "
+                f"(on {card})")
+        log(f"[ranks full] tinyllama-1.1b under 2 ranks: losses "
+            f"{[round(x, 6) for x in losses]}; phase 12b's "
+            f"{[round(x, 6) for x in full_losses[:3]]}; largest relative gap "
+            f"{gap:.3e}")
+        require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
+                f"[ranks full] losses {losses}")
+        require(gap <= tol, f"[ranks full] the losses differ from phase 12b's "
+                f"by {gap:.3e} > {tol:.0e}")
+        med = sorted(two[0]["step_s"])[1]
+        return dict(step_s=med, tokens_s=tokens / med,
+                    peaks=[r["peak"] for r in two],
+                    grad_sync_s=two[0]["grad_sync_s"])
+    finally:
+        for child in two:
+            if isinstance(child, subprocess.Popen) and child.poll() is None:
+                os.killpg(child.pid, 9)
+                child.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 # ---------------------------------------------------------------- phase 13
@@ -5256,7 +5628,7 @@ def main() -> int:
         tmp = tempfile.mkdtemp(prefix="train-",
                                dir=os.path.join(ROOT, "build"))
         try:
-            phase_train_full(card, tmp)
+            full_train = phase_train_full(card, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         log(f"[phase 12b, train tinyllama-1.1b] "
@@ -5267,6 +5639,12 @@ def main() -> int:
         phase_train_recurrent(card)
         log(f"[phase 12c, train zamba2-1.2b and xlstm-1.3b] "
             f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_train_ranks(card, full_train["losses"])
+        log(f"[phase 12d, train under gloo ranks] "
+            f"{time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         family_launches = phase_serve_families(families, build)
         log(f"[phase 13, serve-families] {time.perf_counter() - t0:.1f} s")

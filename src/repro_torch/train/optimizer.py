@@ -9,8 +9,9 @@ Three details of the JAX code are kept:
   (L, d) norm leaves ``blocks.ln1`` / ``blocks.ln2`` (and a stacked
   ``q_norm`` / ``k_norm``): a quirk of the stacked layout.
 
-The ZeRO-1 moment shardings of the JAX trainer belong to the multi-card
-slice. With ``inplace=True`` `adamw_update` writes the new parameters and
+Under a mesh the leaves are this rank's pieces (the ZeRO-1 layout of
+`train.loop`): ``reduce_sq`` turns the per-piece sums of squares into the
+whole leaves' before the global norm. With ``inplace=True`` `adamw_update` writes the new parameters and
 moments into the given tensors, leaf by leaf (the counterpart of the JAX
 launcher's ``donate_argnums``); the values are the same.
 """
@@ -49,11 +50,13 @@ def adamw_init(params) -> AdamWState:
                       count=torch.zeros((), dtype=torch.int32, device=device))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, reduce_sq=None):
     # the per-leaf sums of squares added in flatten order, as JAX's sum()
+    sqs = [torch.sum(g.float() ** 2) for g in tree_lib.leaves(grads)]
+    if reduce_sq is not None:
+        sqs = reduce_sq(sqs)
     total = None
-    for g in tree_lib.leaves(grads):
-        sq = torch.sum(g.float() ** 2)
+    for sq in sqs:
         total = sq if total is None else total + sq
     gnorm = torch.sqrt(total)
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -63,10 +66,11 @@ def clip_by_global_norm(grads, max_norm: float):
 def adamw_update(grads, state: AdamWState, params, *, lr, b1: float = 0.9,
                  b2: float = 0.95, eps: float = 1e-8,
                  weight_decay: float = 0.1, max_grad_norm: float = 1.0,
-                 inplace: bool = False):
+                 inplace: bool = False, reduce_sq=None):
     """One AdamW step. Returns (params, AdamWState, grad norm before
-    clipping). ``lr`` is a float or a schedule of the new count."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+    clipping). ``lr`` is a float or a schedule of the new count;
+    ``reduce_sq`` as `clip_by_global_norm`'s."""
+    grads, gnorm = clip_by_global_norm(grads, max_grad_norm, reduce_sq)
     count = state.count + 1
     lr_t = lr(count) if callable(lr) else lr
     cf = count.to(torch.float32)

@@ -85,7 +85,9 @@ def test_import_pulls_in_neither_jax_nor_repro():
                  "repro_torch.configs.qwen2_moe_a2_7b",
                  "repro_torch.configs.moonshot_v1_16b_a3b",
                  "repro_torch.configs.internvl2_2b",
-                 "repro_torch.configs.whisper_base"):
+                 "repro_torch.configs.whisper_base",
+                 "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                 "repro_torch.distributed.sharding"):
         assert name in _modules()
 
 

@@ -197,9 +197,23 @@ def test_compress_grads_three_rounds_matches_jax():
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
-def test_int8_psum_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 17"):
-        compression.int8_psum({}, "pod")
+def test_int8_psum_one_rank_equals_jax_shard_map():
+    """`int8_psum` over a mesh of one rank against the JAX one under
+    ``shard_map`` on one device: the int8 round trip of each leaf, bit for
+    bit (the four-rank case: `tests/test_torch_distributed.py`)."""
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh, PartitionSpec as JP
+    from repro_torch.launch.mesh import make_host_mesh
+    rng = np.random.RandomState(3)
+    tree = {"a": rng.standard_normal((8, 16)).astype(np.float32),
+            "b": {"c": (rng.standard_normal(5) * 1e-3).astype(np.float32)}}
+    jmesh = Mesh(np.array(jax.devices()[:1]), ("data",))
+    want = shard_map(lambda t: jax_compression.int8_psum(t, "data"), mesh=jmesh,
+                     in_specs=JP(), out_specs=JP(), check_rep=False)(tree)
+    got = compression.int8_psum(tree_lib.map(_t, tree), "data", make_host_mesh())
+    for a, b in zip(tree_lib.leaves(got), jax.tree_util.tree_leaves(want)):
+        assert a.dtype == torch.float32
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 # ---------------------------------------------------------------- attention
