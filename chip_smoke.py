@@ -219,6 +219,7 @@ import os
 import re
 import shutil
 import subprocess
+import statistics
 import sys
 import tempfile
 import time
@@ -3057,24 +3058,83 @@ def quality(q, ids, scores, x_live, gids_live, c, p0):
     return recall, rate, p0 - 3.0 * math.sqrt(p0 * (1.0 - p0) / q.shape[0])
 
 
-def phase_sharded_1m(pm, x, q):
+SHARDED_CHILD = r"""
+import hashlib, json, os, pickle, sys, time
+out_path, kw = sys.argv[1], json.loads(sys.argv[2])
+os.sched_setaffinity(0, json.loads(sys.argv[3]))  # before numpy's threads
+from repro_torch.core.sharded import build_sharded
+from repro_torch.data.synthetic import mf_factors
+r = kw["recipe"]
+x = mf_factors(kw["n"], r["d"], r["rank"], decay=r["decay"],
+               norm_tail=r["norm_tail"], seed=0)
+t0 = time.perf_counter()
+sh = build_sharded(x, kw["n_shards"], **kw["build"])
+build_s = time.perf_counter() - t0
+with open(out_path, "wb") as f:
+    pickle.dump(sh, f, protocol=5)
+print(json.dumps({"build_s": build_s, "rows_sha1":
+                  hashlib.sha1(x.tobytes()).hexdigest()}), flush=True)
+"""
+
+
+def start_sharded_build(tmp, n=1_000_000):
+    """Start phase 7's `build_sharded` of the n rows (build_size's recipe and
+    seed, made again in the child) in a child process on every CPU core but
+    the first, so that the host build runs behind phases 3-6. Returns
+    (process, pickle path)."""
+    cores = sorted(os.sched_getaffinity(0))
+    child = cores[1:] or cores
+    out_path = os.path.join(tmp, "sharded_1m.pkl")
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS=str(len(child)),
+               OPENBLAS_NUM_THREADS=str(len(child)),
+               MKL_NUM_THREADS=str(len(child)))
+    kw = dict(n=n, recipe=RECIPE, build=BUILD, n_shards=N_SHARDS)
+    proc = subprocess.Popen(
+        [sys.executable, "-c", SHARDED_CHILD, out_path, json.dumps(kw),
+         json.dumps(child)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+    log(f"[host build sharded-1M] build_sharded over {n} rows in "
+        f"{N_SHARDS} shards started in a child process on cores {child}")
+    return proc, out_path
+
+
+def finish_sharded_build(build, x):
+    """Wait for `start_sharded_build`'s child; its `ShardedIndex`, its build
+    seconds and the seconds waited. The child's rows must be ``x``'s bits."""
+    import hashlib
+    import pickle
+    proc, out_path = build
+    t0 = time.perf_counter()
+    out, err = proc.communicate(timeout=900)
+    waited = time.perf_counter() - t0
+    require(proc.returncode == 0, f"[host build sharded-1M] the child exited "
+            f"{proc.returncode}: {err[-3000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    require(rec["rows_sha1"] == hashlib.sha1(
+        x.cpu().numpy().tobytes()).hexdigest(),
+        "[host build sharded-1M] the child's rows differ from phase 2's")
+    with open(out_path, "rb") as f:
+        sh = pickle.load(f)
+    os.remove(out_path)
+    return sh, rec["build_s"], waited
+
+
+def phase_sharded_1m(pm, x, q, build):
     """Cell sharded-1M: the n=1M rows in 4 shards (`build_sharded` on the
-    host), searched by `sharded_search` on one card, the shards in sequence:
-    fused (the main path's config), batched and the default progressive.
-    Returns the launches of each mode's search."""
+    host, in `start_sharded_build`'s child), searched by `sharded_search` on
+    one card, the shards in sequence: fused (the main path's config),
+    batched and the default progressive. Returns the launches of each
+    mode's search."""
     import dataclasses
     import numpy as np
     import torch
     from repro_torch.core import search_graph
     from repro_torch.core.runtime import RuntimeConfig
-    from repro_torch.core.sharded import (build_sharded,
-                                          device_put_sharded_index,
+    from repro_torch.core.sharded import (device_put_sharded_index,
                                           sharded_search)
     label = "sharded-1M"
     k = SEARCH["k"]
-    t0 = time.perf_counter()
-    sh = build_sharded(x.cpu().numpy(), N_SHARDS, **BUILD)
-    build_s = time.perf_counter() - t0
+    sh, build_s, waited = finish_sharded_build(build, x)
     a = sh.arrays
     t0 = time.perf_counter()
     dsh = device_put_sharded_index(sh, DEVICE)
@@ -3088,8 +3148,10 @@ def phase_sharded_1m(pm, x, q):
         "blocks": (a.block_sp_idx >= 0).any(axis=2).sum(axis=1).tolist(),
         "codewords": (a.sk_codebooks != 0).any(axis=(1, 3)).sum(
             axis=1).tolist()}
-    log(f"[{label}] build_sharded {build_s:.1f} s (host, {N_SHARDS} shards), "
-        f"upload {time.perf_counter() - t0:.2f} s; common meta NB "
+    log(f"[{label}] build_sharded {build_s:.1f} s (host, {N_SHARDS} shards, "
+        f"in a child process behind phases 3-6; the parent waited "
+        f"{waited:.1f} s for it), upload {time.perf_counter() - t0:.2f} s; "
+        f"common meta NB "
         f"{meta.n_blocks} G {meta.n_groups} S {meta.n_subparts} K "
         f"{meta.sk_codewords} n_pad {meta.n_pad}; real per shard {real}")
     del sh, a
@@ -3729,7 +3791,7 @@ DATASET_CELLS = (("netflix", False), ("yahoo", False), ("p53", False),
 QUICKSTART = dict(c=0.9, p0=0.5, k=10, m=6)
 # the proxy whose host build (the longest, ~85 s) runs in a child process
 # during phases 8-10, beside their card and disk work
-PREBUILT_DATASET = "yahoo"
+PREBUILT_DATASETS = ("yahoo", "p53")
 
 
 def dataset_build_kw(shape):
@@ -3746,19 +3808,21 @@ def dataset_build_kw(shape):
 
 
 def start_dataset_build(tmp):
-    """PREBUILT_DATASET's index, as phase 11 builds it, started in a child
-    process on the host (`start_host_build`)."""
+    """PREBUILT_DATASETS' indexes, as phase 11 builds them, each started in
+    a child process on the host (`start_host_build`). Returns {name: the
+    child}."""
     from repro_torch.data.synthetic import paper_dataset
-    scaled = dict(DATASET_CELLS)[PREBUILT_DATASET]
-    x = paper_dataset(PREBUILT_DATASET, scaled=scaled)
-    return start_host_build(x, tmp, PREBUILT_DATASET,
-                            dataset_build_kw(x.shape))
+    builds = {}
+    for name in PREBUILT_DATASETS:
+        x = paper_dataset(name, scaled=dict(DATASET_CELLS)[name])
+        builds[name] = start_host_build(x, tmp, name, dataset_build_kw(x.shape))
+    return builds
 
 
 def phase_datasets(prebuilt):
     """Phase 11: each dataset proxy through `api.build(backend="promips")`
     with the quickstart's guarantee and the main path's knobs (PREBUILT_
-    DATASET's by the child of ``prebuilt``, `start_dataset_build`),
+    DATASETS' by the children of ``prebuilt``, `start_dataset_build`),
     searched on the kernels and on the plain path (ids equal, scores within
     REL / ABS, flips reported), the progressive mode, quality against an
     exact top-k; then `examples/quickstart_torch.py` in a subprocess.
@@ -3792,8 +3856,8 @@ def phase_datasets(prebuilt):
         qn = paper_queries(name, N_QUERIES)
         gen_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        if name == PREBUILT_DATASET:
-            s, build_s = finish_host_build(prebuilt)
+        if name in prebuilt:
+            s, build_s = finish_host_build(prebuilt[name])
             where = "in a child process during phases 8-10"
         else:
             kw = dataset_build_kw(x.shape)
@@ -4597,14 +4661,26 @@ def phase_train_recurrent(card):
 
 # the sharded trainer as gloo ranks sharing the card: (a) reduced
 # tinyllama-1.1b under 4 ranks (int8_psum, build_cell's ZeRO-1 step on mesh
-# (2, 2), launch.train 4 ranks -> resumed under 2); (b) tinyllama-1.1b at
-# phase 12b's full widths under 2 ranks, mesh (data 2, model 1)
+# (2, 2), launch.train 4 ranks -> resumed under 2); (a') in the same launch,
+# build_cell's step split over model (mesh (2, 2)) for four more reduced
+# families and a split prefill; (b) tinyllama-1.1b at phase 12b's full
+# widths under 2 ranks, mesh (data 2, model 1); (c) the same under mesh
+# (data 1, model 2), the compute split over model
 RANKS_REDUCED = ["--arch", "tinyllama-1.1b", "--reduced", "--batch", "4",
                  "--seq", "64", "--log-every", "0"]
 RANKS_CELL = ("train_small", 32, 8, "train")   # build_cell's train shape
+RANKS_PREFILL = ("prefill_small", 32, 8, "prefill")
 RANKS_FULL = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
-              "--microbatches", "2", "--steps", "3", "--model-parallel", "1",
+              "--microbatches", "2", "--steps", "2", "--model-parallel", "1",
               "--log-every", "1"]
+RANKS_SPLIT = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "256",
+               "--microbatches", "2", "--steps", "3", "--model-parallel", "2",
+               "--log-every", "1"]
+# (a'): qwen3-32b (q/k norms, an untied unembed split on the vocab),
+# qwen2-moe-a2.7b (experts split over model), zamba2-1.2b and xlstm-1.3b;
+# tinyllama-1.1b is (a)'s step, itself split over model
+SPLIT_FAMILIES = ("qwen3-32b", "qwen2-moe-a2.7b", "zamba2-1.2b", "xlstm-1.3b")
+SPLIT_STEPS = 2
 RANKS_WAVE_S = 240   # a wave of rank processes ends within this or fails
 # the collectives gloo is asked to run on CUDA tensors directly (a report:
 # the port stages every collective through pinned host memory)
@@ -4627,8 +4703,10 @@ from repro_torch.launch import specs, train as launch_train
 from repro_torch.launch.mesh import make_host_mesh, make_mesh_compat
 
 phase, tmp = sys.argv[1], sys.argv[2]
-reduced, cell, full, probes, device = json.loads(sys.argv[3])
+reduced, cell, prefill_cell, full, split_run, families, n_split, probes, device = \
+    json.loads(sys.argv[3])
 reduced, full = reduced + ["--device", device], full + ["--device", device]
+split_run = split_run + ["--device", device]
 rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
 store = os.path.join(tmp, f"store_{phase}")
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
@@ -4701,6 +4779,46 @@ if phase == "four":
         state, m = fn(state, stream.batch_at(i))
         res["zero_metrics"].append({k: float(m[k]) for k in m})
     ckpt_lib.save(os.path.join(tmp, "zero_out"), 3, state, specs=st_specs, mesh=mesh)
+
+    # (a') the split step of more families, each step from the one-process
+    # card state the parent saved, and a split prefill of (a)'s parameters
+    res["split"] = {}
+    for name in families:
+        fcfg = get_config(name).reduced()
+        sfn, sargs, sspecs, _ = specs.build_cell(fcfg, shape, mesh,
+                                                 microbatch_override=2)
+        ftarget = tree_lib.map(lambda t, s: torch.empty(
+            shard_shape(s, t.shape, mesh),
+            dtype=torch.float32 if t.is_floating_point() else t.dtype,
+            device=dev), sargs[0], sspecs[0])
+        fstream = TokenStream(vocab=fcfg.vocab, batch=shape.global_batch,
+                              seq=shape.seq_len)
+        res["split"][name] = []
+        for i in range(n_split):
+            fstate = ckpt_lib.restore(os.path.join(tmp, f"split_{name}"), i,
+                                      ftarget, dev, specs=sspecs[0], mesh=mesh)
+            sync()
+            t0 = time.perf_counter()
+            fnew, m = sfn(fstate, fstream.batch_at(i))
+            sync()
+            res["split"][name].append(dict(
+                {k: float(m[k]) for k in m}, step_s=time.perf_counter() - t0))
+            ckpt_lib.save(os.path.join(tmp, f"split_{name}_out"), i + 1, fnew,
+                          specs=sspecs[0], mesh=mesh)
+    pshape = ShapeCfg(*prefill_cell)
+    pfn, _, (_, b_specs), _ = specs.build_cell(cfg, pshape, mesh)
+    pstream = TokenStream(vocab=cfg.vocab, batch=pshape.global_batch,
+                          seq=pshape.seq_len)
+    pbatch = {k: shard(torch.as_tensor(v), b_specs[k], mesh).to(dev)
+              for k, v in pstream.batch_at(0).items()}
+    params0 = ckpt_lib.restore(os.path.join(tmp, "zero_init"), 0, target, dev,
+                               specs=st_specs, mesh=mesh).params
+    with torch.no_grad():
+        pcache, plogits = pfn(params0, pbatch)
+    torch.save({"logits": plogits.cpu(),
+                "cache": {k: v.cpu() for k, v in pcache.items()},
+                "coords": mesh.coords},
+               os.path.join(tmp, f"prefill_{rank}.pt"))
     res["elastic_first"] = launch_train.main(
         reduced + ["--steps", "8", "--ckpt-every", "4", "--ckpt-dir",
                    os.path.join(tmp, "elastic")])
@@ -4727,14 +4845,29 @@ else:
             out = fn(state, batch)
             sync()
             times.append(time.perf_counter() - t0)
-            syncs.append((out[1]["grad_sync_s"], out[1]["param_sync_s"]))
+            syncs.append((out[1]["grad_sync_s"], out[1]["param_sync_s"],
+                          out[1]["tp_sync_s"]))
             return out
         return run
     launch_train.make_train_step = timed_make
-    res["full_losses"] = launch_train.main(full)
-    res.update(step_s=times, grad_sync_s=[s[0] for s in syncs],
-               param_sync_s=[s[1] for s in syncs],
-               peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+
+    def run_full(argv):
+        times.clear()
+        syncs.clear()
+        if cuda:
+            import gc
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        losses = launch_train.main(argv)
+        return dict(losses=losses, step_s=list(times),
+                    grad_sync_s=[s[0] for s in syncs],
+                    param_sync_s=[s[1] for s in syncs],
+                    tp_sync_s=[s[2] for s in syncs],
+                    peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+    # (b) mesh (data 2, model 1); (c) mesh (data 1, model 2), split
+    res["full"] = run_full(full)
+    res["split_full"] = run_full(split_run)
 with open(os.path.join(tmp, f"{phase}_{rank}.json"), "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -4744,7 +4877,8 @@ dist.destroy_process_group()
 def start_ranks(world, phase, tmp):
     """``world`` rank processes of RANKS_CHILD's ``phase``, each in its own
     session (killed as a group on failure)."""
-    arg = json.dumps([RANKS_REDUCED, RANKS_CELL, RANKS_FULL, RANKS_PROBE,
+    arg = json.dumps([RANKS_REDUCED, RANKS_CELL, RANKS_PREFILL, RANKS_FULL,
+                      RANKS_SPLIT, SPLIT_FAMILIES, SPLIT_STEPS, RANKS_PROBE,
                       DEVICE])
     env = dict(os.environ, PYTHONPATH=SRC, WORLD_SIZE=str(world))
     return [subprocess.Popen(
@@ -4784,23 +4918,220 @@ def finish_ranks(children, phase, tmp):
     return results
 
 
+def split_references(tmp, shape, tcfg):
+    """Phase 12d(a')'s one-process card steps on ``shape`` (a `ShapeCfg`):
+    for each of SPLIT_FAMILIES (reduced) the states 0..SPLIT_STEPS of
+    `make_train_step` from the seed-0 parameters, each saved for the ranks
+    to start a step from. For the recurrent families each step again with
+    the embedding scaled by (1 + 2^-23), and in f64 on the CPU in a child
+    process (F64_STEP_CHILD, started here), which set their tolerance
+    (`recurrent_step_tols`, phase 12a's rule). Returns (refs, the child,
+    its output path)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+    refs, payload = {}, {}
+    for name in SPLIT_FAMILIES:
+        cfg = get_config(name).reduced()
+        step = loop.make_train_step(cfg, tcfg)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        states = [loop.init_state(T.init_params(cfg, generator=gen,
+                                                device=DEVICE), tcfg)]
+        stream = TokenStream(vocab=cfg.vocab, batch=shape.global_batch,
+                             seq=shape.seq_len)
+        steps, batches = [], []
+        for i in range(SPLIT_STEPS):
+            ckpt_lib.save(os.path.join(tmp, f"split_{name}"), i, states[-1])
+            batches.append(stream.batch_at(i))
+            new, m = step(states[-1], batches[-1])
+            moved = None
+            if cfg.block_pattern in ("xlstm_7_1", "zamba2"):
+                scaled = states[-1]._replace(params=dict(
+                    states[-1].params,
+                    embed=states[-1].params["embed"] * (1 + 2 ** -23)))
+                moved = step(scaled, stream.batch_at(i))
+            steps.append(((new, m), moved))
+            states.append(new)
+        refs[name] = steps
+        if cfg.block_pattern in ("xlstm_7_1", "zamba2"):
+            payload[name] = dict(cfg=cfg, tcfg=tcfg, batches=batches,
+                                 states=[_tree_to_cpu(t) for t in states[:-1]])
+    src, dst = os.path.join(tmp, "f64_payload.pt"), os.path.join(tmp, "f64.pt")
+    torch.save(payload, src)
+    child = subprocess.Popen(
+        [sys.executable, "-c", F64_STEP_CHILD, src, dst],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="2"))
+    return refs, child, dst
+
+
+def plant_grad_fault(new, start, lr, leaf, factor=1.001, b1=0.9, b2=0.95,
+                     eps=1e-8):
+    """``new``, a train step's state from ``start``, as if the gradient of
+    the 1-D leaf ``leaf`` had been ``factor`` times what it was: its mu, nu
+    and parameter recomputed by `optimizer.adamw_update`'s formula from the
+    (clipped) gradient its mu implies. A negative control for a bound."""
+    import torch
+    mu0, nu0 = start.opt.mu[leaf].float(), start.opt.nu[leaf].float()
+    g = (new.opt.mu[leaf].float() - b1 * mu0) / (1 - b1) * factor
+    mu = b1 * mu0 + (1 - b1) * g
+    nu = b2 * nu0 + (1 - b2) * g * g
+    cf = float(new.opt.count)
+    step = (mu / (1 - b1 ** cf)) / (torch.sqrt(nu / (1 - b2 ** cf)) + eps)
+    p = (start.params[leaf].float() - lr * step).to(start.params[leaf].dtype)
+    return new._replace(params=dict(new.params, **{leaf: p}), opt=new.opt._replace(
+        mu=dict(new.opt.mu, **{leaf: mu}), nu=dict(new.opt.nu, **{leaf: nu})))
+
+
+def check_split_steps(tmp, split_refs, got, card):
+    """Phase 12d(a'): each family's split step (4 ranks, mesh (2, 2)) from
+    the one-process card state. A dense or MoE family's against the
+    one-process card step: every leaf within `train.parity` (GRAD_TOL), the
+    loss and grad norm too. A recurrent family amplifies f32 rounding past
+    that (the split is exact in f64, `tests/test_torch_tensor_parallel.py`),
+    so its split step is held against the same step in f64, each leaf
+    within twice its own error in the one-process card step plus 1e-6
+    where that exceeds GRAD_TOL (`recurrent_step_tols`, phase 12a's rule):
+    the larger of its move under the embedding scaled by 1 + 2^-23 and its
+    distance from f64. The split is held to the one-process step's
+    accuracy, not to its rounding. A negative control: the split state
+    with ``final_norm``'s gradient x1.001 (`plant_grad_fault`) must fail
+    the same bound."""
+    import torch
+    from repro_torch.distributed import checkpoint as ckpt_lib
+    from repro_torch.train import parity
+    refs, child, dst = split_refs
+    child_log, _ = child.communicate(timeout=600)
+    require(child.returncode == 0, f"[ranks split] the f64 child failed: "
+            f"{child_log[-2000:]}")
+    exact = torch.load(dst, weights_only=False)
+    for name, steps in refs.items():
+        for i, ((want, wm), moved) in enumerate(steps):
+            m = got[name][i]
+            split = ckpt_lib.restore(os.path.join(tmp, f"split_{name}_out"),
+                                     i + 1, want, DEVICE)
+            direct = parity.compare_states(split, want)
+            if moved is None:
+                tols = {p: parity.GRAD_TOL for p in PARTS}
+                tols.update(loss=parity.GRAD_TOL, grad_norm=parity.GRAD_TOL)
+                ref, rm, what = want, wm, "the one-process card step"
+            else:
+                tols = recurrent_step_tols(want, wm, *moved, *exact[name][i])
+                (ref, rm), what = exact[name][i], "the f64 step"
+
+            def held(state, tols):
+                allowance = parity.adam_allowance(None, ref, float(rm["lr"]),
+                                                  grad_tol=tols["mu"])
+                return parity.compare_states(state, ref, allowance=allowance,
+                                             grad_tol={p: tols[p] for p in PARTS})
+
+            errs = {k: parity.rel(m[k], rm[k]) for k in ("loss", "grad_norm")}
+            r = held(split, tols)
+            also = ""
+            if moved is not None:
+                start = ckpt_lib.restore(os.path.join(tmp, f"split_{name}"), i,
+                                         want, DEVICE)
+                planted = held(plant_grad_fault(split, start, float(m["lr"]),
+                                                "final_norm"), tols)
+                also = (f"; against the one-process card step: params "
+                        f"{direct['params']:.3e} mu {direct['mu']:.3e} nu "
+                        f"{direct['nu']:.3e}; the leaves' bounds per part "
+                        f"{({p: f'{min(tols[p]):.2e}-{max(tols[p]):.2e}' for p in PARTS})}, "
+                        f"loss {tols['loss']:.3e}, grad_norm "
+                        f"{tols['grad_norm']:.3e}; final_norm's gradient x1.001 "
+                        f"planted: {planted['excess']:.3f} of its bound "
+                        f"({planted['worst']})")
+            log(f"[ranks split {name}] step {i} split over model (mesh 2 x 2, "
+                f"from the one-process state): loss {m['loss']:.6f}; against "
+                f"{what}: rel diff loss {errs['loss']:.3e} grad_norm "
+                f"{errs['grad_norm']:.3e} params {r['params']:.3e} mu "
+                f"{r['mu']:.3e} nu {r['nu']:.3e}, the largest leaf error "
+                f"{r['excess']:.3f} of its bound, worst {r['worst']}{also}; "
+                f"tp_sync_s {m['tp_sync_s']:.4f}, step {m['step_s']:.4f} s "
+                f"(rank 0, on {card})")
+            for key in ("loss", "grad_norm"):
+                require(errs[key] <= tols[key], f"[ranks split {name}] step "
+                        f"{i}: {key} differs by {errs[key]:.3e}")
+            require(r["excess"] <= 1.0, f"[ranks split {name}] step {i}: a "
+                    f"leaf differs by {r['excess']:.3f} of its bound ({r})")
+            if moved is not None:
+                require(planted["excess"] > 1.0, f"[ranks split {name}] step "
+                        f"{i}: a planted fault passed the bound ({planted})")
+
+
+def check_split_prefill(tmp, cfg, params, card):
+    """Phase 12d(a'): the split prefill's logits (each rank's vocab piece)
+    within 1e-5 of the one-process card prefill's slice, and each rank's
+    cache pieces within 1e-5 of the whole cache's slices under
+    `cache_shardings` (bit for bit where whole: the lengths)."""
+    import torch
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.distributed import sharding as S
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train import parity
+    shape = ShapeCfg(*RANKS_PREFILL)
+    mesh = Mesh((2, 2), ("data", "model"), rank=None)
+    batch = {k: torch.as_tensor(v).to(DEVICE) for k, v in TokenStream(
+        vocab=cfg.vocab, batch=shape.global_batch,
+        seq=shape.seq_len).batch_at(0).items()}
+    with torch.no_grad():
+        cache, logits = T.prefill(params, cfg, batch, shape.seq_len)
+    c_specs = specs.cache_shardings(cfg, shape, mesh)
+    l_spec = S.P(S.dp_axes(mesh), *S.logits_spec(cfg, mesh)[1:])
+    worst = {}
+    for rank in range(4):
+        got = torch.load(os.path.join(tmp, f"prefill_{rank}.pt"))
+        coords = got["coords"]
+        want = S.shard(logits, l_spec, mesh, coords=coords).cpu()
+        worst["logits"] = max(worst.get("logits", 0.0),
+                              parity.rel(got["logits"], want))
+        for key, leaf in cache.items():
+            piece = S.shard(leaf, c_specs[key], mesh, coords=coords).cpu()
+            require(got["cache"][key].shape == piece.shape,
+                    f"[ranks prefill] rank {rank} {key}: "
+                    f"{tuple(got['cache'][key].shape)} != {tuple(piece.shape)}")
+            if piece.is_floating_point():
+                worst[key] = max(worst.get(key, 0.0),
+                                 parity.rel(got["cache"][key], piece))
+            else:
+                require(torch.equal(got["cache"][key], piece),
+                        f"[ranks prefill] rank {rank} {key} differs")
+    log(f"[ranks prefill] tinyllama-1.1b reduced, split over model (mesh 2 x "
+        f"2): largest relative differences from the one-process card "
+        f"prefill's slices {({k: f'{v:.3e}' for k, v in worst.items()})} (on "
+        f"{card})")
+    for key, err in worst.items():
+        require(err <= 1e-5, f"[ranks prefill] {key} differs by {err:.3e}")
+
+
 def phase_train_ranks(card, full_losses):
     """Phase 12d: the sharded trainer as `torch.distributed` gloo ranks,
     processes sharing the card (every collective staged through pinned host
     memory). (a) reduced tinyllama-1.1b under 4 ranks: `int8_psum` on CUDA
     tensors equal bit for bit to the same call on CPU tensors;
-    `specs.build_cell`'s train step (ZeRO-1 on mesh (2, 2), batch 8 x 32 in
-    2 microbatches) for 3 steps from one state, within `train.parity` of
-    the one-process card step; `launch.train.main` 8 steps under 4 ranks
-    with checkpoints at 4 and 8, resumed under 2 ranks to step 12: 4
-    losses, within 1e-5 of a one-process resume of the same checkpoint.
-    (b) `launch.train.main` at tinyllama-1.1b's full width under 2 ranks
-    (mesh data 2, model 1; batch 8 x 256 in 2 microbatches, 3 steps): each
-    loss within 1e-5 of phase 12b's same step; step times, tokens/s, each
-    rank's peak memory and its seconds in the gradient collective a step.
-    The 4 ranks first report which collectives gloo runs on CUDA tensors
-    directly. The 2 ranks start beside the 4 and wait for their
-    checkpoint."""
+    `specs.build_cell`'s train step (ZeRO-1 on mesh (2, 2), the compute
+    split over model, batch 8 x 32 in 2 microbatches) for 3 steps from one
+    state, within `train.parity` of the one-process card step; (a') the same
+    split step of SPLIT_FAMILIES, each step from the one-process card state
+    (`check_split_steps`), and a split prefill (`check_split_prefill`);
+    `launch.train.main` 8 steps under 4 ranks with checkpoints at 4 and 8,
+    resumed under 2 ranks to step 12: 4 losses, within 1e-5 of a
+    one-process resume of the same checkpoint. (b) `launch.train.main` at
+    tinyllama-1.1b's full width under 2 ranks (mesh data 2, model 1; batch
+    8 x 256 in 2 microbatches, 3 steps) and (c) the same under mesh (data
+    1, model 2), the compute split over model: each loss within 1e-5 of
+    phase 12b's same step; step times, tokens/s, each rank's peak memory
+    and its seconds a step in the gradient collective and in the
+    model-axis collectives (``tp_sync_s``). The 4 ranks first report which
+    collectives gloo runs on CUDA tensors directly. The 2 ranks start
+    beside the 4 and wait for their checkpoint."""
     import dataclasses
     import torch
     from repro_torch.configs import ShapeCfg, get_config
@@ -4820,9 +5151,11 @@ def phase_train_ranks(card, full_losses):
         f"gradients, the f32 accumulator, the clipped gradients, mu and nu, "
         f"6 x {gib:.2f} GiB = {6 * gib:.1f} GiB, plus the activations of 2 "
         f"sequences of 256 (phase 12b: 4): about {6 * gib + 2.5:.0f} GiB, "
-        f"{2 * (6 * gib + 2.5):.0f} GiB for both ranks")
+        f"{2 * (6 * gib + 2.5):.0f} GiB for both ranks; under mesh (data 1, "
+        f"model 2) nearly every leaf is split: 6 x {gib / 2:.2f} GiB = "
+        f"{3 * gib:.1f} GiB a rank plus the activations of 4 sequences")
     tmp = tempfile.mkdtemp(prefix="ranks-", dir=os.path.join(ROOT, "build"))
-    two = []
+    two, split_refs = [], None
     try:
         cfg = full.reduced()
         cell = ShapeCfg(*RANKS_CELL)
@@ -4833,6 +5166,7 @@ def phase_train_ranks(card, full_losses):
         state0 = loop.init_state(T.init_params(cfg, generator=gen, device=DEVICE),
                                  tcfg)
         ckpt_lib.save(os.path.join(tmp, "zero_init"), 0, state0)
+        split_refs = split_references(tmp, cell, tcfg)
         t0 = time.perf_counter()
         four = start_ranks(4, "four", tmp)
         two = start_ranks(2, "two", tmp)
@@ -4866,6 +5200,8 @@ def phase_train_ranks(card, full_losses):
                 require(err <= tol, f"[ranks zero] step {i}: {key} differs by "
                         f"{err:.3e}")
             allowance = parity.adam_allowance(allowance, ref, float(m["lr"]))
+        check_split_steps(tmp, split_refs, r0["split"], card)
+        check_split_prefill(tmp, cfg, state0.params, card)
         sharded = ckpt_lib.restore(os.path.join(tmp, "zero_out"), 3, ref, DEVICE)
         r = parity.compare_states(sharded, ref, allowance=allowance)
         log(f"[ranks zero] after 3 steps, 4 ranks against one process: params "
@@ -4900,36 +5236,49 @@ def phase_train_ranks(card, full_losses):
         require(len(resumed) == 4 == len(one), f"resumed {len(resumed)} steps")
         require(gap <= tol, f"[ranks elastic] resumed losses differ by {gap:.3e}")
 
-        losses = two[0]["full_losses"]
-        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, full_losses))
         tokens = 8 * 256
-        for r in two:
-            med = sorted(r["step_s"])[len(r["step_s"]) // 2]
-            log(f"[ranks full] rank {r['rank']} ({r['device']}): step times "
-                f"{[round(x, 4) for x in r['step_s']]} s, median {med:.4f} s = "
-                f"{tokens / med:,.1f} tokens/s (both ranks' batch); host seconds "
-                f"in the gradient collective a step "
-                f"{[round(x, 4) for x in r['grad_sync_s']]}, in the parameter "
-                f"gathers {[round(x, 4) for x in r['param_sync_s']]}; peak "
-                f"memory {r['peak'] / 2**30:.2f} GiB (max_memory_allocated) "
-                f"(on {card})")
-        log(f"[ranks full] tinyllama-1.1b under 2 ranks: losses "
-            f"{[round(x, 6) for x in losses]}; phase 12b's "
-            f"{[round(x, 6) for x in full_losses[:3]]}; largest relative gap "
-            f"{gap:.3e}")
-        require(len(losses) == 3 and all(math.isfinite(x) for x in losses),
-                f"[ranks full] losses {losses}")
-        require(gap <= tol, f"[ranks full] the losses differ from phase 12b's "
-                f"by {gap:.3e} > {tol:.0e}")
-        med = sorted(two[0]["step_s"])[1]
-        return dict(step_s=med, tokens_s=tokens / med,
-                    peaks=[r["peak"] for r in two],
-                    grad_sync_s=two[0]["grad_sync_s"])
+        out = {}
+        for key, label, mesh in (("full", "ranks full", "data 2, model 1"),
+                                 ("split_full", "ranks split", "data 1, model 2")):
+            runs = [r[key] for r in two]
+            losses = runs[0]["losses"]
+            gap = max(abs(a - b) / abs(b) for a, b in zip(losses, full_losses))
+            for r, run in zip(two, runs):
+                med = statistics.median(run["step_s"])
+                log(f"[{label}] rank {r['rank']} ({r['device']}), mesh ({mesh}): "
+                    f"step times {[round(x, 4) for x in run['step_s']]} s, "
+                    f"median {med:.4f} s = {tokens / med:,.1f} tokens/s (both "
+                    f"ranks' batch); host seconds a step in the gradient "
+                    f"collective {[round(x, 4) for x in run['grad_sync_s']]}, "
+                    f"in the model-axis collectives (tp_sync_s) "
+                    f"{[round(x, 4) for x in run['tp_sync_s']]}, in the "
+                    f"parameter gathers "
+                    f"{[round(x, 4) for x in run['param_sync_s']]}; peak "
+                    f"memory {run['peak'] / 2**30:.2f} GiB "
+                    f"(max_memory_allocated) (on {card})")
+            log(f"[{label}] tinyllama-1.1b under 2 ranks, mesh ({mesh}): "
+                f"losses {[round(x, 6) for x in losses]}; phase 12b's "
+                f"{[round(x, 6) for x in full_losses[:len(losses)]]}; largest "
+                f"relative gap {gap:.3e}")
+            steps = 2 if key == "full" else 3
+            require(len(losses) == steps and all(math.isfinite(x) for x in losses),
+                    f"[{label}] losses {losses}")
+            require(gap <= tol, f"[{label}] the losses differ from phase 12b's "
+                    f"by {gap:.3e} > {tol:.0e}")
+            med = statistics.median(runs[0]["step_s"])
+            out[key] = dict(step_s=med, tokens_s=tokens / med,
+                            peaks=[run["peak"] for run in runs],
+                            grad_sync_s=runs[0]["grad_sync_s"],
+                            tp_sync_s=runs[0]["tp_sync_s"])
+        return out
     finally:
         for child in two:
             if isinstance(child, subprocess.Popen) and child.poll() is None:
                 os.killpg(child.pid, 9)
                 child.wait()
+        if split_refs is not None and split_refs[1].poll() is None:
+            split_refs[1].kill()
+            split_refs[1].wait()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -5542,49 +5891,50 @@ def main() -> int:
     records = phase_kernels(pm1m, q1m, timer) + phase_kernels_serve(pm1m, q1m,
                                                                     timer)
     log(f"[phase 2] {time.perf_counter() - t0:.1f} s (with the n=1M build)")
-
-    t0 = time.perf_counter()
-    pm100k, x100k, q100k = build_size(100_000)
-    phase_main_path("n=100k", pm100k, x100k, q100k)
-    log(f"[n=100k] JAX CPU record (not the port's): pages_mean "
-        f"{JAX_CPU_RECORD_100K['pages_mean']} pages_frac "
-        f"{JAX_CPU_RECORD_100K['pages_frac']} recall {JAX_CPU_RECORD_100K['recall']}")
-    log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    phase_compact_100k(pm100k, q100k)
-    log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
-
-    t0 = time.perf_counter()
-    launches = phase_main_path("n=1M", pm1m, x1m, q1m)
-    time_turns("n=1M", lambda qb: pm1m.search(qb, **SEARCH), q1m)
-    log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    scan_rec, mode_launches, topk_launches = phase_modes(pm1m, x1m, q1m,
-                                                         x100k, q100k, timer)
-    records.append(scan_rec)
-    launches.update(mode_launches)
-    log(f"[phase 4b] {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    stream_launches = phase_stream_1m(pm1m, q1m)
-    from repro_torch.core import search_graph
-    search_graph.clear_graphs()      # their pools hold the n=1M scratch
-    gc.collect()
-    torch.cuda.empty_cache()
-    log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
-
-    # phase 6's vocab index state, which phase 14 restores, and phase 13's
-    # child build, in the gitignored build/ dir
+    # phase 6's vocab index state, which phase 14 restores, phase 13's
+    # child build and phase 7's, in the gitignored build/ dir
     families = tempfile.mkdtemp(prefix="families-",
                                 dir=os.path.join(ROOT, "build"))
     vocab_state = os.path.join(families, "tinyllama_vocab_index")
     build = dataset_build = None
+    # phase 7's host build runs from here on
+    sharded_build = start_sharded_build(families)
     try:
+        t0 = time.perf_counter()
+        pm100k, x100k, q100k = build_size(100_000)
+        phase_main_path("n=100k", pm100k, x100k, q100k)
+        log(f"[n=100k] JAX CPU record (not the port's): pages_mean "
+            f"{JAX_CPU_RECORD_100K['pages_mean']} pages_frac "
+            f"{JAX_CPU_RECORD_100K['pages_frac']} recall {JAX_CPU_RECORD_100K['recall']}")
+        log(f"[phase 3] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_compact_100k(pm100k, q100k)
+        log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        launches = phase_main_path("n=1M", pm1m, x1m, q1m)
+        time_turns("n=1M", lambda qb: pm1m.search(qb, **SEARCH), q1m)
+        log(f"[phase 4] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        scan_rec, mode_launches, topk_launches = phase_modes(pm1m, x1m, q1m,
+                                                             x100k, q100k, timer)
+        records.append(scan_rec)
+        launches.update(mode_launches)
+        log(f"[phase 4b] {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        stream_launches = phase_stream_1m(pm1m, q1m)
+        from repro_torch.core import search_graph
+        search_graph.clear_graphs()      # their pools hold the n=1M scratch
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
+
         t0 = time.perf_counter()
         serve_launches = phase_serve(vocab_state)
         log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        sharded_launches = phase_sharded_1m(pm1m, x1m, q1m)
+        sharded_launches = phase_sharded_1m(pm1m, x1m, q1m, sharded_build)
         del x1m
         search_graph.clear_graphs()
         log(f"[phase 7, sharded-1M] {time.perf_counter() - t0:.1f} s")
@@ -5654,7 +6004,7 @@ def main() -> int:
         recurrent_launches = phase_serve_recurrent(vocab_state, families)
         log(f"[phase 14, serve-recurrent] {time.perf_counter() - t0:.1f} s")
     finally:
-        for child in (build, dataset_build):
+        for child in (build, sharded_build, *(dataset_build or {}).values()):
             if child is not None and child[0].poll() is None:
                 child[0].kill()
                 child[0].wait()

@@ -273,6 +273,18 @@ def reshard(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
     return reshard(reshard(x, src, P(), mesh), P(), dst, mesh)
 
 
+def slice_piece(x: torch.Tensor, src, dst, mesh, coords=None) -> torch.Tensor:
+    """``x``, this rank's piece under ``src``, cut to its piece under
+    ``dst`` where ``dst`` splits every dim over ``src``'s axes and then
+    more (a ZeRO-1 moment's layout from its parameter's): a view. With
+    ``coords``, the piece of the rank at those coordinates along the extra
+    axes (the ranks that share ``x``)."""
+    pairs = list(zip(_padded(src, x.ndim), _padded(dst, x.ndim)))
+    if not all(d[:len(s)] == s for s, d in pairs):
+        raise ValueError(f"{P(*dst)} does not refine {P(*src)}")
+    return _slice(x, [d[len(s):] for s, d in pairs], dst, mesh, coords)
+
+
 def _slice(x: torch.Tensor, split, spec, mesh, coords=None) -> torch.Tensor:
     """``x`` with each dim cut into the pieces of its axes in ``split``:
     this rank's piece (or the piece of the rank at ``coords``), a view."""
@@ -318,5 +330,5 @@ def gather_tree(tree, specs, mesh):
 
 __all__ = ["P", "axis_size", "batch_specs", "cache_specs", "decode_token_spec",
            "dp_axes", "gather", "gather_tree", "logits_spec", "param_specs",
-           "reshard", "shard", "shard_shape", "shard_tree", "tree_map_with_path",
-           "zero1_specs"]
+           "reshard", "shard", "shard_shape", "shard_tree", "slice_piece",
+           "tree_map_with_path", "zero1_specs"]

@@ -18,6 +18,9 @@ Production meshes (abstract: shapes only, no processes; `launch.specs`
 reads them):
   single pod : (data=16, model=16)            = 256 devices
   multi-pod  : (pod=2, data=16, model=16)     = 512 devices
+`RecordingMesh` plays one rank of such a mesh with no process: its
+collectives return tensors of the right shape and tally their bytes (the
+dry run, `launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -231,6 +234,85 @@ class Mesh:
         return box[0]
 
 
+class RecordingMesh(Mesh):
+    """Rank ``rank`` of a mesh played with no process: the dry run's mesh
+    (`launch.dryrun`). Each collective returns a tensor of its result's
+    shape (empty, on the input's device: ``meta`` in the dry run) and adds
+    the result's bytes to ``bytes`` under JAX's op names (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``: what `repro.launch.dryrun.
+    parse_collectives` sums from the HLO) and to ``axis_bytes`` under
+    (name, mesh axes), its count to ``counts``, and ``(kind, shape)`` to
+    ``events`` in call order. An axis of one rank runs no collective, as on
+    a real mesh."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], rank: int = 0):
+        super().__init__(shape, axes, rank=None)
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        self.rank = rank
+        self.coords = self._coords_of(rank)
+        self.reset()
+
+    def reset(self) -> None:
+        """Empty the tallies."""
+        self.bytes: Dict[str, int] = {}
+        self.axis_bytes: Dict[tuple, int] = {}
+        self.counts: Dict[str, int] = {}
+        self.events: list = []
+
+    def _record(self, kind: str, t: torch.Tensor, axes: Axes) -> None:
+        n = t.numel() * t.element_size()
+        self.bytes[kind] = self.bytes.get(kind, 0) + n
+        key = (kind, tuple(a for a in self.axis_names if a in _axes(axes)))
+        self.axis_bytes[key] = self.axis_bytes.get(key, 0) + n
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        self.events.append((kind, tuple(t.shape)))
+
+    def group(self, axes: Axes):
+        return None if self.axis_size(axes) == 1 else frozenset(_axes(axes))
+
+    def all_reduce_many(self, tensors, axes: Axes, op: str = "sum") -> None:
+        if self.group(axes) is not None:
+            for t in tensors:
+                self._record("all-reduce", t, axes)
+
+    def reduce_scatter_many(self, tensors, axes: Axes):
+        if self.group(axes) is None:
+            return list(tensors)
+        n = self.axis_size(axes)
+        outs = [torch.empty(t.numel() // n, dtype=t.dtype, device=t.device)
+                for t in tensors]
+        for o in outs:
+            self._record("reduce-scatter", o, axes)
+        return outs
+
+    def all_gather(self, t: torch.Tensor, axes: Axes, dim: int) -> torch.Tensor:
+        if self.group(axes) is None:
+            return t
+        shape = list(t.shape)
+        shape[dim] *= self.axis_size(axes)
+        out = torch.empty(shape, dtype=t.dtype, device=t.device)
+        self._record("all-gather", out, axes)
+        return out
+
+    def members(self, axes: Axes) -> list:
+        """The coordinates of the ranks along ``axes``, in `index` order."""
+        names = _axes(axes)
+        sizes = [self.shape[a] for a in names]
+        out = []
+        for i in range(self.axis_size(names)):
+            coords = dict(self.coords)
+            coords.update(zip(names, (int(c) for c in np.unravel_index(i, sizes))))
+            out.append(coords)
+        return out
+
+    def barrier(self) -> None:
+        pass
+
+    def broadcast_object(self, obj):
+        return obj
+
+
 def make_mesh_compat(shape, axes) -> Mesh:
     """The mesh ``shape`` with named ``axes`` over the default process
     group's ranks (or this process alone when their product is 1)."""
@@ -255,4 +337,5 @@ def make_host_mesh(model_parallel: int = 2) -> Mesh:
     return make_mesh_compat((n // mp, mp), ("data", "model"))
 
 
-__all__ = ["Mesh", "make_host_mesh", "make_mesh_compat", "make_production_mesh"]
+__all__ = ["Mesh", "RecordingMesh", "make_host_mesh", "make_mesh_compat",
+           "make_production_mesh"]

@@ -154,7 +154,254 @@ def topk_rescore(b: int, k: int, d: int) -> dict:
                 + b * k * 4)
 
 
-__all__ = ["HBM_BW", "PEAK_FP32", "cost", "add", "block_mips", "mips_score",
-           "sketch_scores", "binary_probe_lb", "quick_probe_select",
-           "decode_attention", "scan_blocks", "select_frontend",
-           "prefilter_round1", "fused_verify_tile", "topk_rescore"]
+
+
+# ---------------------------------------------------------------- cells
+#
+# The roofline of a whole (arch x shape) cell on the production mesh:
+# counterpart of the JAX `analyse_cell` / `main`. JAX reads XLA's
+# cost_analysis of unrolled compiles; the port counts one rank of the split
+# program on `meta` (`launch.dryrun.measure`: its FLOPs, unfused bytes and
+# collective bytes, each a per-device quantity).
+#
+# Every term is counted at one precision, the cell's structs' (bf16
+# parameters and activations, f32 where the code casts: `dryrun.PRECISION`,
+# recorded as ``precision``): the counted run's unfused and collective
+# bytes, `fused_memory_bytes` and the compute term at the bf16 rate. (The
+# port trains in f32 today; its program moves about twice these bytes and
+# computes at `PEAK_FP32` with TF32 off.)
+#
+# Constants for the cell terms: the H100 SXM data sheet at 700 W. The
+# compute term is bf16 dense tensor-core FLOP/s. NVLink 4: 900 GB/s a GPU, 450 GB/s a direction, among the 8 GPUs
+# of a node (DGX H100 / HGX H100). The 16 x 16 mesh is 32 such nodes; a
+# rank's index is row-major in (data, model), so the 16 ranks of a
+# ``model`` group are two nodes (a ring over them crosses the node
+# boundary) and a ``data`` or ``pod`` group has one rank a node: every
+# axis's collectives are bound by the InfiniBand link, ConnectX-7 at
+# 400 Gb/s, 50 GB/s a GPU a direction (the DGX H100 data sheet: eight
+# 400 Gb/s ports, one a GPU). A ``model`` axis that fits in one node would
+# run at the NVLink rate (`link_bw`).
+
+PEAK_BF16 = 989e12     # FLOP/s, dense bf16 tensor cores
+NVLINK_BW = 450e9      # bytes/s a direction, a GPU, inside a node
+IB_BW = 50e9           # bytes/s a direction, a GPU, between nodes
+NODE_GPUS = 8
+RING_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
+               "all-to-all": 1.0, "collective-permute": 1.0}
+
+
+def link_bw(mesh, axes) -> float:
+    """The per-direction rate a ring over ``axes`` gets: NVLink where the
+    group's ranks lie in one node of `NODE_GPUS` consecutive ranks, else
+    InfiniBand."""
+    sizes = list(mesh.shape.values())
+    names = list(mesh.axis_names)
+    stride = 1
+    span = 1
+    for name, size in zip(reversed(names), reversed(sizes)):
+        if name in axes:
+            span = max(span, stride * size)
+        stride *= size
+    return NVLINK_BW if span <= NODE_GPUS else IB_BW
+
+
+def fused_memory_bytes(cfg, shape, mesh, microbatches):
+    """Analytic per-device HBM traffic assuming production kernel fusion:
+    a copy of the JAX `fused_memory_bytes` (bf16 weights and activations,
+    f32 optimizer state): parameters (re-read per microbatch), optimizer
+    state, saved activations (remat=full saves layer inputs), logits,
+    embeddings and KV caches. ``hlo_bytes`` (the unfused count) is the
+    upper bound beside it."""
+    from ..distributed import sharding as shard_lib
+    chips = mesh.size
+    model_sz = shard_lib.axis_size(mesh, "model")
+    dp = shard_lib.axis_size(mesh, shard_lib.dp_axes(mesh))
+    n_params = cfg.param_count()
+    p_loc = 2.0 * n_params / model_sz
+    d = cfg.d_model
+    kh, dh = cfg.n_kv_heads, cfg.head_dim_
+    v_loc = cfg.vocab_padded * 2.0 / model_sz
+
+    if shape.kind == "train":
+        tokens_loc = shape.global_batch * shape.seq_len / dp
+        mb_tokens = tokens_loc / microbatches
+        act = 2.0 * mb_tokens * d
+        per_mb = (2.0 * p_loc + cfg.n_layers * act * 2
+                  + cfg.n_layers * act * 8 + mb_tokens * v_loc * 3)
+        opt = (4.0 * n_params / chips) * 6
+        return microbatches * per_mb + opt + 2.0 * p_loc
+    if shape.kind == "prefill":
+        tokens_loc = shape.global_batch * shape.seq_len / dp
+        cache = 2.0 * 2 * cfg.n_layers * tokens_loc * kh * dh / max(
+            model_sz if kh % model_sz == 0 or dh % model_sz == 0 else 1, 1)
+        return (p_loc + tokens_loc * d * 2 * 10 + cache
+                + tokens_loc / shape.seq_len * v_loc)
+    b_loc = max(shape.global_batch / dp, 1)
+    kv_len = min(shape.seq_len, cfg.window) if cfg.attn == "swa" else shape.seq_len
+    n_kv_layers = {"attn": cfg.n_layers, "encdec": cfg.n_layers,
+                   "zamba2": max(cfg.n_layers // cfg.shared_attn_every, 1),
+                   "xlstm_7_1": 0}[cfg.block_pattern]
+    cache = 2.0 * 2 * n_kv_layers * b_loc * kv_len * kh * dh / model_sz
+    state = 0.0
+    if cfg.block_pattern == "zamba2":
+        inner = cfg.ssm.expand * d
+        state = 4.0 * 2 * cfg.n_layers * b_loc * inner * cfg.ssm.state_dim / model_sz
+    if cfg.block_pattern == "xlstm_7_1":
+        p = d // cfg.n_heads
+        state = 4.0 * 2 * cfg.n_layers * b_loc * d * p / model_sz
+    return p_loc + cache + state + b_loc * v_loc
+
+
+def slstm_correction(cfg, shape):
+    """Analytic FLOPs of the sLSTM time recurrence, a copy of the JAX
+    function: per step per layer the recurrent einsum 2 d 4p and about 24
+    elementwise ops on (h, p), times the tokens. JAX adds it because XLA's
+    cost analysis counts a while body once. The port's count runs the
+    loop step by step, so its recurrent einsums are in ``hlo_flops``
+    already: `analyse_cell` does not add this (it would count them twice)
+    and reports it as ``slstm_correction_flops`` for comparison."""
+    if cfg.block_pattern != "xlstm_7_1":
+        return 0.0
+    d = cfg.d_model
+    p = d // cfg.n_heads
+    n_slstm = cfg.n_layers // 8
+    per_tok = 2 * d * 4 * p + 24 * d
+    if shape.kind == "train":
+        return 3.0 * per_tok * shape.global_batch * shape.seq_len * n_slstm
+    if shape.kind == "prefill":
+        return float(per_tok * shape.global_batch * shape.seq_len * n_slstm)
+    return float(per_tok * shape.global_batch * n_slstm)
+
+
+def model_flops(cfg, shape) -> float:
+    """6 N D (train), 2 N D (prefill), 2 N B (decode): N the active
+    parameters, D the tokens (JAX's formula)."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch
+
+
+def analyse_cell(arch_id, shape_name, mesh, *, cfg=None, shape=None):
+    """The roofline record of one cell on ``mesh`` (a `mesh.RecordingMesh`
+    playing one rank; ``cfg`` / ``shape`` override the registry's), with
+    the JAX record's keys. Per device: ``hlo_flops_per_chip`` (the counted
+    matrix-product FLOPs of the split program), ``hlo_bytes_per_chip`` (its
+    unfused bytes), ``collective_bytes_per_chip`` (result bytes by op),
+    ``wire_bytes_per_chip`` (times the ring factor), ``fused_bytes_per_chip``
+    (`fused_memory_bytes`). The terms: FLOPs over `PEAK_BF16`, fused bytes
+    over `HBM_BW` (the unfused over it as ``t_memory_hlo_upper_s``), each
+    axis's wire bytes over its link (`link_bw`). Decode cells wait for the
+    decode split (ROADMAP item 28) and carry its status."""
+    from ..configs import SHAPES_BY_NAME, get_config
+    from . import dryrun, specs as specs_lib
+    cfg = get_config(arch_id) if cfg is None else cfg
+    shape = SHAPES_BY_NAME[shape_name] if shape is None else shape
+    ok, reason = specs_lib.cell_applicable(cfg, shape)
+    if not ok:
+        return {"arch": arch_id, "shape": shape_name, "status": reason}
+    if shape.kind == "decode":
+        return {"arch": arch_id, "shape": shape_name, "status": dryrun.PENDING}
+    chips = mesh.size
+    mb = (specs_lib.choose_microbatches(cfg, shape, mesh)
+          if shape.kind == "train" else 1)
+    total, notes = dryrun.measure(cfg, shape, mesh, mb)
+    fused_bytes = fused_memory_bytes(cfg, shape, mesh, mb)
+    t_comp = total["flops"] / PEAK_BF16
+    t_mem_hlo = total["bytes"] / HBM_BW
+    t_mem = fused_bytes / HBM_BW
+    wire = sum(RING_FACTOR.get(op, 1.0) * b for op, b in total["coll"].items())
+    t_coll = sum(RING_FACTOR.get(op, 1.0) * b / link_bw(mesh, axes)
+                 for (op, axes), b in total["coll_axes"].items())
+    dominant = max(("compute", t_comp), ("memory", t_mem),
+                   ("collective", t_coll), key=lambda kv: kv[1])[0]
+    mf = model_flops(cfg, shape)
+    bound = max(t_comp, t_mem, t_coll)
+    return {
+        "arch": arch_id, "shape": shape_name, "status": "ok",
+        "kind": shape.kind, "chips": chips, "precision": dryrun.PRECISION,
+        "hlo_flops_per_chip": total["flops"],
+        "hlo_bytes_per_chip": total["bytes"],
+        "collective_bytes_per_chip": {k: round(v) for k, v in total["coll"].items()},
+        "wire_bytes_per_chip": round(wire),
+        "fused_bytes_per_chip": round(fused_bytes),
+        "t_compute_s": t_comp, "t_memory_s": t_mem,
+        "t_memory_hlo_upper_s": t_mem_hlo, "t_collective_s": t_coll,
+        "dominant": dominant,
+        "model_flops": mf,
+        "useful_flops_frac": (mf / (total["flops"] * chips)
+                              if total["flops"] else 0),
+        "bound_mfu": (mf / (chips * PEAK_BF16)) / bound if bound else 0,
+        "roofline_time_s": bound,
+        "slstm_correction_flops": slstm_correction(cfg, shape) / chips,
+        **notes,
+    }
+
+
+def main(argv=None):
+    """``python -m repro_torch.launch.roofline --all``: every cell's record
+    as ``{out}/{arch}__{shape}.json`` on the single-pod mesh (rank 0), the
+    JAX CLI's layout under ``results/torch_roofline``: the JAX package's
+    ``results/roofline`` stays its own."""
+    import argparse
+    import json
+    import os
+    import time
+    import traceback
+
+    from ..configs import ARCH_IDS, SHAPES
+    from .dryrun import production_mesh
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="results/torch_roofline")
+    ap.add_argument("--force", action="store_true")
+    args = ap.parse_args(argv)
+
+    mesh = production_mesh(multi_pod=False)
+    archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
+    shapes = ([s.name for s in SHAPES] if (args.all or not args.shape)
+              else [args.shape])
+    os.makedirs(args.out, exist_ok=True)
+    records = []
+    for a in archs:
+        for s in shapes:
+            path = os.path.join(args.out, f"{a}__{s}.json")
+            if os.path.exists(path) and not args.force:
+                print(f"[skip] {a}/{s}")
+                continue
+            t0 = time.time()
+            try:
+                rec = analyse_cell(a, s, mesh)
+            except Exception as e:
+                rec = {"arch": a, "shape": s, "status": "error",
+                       "error": f"{type(e).__name__}: {e}",
+                       "traceback": traceback.format_exc()[-3000:]}
+            with open(path, "w") as f:
+                json.dump(rec, f, indent=1)
+            records.append(rec)
+            if rec["status"] == "ok":
+                print(f"[ok  ] {a}/{s} ({time.time() - t0:.0f}s) "
+                      f"dom={rec['dominant']} t=({rec['t_compute_s']:.4f},"
+                      f"{rec['t_memory_s']:.4f},{rec['t_collective_s']:.4f})s "
+                      f"bound_mfu={rec['bound_mfu']:.3f}", flush=True)
+            else:
+                print(f"[{rec['status'][:7]}] {a}/{s} {rec.get('error', '')}",
+                      flush=True)
+    return records
+
+
+
+__all__ = ["HBM_BW", "IB_BW", "NVLINK_BW", "PEAK_BF16", "PEAK_FP32", "cost",
+           "add", "analyse_cell", "block_mips", "mips_score", "sketch_scores",
+           "binary_probe_lb", "quick_probe_select", "decode_attention",
+           "scan_blocks", "select_frontend", "prefilter_round1",
+           "fused_memory_bytes", "fused_verify_tile", "link_bw", "main",
+           "model_flops", "slstm_correction", "topk_rescore"]
+
+if __name__ == "__main__":
+    main()

@@ -19,6 +19,7 @@ import torch
 
 from ..configs import ArchConfig, ShapeCfg
 from ..distributed import sharding as shard_lib
+from ..distributed import tensor_parallel as tp_lib
 from ..distributed.compression import ErrorFeedback
 from ..distributed.sharding import P
 from ..models import transformer as model_lib
@@ -137,9 +138,13 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
 
     The train function is `make_train_step` under ``mesh`` with the ZeRO-1
     layouts (``acc_specs`` = `zero1_specs`, ``param_specs``, the
-    microbatch specs from `batch_specs`): on the ranks it takes the state's
-    pieces and the whole batch. Prefill and decode are the model's
-    functions on whole tensors; their specs say how a cell lays them out."""
+    microbatch specs from `batch_specs`): on a rank of ``mesh`` it takes
+    the state's pieces and the whole batch, and splits its compute over
+    ``model``. The prefill function takes the parameters' pieces and this
+    rank's batch rows and returns the cache in `cache_shardings`' layout
+    and the logits in `logits_spec`'s (`transformer.prefill` under the
+    mesh context). Decode is the model's function on whole tensors (its
+    split is ROADMAP item 28); its specs say how a cell lays it out."""
     if shape.kind == "train":
         tcfg = train_cfg_for(cfg, shape, mesh)
         if microbatch_override is not None:
@@ -162,12 +167,15 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
     p_specs = shard_lib.param_specs(params_struct, mesh)
 
     if shape.kind == "prefill":
+        c_specs = cache_shardings(cfg, shape, mesh)
+
         def prefill_step(params, batch):
-            return model_lib.prefill(params, cfg, batch, shape.seq_len)
+            return model_lib.prefill(params, cfg, batch, shape.seq_len,
+                                     tp=tp_lib.context(mesh),
+                                     cache_specs=c_specs)
         args = (params_struct, batch_structs(cfg, shape))
         in_specs = (p_specs, shard_lib.batch_specs(cfg, shape, mesh))
-        out_specs = (cache_shardings(cfg, shape, mesh),
-                     shard_lib.logits_spec(cfg, mesh))
+        out_specs = (c_specs, shard_lib.logits_spec(cfg, mesh))
         return prefill_step, args, in_specs, out_specs
 
     if shape.kind == "decode":

@@ -31,9 +31,11 @@ one card) or on the CPU:
 
 The layout is the JAX launcher's, not ZeRO: the parameters, both moments
 and the error-feedback residual under `sharding.param_specs`, the rest
-whole on every rank; the batch split over ``data``. Every rank draws the
-same parameters and keeps its pieces; only rank 0 prints. Without a
-distributed environment the run is one process, as before.
+whole on every rank; the batch split over ``data`` and the compute over
+``model`` (`--model-parallel`, halved until it divides the ranks; see
+`train.loop`). Every rank draws the same parameters and keeps its pieces;
+only rank 0 prints. Without a distributed environment the run is one
+process, as before.
 """
 from __future__ import annotations
 

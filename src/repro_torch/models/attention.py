@@ -10,6 +10,16 @@ kernel for them either. The decode path
 kernel on CUDA tensors, its plain version (the arithmetic of the JAX
 `flash_decode`) elsewhere. Cross attention (`cross_attention`, over the
 encoder K/V of `encode_kv`) is plain torch, as it is `jnp` in JAX.
+
+Under a mesh context ``tp`` (`distributed.tensor_parallel`) the training
+and prefill functions take this rank's pieces: ``wq`` / ``wk`` / ``wv``
+column-parallel, ``wo`` row-parallel. Where a rank's ``wq`` columns are
+whole heads it attends those heads ("heads" mode) over its own KV heads,
+or, where its ``wk`` columns are less than a KV head (KH < model), over
+the KV head its q heads share, picked from the gathered K/V. Where they
+are not whole heads (H not a multiple of ``model``) q, k and v are
+gathered and every rank attends every head, then keeps its rows of ``wo``
+("whole" mode).
 """
 from __future__ import annotations
 
@@ -18,6 +28,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp_lib
 from ..kernels import ops
 from .layers import Leaf, apply_rope, init_tree, rms_norm
 
@@ -39,20 +50,6 @@ def init_attention(cfg, *, generator=None, device,
                    dtype=torch.float32) -> dict:
     return init_tree(attention_spec(cfg), generator=generator, device=device,
                      dtype=dtype)
-
-
-def _project_qkv(params, cfg, x, positions):
-    b, s, _ = x.shape
-    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
-    k = (x @ params["wk"]).reshape(b, s, kh, dh)
-    v = (x @ params["wv"]).reshape(b, s, kh, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
 
 
 def _mask_for(s, block, blk_idx, *, window: int, bidirectional: bool, device):
@@ -158,14 +155,76 @@ def _flash_causal(q, k, v, *, window: int = 0, block: int = 512,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, dh).to(q.dtype)
 
 
-def attention_train(params, cfg, x, positions, *, bidirectional: bool = False):
+def _heads_mode(tp, cfg, params) -> bool:
+    """Whether this rank's ``wq`` columns are whole q heads."""
+    nq, dh = params["wq"].shape[-1], cfg.head_dim_
+    return tp_lib.split(tp, nq, cfg.n_heads * dh) and nq % dh == 0
+
+
+def _project_kv(tp, cfg, params, x, heads: bool):
+    """K and V (B, S, KH', dh) of ``x`` (already past `copy_in`): this
+    rank's KV heads in heads mode where ``wk``'s columns are whole KV heads,
+    else every KV head (gathered under a split, whole on one process)."""
+    b, s, _ = x.shape
+    kh, dh = cfg.n_kv_heads, cfg.head_dim_
+    nk = params["wk"].shape[-1]
+    if heads and tp_lib.split(tp, nk, kh * dh) and nk % dh == 0:
+        k = (x @ params["wk"]).reshape(b, s, nk // dh, dh)
+        v = (x @ params["wv"]).reshape(b, s, nk // dh, dh)
+    else:
+        k = tp_lib.cols(tp, x, params["wk"], kh * dh).reshape(b, s, kh, dh)
+        v = tp_lib.cols(tp, x, params["wv"], kh * dh).reshape(b, s, kh, dh)
+    return k, v
+
+
+def _pick_kv(tp, cfg, hl: int, k, v):
+    """The KV heads this rank's ``hl`` q heads attend, where ``k`` / ``v``
+    hold every KV head (heads mode with KH < model, or KH not split)."""
+    if k.shape[2] != cfg.n_kv_heads:
+        return k, v
+    g = cfg.n_heads // cfg.n_kv_heads
+    first = tp.rank * hl // g
+    n = max(1, hl // g)
+    return k[:, :, first:first + n], v[:, :, first:first + n]
+
+
+def _project_qkv(params, cfg, x, positions, tp=None):
+    """q, k, v (B, S, heads, dh) after the q/k norms and RoPE: q the heads
+    this rank attends (its own in heads mode, every head in whole mode and
+    on one process), k / v as `_project_kv`."""
+    b, s, _ = x.shape
+    h, dh = cfg.n_heads, cfg.head_dim_
+    heads = _heads_mode(tp, cfg, params)
+    x = tp_lib.copy_in(tp, x)
+    if heads:
+        q = (x @ params["wq"]).reshape(b, s, -1, dh)
+    else:
+        q = tp_lib.cols(tp, x, params["wq"], h * dh).reshape(b, s, h, dh)
+    k, v = _project_kv(tp, cfg, params, x, heads)
+    if cfg.qk_norm:
+        qn, kn = tp_lib.copy_in(tp, params["q_norm"], params["k_norm"])
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attention_train(params, cfg, x, positions, *, bidirectional: bool = False,
+                    tp=None):
     """Full (training / prefill) attention. x: (B, S, d) -> ((B, S, d),
-    (k, v))."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    (k, v)). Under a mesh context ``tp``, (k, v) are this rank's KV heads
+    where it holds whole ones, else every KV head."""
+    q, k, v = _project_qkv(params, cfg, x, positions, tp)
+    heads = _heads_mode(tp, cfg, params)
     window = cfg.window if cfg.attn == "swa" else 0
-    out = _flash_causal(q, k, v, window=window, bidirectional=bidirectional)
+    kq, vq = _pick_kv(tp, cfg, q.shape[2], k, v) if heads else (k, v)
+    out = _flash_causal(q, kq, vq, window=window, bidirectional=bidirectional)
     b, s = out.shape[:2]
-    return out.reshape(b, s, -1) @ params["wo"], (k, v)
+    out = out.reshape(b, s, -1)
+    if heads:
+        return tp_lib.row(tp, out, params["wo"]), (k, v)
+    return tp_lib.rows(tp, out, params["wo"], cfg.n_heads * cfg.head_dim_), (k, v)
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, *,
@@ -201,20 +260,33 @@ def decode_kv(params, cfg, x, cache_len):
     return k_new, v_new
 
 
-def cross_attention(params, cfg, x, enc_k, enc_v, enc_len):
+def cross_attention(params, cfg, x, enc_k, enc_v, enc_len, tp=None):
     """Decoder -> encoder attention (whisper). x (B, S, d); enc_k, enc_v
     (B, T, KH, dh), the cached encoder K/V; enc_len (B,). Every target
     position attends the first ``enc_len`` encoder positions (no causal
     mask, no RoPE), as the JAX `cross_attention`: the scores in f32, K/V
-    repeated over each KV head's G query heads."""
+    repeated over each KV head's G query heads. Under a mesh context
+    ``tp``: this rank's pieces, and ``enc_k`` / ``enc_v`` from `encode_kv`
+    under the same context."""
     b, s, _ = x.shape
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
-    q = (x @ params["wq"]).reshape(b, s, h, dh)
+    heads = _heads_mode(tp, cfg, params)
+    x = tp_lib.copy_in(tp, x)
+    q = ((x @ params["wq"]) if heads else tp_lib.cols(tp, x, params["wq"], h * dh)
+         ).reshape(b, s, -1, dh)
     if cfg.qk_norm:
-        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+        q = rms_norm(q, tp_lib.copy_in(tp, params["q_norm"]), cfg.norm_eps)
     g = h // kh
     k = enc_k.float().repeat_interleave(g, dim=2)
     v = enc_v.float().repeat_interleave(g, dim=2)
+    if heads:
+        # the einsums below contract the KV head axis too (the JAX
+        # `cross_attention`'s): a rank adds the KV heads it holds and the
+        # sums go over ``model``
+        k, v = k.sum(dim=2, keepdim=True), v.sum(dim=2, keepdim=True)
+        if enc_k.shape[2] != kh:
+            k, v = tp_lib.all_sum(tp, k), tp_lib.all_sum(tp, v)
+        h = q.shape[2]
     scores = torch.einsum("bshd,btkd->bhst", q.float() * dh ** -0.5, k)
     mask = (torch.arange(enc_k.shape[1], device=x.device)[None, :]
             < enc_len[:, None])
@@ -222,17 +294,19 @@ def cross_attention(params, cfg, x, enc_k, enc_v, enc_len):
                          torch.full_like(scores, NEG_INF))
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhst,btkd->bshd", w, v)
-    return out.reshape(b, s, h * dh).to(x.dtype) @ params["wo"]
+    out = out.reshape(b, s, h * dh).to(x.dtype)
+    if heads:
+        return tp_lib.row(tp, out, params["wo"])
+    return tp_lib.rows(tp, out, params["wo"], cfg.n_heads * dh)
 
 
-def encode_kv(params, cfg, enc_out):
-    """The encoder output's K/V for cross attention, (B, T, KH, dh) each."""
-    b, t, _ = enc_out.shape
-    kh, dh = cfg.n_kv_heads, cfg.head_dim_
-    k = (enc_out @ params["wk"]).reshape(b, t, kh, dh)
-    v = (enc_out @ params["wv"]).reshape(b, t, kh, dh)
+def encode_kv(params, cfg, enc_out, tp=None):
+    """The encoder output's K/V for cross attention, (B, T, KH, dh) each;
+    under a mesh context ``tp``, `_project_kv`'s heads."""
+    k, v = _project_kv(tp, cfg, params, tp_lib.copy_in(tp, enc_out),
+                       _heads_mode(tp, cfg, params))
     if cfg.qk_norm:
-        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+        k = rms_norm(k, tp_lib.copy_in(tp, params["k_norm"]), cfg.norm_eps)
     return k, v
 
 

@@ -13,6 +13,8 @@ from typing import Callable, NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp_lib
+
 
 class Leaf(NamedTuple):
     """One parameter of a parameter spec: its shape, and either a norm
@@ -100,6 +102,16 @@ def rms_norm(x, weight, eps: float = 1e-5):
     return ((x * torch.rsqrt(var + eps)) * weight).to(dtype)
 
 
+def rms_norm_pieces(tp, x, weight, n: int, eps: float = 1e-5):
+    """`rms_norm` over ``n`` features of which ``x`` holds this rank's
+    piece (``weight`` its piece too): the sum of squares added over
+    ``model`` (`tensor_parallel.all_sum`)."""
+    dtype = x.dtype
+    x = x.float()
+    var = tp_lib.all_sum(tp, (x * x).sum(dim=-1, keepdim=True)) / n
+    return ((x * torch.rsqrt(var + eps)) * weight).to(dtype)
+
+
 def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                          device=device) / head_dim))
@@ -133,10 +145,19 @@ def init_mlp(d_model: int, d_ff: int, *, generator=None, device,
                      device=device, dtype=dtype)
 
 
-def apply_mlp(params, x):
-    return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+def apply_mlp(params, x, tp=None, ff: Optional[int] = None):
+    """The SwiGLU MLP on ``x``. Under a mesh context ``tp`` the leaves are
+    this rank's pieces: ``w_gate`` / ``w_up`` column-parallel and ``w_down``
+    row-parallel, split on the hidden width ``ff`` (the whole one), the
+    output summed over ``model``."""
+    if not tp_lib.active(tp) or not tp_lib.split(
+            tp, params["w_gate"].shape[-1], ff):
+        return swiglu(x, params["w_gate"], params["w_up"], params["w_down"])
+    x = tp_lib.copy_in(tp, x)
+    return tp_lib.row(tp, F.silu(x @ params["w_gate"]) * (x @ params["w_up"]),
+                      params["w_down"])
 
 
 __all__ = ["Leaf", "apply_mlp", "apply_rope", "dense_init", "dense_init_",
-           "init_mlp", "init_tree", "mlp_spec", "rms_norm", "rope_freqs",
-           "swiglu"]
+           "init_mlp", "init_tree", "mlp_spec", "rms_norm", "rms_norm_pieces",
+           "rope_freqs", "swiglu"]

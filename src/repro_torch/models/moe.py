@@ -23,6 +23,14 @@ equal to the eager call bit for bit):
 
 Router ties go to the lower expert index, as `lax.top_k` does: the top-k is
 the head of a stable descending sort.
+
+Under a mesh context ``tp`` the router stays whole on every rank (its rule
+replicates it) and each rank routes every token, as the tokens are whole
+across ``model``. Where the experts split over ``model`` a rank fills and
+runs only its experts' buffers; otherwise each expert's d_ff splits
+(`_spec_for`'s ``moe`` branch) and every buffer runs on every rank against
+its columns and rows. Either way a rank's combine is a partial sum, added
+over ``model`` with the shared experts' (split as the MLP).
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import tensor_parallel as tp_lib
 from .layers import Leaf, init_tree, mlp_spec
 
 
@@ -99,38 +108,56 @@ def route(params, cfg, x, capacity_factor: float = 1.25) -> Route:
                  run_start, run_len)
 
 
-def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25):
-    """x (B, S, d) -> ((B, S, d), aux)."""
+def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25, tp=None):
+    """x (B, S, d) -> ((B, S, d), aux). Under a mesh context ``tp`` the
+    expert stacks are this rank's pieces (see the module's docstring)."""
     b, s, d = x.shape
     e, topk = cfg.moe.n_experts, cfg.moe.top_k
     cap = capacity(cfg, s, capacity_factor)
     r = route(params, cfg, x, capacity_factor)
     dev = x.device
+    split = tp_lib.active(tp)
+    e_loc = params["w_gate"].shape[0]
+    e0 = tp.rank * e_loc if split and tp_lib.split(tp, e_loc, e) else 0
+    gate = r.sorted_gate
+    if split and e_loc == e and not tp_lib.split(
+            tp, params["w_gate"].shape[-1], cfg.d_ff):
+        raise ValueError("an MoE layer whole on every rank under a split")
+    if split:
+        # the tokens and the gates enter compute that differs between ranks
+        x, gate = tp_lib.copy_in(tp, x, gate)
 
     # dispatch: slot c of expert j holds the (run_start[j] + c)-th sorted
     # pair's token when c < the run's length, zero otherwise
     c = torch.arange(cap, device=dev)
-    src = r.run_start[:, :, None] + c                       # (B, E, C)
-    filled = c < torch.clamp(r.run_len, max=cap)[:, :, None]
-    src = torch.clamp(src, max=s * topk - 1).reshape(b, e * cap)
+    start = r.run_start[:, e0:e0 + e_loc]
+    src = start[:, :, None] + c                             # (B, E, C)
+    filled = c < torch.clamp(r.run_len[:, e0:e0 + e_loc], max=cap)[:, :, None]
+    src = torch.clamp(src, max=s * topk - 1).reshape(b, e_loc * cap)
     tok = torch.gather(r.sorted_token, 1, src)              # (B, E*C)
-    buf = torch.gather(x, 1, tok[..., None].expand(b, e * cap, d))
-    buf = torch.where(filled.reshape(b, e * cap, 1), buf, torch.zeros_like(buf))
+    buf = torch.gather(x, 1, tok[..., None].expand(b, e_loc * cap, d))
+    buf = torch.where(filled.reshape(b, e_loc * cap, 1), buf,
+                      torch.zeros_like(buf))
 
     # the experts, batched over E: (E, B*C, d) x (E, d, ff)
-    h = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
+    h = buf.reshape(b, e_loc, cap, d).transpose(0, 1).reshape(e_loc, b * cap, d)
     g = F.silu(torch.bmm(h, params["w_gate"]))
     u = torch.bmm(h, params["w_up"])
     y = torch.bmm(g * u, params["w_down"])                  # (E, B*C, d)
-    y = y.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
+    y = y.reshape(e_loc, b, cap, d).transpose(0, 1).reshape(b, e_loc * cap, d)
 
     # combine: each sorted pair's gated output, back at (token, slot) through
     # the sort's inverse, then each token's slots added in sort order
+    dest, keep = r.dest, r.keep
+    if e_loc != e:
+        dest = dest - e0 * cap
+        keep = keep & (dest >= 0) & (dest < e_loc * cap)
+        dest = torch.clamp(dest, min=0)
     contrib = torch.gather(
-        y, 1, torch.clamp(r.dest, max=e * cap - 1)[..., None].expand(
+        y, 1, torch.clamp(dest, max=e_loc * cap - 1)[..., None].expand(
             b, s * topk, d))
-    contrib = torch.where(r.keep[..., None], contrib, torch.zeros_like(contrib))
-    contrib = contrib * r.sorted_gate[..., None].to(contrib.dtype)
+    contrib = torch.where(keep[..., None], contrib, torch.zeros_like(contrib))
+    contrib = contrib * gate[..., None].to(contrib.dtype)
     inv = torch.argsort(r.order, dim=1)                     # pair -> sorted pos
     per_tok = torch.gather(contrib, 1, inv[..., None].expand(b, s * topk, d))
     per_tok = per_tok.reshape(b, s, topk, d)
@@ -142,13 +169,22 @@ def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25):
 
     if cfg.moe.n_shared:
         sh = params["shared"]
+        if split and not tp_lib.split(tp, sh["w_gate"].shape[-1],
+                                      cfg.moe.n_shared * cfg.d_ff):
+            raise ValueError("shared experts whole under a split MoE layer")
         out = out + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
+    if split:
+        out = tp_lib.reduce(tp, out)
 
     # the share of tokens whose first choice is each expert (one_hot's
-    # mean, with no host check of the indices: the step stays capturable)
+    # mean, with no host check of the indices: the step stays capturable);
+    # under a mesh, both means over the whole batch (`data_mean`)
     density = (r.choice[..., :1] == torch.arange(e, device=dev)).float().mean(
         dim=(0, 1))
     router_prob = r.probs.mean(dim=(0, 1))
+    if tp is not None:
+        density = tp_lib.data_mean(tp, density)
+        router_prob = tp_lib.data_mean(tp, router_prob)
     aux = e * torch.sum(density * router_prob)
     return out, aux
 

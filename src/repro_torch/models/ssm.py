@@ -10,13 +10,21 @@ pre-conv inputs.
 
 ``softplus`` is `jax.nn.softplus`, ``logaddexp(x, 0)``: `F.softplus`
 returns x itself above its threshold of 20.
+
+Under a mesh context ``tp`` (`mamba_chunked` only: the decode step is not
+split) ``in_proj`` is column-parallel and its pieces, which mix the fields
+``[z | x | B | C | dt]``, are gathered; the conv runs on every channel;
+the SSD runs over the heads whose rows of ``out_proj`` this rank holds
+(where they are whole heads; else over every head), the gated norm's sum
+of squares added over ``model``, and ``out_proj`` is row-parallel.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import Leaf, rms_norm
+from ..distributed import tensor_parallel as tp_lib
+from .layers import Leaf, rms_norm, rms_norm_pieces
 from .scan_util import scan as _scan
 
 
@@ -90,21 +98,51 @@ def _intra_kernel(rel, causal, dt_c):
     return torch.exp(torch.where(causal, rel, -torch.inf)) * dt_c[:, None]
 
 
-def mamba_chunked(params, cfg, x, *, chunk: int = 256):
+def mamba_chunked(params, cfg, x, *, chunk: int = 256, tp=None):
     """Prefill pass. x: (B, S, d) -> ((B, S, d), (h (B, H, P, N), conv
     state)). The sequence is zero-padded to whole chunks of ``chunk``, as
     in JAX; each chunk adds the carried state's decayed contribution and
-    its own causal term."""
+    its own causal term. Under a mesh context ``tp`` the leaves are this
+    rank's pieces and h holds the heads it ran."""
     d, inner, h, p, n = _dims(cfg)
     b, s, _ = x.shape
-    proj = x @ params["in_proj"]
+    x = tp_lib.copy_in(tp, x)
+    conv_w, a_log, dt_bias, d_skip, norm = tp_lib.copy_in(
+        tp, *(params[k] for k in ("conv_w", "a_log", "dt_bias", "d_skip",
+                                  "norm")))
+    proj = tp_lib.cols(tp, x, params["in_proj"], 2 * inner + 2 * n + h)
     z, xbc, dt = _split_proj(cfg, proj)
-    xbc, conv_state = _causal_conv(xbc, params["conv_w"])
-    xs = xbc[..., :inner].reshape(b, s, h, p)
+    xbc, conv_state = _causal_conv(xbc, conv_w)
+    xs = xbc[..., :inner]
     bmat = xbc[..., inner:inner + n]
     cmat = xbc[..., inner + n:]
-    dt = softplus(dt.float() + params["dt_bias"])                   # (B,S,H)
-    a = torch.exp(-torch.exp(params["a_log"])[None, None] * dt)     # (0, 1)
+    n_rows = params["out_proj"].shape[0]
+    heads = tp_lib.split(tp, n_rows, inner) and n_rows % p == 0
+    if heads:
+        mine, hs = tp.part(inner), tp.part(h)
+        xs, z, norm = xs[..., mine], z[..., mine], norm[mine]
+        dt, a_log, dt_bias, d_skip = dt[..., hs], a_log[hs], dt_bias[hs], d_skip[hs]
+    hl = xs.shape[-1] // p
+    y, h_fin = _ssd(xs.reshape(b, s, hl, p), bmat, cmat, dt, a_log, dt_bias,
+                    d_skip, chunk)
+    y = y.reshape(b, s, hl * p).to(x.dtype)
+    if heads:
+        y = rms_norm_pieces(tp, y * F.silu(z), norm, inner, cfg.norm_eps)
+        return tp_lib.row(tp, y, params["out_proj"]), (h_fin, conv_state)
+    y = rms_norm(y * F.silu(z), norm, cfg.norm_eps)
+    return tp_lib.rows(tp, y, params["out_proj"], inner), (h_fin, conv_state)
+
+
+def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
+    """The chunked SSD scan of xs (B, S, H, P) with B / C (B, S, N) and the
+    raw dt (B, S, H): (y (B, S, H, P) f32 with the D skip, final h). The
+    state is f32, so bf16 inputs go in as f32 (jnp's einsum promotes them
+    there)."""
+    b, s, h, p = xs.shape
+    xs, bmat, cmat = xs.float(), bmat.float(), cmat.float()
+    n = bmat.shape[-1]
+    dt = softplus(dt.float() + dt_bias)                             # (B,S,H)
+    a = torch.exp(-torch.exp(a_log)[None, None] * dt)               # (0, 1)
 
     nchunk = -(-s // chunk)
     sp = nchunk * chunk
@@ -120,7 +158,7 @@ def mamba_chunked(params, cfg, x, *, chunk: int = 256):
     log_a = torch.log(torch.clamp(a, min=1e-20))
     cum = torch.cumsum(log_a, dim=2)                               # (B,NC,L,H)
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))[None, :, :, None]
+                                   device=xs.device))[None, :, :, None]
 
     def body(hstate, blk):
         xs_c, b_c, c_c, dt_c, cum_c = blk
@@ -142,14 +180,12 @@ def mamba_chunked(params, cfg, x, *, chunk: int = 256):
             "blhp,bln->bhpn", decay_out[..., None] * dx, b_c)
         return h_new, y_inter + y_intra
 
-    h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
     blks = tuple(t.movedim(1, 0) for t in (xs, bmat, cmat, dt, cum))
     h_fin, ys = _scan(body, h0, blks)
     y = ys.movedim(0, 1).reshape(b, sp, h, p)[:, :s]
-    y = y + params["d_skip"][None, None, :, None] * xs.reshape(b, sp, h, p)[:, :s]
-    y = y.reshape(b, s, inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"], (h_fin, conv_state)
+    y = y + d_skip[None, None, :, None] * xs.reshape(b, sp, h, p)[:, :s]
+    return y, h_fin
 
 
 def mamba_step(params, cfg, x, state):

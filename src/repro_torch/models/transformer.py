@@ -45,6 +45,16 @@ the same backbones, each group under the remat policy.
 `loss_fn` runs the layers on `torch.unbind` views of the stacked leaves,
 so the backward stacks each leaf's layer gradients once (the JAX scan's
 transpose) instead of adding a full-size gradient per layer.
+
+`loss_fn` and `prefill` take a mesh context ``tp``
+(`distributed.tensor_parallel`; None: one process): the parameters are
+then this rank's pieces under `sharding.param_specs` and each block splits
+its compute over ``model`` (`attention`, `layers.apply_mlp`, `moe`,
+`ssm`, `xlstm`). The embedding, split on the vocab, sums its masked
+lookups over ``model``; the tied ``embed.T`` or the untied ``unembed``
+piece gives a vocab piece of the logits, and the cross entropy reduces
+over the pieces (`tensor_parallel.cross_entropy`). ``frontend_proj`` and
+the norms stay whole. `decode_step` is not split.
 """
 from __future__ import annotations
 
@@ -57,6 +67,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..core.index import resolve_device
+from ..distributed import tensor_parallel as tp_lib
 from . import attention as attn_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -167,13 +178,28 @@ def init_params(cfg, *, generator: Optional[torch.Generator] = None,
     return params
 
 
-def _logits(params, cfg, x):
+def _logits(params, cfg, x, tp=None):
+    """The f32 logits of ``x``; under a mesh context ``tp`` with the vocab
+    split, this rank's vocab piece (rows ``tp.rank * V / model`` on)."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    pad = torch.arange(w.shape[-1], device=x.device)
+    if tp_lib.split(tp, w.shape[-1], cfg.vocab_padded):
+        pad = pad + tp.rank * w.shape[-1]
+        x = tp_lib.copy_in(tp, x)
     logits = (x @ w).float()
     if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=x.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, MASKED)
+        logits = logits.masked_fill(pad >= cfg.vocab, MASKED)
     return logits
+
+
+def _loss(params, cfg, x, labels, tp):
+    """The cross entropy of ``x``'s logits (over vocab pieces under a
+    split)."""
+    logits = _logits(params, cfg, x, tp)
+    if logits.shape[-1] == cfg.vocab_padded:
+        return cross_entropy(logits, labels)
+    return tp_lib.cross_entropy(tp, logits, labels,
+                                tp.rank * logits.shape[-1])
 
 
 def cross_entropy(logits, labels):
@@ -225,18 +251,19 @@ def _take(tree, *idx):
     return tree[idx]
 
 
-def _ffn(lp, cfg, x):
+def _ffn(lp, cfg, x, tp=None):
     """The layer's MLP or MoE on the normed ``x``: (h, aux or None)."""
     h_in = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in lp:
         return moe_lib.apply_moe(lp["moe"], cfg, h_in,
-                                 capacity_factor=cfg.moe.capacity_factor)
-    return apply_mlp(lp["mlp"], h_in), None
+                                 capacity_factor=cfg.moe.capacity_factor,
+                                 tp=tp)
+    return apply_mlp(lp["mlp"], h_in, tp, cfg.d_ff), None
 
 
 def _attn_backbone(params, cfg, x, positions, *, remat="full",
                    bidirectional: bool = False, collect_kv: bool = False,
-                   blocks_key: str = "blocks"):
+                   blocks_key: str = "blocks", tp=None):
     """The attention blocks of ``params[blocks_key]`` over a whole
     sequence, each under the ``remat`` policy. Returns (x, aux, kv): aux the
     sum of the MoE layers' load-balance losses (0 without MoE), kv the
@@ -245,9 +272,9 @@ def _attn_backbone(params, cfg, x, positions, *, remat="full",
     def block(x, aux, lp):
         h, kv = attn_lib.attention_train(
             lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
-            bidirectional=bidirectional)
+            bidirectional=bidirectional, tp=tp)
         x = x + h
-        h, a = _ffn(lp, cfg, x)
+        h, a = _ffn(lp, cfg, x, tp)
         if a is not None:
             aux = aux + a
         return x + h, aux, (kv if collect_kv else None)
@@ -265,7 +292,7 @@ def _attn_backbone(params, cfg, x, positions, *, remat="full",
     return x, aux, kv
 
 
-def _xlstm_backbone(params, cfg, x, *, remat="none"):
+def _xlstm_backbone(params, cfg, x, *, remat="none", tp=None):
     """The xLSTM's groups over a whole sequence: seven mLSTM layers
     (`mlstm_chunked`) and one sLSTM layer (`slstm_scan`) a group, each a
     pre-norm residual, the group under the ``remat`` policy (where JAX
@@ -275,9 +302,9 @@ def _xlstm_backbone(params, cfg, x, *, remat="none"):
 
     def group(x, mlstm, ln_m, slstm, ln_s):
         for lp, ln in zip(mlstm, ln_m):
-            h, _ = xlstm_lib.mlstm_chunked(lp, cfg, rms_norm(x, ln, eps))
+            h, _ = xlstm_lib.mlstm_chunked(lp, cfg, rms_norm(x, ln, eps), tp=tp)
             x = x + h
-        h, _ = xlstm_lib.slstm_scan(slstm, cfg, rms_norm(x, ln_s, eps))
+        h, _ = xlstm_lib.slstm_scan(slstm, cfg, rms_norm(x, ln_s, eps), tp)
         return x + h
 
     step = _maybe_remat(group, remat)
@@ -288,7 +315,7 @@ def _xlstm_backbone(params, cfg, x, *, remat="none"):
     return x
 
 
-def _zamba_backbone(params, cfg, x, positions, *, remat="none"):
+def _zamba_backbone(params, cfg, x, positions, *, remat="none", tp=None):
     """The hybrid over a whole sequence: each group's Mamba2 layers
     (`mamba_chunked`) then the shared block, the group under the ``remat``
     policy (where JAX puts it; the shared block's gradient sums over the
@@ -298,16 +325,18 @@ def _zamba_backbone(params, cfg, x, positions, *, remat="none"):
     groups, every, rem = _zamba_groups(cfg)
 
     def mamba(x, lp, ln):
-        h, _ = ssm_lib.mamba_chunked(lp, cfg, rms_norm(x, ln, eps))
+        h, _ = ssm_lib.mamba_chunked(lp, cfg, rms_norm(x, ln, eps), tp=tp)
         return x + h
 
     def group(x, layers, lns, sp):
         for lp, ln in zip(layers, lns):
             x = mamba(x, lp, ln)
         h, _ = attn_lib.attention_train(sp["attn"], cfg,
-                                        rms_norm(x, sp["ln1"], eps), positions)
+                                        rms_norm(x, sp["ln1"], eps), positions,
+                                        tp=tp)
         x = x + h
-        return x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], eps))
+        return x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], eps), tp,
+                             cfg.d_ff)
 
     step = _maybe_remat(group, remat)
     for layers, lns in zip(_unstack(params["mamba"], groups),
@@ -340,77 +369,86 @@ def stub_inputs(cfg, b: int, *, device, dtype=torch.float32) -> dict:
                              device=device)}
 
 
-def _embed_inputs(params, cfg, batch):
+def _embed_inputs(params, cfg, batch, tp=None):
     """Token embedding, with the vision stub's projected patches prepended.
     Returns (x, label_offset). `F.embedding`, not advanced indexing: its
     CUDA backward is deterministic (`chip_smoke.py` phase 12b runs two
-    identical steps)."""
-    x = F.embedding(batch["tokens"].long(), params["embed"])
+    identical steps). Under a mesh context, over the vocab pieces
+    (`tensor_parallel.embed`)."""
+    x = tp_lib.embed(tp, batch["tokens"].long(), params["embed"],
+                     cfg.vocab_padded)
     if cfg.frontend == "vision":
         patches = batch["patches"] @ params["frontend_proj"]
         return torch.cat([patches.to(x.dtype), x], dim=1), cfg.frontend_len
     return x, 0
 
 
-def loss_fn(params, cfg, batch, *, remat: str = "full"):
+def loss_fn(params, cfg, batch, *, remat: str = "full", tp=None):
     """batch: tokens (B, S) int, labels (B, S) int (-1 ignored), plus
     patches (B, F, d) for the vision stub or frames (B, F, d) for the
     encoder-decoder, tensors on the parameters' device. Returns
     (loss + 0.01 * aux, {"loss", "aux"}); aux is 0 but for MoE layers.
     ``remat`` (none, full or dots) wraps each attention layer, each xLSTM
-    group and each hybrid group, as in JAX."""
+    group and each hybrid group, as in JAX. Under a mesh context ``tp``
+    the parameters are this rank's pieces (the module's docstring) and the
+    loss is the whole batch's on every rank of the ``model`` axis."""
     check_supported(cfg)
     if cfg.block_pattern == "encdec":
-        return _loss_encdec(params, cfg, batch, remat=remat)
-    x, offset = _embed_inputs(params, cfg, batch)
+        return _loss_encdec(params, cfg, batch, remat=remat, tp=tp)
+    x, offset = _embed_inputs(params, cfg, batch, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.block_pattern == "xlstm_7_1":
-        x = _xlstm_backbone(params, cfg, x, remat=remat)
+        x = _xlstm_backbone(params, cfg, x, remat=remat, tp=tp)
     elif cfg.block_pattern == "zamba2":
-        x = _zamba_backbone(params, cfg, x, positions, remat=remat)
+        x = _zamba_backbone(params, cfg, x, positions, remat=remat, tp=tp)
     else:
-        x, aux, _ = _attn_backbone(params, cfg, x, positions, remat=remat)
+        x, aux, _ = _attn_backbone(params, cfg, x, positions, remat=remat,
+                                   tp=tp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if offset:
         x = x[:, offset:]
-    loss = cross_entropy(_logits(params, cfg, x), batch["labels"])
+    loss = _loss(params, cfg, x, batch["labels"], tp)
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def _encode(params, cfg, frames, remat):
+def _encode(params, cfg, frames, remat, tp=None):
     """The encoder over the projected frames: (B, F, d) after ``enc_norm``."""
     frames = frames @ params["frontend_proj"]
     b, f, _ = frames.shape
     enc_pos = torch.arange(f, device=frames.device).expand(b, f)
     enc, _, _ = _attn_backbone(params, cfg, frames, enc_pos, remat=remat,
-                               bidirectional=True, blocks_key="enc_blocks")
+                               bidirectional=True, blocks_key="enc_blocks",
+                               tp=tp)
     return rms_norm(enc, params["enc_norm"], cfg.norm_eps)
 
 
-def _loss_encdec(params, cfg, batch, *, remat="full"):
-    enc = _encode(params, cfg, batch["frames"], remat)
+def _loss_encdec(params, cfg, batch, *, remat="full", tp=None):
+    enc = _encode(params, cfg, batch["frames"], remat, tp)
     b, f, _ = enc.shape
     enc_len = torch.full((b,), f, dtype=torch.int32, device=enc.device)
-    x = F.embedding(batch["tokens"].long(), params["embed"])
+    x = tp_lib.embed(tp, batch["tokens"].long(), params["embed"],
+                     cfg.vocab_padded)
     s = x.shape[1]
     positions = torch.arange(s, device=x.device).expand(b, s)
 
     def block(x, enc, lp):
         h, _ = attn_lib.attention_train(
-            lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), positions)
+            lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps), positions,
+            tp=tp)
         x = x + h
         x = x + attn_lib.cross_attention(
             lp["xattn"], cfg, rms_norm(x, lp["ln_x"], cfg.norm_eps),
-            *attn_lib.encode_kv(lp["xattn"], cfg, enc), enc_len)
-        return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps))
+            *attn_lib.encode_kv(lp["xattn"], cfg, enc, tp), enc_len, tp)
+        return x + apply_mlp(lp["mlp"], rms_norm(x, lp["ln2"], cfg.norm_eps),
+                             tp, cfg.d_ff)
 
     step = _maybe_remat(block, remat)
     for lp in _unstack(params["blocks"], cfg.n_layers):
         x = step(x, enc, lp)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    loss = cross_entropy(_logits(params, cfg, x), batch["labels"])
+    loss = _loss(params, cfg, x, batch["labels"], tp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return loss, {"loss": loss, "aux": aux}
 
@@ -604,7 +642,34 @@ def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
     return _logits(params, cfg, x)[:, 0], cache
 
 
-def prefill(params, cfg, batch, max_len: int):
+def _cache_layout(cache, cfg, max_len, tp, cache_specs):
+    """``cache`` (this rank's batch rows; each leaf whole over ``model`` or
+    already this rank's piece of it) in the layout of ``cache_specs``
+    (`launch.specs.cache_shardings`): a dim the spec splits over
+    ``model`` is sliced where it is whole, a dim it keeps whole is gathered
+    where it is a piece."""
+    if not tp_lib.active(tp):
+        return cache
+    b = cache["len"].shape[0]
+    whole = init_cache(cfg, b, max_len, device="meta")
+
+    def one(t, ref, spec):
+        if isinstance(t, tuple):
+            return tuple(one(*leaf) for leaf in zip(t, ref, spec))
+        for dim, entry in enumerate(tuple(spec) + (None,) * (t.dim() - len(spec))):
+            if entry != tp_lib.AXIS and tp_lib.AXIS in (entry or ()):
+                raise ValueError(f"a cache dim split over {entry} at prefill")
+            if entry == tp_lib.AXIS and t.shape[dim] == ref.shape[dim]:
+                t = tp_lib.local(tp, t, dim).contiguous()
+            elif entry != tp_lib.AXIS and t.shape[dim] != ref.shape[dim]:
+                t = tp.all_gather(t.contiguous(), dim)
+        return t
+
+    return {key: one(val, whole[key], cache_specs[key])
+            for key, val in cache.items()}
+
+
+def prefill(params, cfg, batch, max_len: int, *, tp=None, cache_specs=None):
     """Run the whole prompt, build the cache (K/V sized to ``max_len``) and
     return (cache, last-position logits (B, vocab_padded)). batch: tokens
     (B, S), plus patches (B, F, d) for the vision stub (the cache then holds
@@ -612,40 +677,48 @@ def prefill(params, cfg, batch, max_len: int):
     prefill runs the encoder only, as in JAX: the cache gets the encoder
     K/V and length 0, and the logits are those of the last encoder
     position. A recurrent model's prefill runs its chunked backbone for the
-    logits and returns the zero cache with length S, as in JAX."""
+    logits and returns the zero cache with length S, as in JAX.
+
+    Under a mesh context ``tp`` the parameters are this rank's pieces and
+    ``batch`` its rows: the cache comes out in ``cache_specs``' layout
+    (`_cache_layout`) and the logits as this rank's vocab piece."""
     check_supported(cfg)
     tokens = batch["tokens"].long()
     b = tokens.shape[0]
     dtype = params["embed"].dtype
+
+    def done(cache, x):
+        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+        return (_cache_layout(cache, cfg, max_len, tp, cache_specs),
+                _logits(params, cfg, x, tp)[:, 0])
+
     if cfg.block_pattern in RECURRENT:
-        x, _ = _embed_inputs(params, cfg, batch)
+        x, _ = _embed_inputs(params, cfg, batch, tp)
         s = x.shape[1]
         if cfg.block_pattern == "xlstm_7_1":
-            x = _xlstm_backbone(params, cfg, x)
+            x = _xlstm_backbone(params, cfg, x, tp=tp)
         else:
             positions = torch.arange(s, device=tokens.device).expand(b, s)
-            x = _zamba_backbone(params, cfg, x, positions)
+            x = _zamba_backbone(params, cfg, x, positions, tp=tp)
         cache = init_cache(cfg, b, max_len, dtype, device=tokens.device)
         cache["len"].fill_(s)
-        x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-        return cache, _logits(params, cfg, x)[:, 0]
+        return done(cache, x)
     if cfg.block_pattern == "encdec":
-        enc = _encode(params, cfg, batch["frames"], "none")
+        enc = _encode(params, cfg, batch["frames"], "none", tp)
         f = enc.shape[1]
         cache = init_cache(cfg, b, max_len, dtype, device=tokens.device)
-        kvs = [attn_lib.encode_kv(lp["xattn"], cfg, enc)
+        kvs = [attn_lib.encode_kv(lp["xattn"], cfg, enc, tp)
                for lp in _unstack(params["blocks"], cfg.n_layers)]
         cache["xk"] = torch.stack([k for k, _ in kvs]).to(dtype)
         cache["xv"] = torch.stack([v for _, v in kvs]).to(dtype)
         cache["enc_len"].fill_(f)
-        x = rms_norm(enc[:, -1:], params["final_norm"], cfg.norm_eps)
-        return cache, _logits(params, cfg, x)[:, 0]
+        return done(cache, enc)
     kv_len = min(max_len, cfg.window) if cfg.attn == "swa" else max_len
-    x, _ = _embed_inputs(params, cfg, batch)
+    x, _ = _embed_inputs(params, cfg, batch, tp)
     st = x.shape[1]
     positions = torch.arange(st, device=tokens.device).expand(b, st)
     x, _, (ks, vs) = _attn_backbone(params, cfg, x, positions, remat="none",
-                                    collect_kv=True)
+                                    collect_kv=True, tp=tp)
     if st > kv_len:
         ks, vs = ks[:, :, -kv_len:], vs[:, :, -kv_len:]
     else:
@@ -654,8 +727,7 @@ def prefill(params, cfg, batch, max_len: int):
     cache = {"len": torch.full((b,), st, dtype=torch.int32,
                                device=tokens.device),
              "k": ks.to(dtype).contiguous(), "v": vs.to(dtype).contiguous()}
-    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return cache, _logits(params, cfg, x)[:, 0]
+    return done(cache, x)
 
 
 __all__ = ["PATTERNS", "RECURRENT", "check_supported", "cross_entropy", "decode_step",

@@ -9,13 +9,24 @@ gate, sigmoid forget gate. sLSTM state: the tuple (h, c, n, m), each
 (B, H, P), m starting at -inf. Every -inf path (``maximum`` with -inf,
 ``exp(-inf) = 0``) gives JAX's values. ``softplus`` is ``logaddexp(x, 0)``
 (`ssm.softplus`), as `jax.nn.softplus`.
+
+Under a mesh context ``tp`` (the prefill and training passes; the decode
+steps are not split) ``w_up`` (``[x_in | gate]``) and ``w_if`` (``[i | f]``)
+are column-parallel and gathered, their pieces mixing fields. Where a
+rank's ``wq`` / ``wk`` / ``wv`` columns are whole heads the mLSTM runs over
+those heads, and the sLSTM over the heads of its ``w_gates`` columns (a
+head's pre-activations are contiguous: no gather); the norm's sum of
+squares is added over ``model`` and ``w_down`` is row-parallel. Where they
+are not whole heads (4 heads on a ``model`` axis of 16) the products are
+gathered and the recurrence runs whole on every rank.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .layers import Leaf, rms_norm
+from ..distributed import tensor_parallel as tp_lib
+from .layers import Leaf, rms_norm, rms_norm_pieces
 from .scan_util import scan as _scan
 from .ssm import _pad_time, softplus
 
@@ -44,23 +55,48 @@ def mlstm_spec(cfg) -> dict:
     }
 
 
-def _gates(params, x, h):
-    """The mLSTM's log input gate and log forget gate (log sigmoid), f32."""
-    if_pre = x.float() @ params["w_if"] + params["if_bias"]
+def _gates(if_pre, h):
+    """The mLSTM's log input gate and log forget gate (log sigmoid), f32,
+    from the f32 pre-activations ``x @ w_if + if_bias``."""
     return if_pre[..., :h], -softplus(-if_pre[..., h:])
 
 
-def mlstm_chunked(params, cfg, x, *, chunk: int = 256):
+def mlstm_chunked(params, cfg, x, *, chunk: int = 256, tp=None):
     """Prefill pass. x: (B, S, d) -> ((B, S, d), final (C, n, m)). The
-    sequence is zero-padded to whole chunks, as in JAX."""
+    sequence is zero-padded to whole chunks, as in JAX. Under a mesh
+    context ``tp`` the leaves are this rank's pieces."""
     d, h, p = _dims(cfg)
     b, s, _ = x.shape
-    x_in, gate = (x @ params["w_up"]).chunk(2, dim=-1)
-    q = (x_in @ params["wq"]).reshape(b, s, h, p) * (p ** -0.5)
-    k = (x_in @ params["wk"]).reshape(b, s, h, p) * (p ** -0.5)
-    v = (x_in @ params["wv"]).reshape(b, s, h, p)
-    log_i, log_f = _gates(params, x, h)
+    x = tp_lib.copy_in(tp, x)
+    norm, if_bias = tp_lib.copy_in(tp, params["norm"], params["if_bias"])
+    x_in, gate = tp_lib.cols(tp, x, params["w_up"], 2 * d).chunk(2, dim=-1)
+    log_i, log_f = _gates(
+        tp_lib.cols(tp, x.float(), params["w_if"], 2 * h) + if_bias, h)
+    nq = params["wq"].shape[-1]
+    heads = tp_lib.split(tp, nq, d) and nq % p == 0
+    if heads:
+        proj = lambda w: (x_in @ params[w]).reshape(b, s, nq // p, p)
+        hs = tp.part(h)
+        log_i, log_f = log_i[..., hs], log_f[..., hs]
+        gate, norm = gate[..., tp.part(d)], norm[tp.part(d)]
+    else:
+        proj = lambda w: tp_lib.cols(tp, x_in, params[w], d).reshape(b, s, h, p)
+    q, k, v = proj("wq") * (p ** -0.5), proj("wk") * (p ** -0.5), proj("wv")
+    y, carry = _mlstm_scan(q, k, v, log_i, log_f, chunk)
+    y = y.to(x.dtype)
+    if heads:
+        y = rms_norm_pieces(tp, y, norm, d, cfg.norm_eps) * F.silu(gate)
+        return tp_lib.row(tp, y, params["w_down"]), carry
+    y = rms_norm(y, norm, cfg.norm_eps) * F.silu(gate)
+    return tp_lib.rows(tp, y, params["w_down"], d), carry
 
+
+def _mlstm_scan(q, k, v, log_i, log_f, chunk: int):
+    """The chunked mLSTM over q, k, v (B, S, H, P) and the log gates
+    (B, S, H): (y (B, S, H P) f32, final (C, n, m)). The carry is f32, so
+    bf16 inputs go in as f32 (jnp's einsum promotes them there)."""
+    b, s, h, p = q.shape
+    q, k, v = q.float(), k.float(), v.float()
     nchunk = -(-s // chunk)
     sp = nchunk * chunk
     if sp != s:
@@ -69,7 +105,7 @@ def mlstm_chunked(params, cfg, x, *, chunk: int = 256):
     blks = tuple(t.reshape(b, nchunk, chunk, *t.shape[2:]).movedim(1, 0)
                  for t in (q, k, v, log_i, log_f))
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                   device=x.device))[None, :, :, None]
+                                   device=q.device))[None, :, :, None]
 
     def body(carry, blk):
         c_st, n_st, m_st = carry      # (B,H,P,P), (B,H,P), (B,H)
@@ -103,13 +139,11 @@ def mlstm_chunked(params, cfg, x, *, chunk: int = 256):
             "blh,blhp->bhp", decay_out, k_c)
         return (c_new, n_new, m_out), y
 
-    kw = dict(dtype=torch.float32, device=x.device)
+    kw = dict(dtype=torch.float32, device=q.device)
     carry = (torch.zeros((b, h, p, p), **kw), torch.zeros((b, h, p), **kw),
              torch.full((b, h), -torch.inf, **kw))
     carry, ys = _scan(body, carry, blks)
-    y = ys.movedim(0, 1).reshape(b, sp, d)[:, :s].to(x.dtype)
-    y = rms_norm(y, params["norm"], cfg.norm_eps) * F.silu(gate)
-    return y @ params["w_down"], carry
+    return ys.movedim(0, 1).reshape(b, sp, h * p)[:, :s], carry
 
 
 def mlstm_step(params, cfg, x, state):
@@ -122,7 +156,8 @@ def mlstm_step(params, cfg, x, state):
     q = (x_in[:, 0] @ params["wq"]).reshape(b, h, p) * (p ** -0.5)
     k = (x_in[:, 0] @ params["wk"]).reshape(b, h, p) * (p ** -0.5)
     v = (x_in[:, 0] @ params["wv"]).reshape(b, h, p)
-    log_i, log_f = _gates(params, x[:, 0], h)
+    log_i, log_f = _gates(x[:, 0].float() @ params["w_if"] + params["if_bias"],
+                          h)
     m_new = torch.maximum(log_f + m_st, log_i)
     f_ = torch.exp(log_f + m_st - m_new)
     i_ = torch.exp(log_i - m_new)
@@ -156,8 +191,10 @@ def slstm_spec(cfg) -> dict:
 
 
 def _slstm_cell(params, cfg, wx_t, state):
-    """One step. wx_t: (B, 4d) input pre-activations; state (h, c, n, m)."""
-    d, h, p = _dims(cfg)
+    """One step. wx_t: (B, 4 h P) input pre-activations of the h heads of
+    ``params["r_gates"]``; state (h, c, n, m)."""
+    d, _, p = _dims(cfg)
+    h = params["r_gates"].shape[0]
     h_prev, c_prev, n_prev, m_prev = state
     rh = torch.einsum("bhp,hpr->bhr", h_prev, params["r_gates"])    # (B,H,4P)
     pre = wx_t.reshape(-1, h, 4 * p) + rh + params["bias"].reshape(h, 4 * p)
@@ -175,25 +212,41 @@ def _slstm_cell(params, cfg, wx_t, state):
     return (h_new.to(wx_t.dtype), c_new, n_new, m_new)
 
 
-def slstm_scan(params, cfg, x):
+def slstm_scan(params, cfg, x, tp=None):
     """Prefill pass, a loop over time. x: (B, S, d) -> ((B, S, d), final
-    (h, c, n, m))."""
+    (h, c, n, m)). Under a mesh context ``tp`` the leaves are this rank's
+    pieces and the state holds the heads it ran."""
     d, h, p = _dims(cfg)
     b, s, _ = x.shape
-    wx = x @ params["w_gates"]                                      # (B,S,4d)
+    x = tp_lib.copy_in(tp, x)
+    r_gates, bias, norm = tp_lib.copy_in(
+        tp, params["r_gates"], params["bias"], params["norm"])
+    nw = params["w_gates"].shape[-1]
+    heads = tp_lib.split(tp, nw, 4 * d) and nw % (4 * p) == 0
+    if heads:
+        wx = x @ params["w_gates"]              # this rank's heads, whole
+        cell = {"r_gates": r_gates[tp.part(h)], "bias": bias[tp.part(4 * d)]}
+        norm = norm[tp.part(d)]
+    else:
+        wx = tp_lib.cols(tp, x, params["w_gates"], 4 * d)          # (B,S,4d)
+        cell = {"r_gates": r_gates, "bias": bias}
+    hl = cell["r_gates"].shape[0]
     kw = dict(dtype=torch.float32, device=x.device)
-    state = (torch.zeros((b, h, p), dtype=x.dtype, device=x.device),
-             torch.zeros((b, h, p), **kw), torch.zeros((b, h, p), **kw),
-             torch.full((b, h, p), -torch.inf, **kw))
+    state = (torch.zeros((b, hl, p), dtype=x.dtype, device=x.device),
+             torch.zeros((b, hl, p), **kw), torch.zeros((b, hl, p), **kw),
+             torch.full((b, hl, p), -torch.inf, **kw))
 
     def body(st, wx_t):
-        st = _slstm_cell(params, cfg, wx_t, st)
+        st = _slstm_cell(cell, cfg, wx_t, st)
         return st, st[0]
 
     state, hs = _scan(body, state, wx.movedim(1, 0))
-    y = hs.movedim(0, 1).reshape(b, s, d)
-    y = rms_norm(y, params["norm"], cfg.norm_eps)
-    return y @ params["w_down"], state
+    y = hs.movedim(0, 1).reshape(b, s, hl * p)
+    if heads:
+        y = rms_norm_pieces(tp, y, norm, d, cfg.norm_eps)
+        return tp_lib.row(tp, y, params["w_down"]), state
+    y = rms_norm(y, norm, cfg.norm_eps)
+    return tp_lib.rows(tp, y, params["w_down"], d), state
 
 
 def slstm_step(params, cfg, x, state):

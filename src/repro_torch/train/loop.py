@@ -11,15 +11,18 @@ stays on the device of its parameters.
 Under a mesh (`launch.mesh.Mesh`, one process a rank) the state holds
 this rank's pieces: the parameters under ``param_specs``, the moments and
 the residual under ``acc_specs`` (the ZeRO-1 layout of
-`distributed.sharding.zero1_specs`, or ``param_specs``). A step gathers
-the whole parameters for the forward and backward (the compute is not
-split over ``model``: ROADMAP item 27), reduces the gradient over the
-batch's data axes into the accumulator's layout (every microbatch a
-reduce-scatter into this rank's piece for a leaf split over those axes;
-for the others a local sum of the microbatches and one all-reduce a
-step), runs AdamW on the local pieces and all-gathers the
-new parameters back to ``param_specs``, as the JAX step's
-``acc_shardings`` / ``param_shardings`` lay it out.
+`distributed.sharding.zero1_specs`, or ``param_specs``). A step runs
+`loss_fn` on the parameter pieces under the mesh context
+(`distributed.tensor_parallel`): the forward and backward are split over
+``model`` as GSPMD splits the JAX step, no parameter is gathered, and each
+gradient arrives as its leaf's ``param_specs`` piece. The step then
+reduces the gradient over the batch's data axes into the accumulator's
+layout (every microbatch a reduce-scatter into this rank's piece for a
+leaf split over those axes; for the others a local sum of the
+microbatches and one all-reduce a step), runs AdamW on the local pieces
+and all-gathers the new parameters back to ``param_specs``, as the JAX
+step's ``acc_shardings`` / ``param_shardings`` lay it out. A mesh whose
+``model`` axis is one rank runs the one-process `loss_fn`.
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ import torch
 from .. import tree as tree_lib
 from ..distributed.compression import (ErrorFeedback, compress_grads,
                                        error_feedback_init)
-from ..distributed.sharding import P, dp_axes, reshard, shard, shard_shape
+from ..distributed import tensor_parallel as tp_lib
+from ..distributed.sharding import P, dp_axes, reshard, shard, slice_piece
 from ..models import transformer as model_lib
 from .optimizer import AdamWState, adamw_init, adamw_update, cosine_schedule
 
@@ -104,13 +108,15 @@ def make_train_step(cfg, tcfg: TrainCfg, *, mesh=None, acc_specs=None,
     and ``acc_specs`` (default ``param_specs``) are the JAX step's
     ``param_shardings`` and ``acc_shardings``. The metrics add the host
     seconds of the step's collectives: ``grad_sync_s`` for the gradient
-    reductions, ``param_sync_s`` for the parameter gathers."""
+    reductions, ``param_sync_s`` for the gathers of the new parameters
+    after AdamW, ``tp_sync_s`` for the ``model``-axis collectives of the
+    forward and backward."""
     lr = cosine_schedule(tcfg.lr, tcfg.warmup, tcfg.total_steps)
 
-    def grad_fn(params, mb):
+    def grad_fn(params, mb, tp=None):
         leaves = [p.detach().requires_grad_() for p in tree_lib.leaves(params)]
         loss, _ = model_lib.loss_fn(tree_lib.unflatten(params, leaves), cfg,
-                                    mb, remat=tcfg.remat)
+                                    mb, remat=tcfg.remat, tp=tp)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), [g.float() for g in grads]
 
@@ -191,18 +197,20 @@ def _mean_over(mesh, tensors, axes) -> None:
         t.div_(n)
 
 
-def _scatter_mean(mesh, grads, specs, axes) -> list:
-    """Each gradient (whole on every rank) reduced over the ranks along
-    ``axes`` into this rank's piece under its spec, divided by their
-    number: a reduce-scatter (each rank receives its piece only), every
-    leaf in flight at once."""
+def _scatter_mean(mesh, grads, p_specs, a_specs, axes) -> list:
+    """Each gradient (this rank's piece under its ``p_specs`` entry, the
+    same on the ranks along ``axes``) reduced over those ranks into this
+    rank's piece under its ``a_specs`` entry, divided by their number: a
+    reduce-scatter (each rank receives its piece only), every leaf in
+    flight at once."""
     members = mesh.members(axes)
-    chunks = [torch.cat([shard(g, s, mesh, coords=c).reshape(-1)
-                         for c in members]) for g, s in zip(grads, specs)]
+    chunks = [torch.cat([slice_piece(g, ps, a, mesh, coords=c).reshape(-1)
+                         for c in members])
+              for g, ps, a in zip(grads, p_specs, a_specs)]
     sums = mesh.reduce_scatter_many(chunks, axes)
     n = mesh.axis_size(axes)
-    return [t.view(shard_shape(s, g.shape, mesh)).div_(n)
-            for t, g, s in zip(sums, grads, specs)]
+    return [t.view(slice_piece(g, ps, a, mesh).shape).div_(n)
+            for t, g, ps, a in zip(sums, grads, p_specs, a_specs)]
 
 
 def _synced(device) -> float:
@@ -224,11 +232,7 @@ def _sharded_step(tcfg, lr, grad_fn, mesh, acc_specs, mb_specs, param_specs,
                    else [P()] * len(p_leaves))
         a_specs = (tree_lib.leaves(acc_specs) if acc_specs is not None
                    else p_specs)
-        t0 = _synced(device)
-        params = tree_lib.unflatten(state.params, [
-            reshard(p, s, P(), mesh) for p, s in zip(p_leaves, p_specs)])
-        param_sync_s = _synced(device) - t0
-
+        tp = tp_lib.context(mesh)
         batch = _on_device(batch, device)
         mbs = _split_microbatches(batch, n)
         specs = mb_specs
@@ -249,13 +253,14 @@ def _sharded_step(tcfg, lr, grad_fn, mesh, acc_specs, mb_specs, param_specs,
         acc, loss_acc = None, None
         for mb in mbs:
             local = {k: shard(v, P(*specs[k][1:]), mesh) for k, v in mb.items()}
-            loss, g = grad_fn(params, local)
+            loss, g = grad_fn(state.params, local, tp)
             t0 = _synced(device)
             scattered = iter(_scatter_mean(
                 mesh, [gi for gi, r in zip(g, now) if r],
+                [s for s, r in zip(p_specs, now) if r],
                 [s for s, r in zip(a_specs, now) if r], red))
-            pieces = [next(scattered) if r else shard(gi, spec, mesh)
-                      for gi, spec, r in zip(g, a_specs, now)]
+            pieces = [next(scattered) if r else slice_piece(gi, ps, a, mesh)
+                      for gi, ps, a, r in zip(g, p_specs, a_specs, now)]
             grad_sync_s += _synced(device) - t0
             if acc is None:
                 acc, loss_acc = [p.clone() for p in pieces], loss
@@ -296,12 +301,13 @@ def _sharded_step(tcfg, lr, grad_fn, mesh, acc_specs, mb_specs, param_specs,
                 old.copy_(whole)
                 whole = old
             out.append(whole)
-        param_sync_s += _synced(device) - t0
+        param_sync_s = _synced(device) - t0
         new_state = TrainState(params=tree_lib.unflatten(state.params, out),
                                opt=opt, ef=ef, step=state.step + 1)
         return new_state, {"loss": loss, "grad_norm": gnorm,
                            "lr": lr(opt.count), "grad_sync_s": grad_sync_s,
-                           "param_sync_s": param_sync_s}
+                           "param_sync_s": param_sync_s,
+                           "tp_sync_s": tp.sync_s if tp is not None else 0.0}
 
     return train_step
 
