@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code and no result
-line):
+line; phase 2 runs after phase 3 and compact-100k, while the n=1M index
+builds on the host in a child process started before phase 1):
   1. setup: versions, the card's name and power limit, TF32 off, and the
      build of every kernel from src/repro_torch/kernels/csrc/, with each
      kernel's registers and spills from ptxas (a spill fails the run);
@@ -97,7 +98,10 @@ line):
      totals of each step against its wall time; and an open-loop Zipfian
      `serve.loadgen` run of about 10 s at half the graph engine's
      throughput (p50/p99 latency and queue wait, completed requests/s,
-     shed and expired shares, tier occupancy).
+     shed and expired shares, tier occupancy). Its vocab index is built on
+     the host by a child process started at the end of phase 2 (the
+     embedding drawn alone, the same bits, held equal to the parameters'),
+     while phases 3-5 run on the card.
 Phase 2 also holds binary_probe_lb and quick_probe_select (each at the
 vocab index's shape and at the n=1M index's; quick_probe_select one CUDA
 kernel a call, its representative rows and Test-A flags equal to the plain
@@ -107,7 +111,9 @@ serve shape, where it must be one CUDA kernel a call, at the JAX
 package's decode shapes: decode_32k, S=32,768, at B=8 and at B=128 with
 seeded uniform lengths, and long_500k, B=1, S=524,288, and at the decoder
 shapes of phases 13 and 14) against their plain
-versions and against a second call (equal bit for bit), with the same four
+versions and against a second call (equal bit for bit; decode_attention's
+log-sum-exp output against the plain version's, and at decode_32k B 8 the
+two halves of S merged by it against the whole call), with the same four
 times and each time's share of the HBM rate, and mips_score at the serve
 search's tile (R=32,000, B=4, d=2,048). Two bit-for-bit checks fail the run
 if they do not hold: mips_score's small-batch path against its tile path at
@@ -172,7 +178,23 @@ described at their functions. Then:
       (mesh data 2, model 1) 3 steps of phase 12b's batch, each loss within
       1e-5 of 12b's, with step times, tokens/s, each rank's peak memory and
       the host seconds of its gradient collective; and which collectives
-      gloo runs on CUDA tensors directly.
+      gloo runs on CUDA tensors directly; (e) the split decode
+      (`launch.specs.build_cell`'s decode function after its split
+      prefill) against the one-process card decode: on the 4 ranks at
+      reduced width, tinyllama-1.1b with its cache's KV heads split (mesh
+      2 x 2) and its head_dim split (1 x 4), zamba2-1.2b at B 1 on 2 x 2
+      (the sequence over data: the context-parallel merge through the
+      kernel's log-sum-exp), xlstm-1.3b (its states split on P) and
+      qwen2-moe-a2.7b (experts split) on 1 x 4, 8 steps; on the 2 ranks
+      at full width (mesh 1 x 2), tinyllama-1.1b and zamba2-1.2b, B 8, a
+      cache of 4,096 rows, prompts of 512 tokens, 16 steps. The logits
+      and every cache leaf within 1e-5 of the leaf's largest value (the
+      xLSTM's within 5e-5), each greedy token equal or a near-tie, the
+      reduced cells' plain path giving the kernel path's tokens,
+      `decode_attention` launched once a step per attention layer on
+      every rank where the cache splits its KV heads or its sequence, a
+      planted fault failing the bound; step times, tokens/s, `tp_sync_s`
+      and each rank's peak memory.
   13. serve-families: `serve.DecodeEngine` on phase 6's traffic at the
       published widths of qwen2-moe-a2.7b (24 layers, 60 routed + 4
       shared experts top-4, vocab 151,936; 56 GB of f32 parameters, made
@@ -203,7 +225,7 @@ described at their functions. Then:
       layers; no attention, so no kernel) in exact mode. zamba2's
       embedding is tinyllama-1.1b's (the same first draw of the same
       seed), so its ProMIPS mode searches phase 6's vocab index, restored
-      from the state phase 6 wrote right after its build (the indexed rows
+      from the state its child process wrote (the indexed rows
       held equal to zamba2's embed[:32000] bit for bit; a child process
       builds it anew if they differ).
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -328,6 +350,28 @@ def phase_setup():
 
 
 # ---------------------------------------------------------------- data
+
+def finish_size_build(build, n=1_000_000):
+    """The n-row index of `build_size`'s recipe from `start_sharded_build`'s
+    child (``n_shards`` None), moved to the card, with its rows and
+    queries. Returns what `build_size` returns."""
+    import torch
+    from repro_torch.core.promips import ProMIPS
+    from repro_torch.data.synthetic import mf_factors
+    x = torch.from_numpy(mf_factors(n, RECIPE["d"], RECIPE["rank"],
+                                    decay=RECIPE["decay"],
+                                    norm_tail=RECIPE["norm_tail"], seed=0))
+    q = mf_factors(N_QUERIES, RECIPE["d"], RECIPE["rank"],
+                   decay=RECIPE["decay"], seed=1)
+    index, build_s, waited = finish_sharded_build(build, x)
+    pm = ProMIPS(index, device="cuda")
+    log(f"[build n={n}] host index build {build_s:.1f} s in a child process "
+        f"(the parent waited {waited:.1f} s for it): NB={pm.meta.n_blocks} "
+        f"G={pm.meta.n_groups} S={pm.meta.n_subparts} "
+        f"page_rows={pm.meta.page_rows} sketch M={pm.meta.sk_subspaces} "
+        f"K={pm.meta.sk_codewords}")
+    return pm, x.cuda(), torch.from_numpy(q).cuda()
+
 
 def build_size(n, seed_queries=1):
     import torch
@@ -670,14 +714,20 @@ def vocab_probe_table(gen):
 
 
 def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
-                           count_launches=False):
+                           count_launches=False, halves=False):
     """decode_attention against its plain version on seeded normal inputs
     (|d| <= 1e-5 max|v| + 1e-6) and against itself (a second call equal bit
     for bit), timed, with scaled_dot_product_attention (length mask, the G
     query rows of a KV head as its query-length axis) as the library
-    yardstick. ``count_launches`` also holds the call
-    to one CUDA kernel under torch.profiler. Returns the kernel line's
-    record."""
+    yardstick. Its log-sum-exp output (``return_lse``, the split decode's
+    merge weight) leaves the output bit for bit as it is and is held to
+    the plain version's within 1e-5 max(1, |lse|), -inf exactly where
+    cache_len is 0. With ``halves``, the kernel on each half of S at its
+    local lengths, merged by the log-sum-exps (`attention.combine_pieces`),
+    against the whole call (the same tolerance); a row that ends in the
+    first half gets exactly that half's output (the empty half weighs 0).
+    ``count_launches`` also holds the call to one CUDA kernel under
+    torch.profiler. Returns the kernel line's record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -699,6 +749,44 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
             f"{float((diff - tol).max())}")
     require(torch.equal(got, again), f"decode_attention {label}: two calls on "
             f"the same input differ in {int((got != again).sum())} entries")
+    with_lse, lse = ops.decode_attention(*args, use_kernels=True,
+                                         return_lse=True)
+    _, want_lse = ops.decode_attention(*args, use_kernels=False,
+                                       return_lse=True)
+    torch.cuda.synchronize()
+    require(torch.equal(with_lse, got), f"decode_attention {label}: the output "
+            f"with the log-sum-exp differs from the output alone")
+    empty = torch.isneginf(want_lse)
+    require(torch.equal(torch.isneginf(lse), empty),
+            f"decode_attention {label}: the log-sum-exp's -inf rows differ")
+    lse_d = (lse - want_lse)[~empty].abs()
+    lse_err = float(lse_d.max()) if lse_d.numel() else 0.0
+    require(bool((lse_d <= 1e-5 * torch.clamp(want_lse[~empty].abs(),
+                                               min=1.0)).all()),
+            f"decode_attention {label}: log-sum-exp |d| {lse_err:.3g}")
+    lse_note = f"; lse max|d| {lse_err:.3g} (tol 1e-5 max(1,|lse|))"
+    if halves:
+        from repro_torch.models import attention
+        outs, lses = [], []
+        for lo in (0, s // 2):
+            part = torch.clamp(cache_len - lo, 0, s // 2)
+            o, l = ops.decode_attention(q, k[:, lo:lo + s // 2].contiguous(),
+                                        v[:, lo:lo + s // 2].contiguous(), part,
+                                        use_kernels=True, return_lse=True)
+            outs.append(o)
+            lses.append(l)
+        merged = attention.combine_pieces(torch.stack(outs), torch.stack(lses))
+        torch.cuda.synchronize()
+        md = (merged - got).abs()
+        require(bool((md <= tol).all()), f"decode_attention {label}: the two "
+                f"halves merged differ from the whole by {float(md.max()):.3g}")
+        first = [i for i, n in enumerate(lens) if n <= s // 2]
+        require(all(bool(torch.isneginf(lses[1][i]).all())
+                    and torch.equal(merged[i], outs[0][i]) for i in first),
+                f"decode_attention {label}: an empty half did not weigh 0")
+        lse_note += (f"; the halves of S merged by their lse: max|d| to the "
+                     f"whole {float(md.max()):.3g}, the {len(first)} rows that "
+                     f"end in the first half equal to it bit for bit")
     launches = ""
     if count_launches:
         # between sentinel kernels: the tracer can drop a session's first
@@ -733,7 +821,7 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
     log(f"[kernel decode_attention: {label}] B={b} S={s} KH={kh} G={g} dh={dh} "
         f"cache_len={lens if len(lens) <= 8 else '...'}: max|d|="
         f"{rec['max_abs_err']:.3g} (tol 1e-5 max|v|+1e-6), two calls equal bit "
-        f"for bit{launches}  device {rec['ms']:.4f} ms "
+        f"for bit{lse_note}{launches}  device {rec['ms']:.4f} ms "
         f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the HBM rate; call with "
         f"host {rec['call_ms']:.4f} ms)  plain {rec['plain_ms']:.4f} ms  "
         f"scaled_dot_product_attention {library_ms:.4f} ms (max|d| to plain "
@@ -826,7 +914,7 @@ def phase_kernels_serve(pm, q, timer):
     # the JAX package's decode shapes (`src/repro/configs/base.py`)
     lens = [32768, 1, 20000, 4097, 64, 31000, 12345, 27000]
     check_decode_attention(timer, "decode_32k shape, B 8", 8, 32768, lens,
-                           seed=13)
+                           seed=13, halves=True)
     lens = np.random.RandomState(16).randint(1, 32769, 128).tolist()
     check_decode_attention(timer, "decode_32k shape, B 128", 128, 32768, lens,
                            seed=17)
@@ -2792,12 +2880,12 @@ def traced_steps(engine, prompts, new):
     return rows
 
 
-def phase_serve(vocab_state):
-    """The serve cell. Writes the vocab index's state, as built, to
-    ``vocab_state`` (phase 14 serves zamba2-1.2b over it). Returns the
-    launches of the counted promips run."""
+def phase_serve(vocab_build):
+    """The serve cell, over the vocab index ``vocab_build`` built on the
+    host (`start_serve_vocab_build`; its state directory, as built, is
+    what phase 14 serves zamba2-1.2b over). Returns the launches of the
+    counted promips run."""
     import torch
-    from repro_torch import api
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.serve import DecodeEngine, LoadgenConfig, generate, run_load
@@ -2812,20 +2900,13 @@ def phase_serve(vocab_state):
         f"({n_params * 4 / 1e9:.2f} GB) made on the card in "
         f"{time.perf_counter() - t0:.1f} s")
     emb = params["embed"][: cfg.vocab].cpu().numpy()
-    kw = dict(VOCAB_INDEX)
-    t0 = time.perf_counter()
-    index = api.build(emb, backend="promips-stream",
-                      guarantee=api.GuaranteeConfig(c=kw.pop("c"), p0=kw.pop("p")),
-                      auto_compact=True, seed=kw.pop("seed"), device=DEVICE, **kw)
+    index, _ = finish_host_build(vocab_build)
+    require(_indexed_rows_equal(index, emb), "[serve] the child's vocab index "
+            "does not hold embed[:vocab] bit for bit")
     meta = index.inner.meta
     log(f"[serve] vocab index (promips-stream over embed[:{cfg.vocab}], "
-        f"{VOCAB_INDEX}): host build {time.perf_counter() - t0:.1f} s; "
-        f"page_rows={meta.page_rows} NB={meta.n_blocks} G={meta.n_groups} "
-        f"S={meta.n_subparts}")
-    t0 = time.perf_counter()
-    write_index_state(index, vocab_state)
-    log(f"[serve] its state written for phase 14 in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{VOCAB_INDEX}), built by a child process; its rows equal "
+        f"embed[:vocab] bit for bit")
     searches = SearchLog(index)
     prompts = serve_prompts(cfg.vocab, SERVE["n_requests"], SERVE["prompt_lens"],
                             SERVE["traffic_seed"])
@@ -3062,13 +3143,17 @@ SHARDED_CHILD = r"""
 import hashlib, json, os, pickle, sys, time
 out_path, kw = sys.argv[1], json.loads(sys.argv[2])
 os.sched_setaffinity(0, json.loads(sys.argv[3]))  # before numpy's threads
+from repro_torch.core.index import build_index
 from repro_torch.core.sharded import build_sharded
 from repro_torch.data.synthetic import mf_factors
 r = kw["recipe"]
 x = mf_factors(kw["n"], r["d"], r["rank"], decay=r["decay"],
                norm_tail=r["norm_tail"], seed=0)
 t0 = time.perf_counter()
-sh = build_sharded(x, kw["n_shards"], **kw["build"])
+if kw["n_shards"]:
+    sh = build_sharded(x, kw["n_shards"], **kw["build"])
+else:   # one index, `ProMIPS.build`'s host part
+    sh = build_index(x, **kw["build"])
 build_s = time.perf_counter() - t0
 with open(out_path, "wb") as f:
     pickle.dump(sh, f, protocol=5)
@@ -3077,42 +3162,46 @@ print(json.dumps({"build_s": build_s, "rows_sha1":
 """
 
 
-def start_sharded_build(tmp, n=1_000_000):
+def start_sharded_build(tmp, n=1_000_000, n_shards=N_SHARDS,
+                        name="sharded-1M"):
     """Start phase 7's `build_sharded` of the n rows (build_size's recipe and
-    seed, made again in the child) in a child process on every CPU core but
-    the first, so that the host build runs behind phases 3-6. Returns
-    (process, pickle path)."""
+    seed, made again in the child), or with ``n_shards`` None phase 2's
+    one index (`ProMIPS.build`'s host part), in a child process on every
+    CPU core but the first, so that the host build runs behind the card's
+    work. Returns (process, pickle path, name)."""
     cores = sorted(os.sched_getaffinity(0))
     child = cores[1:] or cores
-    out_path = os.path.join(tmp, "sharded_1m.pkl")
+    out_path = os.path.join(tmp, f"{name}.pkl")
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS=str(len(child)),
                OPENBLAS_NUM_THREADS=str(len(child)),
                MKL_NUM_THREADS=str(len(child)))
-    kw = dict(n=n, recipe=RECIPE, build=BUILD, n_shards=N_SHARDS)
+    kw = dict(n=n, recipe=RECIPE, build=BUILD, n_shards=n_shards)
     proc = subprocess.Popen(
         [sys.executable, "-c", SHARDED_CHILD, out_path, json.dumps(kw),
          json.dumps(child)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-    log(f"[host build sharded-1M] build_sharded over {n} rows in "
-        f"{N_SHARDS} shards started in a child process on cores {child}")
-    return proc, out_path
+    what = f"build_sharded in {n_shards} shards" if n_shards else "build_index"
+    log(f"[host build {name}] {what} over {n} rows started in a child "
+        f"process on cores {child}")
+    return proc, out_path, name
 
 
 def finish_sharded_build(build, x):
-    """Wait for `start_sharded_build`'s child; its `ShardedIndex`, its build
-    seconds and the seconds waited. The child's rows must be ``x``'s bits."""
+    """Wait for `start_sharded_build`'s child; what it built (a
+    `ShardedIndex`, or a `ProMIPSIndex`), its build seconds and the seconds
+    waited. The child's rows must be ``x``'s bits."""
     import hashlib
     import pickle
-    proc, out_path = build
+    proc, out_path, name = build
     t0 = time.perf_counter()
     out, err = proc.communicate(timeout=900)
     waited = time.perf_counter() - t0
-    require(proc.returncode == 0, f"[host build sharded-1M] the child exited "
+    require(proc.returncode == 0, f"[host build {name}] the child exited "
             f"{proc.returncode}: {err[-3000:]}")
     rec = json.loads(out.strip().splitlines()[-1])
     require(rec["rows_sha1"] == hashlib.sha1(
         x.cpu().numpy().tobytes()).hexdigest(),
-        "[host build sharded-1M] the child's rows differ from phase 2's")
+        f"[host build {name}] the child's rows differ from the parent's")
     with open(out_path, "rb") as f:
         sh = pickle.load(f)
     os.remove(out_path)
@@ -4686,6 +4775,25 @@ RANKS_WAVE_S = 240   # a wave of rank processes ends within this or fails
 # the port stages every collective through pinned host memory)
 RANKS_PROBE = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor",
                "reduce_scatter", "reduce_scatter_tensor")
+# phase 12e, the split decode (`specs.build_cell`'s decode function after its
+# split prefill): (name, arch, mesh (data, model), batch, cache rows, prompt
+# length). (a) reduced on the 4 ranks, each K/V layout the card can run:
+# KV heads, head_dim, the context-parallel merge through the kernel's
+# log-sum-exp (B 1), the mLSTM / sLSTM states split on P, the experts split;
+# (b) full width on the 2 ranks.
+DECODE_REDUCED = (
+    ("tinyllama-heads", "tinyllama-1.1b", (2, 2), 4, 64, 16),
+    ("tinyllama-head-dim", "tinyllama-1.1b", (1, 4), 4, 64, 16),
+    ("zamba2-b1-context", "zamba2-1.2b", (2, 2), 1, 64, 16),
+    ("xlstm-p-split", "xlstm-1.3b", (1, 4), 4, 64, 16),
+    ("qwen2-moe-experts", "qwen2-moe-a2.7b", (1, 4), 4, 64, 16))
+DECODE_FULL = (("tinyllama-1.1b", "tinyllama-1.1b", (1, 2), 8, 4096, 512),
+               ("zamba2-1.2b", "zamba2-1.2b", (1, 2), 8, 4096, 512))
+DECODE_STEPS = {"reduced": 8, "full": 16}
+# each leaf within this of its largest value; the xLSTM amplifies f32
+# rounding past 1e-5 (tests/test_torch_recurrent.py XLSTM_RTOL)
+DECODE_TOL = 1e-5
+DECODE_TOL_XLSTM = 5e-5
 
 RANKS_CHILD = r"""
 import dataclasses, datetime, json, os, sys, time
@@ -4822,6 +4930,9 @@ if phase == "four":
     res["elastic_first"] = launch_train.main(
         reduced + ["--steps", "8", "--ckpt-every", "4", "--ckpt-dir",
                    os.path.join(tmp, "elastic")])
+    # phase 12e(a): the split decode of the reduced cells
+    import chip_smoke
+    res["decode"] = chip_smoke.rank_split_decode(tmp, "reduced", dev)
 else:
     # started beside the four ranks: one reduced step loads the card's
     # libraries while the resume waits for their checkpoint
@@ -4868,6 +4979,10 @@ else:
     # (b) mesh (data 2, model 1); (c) mesh (data 1, model 2), split
     res["full"] = run_full(full)
     res["split_full"] = run_full(split_run)
+    # phase 12e(b): the split decode at full width
+    import chip_smoke
+    launch_train.make_train_step = make
+    res["decode"] = chip_smoke.rank_split_decode(tmp, "full", dev)
 with open(os.path.join(tmp, f"{phase}_{rank}.json"), "w") as f:
     json.dump(res, f)
 dist.destroy_process_group()
@@ -4880,7 +4995,9 @@ def start_ranks(world, phase, tmp):
     arg = json.dumps([RANKS_REDUCED, RANKS_CELL, RANKS_PREFILL, RANKS_FULL,
                       RANKS_SPLIT, SPLIT_FAMILIES, SPLIT_STEPS, RANKS_PROBE,
                       DEVICE])
-    env = dict(os.environ, PYTHONPATH=SRC, WORLD_SIZE=str(world))
+    # chip_smoke itself on the path: phase 12e's rank side
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join((SRC, ROOT)),
+               WORLD_SIZE=str(world))
     return [subprocess.Popen(
         [sys.executable, "-c", RANKS_CHILD, phase, tmp, arg],
         env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), stdout=subprocess.PIPE,
@@ -5111,6 +5228,275 @@ def check_split_prefill(tmp, cfg, params, card):
         require(err <= 1e-5, f"[ranks prefill] {key} differs by {err:.3e}")
 
 
+def _decode_cfg(which, arch):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cfg.reduced() if which == "reduced" else cfg
+
+
+def _cache_paths(cache):
+    """{path: leaf} of a decode cache (the sLSTM's tuple by index)."""
+    from repro_torch.distributed import sharding as S
+    out = {}
+    S.tree_map_with_path(lambda path, t: out.__setitem__(S._path_str(path), t),
+                         cache)
+    return out
+
+
+def decode_references(tmp, which):
+    """Phase 12e's one-process card references of each ``which`` cell
+    (DECODE_REDUCED or DECODE_FULL): the seed-0 parameters, a prompt drawn
+    from the cell's seed, `prefill` into a cache of the cell's rows, then
+    DECODE_STEPS greedy `decode_step`s on the kernel path. Saved for the
+    ranks (``dec_ref_<name>.pt``): the prompt, the token fed at each step,
+    each step's logits, the final cache and each leaf's largest magnitude.
+    Returns {name: (median step s, decode_attention launches a step)}."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    cells = DECODE_REDUCED if which == "reduced" else DECODE_FULL
+    steps = DECODE_STEPS[which]
+    out = {}
+    for name, arch, _, b, max_len, prompt in cells:
+        cfg = _decode_cfg(which, arch)
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(0)
+        params = T.init_params(cfg, generator=gen, device=DEVICE)
+        rng = np.random.RandomState(sum(map(ord, name)))
+        tokens = torch.from_numpy(rng.randint(1, cfg.vocab, (b, prompt)).astype(
+            np.int32))
+        fed, logits, times = [], [], []
+        with torch.no_grad():
+            cache, last = T.prefill(params, cfg, {"tokens": tokens.to(DEVICE)},
+                                    max_len)
+            tok = last.argmax(dim=-1).int()
+            before = ops.LAUNCHES["decode_attention"]
+            for _ in range(steps):
+                fed.append(tok.cpu())
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lg, cache = T.decode_step(params, cfg, cache, tok[:, None])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                logits.append(lg.cpu())
+                tok = lg.argmax(dim=-1).int()
+            launched = ops.LAUNCHES["decode_attention"] - before
+        leaves = {k: v.cpu() for k, v in _cache_paths(cache).items()}
+        torch.save({"prompt": tokens, "fed": torch.stack(fed),
+                    "logits": torch.stack(logits), "cache": leaves,
+                    "cache_max": {k: float(v.float().abs().max())
+                                  if v.is_floating_point() else 0.0
+                                  for k, v in leaves.items()}},
+                   os.path.join(tmp, f"dec_ref_{name}.pt"))
+        out[name] = (statistics.median(times), launched / steps)
+        del params, cache, leaves
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def rank_split_decode(tmp, which, dev):
+    """Phase 12e on one rank (RANKS_CHILD): for each ``which`` cell, the
+    seed-0 parameters cut to this rank's pieces, `specs.build_cell`'s split
+    prefill of the reference's prompt, then its decode function fed the
+    reference's tokens (DECODE_STEPS steps), each step timed. Against the
+    one-process card reference (`decode_references`, waited for): each
+    step's logits gathered whole, this rank's cache pieces against the
+    reference's slices (the largest |d| a leaf; the parent divides by the
+    leaf's largest value over the whole leaf), the greedy token of each
+    step and, where it differs, the reference logits' gap between the two
+    tokens; a planted fault (the first nonzero float leaf off by 3 x
+    DECODE_TOL of its largest value at one element) and what the check
+    reads of it (the logits over the vocab, the padding's -1e30 equal).
+    Reduced cells also run again from the prefill's cache
+    with ``use_kernels=False``: its greedy tokens against the kernel
+    run's. Returns {name: readings}."""
+    import torch
+    from repro_torch.distributed import sharding as S
+    from repro_torch.kernels import ops
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_mesh_compat
+    from repro_torch.models import transformer as T
+    from repro_torch.configs import ShapeCfg
+    cells = DECODE_REDUCED if which == "reduced" else DECODE_FULL
+    steps = DECODE_STEPS[which]
+    cuda = dev.type == "cuda"
+    t_cell = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    go, deadline = os.path.join(tmp, f"dec_go_{which}"), time.time() + 600
+    while not os.path.exists(go) and time.time() < deadline:
+        time.sleep(0.2)
+    out = {}
+    for name, arch, shape, b, max_len, _ in cells:
+        cfg = _decode_cfg(which, arch)
+        tol = DECODE_TOL_XLSTM if cfg.block_pattern == "xlstm_7_1" else DECODE_TOL
+        mesh = make_mesh_compat(shape, ("data", "model"))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = T.init_params(cfg, generator=gen, device=dev)
+        pieces = S.shard_tree(params, S.param_specs(params, mesh), mesh)
+        del params
+        if cuda:
+            torch.cuda.empty_cache()
+        ref = torch.load(os.path.join(tmp, f"dec_ref_{name}.pt"),
+                         map_location="cpu", mmap=True)
+        pfn, _, (_, b_specs), _ = specs.build_cell(
+            cfg, ShapeCfg("dec_prefill", max_len, b, "prefill"), mesh)
+        dfn, _, (_, c_specs, t_spec), (l_spec, _) = specs.build_cell(
+            cfg, ShapeCfg("dec_decode", max_len, b, "decode"), mesh)
+        specs_at = _cache_paths(c_specs)
+        rows = S.P(t_spec[0], *l_spec[1:])
+
+        def run(cache, use_kernels):
+            got_tok, errs, times, gaps = [], [], [], []
+            for i in range(steps):
+                tok = S.shard(ref["fed"][i][:, None], t_spec, mesh).to(dev)
+                sync()
+                t0 = time.perf_counter()
+                logits, cache = dfn(pieces, cache, tok,
+                                    use_kernels=use_kernels)
+                sync()
+                times.append(time.perf_counter() - t0)
+                whole = S.gather(logits, rows, mesh).cpu()
+                want = ref["logits"][i]
+                # the vocab padding's logits are -1e30 on both: equal
+                if not torch.equal(whole[:, cfg.vocab:], want[:, cfg.vocab:]):
+                    errs.append(float("inf"))
+                whole, want = whole[:, :cfg.vocab], want[:, :cfg.vocab]
+                errs.append(float((whole - want).abs().max()
+                                  / want.abs().max()))
+                greedy = whole.argmax(dim=-1)
+                got_tok.append(greedy.tolist())
+                exact = want.argmax(dim=-1)
+                for r in torch.nonzero(greedy != exact).flatten().tolist():
+                    gaps.append((i, r, float(want[r, exact[r]]
+                                             - want[r, greedy[r]])))
+            return cache, got_tok, errs, times, gaps
+
+        with torch.no_grad():
+            cache, _ = pfn(pieces, {"tokens": S.shard(
+                ref["prompt"], b_specs["tokens"], mesh).to(dev)})
+            start = (S.tree_map_with_path(lambda _, t: t.clone(), cache)
+                     if which == "reduced" else None)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            launched = ops.LAUNCHES["decode_attention"]
+            synced = dfn.tp.sync_s
+            cache, tokens, errs, times, gaps = run(cache, None)
+            launched = ops.LAUNCHES["decode_attention"] - launched
+            lay = S.kv_layout(cfg, ShapeCfg("dec_decode", max_len, b, "decode"),
+                              mesh)
+            rec = dict(layout=lay.name if lay is not None else None,
+                       logits_err=max(errs), token_gaps=gaps, step_s=times,
+                       tp_sync_s=(dfn.tp.sync_s - synced) / steps,
+                       launches=launched / steps,
+                       peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
+            diffs, planted = {}, None
+            for key, got in _cache_paths(cache).items():
+                want = S.shard(ref["cache"][key], specs_at[key], mesh).to(dev)
+                if not got.is_floating_point():
+                    diffs[key] = None if torch.equal(got, want) else "differs"
+                    continue
+                d = (got - want).abs()
+                finite = torch.isfinite(want)
+                diffs[key] = float(d[finite].max()) if finite.any() else 0.0
+                if not torch.equal(torch.isinf(got), torch.isinf(want)):
+                    diffs[key] = "inf differs"
+                top = ref["cache_max"][key]
+                if planted is None and top > 0 and bool(finite.all()):
+                    bad = got.clone().reshape(-1)
+                    bad[0] += 3 * tol * top
+                    planted = (key, float((bad.reshape(got.shape) - want)
+                                          .abs().max()) / top)
+            rec.update(cache=diffs, planted=planted)
+            if start is not None:
+                _, plain_tok, _, _, _ = run(start, False)
+                rec["plain_differs"] = [
+                    (i, r) for i, (a, c) in enumerate(zip(tokens, plain_tok))
+                    for r, (x, y) in enumerate(zip(a, c)) if x != y]
+        rec["cell_s"] = time.perf_counter() - t_cell
+        t_cell = time.perf_counter()
+        out[name] = rec
+        del pieces, cache, start
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def check_split_decode(tmp, which, results, card):
+    """Phase 12e's verdicts from every rank's `rank_split_decode` readings:
+    the logits within DECODE_TOL of their largest value (the xLSTM's
+    within DECODE_TOL_XLSTM), each cache leaf's largest |d| over the ranks
+    within it of the leaf's largest value, the integer leaves equal, a
+    greedy token that differs from the one-process card's only at a
+    near-tie (LOGIT_TOL), the plain path's tokens equal to the kernel
+    path's, `decode_attention` launched on every rank once a step per
+    attention layer where the cache splits its KV heads or its sequence
+    (the kernel's piece; none under a head_dim split, where the JAX
+    package runs jnp), and the planted fault past the bound. Returns
+    {name: the summary logged}."""
+    import torch
+    out = {}
+    for name, arch, shape, b, _, _ in (DECODE_REDUCED if which == "reduced"
+                                       else DECODE_FULL):
+        cfg = _decode_cfg(which, arch)
+        ref = torch.load(os.path.join(tmp, f"dec_ref_{name}.pt"),
+                         map_location="cpu", mmap=True)
+        tol = DECODE_TOL_XLSTM if cfg.block_pattern == "xlstm_7_1" else DECODE_TOL
+        recs = [r["decode"][name] for r in results]
+        layout = recs[0]["layout"]
+        worst = {"logits": max(r["logits_err"] for r in recs)}
+        for key, top in ref["cache_max"].items():
+            vals = [r["cache"][key] for r in recs]
+            bad = [v for v in vals if isinstance(v, str)]
+            require(not bad, f"[decode {which} {name}] cache {key}: {bad}")
+            if all(v is None for v in vals):
+                continue
+            worst[key] = max(vals) / top if top > 0 else max(vals)
+        gaps = [g for r in recs for g in r["token_gaps"]]
+        per_step = [r["launches"] for r in recs]
+        kernel = layout is not None and layout.split("+")[-1] != "head_dim"
+        want = attention_layers(cfg) if kernel else 0
+        planted = [r["planted"] for r in recs]
+        plain = [r.get("plain_differs", []) for r in recs]
+        med = statistics.median(recs[0]["step_s"])
+        line = (f"[decode {which} {name}] {arch}{' reduced' if which == 'reduced' else ''}"
+                f", mesh {shape}, B {b}, layout {layout}: largest relative "
+                f"differences from the one-process card decode "
+                f"{({k: f'{v:.3e}' for k, v in worst.items()})} (bound {tol:g}); "
+                f"greedy tokens differ at {len(gaps)} (step, row)s "
+                f"{gaps[:4]}; plain-path tokens differ at "
+                f"{sum(map(len, plain))}; decode_attention launches a step "
+                f"per rank {per_step} (want {want}); planted fault "
+                f"{planted[0]} (bound {tol:g}); step median {med:.4f} s, "
+                f"tp_sync_s a step {recs[0]['tp_sync_s']:.4f} (rank 0), peak "
+                f"{[round(r['peak'] / 2**30, 2) for r in recs]} GiB (on {card})")
+        log(line)
+        for key, err in worst.items():
+            require(err <= tol, f"[decode {which} {name}] {key} differs by "
+                    f"{err:.3e} > {tol:g}")
+        require(all(g[2] <= LOGIT_TOL for g in gaps),
+                f"[decode {which} {name}] a greedy token differs away from a "
+                f"near-tie: {gaps}")
+        require(not any(plain), f"[decode {which} {name}] the plain path's "
+                f"tokens differ from the kernel path's: {plain}")
+        require(all(p == want for p in per_step), f"[decode {which} {name}] "
+                f"decode_attention launched {per_step} a step, want {want}")
+        require(all(p is not None and p[1] > tol for p in planted),
+                f"[decode {which} {name}] the planted fault passed: {planted}")
+        out[name] = dict(layout=layout, step_s=med, tokens_s=b / med,
+                         tp_sync_s=recs[0]["tp_sync_s"],
+                         peaks=[r["peak"] for r in recs],
+                         launches=sum(r["launches"] for r in recs)
+                         * DECODE_STEPS[which], worst=worst)
+    return out
+
+
 def phase_train_ranks(card, full_losses):
     """Phase 12d: the sharded trainer as `torch.distributed` gloo ranks,
     processes sharing the card (every collective staged through pinned host
@@ -5170,6 +5556,17 @@ def phase_train_ranks(card, full_losses):
         t0 = time.perf_counter()
         four = start_ranks(4, "four", tmp)
         two = start_ranks(2, "two", tmp)
+        # phase 12e's one-process references, while the ranks train
+        t_ref = time.perf_counter()
+        ref_steps = {}
+        for which in ("reduced", "full"):
+            ref_steps[which] = decode_references(tmp, which)
+            with open(os.path.join(tmp, f"dec_go_{which}"), "w") as f:
+                f.write("go")
+        t_ref = time.perf_counter() - t_ref
+        log(f"[decode references] one-process card decode of every phase "
+            f"12e cell in {t_ref:.1f} s (beside the ranks): median step, "
+            f"decode_attention launches a step {ref_steps}")
         four = finish_ranks(four, "four", tmp)
         log(f"[ranks four] {time.perf_counter() - t0:.1f} s for 4 ranks")
         r0 = four[0]
@@ -5202,6 +5599,7 @@ def phase_train_ranks(card, full_losses):
             allowance = parity.adam_allowance(allowance, ref, float(m["lr"]))
         check_split_steps(tmp, split_refs, r0["split"], card)
         check_split_prefill(tmp, cfg, state0.params, card)
+        decode = {"reduced": check_split_decode(tmp, "reduced", four, card)}
         sharded = ckpt_lib.restore(os.path.join(tmp, "zero_out"), 3, ref, DEVICE)
         r = parity.compare_states(sharded, ref, allowance=allowance)
         log(f"[ranks zero] after 3 steps, 4 ranks against one process: params "
@@ -5270,6 +5668,18 @@ def phase_train_ranks(card, full_losses):
                             peaks=[run["peak"] for run in runs],
                             grad_sync_s=runs[0]["grad_sync_s"],
                             tp_sync_s=runs[0]["tp_sync_s"])
+        decode["full"] = check_split_decode(tmp, "full", two, card)
+        spent = {which: sum(rec["cell_s"] for rec in
+                            (four if which == "reduced" else two)[0]["decode"].values())
+                 for which in decode}
+        log(f"[phase 12e, split decode] rank 0's seconds in the cells: "
+            f"(a) {spent['reduced']:.1f} s on 4 ranks, (b) {spent['full']:.1f} "
+            f"s on 2 ranks, beside {t_ref:.1f} s of one-process references "
+            f"(on {card})")
+        out["decode"] = decode
+        out["decode_launches"] = sum(
+            cell["launches"] for cells in decode.values()
+            for cell in cells.values())
         return out
     finally:
         for child in two:
@@ -5354,26 +5764,22 @@ def start_host_build(rows, tmp, name, kw):
     return proc, out_dir, kw["backend"], name
 
 
-def start_vocab_build(emb, tmp):
+def start_vocab_build(emb, tmp, name="vocab"):
     """The vocab index of ``emb`` with the engine's defaults (VOCAB_INDEX),
     built by `start_host_build`."""
     kw = dict(VOCAB_INDEX)
     guarantee = dict(c=kw.pop("c"), p0=kw.pop("p"))
-    return start_host_build(emb, tmp, "vocab", dict(
+    return start_host_build(emb, tmp, name, dict(
         kw, backend="promips-stream", auto_compact=True, guarantee=guarantee))
 
 
-def start_family_vocab_build(tmp):
-    """qwen2-moe-a2.7b's embedding rows drawn alone on the card (the first
-    draw of `init_params` at the serve seed, so the same bits; phase 13
-    holds them against the parameters it makes) and the vocab index's host
-    build started over them (`start_vocab_build`). Called before phase 12b,
-    whose card-bound steps and checkpoint writes leave the host's cores to
-    the child."""
+def embed_rows(cfg):
+    """``cfg``'s embedding rows [:vocab] drawn alone on the card: the first
+    draw of `init_params` at the serve seed, so the same bits as the
+    parameters the cell makes (which it holds them against)."""
     import torch
     from repro_torch.models import layers
     from repro_torch.models import transformer as T
-    cfg = family_config(*FAMILY_CELLS[0])
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(SERVE["param_seed"])
     emb = layers.init_tree(T.param_spec(cfg)["embed"], generator=gen,
@@ -5381,24 +5787,31 @@ def start_family_vocab_build(tmp):
     rows = emb[:cfg.vocab].cpu().numpy()
     del emb
     torch.cuda.empty_cache()
-    return start_vocab_build(rows, tmp)
+    return rows
 
 
-def write_index_state(index, out_dir):
-    """A searcher's `state()` as BUILD_CHILD writes it: one .npy an array,
-    the meta as JSON."""
-    import numpy as np
-    arrays, meta = index.state()
-    os.makedirs(out_dir)
-    for name, a in arrays.items():
-        np.save(os.path.join(out_dir, name + ".npy"), a)
-    with open(os.path.join(out_dir, "meta.json"), "w") as f:
-        json.dump(meta, f)
+def start_serve_vocab_build(tmp):
+    """Phase 6's vocab index (tinyllama-1.1b's embedding rows) built on the
+    host by a child process (`start_vocab_build`) from phase 2's end, while
+    phases 3-5 keep the card busy; its state directory is what phase 14
+    restores."""
+    from repro_torch.configs import get_config
+    return start_vocab_build(embed_rows(get_config(SERVE["arch"])), tmp,
+                             "serve_vocab")
+
+
+def start_family_vocab_build(tmp):
+    """qwen2-moe-a2.7b's embedding rows drawn alone on the card
+    (`embed_rows`; phase 13 holds them against the parameters it makes)
+    and the vocab index's host build started over them
+    (`start_vocab_build`). Called before phase 12b, whose card-bound steps
+    and checkpoint writes leave the host's cores to the child."""
+    return start_vocab_build(embed_rows(family_config(*FAMILY_CELLS[0])), tmp)
 
 
 def read_index_state(out_dir, backend="promips-stream"):
-    """The ``backend`` searcher of a state written by `write_index_state`
-    or BUILD_CHILD, restored on the card (no rebuild)."""
+    """The ``backend`` searcher of a state written by BUILD_CHILD, restored
+    on the card (no rebuild)."""
     import numpy as np
     from repro_torch import api
     with open(os.path.join(out_dir, "meta.json")) as f:
@@ -5882,24 +6295,19 @@ def main() -> int:
     sys.path.insert(0, SRC)
     t_start = time.perf_counter()
 
-    card = phase_setup()
-    timer = Timer(torch)
-    log(f"[phase 1] {time.perf_counter() - t_start:.1f} s")
-
-    t0 = time.perf_counter()
-    pm1m, x1m, q1m = build_size(1_000_000)
-    records = phase_kernels(pm1m, q1m, timer) + phase_kernels_serve(pm1m, q1m,
-                                                                    timer)
-    log(f"[phase 2] {time.perf_counter() - t0:.1f} s (with the n=1M build)")
-    # phase 6's vocab index state, which phase 14 restores, phase 13's
-    # child build and phase 7's, in the gitignored build/ dir
+    # the host builds' outputs (phase 6's vocab index state, which phase 14
+    # restores, and the other children's) in the gitignored build/ dir
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     families = tempfile.mkdtemp(prefix="families-",
                                 dir=os.path.join(ROOT, "build"))
-    vocab_state = os.path.join(families, "tinyllama_vocab_index")
-    build = dataset_build = None
-    # phase 7's host build runs from here on
-    sharded_build = start_sharded_build(families)
+    build = dataset_build = vocab_build = sharded_build = None
+    # phase 2's n=1M index builds on the host from here on, beside phases
+    # 1, 3 and compact-100k
+    big_build = start_sharded_build(families, n_shards=None, name="n=1M")
     try:
+        card = phase_setup()
+        timer = Timer(torch)
+        log(f"[phase 1] {time.perf_counter() - t_start:.1f} s")
         t0 = time.perf_counter()
         pm100k, x100k, q100k = build_size(100_000)
         phase_main_path("n=100k", pm100k, x100k, q100k)
@@ -5910,6 +6318,17 @@ def main() -> int:
         t0 = time.perf_counter()
         phase_compact_100k(pm100k, q100k)
         log(f"[phase 5, compact-100k] {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        pm1m, x1m, q1m = finish_size_build(big_build)
+        records = phase_kernels(pm1m, q1m, timer) + phase_kernels_serve(
+            pm1m, q1m, timer)
+        log(f"[phase 2] {time.perf_counter() - t0:.1f} s (with the wait for "
+            f"the n=1M build)")
+        # phase 7's and phase 6's host builds run from here on
+        sharded_build = start_sharded_build(families)
+        vocab_build = start_serve_vocab_build(families)
+        vocab_state = vocab_build[1]
 
         t0 = time.perf_counter()
         launches = phase_main_path("n=1M", pm1m, x1m, q1m)
@@ -5930,7 +6349,7 @@ def main() -> int:
         log(f"[phase 5, stream-1M] {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        serve_launches = phase_serve(vocab_state)
+        serve_launches = phase_serve(vocab_build)
         log(f"[phase 6] {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
@@ -5990,8 +6409,8 @@ def main() -> int:
         log(f"[phase 12c, train zamba2-1.2b and xlstm-1.3b] "
             f"{time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        phase_train_ranks(card, full_train["losses"])
-        log(f"[phase 12d, train under gloo ranks] "
+        ranks = phase_train_ranks(card, full_train["losses"])
+        log(f"[phase 12d + 12e, train and decode under gloo ranks] "
             f"{time.perf_counter() - t0:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -6004,7 +6423,8 @@ def main() -> int:
         recurrent_launches = phase_serve_recurrent(vocab_state, families)
         log(f"[phase 14, serve-recurrent] {time.perf_counter() - t0:.1f} s")
     finally:
-        for child in (build, sharded_build, *(dataset_build or {}).values()):
+        for child in (build, sharded_build, vocab_build, big_build,
+                      *(dataset_build or {}).values()):
             if child is not None and child[0].poll() is None:
                 child[0].kill()
                 child[0].wait()
@@ -6028,11 +6448,14 @@ def main() -> int:
         launches[name] = serve_launches[name]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
+        if rec["name"] == "decode_attention":
+            # on the ranks' pieces in phase 12e's kernel runs (every rank)
+            rec["split_decode_launches"] = ranks["decode_launches"]
     # block_mips also serves ops.mips_topk (phase 4b), launched once there
     records[0]["mips_topk_launches"] = topk_launches
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mips_topk_launches")
+            "mips_topk_launches", "split_decode_launches")
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": [{key: rec[key] for key in keys if key in rec}
                                   for rec in records]}))

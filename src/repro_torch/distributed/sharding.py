@@ -18,7 +18,7 @@ from one spec to another.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple, Optional
 
 import torch
 
@@ -220,6 +220,50 @@ def cache_specs(cfg, shape, mesh):
     return specs
 
 
+class KVLayout(NamedTuple):
+    """How a decode cell's K/V cache (B, S, KH, dh a layer) lies on the
+    mesh under `cache_specs`' kv rule, for the decode step to split its
+    attention the same way.
+
+    ``split`` is what ``model`` cuts besides the sequence: ``"heads"`` (the
+    KV heads), ``"head_dim"`` (every head's slice of dh) or None (neither:
+    the sequence takes ``model``). ``seq_axes`` are the axes the sequence
+    is cut over, in the spec's order (major first): () when whole,
+    ``("model",)`` where neither KH nor dh divides ``model``, the data
+    axes under context parallelism (a batch that does not split, such as
+    long_500k's B = 1), ``("data", "model")`` for both."""
+    split: Optional[str]
+    seq_axes: tuple
+
+    @property
+    def name(self) -> str:
+        """``heads``, ``head_dim``, ``sequence`` (over ``model``) or, with
+        the sequence over a data axis, ``context+<split or sequence>``."""
+        what = self.split or "sequence"
+        if any(a != "model" for a in self.seq_axes):
+            return "context+" + what
+        return what
+
+    def seq_piece(self, mesh, s_local: int) -> int:
+        """The first position of this rank's piece of the sequence, whose
+        pieces are ``s_local`` long."""
+        if not self.seq_axes:
+            return 0
+        return mesh.index(self.seq_axes) * s_local
+
+
+def kv_layout(cfg, shape, mesh) -> Optional[KVLayout]:
+    """The `KVLayout` of the decode cell ``shape`` on ``mesh`` (None for a
+    model with no K/V cache: the xLSTM)."""
+    specs = cache_specs(cfg, shape, mesh)
+    kv = specs.get("k", specs.get("shared_k"))
+    if kv is None:
+        return None
+    split = ("heads" if kv[3] == "model" else
+             "head_dim" if kv[4] == "model" else None)
+    return KVLayout(split, _entry_axes(kv[2]))
+
+
 def decode_token_spec(cfg, shape, mesh):
     dp = dp_axes(mesh)
     bdim = dp if _fits(shape.global_batch, mesh, dp) else None
@@ -328,7 +372,7 @@ def gather_tree(tree, specs, mesh):
     return tree_lib.map(lambda t, spec: gather(t, spec, mesh), tree, specs)
 
 
-__all__ = ["P", "axis_size", "batch_specs", "cache_specs", "decode_token_spec",
-           "dp_axes", "gather", "gather_tree", "logits_spec", "param_specs",
+__all__ = ["KVLayout", "P", "axis_size", "batch_specs", "cache_specs", "decode_token_spec",
+           "dp_axes", "gather", "gather_tree", "kv_layout", "logits_spec", "param_specs",
            "reshard", "shard", "shard_shape", "shard_tree", "slice_piece",
            "tree_map_with_path", "zero1_specs"]

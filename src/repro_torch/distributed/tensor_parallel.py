@@ -50,7 +50,10 @@ One reduction goes over the data axes instead (`data_mean`): the MoE
 load-balance loss is a product of two batch means, which GSPMD takes over
 the whole (micro)batch, so each rank's share of the batch must see the
 whole batch's means (on any mesh with data axes, a ``model`` axis of one
-too).
+too). The decode step under context parallelism gathers the attention of
+each rank's piece of the sequence over the data axes
+(`models.attention.merge_pieces`); it runs under ``torch.no_grad`` and
+takes the mesh's collectives directly.
 
 ``sync_s`` adds up the host seconds spent in these collectives (the
 forward's, a remat recompute's and the backward's), fenced by a device
@@ -104,8 +107,10 @@ class TensorParallel:
         self._timed(tensors, lambda: self.mesh.all_reduce_many(
             list(tensors), axes, op))
 
-    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
-        return self._timed([t], lambda: self.mesh.all_gather(t, AXIS, dim))
+    def all_gather(self, t: torch.Tensor, dim: int, axes=AXIS) -> torch.Tensor:
+        """The pieces ``t`` of the ranks along ``model`` (or ``axes``)
+        joined along ``dim`` in their order."""
+        return self._timed([t], lambda: self.mesh.all_gather(t, axes, dim))
 
     def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """``t`` summed over ``model``, this rank's piece of ``dim`` kept."""

@@ -2,7 +2,12 @@
 // launch:
 //   out[b, kh, g] = softmax_t(<q[b, kh, g], k[b, t, kh]> / sqrt(dh)) . v[b, t, kh]
 // over t < cache_len[b]; positions at or beyond it are masked, so
-// cache_len = 0 gives the mean of V over all S positions.
+// cache_len = 0 gives the mean of V over all S positions. On request the
+// kernel also writes each query row's log-sum-exp of its scaled scores,
+//   lse[b, kh, g] = log sum_t exp(<q[b, kh, g], k[b, t, kh]> / sqrt(dh)),
+// -inf where cache_len <= 0: the weight of a piece of the sequence when the
+// pieces that ranks attend apart are merged (a row with no position of its
+// own weighs exactly 0).
 //
 // Replaces: src/repro/kernels/decode_attention.py::decode_attention (Pallas
 // body `_kernel`): a grid (B, KH, S/bS) that walks S in order and carries the
@@ -48,6 +53,9 @@
 //    shapes, cache_len and the grid, so two calls on the same input are
 //    equal bit for bit, and the launcher keeps no state that depends on
 //    device values, so a CUDA graph can capture it.
+//  * The log-sum-exp on request: a second instance of the kernel (template
+//    flag LSE) writes m + log(l) where the row's output is written, on the
+//    same grid, so its output equals the call without it bit for bit.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -116,6 +124,7 @@ struct Params {
   float* part_ml;       // (slots, 2, GB): m then l
   int* tickets;         // (rows,), zero between calls
   float* out;           // (B, KH, G, DH)
+  float* lse;           // (B, KH, G) or null
   int B, S, KH, G, n_rg;
   float scale;
 };
@@ -176,8 +185,11 @@ struct Cursor {
   }
 };
 
-template <int DH, int GB>
-__global__ void __launch_bounds__(NT, 2) da_kernel(const Params p) {
+// LSE: write each row's log-sum-exp too. Its epilogue needs a register more
+// than 128 where GB is 8: those instances run one CTA an SM, on the grid of
+// the kernel without it (the same tiles, so the same output bit for bit).
+template <int DH, int GB, bool LSE>
+__global__ void __launch_bounds__(NT, LSE && GB == 8 ? 1 : 2) da_kernel(const Params p) {
   using Gm = Geo<DH>;
   using Sm = Smem<DH, GB>;
   constexpr int T = Gm::T, C4 = Gm::C4, DQ = Gm::DQ, JQ = Gm::JQ, R = Gm::R;
@@ -468,6 +480,9 @@ __global__ void __launch_bounds__(NT, 2) da_kernel(const Params p) {
           for (int t = 0; t < PQ; ++t) s += red[(t * GB + g) * DH + d];
           orow[o] = s / fmaxf(l_s[g], 1e-30f);
         }
+        if (LSE && tid < gn)
+          p.lse[(orow - p.out) / DH + tid] =
+              nlen[cur.b] < 0 ? -INFINITY : m_buf[((step + 1) & 1) * GB + tid] + logf(l_s[tid]);
       } else {
         const size_t slot_p = (size_t)row + blockIdx.x;
         for (int o = tid; o < GB * DH; o += NT) {
@@ -544,6 +559,8 @@ __global__ void __launch_bounds__(NT, 2) da_kernel(const Params p) {
             const float iv = 1.f / fmaxf(l, 1e-30f);
             reinterpret_cast<float4*>(orow)[o4] =
                 make_float4(acc4.x * iv, acc4.y * iv, acc4.z * iv, acc4.w * iv);
+            if (LSE && o4 % C4 == 0)
+              p.lse[(orow - p.out) / DH + g] = nlen[cur.b] < 0 ? -INFINITY : mm + logf(l);
           }
         }
       }
@@ -566,15 +583,20 @@ bool valid_shape(int B, int S, int KH, int G, int DH) {
 }
 
 // The grid: as many CTAs as fit the card at once, at most one per tile the
-// shapes allow. A function of the shapes and the device only.
+// shapes allow. A function of the shapes and the device only. No CTA waits
+// for another, so an instance that fits fewer an SM runs it in waves.
 template <int DH, int GB>
 cudaError_t plan(int B, int S, int KH, int G, int* grid, int* smem) {
-  static LaunchCache cache;
+  static LaunchCache cache, cache_lse;
   *smem = static_cast<int>(Smem<DH, GB>::bytes(B));
-  int blocks = 0;
-  const cudaError_t e = resident_blocks(cache, da_kernel<DH, GB>, NT, *smem, &blocks);
+  int blocks = 0, lse_blocks = 0;
+  cudaError_t e = resident_blocks(cache, da_kernel<DH, GB, false>, NT, *smem, &blocks);
   if (e != cudaSuccess) return e;
-  if (blocks < 1) return cudaErrorInvalidConfiguration;
+  // the log-sum-exp instance needs its own shared-memory attribute; its grid
+  // is the one above
+  e = resident_blocks(cache_lse, da_kernel<DH, GB, true>, NT, *smem, &lse_blocks);
+  if (e != cudaSuccess) return e;
+  if (blocks < 1 || lse_blocks < 1) return cudaErrorInvalidConfiguration;
   const int t = Geo<DH>::T;
   const long long tiles = (long long)B * KH * ((G + GB - 1) / GB) * ((S + t - 1) / t);
   *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
@@ -600,14 +622,22 @@ cudaError_t make_plan(int B, int S, int KH, int G, int DH, int* grid, int* smem)
   }
 }
 
+template <int DH, bool LSE>
+void launch_gb(const Params& p, int gb, int grid, int smem, cudaStream_t stream) {
+  switch (gb) {
+    case 1: da_kernel<DH, 1, LSE><<<grid, NT, smem, stream>>>(p); break;
+    case 2: da_kernel<DH, 2, LSE><<<grid, NT, smem, stream>>>(p); break;
+    case 4: da_kernel<DH, 4, LSE><<<grid, NT, smem, stream>>>(p); break;
+    default: da_kernel<DH, 8, LSE><<<grid, NT, smem, stream>>>(p); break;
+  }
+}
+
 template <int DH>
 void launch_dh(const Params& p, int gb, int grid, int smem, cudaStream_t stream) {
-  switch (gb) {
-    case 1: da_kernel<DH, 1><<<grid, NT, smem, stream>>>(p); break;
-    case 2: da_kernel<DH, 2><<<grid, NT, smem, stream>>>(p); break;
-    case 4: da_kernel<DH, 4><<<grid, NT, smem, stream>>>(p); break;
-    default: da_kernel<DH, 8><<<grid, NT, smem, stream>>>(p); break;
-  }
+  if (p.lse != nullptr)
+    launch_gb<DH, true>(p, gb, grid, smem, stream);
+  else
+    launch_gb<DH, false>(p, gb, grid, smem, stream);
 }
 
 }  // namespace
@@ -625,11 +655,12 @@ extern "C" long long decode_attention_scratch_floats(int B, int S, int KH, int G
 }
 
 // q (B, KH, G, DH) f32; k, v (B, S, KH, DH) f32; lens (B,) i32; out (B, KH, G,
-// DH) f32. `part` holds decode_attention_scratch_floats(...) floats; `tickets`
+// DH) f32; lse (B, KH, G) f32, or null for none. `part` holds decode_attention_scratch_floats(...) floats; `tickets`
 // at least B * KH * G ints, all zero (the kernel leaves them zero). Takes DH in
 // {32, 64, 128}, 1 <= G <= 32 and B <= 4096. Returns the launch error, or 0.
 extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
                                        const int* lens, float* part, int* tickets, float* out,
+                                       float* lse,
                                        int B, int S, int KH, int G, int DH, float scale,
                                        void* stream_handle) {
   int grid = 0, smem = 0;
@@ -646,6 +677,7 @@ extern "C" int decode_attention_launch(const float* q, const float* k, const flo
   p.part_ml = part + (rows + grid) * gb * DH;
   p.tickets = tickets;
   p.out = out;
+  p.lse = lse;
   p.B = B;
   p.S = S;
   p.KH = KH;

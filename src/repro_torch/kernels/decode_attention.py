@@ -2,7 +2,11 @@
 one-token GQA attention against a KV cache with a per-sequence length, the
 port of `repro.kernels.decode_attention.decode_attention`. Its plain version
 is `ref.decode_attention_ref` (the arithmetic of `flash_decode`);
-`ops.decode_attention` picks between them by device.
+`ops.decode_attention` picks between them by device. On request the same
+launch also writes each query row's log-sum-exp (``return_lse``), with which
+the pieces of a sequence split over ranks are merged
+(`models.attention.merge_pieces`); the output is the same bit for bit
+either way.
 
 One launch per call, with no host sync: the partial-state scratch is sized
 from the shapes alone, and the per-row tickets with which the kernel's CTAs
@@ -71,10 +75,12 @@ def _serialize(dev: torch.device, stream, capturing: bool) -> None:
     _last_stream[dev.index] = stream
 
 
-def decode_attention(q, k, v, cache_len):
+def decode_attention(q, k, v, cache_len, return_lse: bool = False):
     """Launch the kernel on CUDA tensors: q (B, KH, G, dh) f32, k and v
-    (B, S, KH, dh) f32, cache_len (B,) int32 -> (B, KH, G, dh) f32. Takes
-    dh in {32, 64, 128}, G <= 32 and B <= 4096."""
+    (B, S, KH, dh) f32, cache_len (B,) int32 -> (B, KH, G, dh) f32; with
+    ``return_lse`` also the (B, KH, G) f32 log-sum-exp of each row's scaled
+    scores (-inf where cache_len <= 0). Takes dh in {32, 64, 128}, G <= 32
+    and B <= 4096."""
     if not q.is_cuda:
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
@@ -101,12 +107,14 @@ def decode_attention(q, k, v, cache_len):
                        dtype=torch.float32,
                        device=dev)
     out = torch.empty_like(q)
+    lse = q.new_empty((b, kh, g)) if return_lse else None
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
-            part.data_ptr(), tickets.data_ptr(), out.data_ptr(), b, s, kh, g,
-            dh, ctypes.c_float(dh ** -0.5), stream.cuda_stream)
+            part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, kh, g, dh,
+            ctypes.c_float(dh ** -0.5), stream.cuda_stream)
     build.check(err, "decode_attention")
     build.count_launch("decode_attention")
-    return out
+    return (out, lse) if return_lse else out

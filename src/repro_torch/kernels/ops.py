@@ -160,12 +160,15 @@ def quick_probe_select(code, min_l1, count, rep_proj, rep_row, q_proj, q_l1,
 
 
 def decode_attention(q, k, v, cache_len, *,
-                     use_kernels: Optional[bool] = None):
+                     use_kernels: Optional[bool] = None,
+                     return_lse: bool = False):
     """One-token GQA attention against a KV cache: q (B, KH, G, dh), k and v
-    (B, S, KH, dh), cache_len (B,) -> (B, KH, G, dh); see
+    (B, S, KH, dh), cache_len (B,) -> (B, KH, G, dh), and with
+    ``return_lse`` each row's (B, KH, G) log-sum-exp; see
     `ref.decode_attention_ref`. The kernel takes f32 and dh in
     {32, 64, 128}."""
     if _use_kernel(q, use_kernels, "decode_attention"):
         return _decode_attention.decode_attention(
-            q, k, v, cache_len.to(torch.int32).contiguous())
-    return ref.decode_attention_ref(q, k, v, cache_len)
+            q, k, v, cache_len.to(torch.int32).contiguous(),
+            return_lse=return_lse)
+    return ref.decode_attention_ref(q, k, v, cache_len, return_lse=return_lse)

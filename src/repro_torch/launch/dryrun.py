@@ -22,7 +22,7 @@ multipod_2x16x16}/{arch}/{shape}.json``, ``--out`` by default
 resumable); ``--force`` reruns them. The JAX package's
 ``results/dryrun`` stays its own: its records would be overwritten, and
 its acceptance test (`tests/test_system.py`) holds every record there to
-``ok`` or a skip, where the port's decode cells are pending.
+JAX's.
 
 The record keeps JAX's keys; what each counts in the port:
 
@@ -40,7 +40,8 @@ The record keeps JAX's keys; what each counts in the port:
   ``whole_on_every_rank`` names the FLOPs in it that every rank of a
   ``model`` group computes in full (the router GEMM, the frontend
   projection, Mamba2's C B^T scores, the recurrences or attention that run
-  whole where heads do not split), each with its count.
+  whole where heads do not split; at decode the sLSTM's recurrent product,
+  whose state is gathered whole), each with its count.
 - ``hlo_bytes``: the unfused byte count, each aten op's operand and result
   bytes (views excluded): the counterpart of XLA's "bytes accessed".
 - ``collective_bytes`` / ``collective_counts``: the recording mesh's
@@ -56,8 +57,8 @@ of 8 for the xLSTM, hybrid groups and one with the tail for zamba2, the
 encoder and decoder apart for whisper), a train cell at two and three
 microbatches of its microbatch's rows, and the counts are combined
 exactly (`_depths`; checked against direct runs of the reduced configs).
-The xLSTM at a sequence past 2,048 runs at 256 (one mLSTM chunk) and
-scales every count by ``S / 256``: every term of its blocks is linear in
+The xLSTM's train or prefill cell at a sequence past 2,048 runs at 256
+(one mLSTM chunk) and scales every count by ``S / 256``: every term of its blocks is linear in
 the chunks and the sLSTM's steps (JAX's roofline runs at 512 and
 scales). Where a microbatch's rows do not divide over the data axes
 (qwen3-32b and moonshot at ``train_4k``: 8 rows over 16), the rank runs
@@ -74,9 +75,13 @@ unfused bytes and the collective bytes all describe that program, and
 port trains in f32 today: a program with f32 parameters moves about twice
 these bytes.)
 
-Decode cells (``decode_32k``, ``long_500k``) are not split yet (ROADMAP
-item 28): their record has the argument bytes and ``"status":
-"pending(decode split, ROADMAP item 28)"``, no FLOPs.
+A decode cell (``decode_32k``, ``long_500k``) runs one step of
+`specs.build_cell`'s split decode on this rank's pieces of the
+parameters, of the cache in `cache_specs`' layout and of the tokens; its
+record names the cache's K/V cut (``kv_layout``, `sharding.KVLayout`).
+Its attention is the plain version of `decode_attention` on ``meta`` (the
+kernel's arithmetic, an online softmax over blocks of 1,024 positions),
+so its unfused bytes count every block's scores.
 """
 from __future__ import annotations
 
@@ -100,7 +105,6 @@ from . import specs as specs_lib
 from .mesh import RecordingMesh
 
 META = torch.device("meta")
-PENDING = "pending(decode split, ROADMAP item 28)"
 TEMP_NOTE = ("not counted: the meta device has no allocator, so the peak of "
              "temporaries is unknown")
 PRECISION = ("bf16 parameters and activations, f32 where the code casts "
@@ -159,7 +163,16 @@ def tree_bytes(structs, spec_tree, mesh) -> int:
 
 def _pieces(structs, spec_tree, mesh):
     """This rank's pieces of ``structs`` on ``meta``, in the structs' dtypes
-    (`PRECISION`)."""
+    (`PRECISION`). A tree of dicts and plain tuples (a cache: the sLSTM's
+    state is a tuple) goes by paths; the train state by `tree_lib`."""
+    if isinstance(structs, dict):
+        specs = iter(_flat(spec_tree))
+        return shard_lib.tree_map_with_path(lambda path, t: torch.empty(
+            shard_lib.shard_shape(next(specs), t.shape, mesh), device=META,
+            dtype=t.dtype), structs)
+    if isinstance(structs, torch.Tensor):
+        return torch.empty(shard_lib.shard_shape(spec_tree, structs.shape, mesh),
+                           device=META, dtype=structs.dtype)
     return tree_lib.map(lambda t, s: torch.empty(
         shard_lib.shard_shape(s, t.shape, mesh), device=META, dtype=t.dtype),
         structs, spec_tree)
@@ -255,18 +268,20 @@ def _run(cfg, shape, mesh, n_mb: int = 1) -> dict:
     state = _pieces(args[0], in_specs[0], mesh)
     if shape.kind == "train":
         return _count_with_mesh(mesh, fn, (state, args[1]))
+    rest = [_pieces(a, s, mesh) for a, s in zip(args[1:], in_specs[1:])]
     with torch.no_grad():
-        return _count_with_mesh(mesh, fn, (state, _pieces(args[1], in_specs[1],
-                                                          mesh)))
+        return _count_with_mesh(mesh, fn, (state, *rest))
 
 
 def measure(cfg, shape, mesh, mb: int) -> tuple:
-    """(counts, notes) of one rank's run of a train or prefill cell: the
-    shallow depths of `_depths`, a train cell at 1 and 2 microbatches of
-    its microbatch's rows, the xLSTM past 2,048 tokens at `SEQ_RUN`."""
+    """(counts, notes) of one rank's run of a cell: the shallow depths of
+    `_depths`, a train cell at 1 and 2 microbatches of its microbatch's
+    rows, the xLSTM's train or prefill cell past 2,048 tokens at
+    `SEQ_RUN`."""
     notes = {"extrapolated": []}
     factor = 1.0
-    if cfg.block_pattern == "xlstm_7_1" and shape.seq_len > LONG:
+    if cfg.block_pattern == "xlstm_7_1" and shape.seq_len > LONG and \
+            shape.kind != "decode":
         factor = shape.seq_len / SEQ_RUN
         shape = dataclasses.replace(shape, seq_len=SEQ_RUN)
         notes["extrapolated"].append(f"sequence: run at {SEQ_RUN}, every "
@@ -313,6 +328,8 @@ def whole_on_every_rank(cfg, shape, mesh, mb: int) -> dict:
         return {}
     split = shard_lib.batch_specs(cfg, shape, mesh)["tokens"][0] is not None
     dp = shard_lib.axis_size(mesh, shard_lib.dp_axes(mesh)) if split else 1
+    if shape.kind == "decode":
+        return _whole_at_decode(cfg, shape.global_batch // dp, model)
     train = shape.kind == "train"
     rows = _mb_rows(cfg, shape, mesh, mb)[0] if train else shape.global_batch
     b_rank = rows // dp * (mb if train else 1)
@@ -356,6 +373,32 @@ def whole_on_every_rank(cfg, shape, mesh, mb: int) -> dict:
     if cfg.block_pattern in ("attn", "encdec", "zamba2") and \
             (cfg.n_heads * cfg.head_dim_ // model) % cfg.head_dim_:
         out["attention_core"] = WHOLE_NOTE
+    return out
+
+
+def _whole_at_decode(cfg, b_rank: int, model: int) -> dict:
+    """`whole_on_every_rank` of a decode step of ``b_rank`` rows a rank:
+    the router GEMM (every rank routes every token), the mLSTM's gate GEMM
+    where its 2 H columns do not split, the sLSTM's recurrent product
+    (its state is gathered whole, `xlstm.slstm_step`), and the recurrences
+    that run whole where their state does not split (`cache_specs`)."""
+    d = cfg.d_model
+    out = {}
+    if cfg.moe is not None:
+        out["moe_router"] = cfg.n_layers * 2.0 * b_rank * d * cfg.moe.n_experts
+    if cfg.block_pattern == "zamba2":
+        heads = cfg.ssm.expand * d // cfg.ssm.head_dim
+        if heads % model:
+            out["mamba_ssd"] = WHOLE_NOTE
+    if cfg.block_pattern == "xlstm_7_1":
+        h = cfg.n_heads
+        p = d // h
+        groups = cfg.n_layers // 8
+        if p % model:
+            out["mlstm_recurrence"] = WHOLE_NOTE
+        if (2 * h) % model:
+            out["mlstm_gates"] = 7 * groups * 2.0 * b_rank * d * 2 * h
+        out["slstm_recurrence"] = groups * 2.0 * b_rank * h * p * 4 * p
     return out
 
 
@@ -403,8 +446,8 @@ def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool, mesh=None,
     }
     rec["lower_s"] = round(time.perf_counter() - t0, 2)
     if shape.kind == "decode":
-        rec["status"] = PENDING
-        return rec
+        layout = shard_lib.kv_layout(cfg, shape, mesh)
+        rec["kv_layout"] = layout.name if layout is not None else None
     t0 = time.perf_counter()
     counts, notes = measure(cfg, shape, mesh, mb)
     rec["compile_s"] = round(time.perf_counter() - t0, 2)

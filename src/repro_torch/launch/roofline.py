@@ -293,8 +293,10 @@ def analyse_cell(arch_id, shape_name, mesh, *, cfg=None, shape=None):
     ``wire_bytes_per_chip`` (times the ring factor), ``fused_bytes_per_chip``
     (`fused_memory_bytes`). The terms: FLOPs over `PEAK_BF16`, fused bytes
     over `HBM_BW` (the unfused over it as ``t_memory_hlo_upper_s``), each
-    axis's wire bytes over its link (`link_bw`). Decode cells wait for the
-    decode split (ROADMAP item 28) and carry its status."""
+    axis's wire bytes over its link (`link_bw`). A decode cell is one step
+    of the split decode (`dryrun.measure`), its fused bytes the decode
+    branch of `fused_memory_bytes` (the parameters' and the cache's pieces
+    read once, the recurrent states read and written, the logits)."""
     from ..configs import SHAPES_BY_NAME, get_config
     from . import dryrun, specs as specs_lib
     cfg = get_config(arch_id) if cfg is None else cfg
@@ -302,8 +304,6 @@ def analyse_cell(arch_id, shape_name, mesh, *, cfg=None, shape=None):
     ok, reason = specs_lib.cell_applicable(cfg, shape)
     if not ok:
         return {"arch": arch_id, "shape": shape_name, "status": reason}
-    if shape.kind == "decode":
-        return {"arch": arch_id, "shape": shape_name, "status": dryrun.PENDING}
     chips = mesh.size
     mb = (specs_lib.choose_microbatches(cfg, shape, mesh)
           if shape.kind == "train" else 1)

@@ -143,8 +143,15 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
     ``model``. The prefill function takes the parameters' pieces and this
     rank's batch rows and returns the cache in `cache_shardings`' layout
     and the logits in `logits_spec`'s (`transformer.prefill` under the
-    mesh context). Decode is the model's function on whole tensors (its
-    split is ROADMAP item 28); its specs say how a cell lays it out."""
+    mesh context). The decode function ``serve_step(params, cache, token,
+    use_kernels=None)`` takes the parameters' pieces, the cache's pieces in
+    `cache_shardings`' layout and this rank's token rows, runs
+    `transformer.decode_step` under the mesh context with the cache's K/V
+    cut (`sharding.kv_layout`), updates the cache pieces in place and
+    returns (this rank's rows' logits in `logits_spec`'s vocab layout, the
+    cache); its ``tp`` attribute is the mesh context, whose ``sync_s``
+    adds up the seconds in its collectives. As for the prefill, the logits
+    are this rank's batch rows."""
     if shape.kind == "train":
         tcfg = train_cfg_for(cfg, shape, mesh)
         if microbatch_override is not None:
@@ -179,8 +186,14 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh,
         return prefill_step, args, in_specs, out_specs
 
     if shape.kind == "decode":
-        def serve_step(params, cache, token):
-            return model_lib.decode_step(params, cfg, cache, token)
+        tp = tp_lib.context(mesh)
+        layout = shard_lib.kv_layout(cfg, shape, mesh)
+
+        def serve_step(params, cache, token, use_kernels=None):
+            return model_lib.decode_step(params, cfg, cache, token, tp=tp,
+                                         kv_layout=layout,
+                                         use_kernels=use_kernels)
+        serve_step.tp = tp
         token = torch.empty((shape.global_batch, 1), dtype=torch.int32,
                             device=META)
         args = (params_struct, cache_structs(cfg, shape), token)

@@ -20,6 +20,27 @@ the KV head its q heads share, picked from the gathered K/V. Where they
 are not whole heads (H not a multiple of ``model``) q, k and v are
 gathered and every rank attends every head, then keeps its rows of ``wo``
 ("whole" mode).
+
+The decode step under a mesh context follows its cache's layout
+(`sharding.KVLayout`, from `cache_specs`):
+
+- KV heads over ``model``: this rank's q heads and KV heads, as training
+  projects them; `ops.decode_attention` (the kernel) on its heads; ``wo``
+  row-parallel.
+- ``head_dim`` over ``model``: q, k and v projected whole (the q/k norms
+  and RoPE need every depth), each rank keeps every head's dh slice. The
+  scores are partial dots over that slice, summed over ``model``, then the
+  softmax and P.V on the slice; the slices are gathered back to whole
+  heads for ``wo``'s row pieces, which are heads-major. JAX computes this
+  layout as GSPMD's partition of the jnp `flash_decode` (the scores'
+  psum), with no Pallas kernel, so these are torch ops too
+  (`_head_dim_piece`).
+- the sequence over ``model``, over the data axes (context parallelism,
+  with heads or dh over ``model``) or over both: each rank attends its
+  piece of the positions, at the lengths ``clamp(len - first, 0, piece)``,
+  through the kernel's log-sum-exp output, and the pieces are merged with
+  a log-sum-exp rescale (`merge_pieces`). A piece with no position weighs
+  exactly 0.
 """
 from __future__ import annotations
 
@@ -228,16 +249,127 @@ def attention_train(params, cfg, x, positions, *, bidirectional: bool = False,
 
 
 def flash_decode(q, k_cache, v_cache, cache_len, *,
-                 use_kernels: Optional[bool] = None):
+                 use_kernels: Optional[bool] = None, tp=None, layout=None):
     """One-token decode against the KV cache. q (B, H, dh); caches
     (B, S, KH, dh); cache_len (B,). Returns (B, H, dh). Runs
     `ops.decode_attention` (the kernel on CUDA tensors unless
-    ``use_kernels`` is False)."""
+    ``use_kernels`` is False).
+
+    Under a mesh context ``tp`` with the cache in ``layout``
+    (`sharding.KVLayout`), q and the caches are this rank's pieces
+    (`decode_qkv`) and ``cache_len`` the whole sequence's lengths; returns
+    this rank's heads under a heads split, else every head, whole."""
     b, h, dh = q.shape
     kh = k_cache.shape[2]
-    out = ops.decode_attention(q.reshape(b, kh, h // kh, dh), k_cache, v_cache,
-                               cache_len, use_kernels=use_kernels)
-    return out.reshape(b, h, dh)
+    qg = q.reshape(b, kh, h // kh, dh)
+    if layout is None or (layout.split != "head_dim" and not layout.seq_axes):
+        out = ops.decode_attention(qg, k_cache, v_cache, cache_len,
+                                   use_kernels=use_kernels)
+        return out.reshape(b, h, dh)
+    s_loc = k_cache.shape[1]
+    first = layout.seq_piece(tp.mesh, s_loc)
+    lens = torch.clamp(cache_len - first, 0, s_loc).to(torch.int32)
+    if layout.split == "head_dim":
+        out, lse = _head_dim_piece(tp, qg, k_cache, v_cache, lens)
+    else:
+        out, lse = ops.decode_attention(qg, k_cache, v_cache, lens,
+                                        use_kernels=use_kernels,
+                                        return_lse=True)
+    if layout.seq_axes:
+        out = merge_pieces(tp, layout.seq_axes, out, lse)
+    if layout.split == "head_dim":
+        out = tp.all_gather(out.contiguous(), -1)
+    return out.reshape(b, h, -1)
+
+
+def _head_dim_piece(tp, qg, k_cache, v_cache, lens):
+    """Attention with every head's depths split over ``model``: qg
+    (B, KH, G, dh / model), the caches (B, S, KH, dh / model), ``lens`` the
+    valid positions of the piece. The scores' partial dots summed over
+    ``model``, positions at or past ``lens`` masked with -1e30 as
+    `flash_decode`'s; P.V on this rank's depths. Returns (out (B, KH, G,
+    dh / model), lse (B, KH, G), -inf where lens is 0)."""
+    scale = (qg.shape[-1] * tp.size) ** -0.5
+    scores = torch.einsum("bkgd,btkd->bkgt", qg.float() * scale,
+                          k_cache.float())
+    scores = tp_lib.all_sum(tp, scores)
+    mask = torch.arange(k_cache.shape[1], device=qg.device)[None, :] < lens[:, None]
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - m[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.float()) / torch.clamp(
+        l, min=1e-30)[..., None]
+    lse = torch.where((lens <= 0)[:, None, None], torch.full_like(m, -torch.inf),
+                      m + torch.log(l))
+    return out.to(qg.dtype), lse
+
+
+def merge_pieces(tp, axes, out, lse):
+    """The attention over a sequence cut into pieces over the mesh
+    ``axes``, from each rank's normalised ``out`` (..., dh) over its piece
+    and the piece's ``lse`` (...): the pieces gathered (one collective) and
+    added in piece order with weights exp(lse - max lse), so every rank
+    holds the same result. A piece whose lse is -inf (no position of its
+    own) weighs exactly 0."""
+    both = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
+    both = tp.all_gather(both.contiguous(), 0, axes=axes)
+    return combine_pieces(both[..., :-1], both[..., -1]).to(out.dtype)
+
+
+def combine_pieces(outs, lses):
+    """The attention over the whole sequence from its pieces' normalised
+    outputs ``outs`` (n, ..., dh) and log-sum-exps ``lses`` (n, ...), in
+    piece order: sum_i w_i out_i / sum_i w_i with w_i = exp(lse_i - max_j
+    lse_j). A piece with lse -inf weighs exactly 0 (no NaN: where every
+    piece is empty the max is taken as 0 and the result is 0)."""
+    top = lses.amax(dim=0)
+    top = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+    w = torch.exp(lses - top)
+    num = (w[..., None] * outs.float()).sum(dim=0)
+    return num / torch.clamp(w.sum(dim=0), min=1e-30)[..., None]
+
+
+def decode_qkv(params, cfg, x, positions, tp=None, layout=None):
+    """This token's q (B, H', dh') and k, v (B, 1, KH', dh') after the
+    q/k norms and RoPE, cut to this rank's piece of the cache's ``layout``
+    (`sharding.KVLayout`): its q heads and KV heads under a heads split
+    (`_project_qkv`), every head's dh slice under a head_dim split, every
+    head whole where the sequence takes ``model``; whole on one
+    process."""
+    if layout is None or layout.split == "heads":
+        q, k, v = _project_qkv(params, cfg, x, positions, tp)
+        return q[:, 0], k, v
+    b, s, _ = x.shape
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    x = tp_lib.copy_in(tp, x)
+    q = tp_lib.cols(tp, x, params["wq"], h * dh).reshape(b, s, h, dh)
+    k = tp_lib.cols(tp, x, params["wk"], kh * dh).reshape(b, s, kh, dh)
+    v = tp_lib.cols(tp, x, params["wv"], kh * dh).reshape(b, s, kh, dh)
+    if cfg.qk_norm:
+        qn, kn = tp_lib.copy_in(tp, params["q_norm"], params["k_norm"])
+        q = rms_norm(q, qn, cfg.norm_eps)
+        k = rms_norm(k, kn, cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if layout.split == "head_dim":
+        part = tp.part(dh)
+        q, k, v = q[..., part], k[..., part], v[..., part]
+    return q[:, 0], k, v
+
+
+def decode_out(params, cfg, att, tp=None, layout=None):
+    """``att`` (B, H', dh) @ ``wo``: on one process the whole product,
+    under a heads split this rank's heads against its rows (summed over
+    ``model``), else every head against its rows of ``wo``
+    (`tensor_parallel.rows`)."""
+    y = att.reshape(att.shape[0], 1, -1)
+    if layout is None:
+        return y @ params["wo"]
+    if layout.split == "heads":
+        return tp_lib.row(tp, y, params["wo"])
+    return tp_lib.rows(tp, y, params["wo"], cfg.n_heads * cfg.head_dim_)
 
 
 def attention_decode(params, cfg, x, k_cache, v_cache, cache_len, *,
@@ -311,5 +443,6 @@ def encode_kv(params, cfg, enc_out, tp=None):
 
 
 __all__ = ["attention_decode", "attention_spec", "attention_train",
-           "cross_attention", "decode_kv", "encode_kv", "flash_decode",
-           "init_attention"]
+           "combine_pieces", "cross_attention", "decode_kv", "decode_out",
+           "decode_qkv",
+           "encode_kv", "flash_decode", "init_attention", "merge_pieces"]

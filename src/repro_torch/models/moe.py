@@ -108,9 +108,12 @@ def route(params, cfg, x, capacity_factor: float = 1.25) -> Route:
                  run_start, run_len)
 
 
-def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25, tp=None):
+def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25, tp=None,
+              aux: bool = True):
     """x (B, S, d) -> ((B, S, d), aux). Under a mesh context ``tp`` the
-    expert stacks are this rank's pieces (see the module's docstring)."""
+    expert stacks are this rank's pieces (see the module's docstring).
+    Without ``aux`` (the decode step, which drops it as JAX's does) the
+    load-balance loss is not computed and aux is None."""
     b, s, d = x.shape
     e, topk = cfg.moe.n_experts, cfg.moe.top_k
     cap = capacity(cfg, s, capacity_factor)
@@ -175,6 +178,8 @@ def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25, tp=None):
         out = out + (F.silu(x @ sh["w_gate"]) * (x @ sh["w_up"])) @ sh["w_down"]
     if split:
         out = tp_lib.reduce(tp, out)
+    if not aux:
+        return out, None
 
     # the share of tokens whose first choice is each expert (one_hot's
     # mean, with no host check of the indices: the step stays capturable);
@@ -185,8 +190,7 @@ def apply_moe(params, cfg, x, *, capacity_factor: float = 1.25, tp=None):
     if tp is not None:
         density = tp_lib.data_mean(tp, density)
         router_prob = tp_lib.data_mean(tp, router_prob)
-    aux = e * torch.sum(density * router_prob)
-    return out, aux
+    return out, e * torch.sum(density * router_prob)
 
 
 __all__ = ["Route", "apply_moe", "capacity", "init_moe", "moe_spec", "route"]

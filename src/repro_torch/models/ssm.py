@@ -11,12 +11,17 @@ pre-conv inputs.
 ``softplus`` is `jax.nn.softplus`, ``logaddexp(x, 0)``: `F.softplus`
 returns x itself above its threshold of 20.
 
-Under a mesh context ``tp`` (`mamba_chunked` only: the decode step is not
-split) ``in_proj`` is column-parallel and its pieces, which mix the fields
-``[z | x | B | C | dt]``, are gathered; the conv runs on every channel;
-the SSD runs over the heads whose rows of ``out_proj`` this rank holds
-(where they are whole heads; else over every head), the gated norm's sum
-of squares added over ``model``, and ``out_proj`` is row-parallel.
+Under a mesh context ``tp`` ``in_proj`` is column-parallel and its
+pieces, which mix the fields ``[z | x | B | C | dt]``, are gathered; the
+conv runs on every channel; the SSD runs over the heads whose rows of
+``out_proj`` this rank holds (where they are whole heads; else over every
+head), the gated norm's sum of squares added over ``model``, and
+``out_proj`` is row-parallel. The decode step (`mamba_step`) does the same
+on the state's pieces: ``mamba_h`` split on the heads where they divide
+(`cache_specs`), ``mamba_conv`` whole on every rank. Every rank leaves the
+same conv state bit for bit: the gathered projection is the same bytes on
+every rank (each rank's piece joined in rank order), and the conv weights
+are whole.
 """
 from __future__ import annotations
 
@@ -188,28 +193,45 @@ def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
     return y, h_fin
 
 
-def mamba_step(params, cfg, x, state):
+def mamba_step(params, cfg, x, state, tp=None):
     """Decode step. x: (B, 1, d); state = (h (B, H, P, N), conv (B, K-1,
-    Cd)). Returns ((B, 1, d), (h, conv)), new tensors."""
+    Cd)). Returns ((B, 1, d), (h, conv)), new tensors. Under a mesh context
+    ``tp`` the leaves and h are this rank's pieces (h its heads where it
+    holds a piece of them)."""
     d, inner, h, p, n = _dims(cfg)
     b = x.shape[0]
     hstate, conv_state = state
-    proj = x @ params["in_proj"]
+    x = tp_lib.copy_in(tp, x)
+    proj = tp_lib.cols(tp, x, params["in_proj"], 2 * inner + 2 * n + h)
     z, xbc, dt = _split_proj(cfg, proj)
     xbc, conv_state = _causal_conv(xbc, params["conv_w"], conv_state)
     xbc = xbc[:, 0]
-    xs = xbc[..., :inner].reshape(b, h, p)
+    xs = xbc[..., :inner]
     bmat = xbc[..., inner:inner + n]
     cmat = xbc[..., inner + n:]
-    dt1 = softplus(dt[:, 0].float() + params["dt_bias"])           # (B,H)
-    a = torch.exp(-torch.exp(params["a_log"])[None] * dt1)
+    dt, a_log, dt_bias, d_skip, norm = (dt[:, 0], params["a_log"],
+                                        params["dt_bias"], params["d_skip"],
+                                        params["norm"])
+    heads = tp_lib.split(tp, hstate.shape[1], h)
+    if heads:
+        mine, hs = tp.part(inner), tp.part(h)
+        xs, z, norm = xs[..., mine], z[..., mine], norm[mine]
+        dt, a_log, dt_bias, d_skip = dt[..., hs], a_log[hs], dt_bias[hs], d_skip[hs]
+    hl = hstate.shape[1]
+    xs = xs.reshape(b, hl, p)
+    dt1 = softplus(dt.float() + dt_bias)                           # (B,H)
+    a = torch.exp(-torch.exp(a_log)[None] * dt1)
     h_new = a[..., None, None] * hstate + (
         (dt1[..., None] * xs.float())[..., None] * bmat.float()[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", cmat.float(), h_new)
-    y = y + params["d_skip"][None, :, None] * xs
-    y = y.reshape(b, 1, inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"], (h_new, conv_state)
+    y = y + d_skip[None, :, None] * xs
+    y = y.reshape(b, 1, hl * p).to(x.dtype)
+    if heads:
+        y = rms_norm_pieces(tp, y * F.silu(z), norm, inner, cfg.norm_eps)
+        return tp_lib.row(tp, y, params["out_proj"]), (h_new, conv_state)
+    y = rms_norm(y * F.silu(z), norm, cfg.norm_eps)
+    return (tp_lib.rows(tp, y, params["out_proj"], inner),
+            (h_new, conv_state))
 
 
 __all__ = ["mamba_chunked", "mamba_spec", "mamba_step", "softplus"]

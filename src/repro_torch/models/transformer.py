@@ -54,7 +54,17 @@ its compute over ``model`` (`attention`, `layers.apply_mlp`, `moe`,
 lookups over ``model``; the tied ``embed.T`` or the untied ``unembed``
 piece gives a vocab piece of the logits, and the cross entropy reduces
 over the pieces (`tensor_parallel.cross_entropy`). ``frontend_proj`` and
-the norms stay whole. `decode_step` is not split.
+the norms stay whole.
+
+`decode_step` takes the same context, its cache in `cache_specs`' layout
+(this rank's batch rows; ``kv_layout``, a `sharding.KVLayout`, says how
+the K/V are cut): each attention layer projects and writes the piece of
+this token's K/V its cache holds (`_write_kv`: under a sequence split only
+the rank that holds the written position writes) and attends its piece
+(`attention.flash_decode`); the recurrent steps run on their state's
+pieces (`ssm.mamba_step`, `xlstm.mlstm_step` / `slstm_step`); the MLP and
+the MoE split as in training; the logits come out as this rank's vocab
+piece.
 """
 from __future__ import annotations
 
@@ -251,13 +261,14 @@ def _take(tree, *idx):
     return tree[idx]
 
 
-def _ffn(lp, cfg, x, tp=None):
-    """The layer's MLP or MoE on the normed ``x``: (h, aux or None)."""
+def _ffn(lp, cfg, x, tp=None, aux: bool = True):
+    """The layer's MLP or MoE on the normed ``x``: (h, aux or None); the
+    MoE's load-balance loss only with ``aux``."""
     h_in = rms_norm(x, lp["ln2"], cfg.norm_eps)
     if cfg.moe is not None and "moe" in lp:
         return moe_lib.apply_moe(lp["moe"], cfg, h_in,
                                  capacity_factor=cfg.moe.capacity_factor,
-                                 tp=tp)
+                                 tp=tp, aux=aux)
     return apply_mlp(lp["mlp"], h_in, tp, cfg.d_ff), None
 
 
@@ -508,14 +519,26 @@ def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.float32,
     return cache
 
 
-def _write_kv(cache_k, k_new, pos):
+def _write_kv(cache_k, k_new, pos, first: int = 0, s_whole=None):
     """Write one token's K/V at each sequence's position, in place.
     cache (B, S, KH, dh), k_new (B, 1, KH, dh), pos (B,). A position past
     the cache is clamped to its last row, as `lax.dynamic_update_slice`
-    clamps the start index."""
-    pos = torch.clamp(pos.long(), 0, cache_k.shape[1] - 1)
-    cache_k[torch.arange(cache_k.shape[0], device=cache_k.device), pos] = (
-        k_new[:, 0].to(cache_k.dtype))
+    clamps the start index. Where the cache is this rank's piece of a
+    sequence of ``s_whole`` positions starting at ``first``, the position
+    is clamped in the whole sequence and only rows whose position lies in
+    the piece are written (no host sync: the others are rewritten with
+    what they hold)."""
+    rows = torch.arange(cache_k.shape[0], device=cache_k.device)
+    if s_whole is None:
+        pos = torch.clamp(pos.long(), 0, cache_k.shape[1] - 1)
+        cache_k[rows, pos] = k_new[:, 0].to(cache_k.dtype)
+        return
+    pos = torch.clamp(pos.long(), 0, s_whole - 1) - first
+    mine = (pos >= 0) & (pos < cache_k.shape[1])
+    pos = torch.clamp(pos, 0, cache_k.shape[1] - 1)
+    cache_k[rows, pos] = torch.where(mine[:, None, None],
+                                     k_new[:, 0].to(cache_k.dtype),
+                                     cache_k[rows, pos])
 
 
 def _write_state(cache_state, new_state) -> None:
@@ -524,41 +547,66 @@ def _write_state(cache_state, new_state) -> None:
         dst.copy_(src)
 
 
-def _decode_attn(params, cfg, cache, x, new_len, use_kernels):
+class _Attend:
+    """One decode step's attention context: the lengths and the write
+    position of the whole sequence (the K/V cache holds ``kv_len``
+    positions, a window under SWA), and under a mesh context this rank's
+    piece of it (``kv_layout``)."""
+
+    def __init__(self, cfg, kv_local: int, new_len, tp, layout, use_kernels,
+                 *, window: bool):
+        self.tp, self.layout, self.use_kernels = tp, layout, use_kernels
+        pieces = tp.mesh.axis_size(layout.seq_axes) if layout is not None else 1
+        kv_len = kv_local * pieces
+        self.pos_write = new_len - 1
+        if window and cfg.attn == "swa":
+            self.pos_write = self.pos_write % kv_len
+        self.att_len = torch.clamp(new_len, max=kv_len)
+        self.positions = (new_len - 1)[:, None]
+        self.write = {}
+        if pieces > 1:
+            self.write = dict(first=layout.seq_piece(tp.mesh, kv_local),
+                              s_whole=kv_len)
+
+    def __call__(self, params, cfg, h_in, kc, vc):
+        """Project this token (``h_in`` normed), write its K/V into the
+        layer's cache (in place) and attend: (B, 1, d) after ``wo``."""
+        q, k_new, v_new = attn_lib.decode_qkv(params, cfg, h_in,
+                                              self.positions, self.tp,
+                                              self.layout)
+        _write_kv(kc, k_new, self.pos_write, **self.write)
+        _write_kv(vc, v_new, self.pos_write, **self.write)
+        att = attn_lib.flash_decode(q, kc, vc, self.att_len,
+                                    use_kernels=self.use_kernels,
+                                    tp=self.tp, layout=self.layout)
+        return attn_lib.decode_out(params, cfg, att, self.tp, self.layout)
+
+
+def _decode_attn(params, cfg, cache, x, new_len, use_kernels, tp=None,
+                 layout=None):
     """The attention blocks' decode (``attn`` and ``encdec``): each layer
     writes this token's K/V into the cache and attends its rows; an
-    encoder-decoder's layers also attend the cached encoder K/V."""
-    b = x.shape[0]
-    kv_len = cache["k"].shape[2]
-    pos_write = new_len - 1
-    if cfg.attn == "swa":
-        pos_write = pos_write % kv_len
-    att_len = torch.clamp(new_len, max=kv_len)
-    positions = (new_len - 1)[:, None]
+    encoder-decoder's layers also attend the cached encoder K/V (whole
+    over ``model`` under a split)."""
+    # q, k and v of this token in one projection: the JAX decode_step
+    # projects q again after `decode_kv`, to the same values
+    attend = _Attend(cfg, cache["k"].shape[2], new_len, tp, layout,
+                     use_kernels, window=True)
     encdec = cfg.block_pattern == "encdec"
     for i, lp in enumerate(_unstack(params["blocks"], cfg.n_layers)):
-        kc, vc = cache["k"][i], cache["v"][i]
-        h_in = rms_norm(x, lp["ln1"], cfg.norm_eps)
-        # q, k and v of this token in one projection: the JAX decode_step
-        # projects q again after `decode_kv`, to the same values
-        q, k_new, v_new = attn_lib._project_qkv(lp["attn"], cfg, h_in,
-                                                positions)
-        _write_kv(kc, k_new, pos_write)
-        _write_kv(vc, v_new, pos_write)
-        att = attn_lib.flash_decode(q[:, 0], kc, vc, att_len,
-                                    use_kernels=use_kernels)
-        x = x + att.reshape(b, 1, -1) @ lp["attn"]["wo"]
+        x = x + attend(lp["attn"], cfg, rms_norm(x, lp["ln1"], cfg.norm_eps),
+                       cache["k"][i], cache["v"][i])
         if encdec:
             x = x + attn_lib.cross_attention(
                 lp["xattn"], cfg, rms_norm(x, lp["ln_x"], cfg.norm_eps),
-                cache["xk"][i], cache["xv"][i], cache["enc_len"])
-        x = x + _ffn(lp, cfg, x)[0]
+                cache["xk"][i], cache["xv"][i], cache["enc_len"], tp)
+        x = x + _ffn(lp, cfg, x, tp, aux=False)[0]
     return x
 
 
-def _decode_xlstm(params, cfg, cache, x):
-    """The xLSTM's decode: each mLSTM and sLSTM layer steps its state and
-    writes it back into the cache."""
+def _decode_xlstm(params, cfg, cache, x, tp=None):
+    """The xLSTM's decode: each mLSTM and sLSTM layer steps its state (this
+    rank's piece of P under a split) and writes it back into the cache."""
     eps = cfg.norm_eps
     for g in range(cfg.n_layers // 8):
         for j in range(7):
@@ -566,102 +614,112 @@ def _decode_xlstm(params, cfg, cache, x):
                      cache["mlstm_m"][g, j])
             h, new = xlstm_lib.mlstm_step(
                 _take(params["mlstm"], g, j), cfg,
-                rms_norm(x, params["ln_m"][g, j], eps), state)
+                rms_norm(x, params["ln_m"][g, j], eps), state, tp)
             _write_state(state, new)
             x = x + h
         state = tuple(t[g] for t in cache["slstm"])
         h, new = xlstm_lib.slstm_step(_take(params["slstm"], g), cfg,
                                       rms_norm(x, params["ln_s"][g], eps),
-                                      state)
+                                      state, tp)
         _write_state(state, new)
         x = x + h
     return x
 
 
-def _mamba_decode(lp, ln, cfg, x, h_state, conv_state):
+def _mamba_decode(lp, ln, cfg, x, h_state, conv_state, tp=None):
     """One Mamba2 layer's decode step, its states written back in place."""
     h, new = ssm_lib.mamba_step(lp, cfg, rms_norm(x, ln, cfg.norm_eps),
-                                (h_state, conv_state))
+                                (h_state, conv_state), tp)
     _write_state((h_state, conv_state), new)
     return x + h
 
 
-def _decode_zamba(params, cfg, cache, x, new_len, use_kernels):
+def _decode_zamba(params, cfg, cache, x, new_len, use_kernels, tp=None,
+                  layout=None):
     """The hybrid's decode: each group's Mamba2 layers, then the shared
     block, which writes this token's K/V into the group's ``shared_k`` /
     ``shared_v`` and attends its rows (`flash_decode`), then the tail."""
-    b = x.shape[0]
     sp = params["shared"]
-    kv_len = cache["shared_k"].shape[2]
-    pos_write = new_len - 1     # JAX takes no window modulus here
-    att_len = torch.clamp(new_len, max=kv_len)
-    positions = (new_len - 1)[:, None]
+    # JAX takes no window modulus here
+    attend = _Attend(cfg, cache["shared_k"].shape[2], new_len, tp, layout,
+                     use_kernels, window=False)
     groups, every, rem = _zamba_groups(cfg)
     for g in range(groups):
         for j in range(every):
             x = _mamba_decode(_take(params["mamba"], g, j),
                               params["mamba_ln"][g, j], cfg, x,
-                              cache["mamba_h"][g, j], cache["mamba_conv"][g, j])
-        kc, vc = cache["shared_k"][g], cache["shared_v"][g]
-        h_in = rms_norm(x, sp["ln1"], cfg.norm_eps)
-        q, k_new, v_new = attn_lib._project_qkv(sp["attn"], cfg, h_in,
-                                                positions)
-        _write_kv(kc, k_new, pos_write)
-        _write_kv(vc, v_new, pos_write)
-        att = attn_lib.flash_decode(q[:, 0], kc, vc, att_len,
-                                    use_kernels=use_kernels)
-        x = x + att.reshape(b, 1, -1) @ sp["attn"]["wo"]
-        x = x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps))
+                              cache["mamba_h"][g, j], cache["mamba_conv"][g, j],
+                              tp)
+        x = x + attend(sp["attn"], cfg, rms_norm(x, sp["ln1"], cfg.norm_eps),
+                       cache["shared_k"][g], cache["shared_v"][g])
+        x = x + apply_mlp(sp["mlp"], rms_norm(x, sp["ln2"], cfg.norm_eps), tp,
+                          cfg.d_ff)
     for j in range(rem):
         x = _mamba_decode(_take(params["mamba_tail"], j),
                           params["mamba_tail_ln"][j], cfg, x,
-                          cache["tail_h"][j], cache["tail_conv"][j])
+                          cache["tail_h"][j], cache["tail_conv"][j], tp)
     return x
 
 
 def decode_step(params, cfg, cache, token, *, return_hidden: bool = False,
-                use_kernels: Optional[bool] = None):
+                use_kernels: Optional[bool] = None, tp=None, kv_layout=None):
     """token: (B, 1) int. Returns (logits (B, vocab_padded) f32, cache); with
     ``return_hidden`` the post-norm hidden state (B, d) instead of logits
     (what the ProMIPS logit search queries). ``use_kernels`` goes to
     `ops.decode_attention` (None: the kernel on CUDA tensors); the xLSTM
-    runs no attention. Every cache leaf is updated in place."""
+    runs no attention. Every cache leaf is updated in place.
+
+    Under a mesh context ``tp`` the parameters are this rank's pieces, the
+    cache and ``token`` its pieces in `cache_specs`' layout, whose K/V cut
+    ``kv_layout`` names (`sharding.kv_layout`); the logits are this rank's
+    vocab piece (see the module's docstring)."""
     check_supported(cfg)
-    x = params["embed"][token.long()]                           # (B, 1, d)
+    if tp is not None and kv_layout is None and \
+            cfg.block_pattern != "xlstm_7_1":
+        raise ValueError("decode_step under a mesh needs the cache's kv_layout")
+    if tp is None:
+        kv_layout = None
+        x = params["embed"][token.long()]                       # (B, 1, d)
+    else:
+        x = tp_lib.embed(tp, token.long(), params["embed"], cfg.vocab_padded)
     new_len = cache["len"] + 1
     if cfg.block_pattern == "xlstm_7_1":
-        x = _decode_xlstm(params, cfg, cache, x)
+        x = _decode_xlstm(params, cfg, cache, x, tp)
     elif cfg.block_pattern == "zamba2":
-        x = _decode_zamba(params, cfg, cache, x, new_len, use_kernels)
+        x = _decode_zamba(params, cfg, cache, x, new_len, use_kernels, tp,
+                          kv_layout)
     else:
-        x = _decode_attn(params, cfg, cache, x, new_len, use_kernels)
+        x = _decode_attn(params, cfg, cache, x, new_len, use_kernels, tp,
+                         kv_layout)
     cache["len"].copy_(new_len)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     if return_hidden:
         return x[:, 0], cache
-    return _logits(params, cfg, x)[:, 0], cache
+    return _logits(params, cfg, x, tp)[:, 0], cache
 
 
 def _cache_layout(cache, cfg, max_len, tp, cache_specs):
     """``cache`` (this rank's batch rows; each leaf whole over ``model`` or
     already this rank's piece of it) in the layout of ``cache_specs``
-    (`launch.specs.cache_shardings`): a dim the spec splits over
-    ``model`` is sliced where it is whole, a dim it keeps whole is gathered
-    where it is a piece."""
-    if not tp_lib.active(tp):
+    (`launch.specs.cache_shardings`): a dim the spec splits (over
+    ``model``, or the sequence over the data axes under context
+    parallelism, where every data rank ran the whole batch) is sliced where
+    it is whole, a dim it keeps whole is gathered where it is a piece."""
+    if tp is None:
         return cache
-    b = cache["len"].shape[0]
+    mesh = tp.mesh
+    b = cache["len"].shape[0] * mesh.axis_size(cache_specs["len"][0])
     whole = init_cache(cfg, b, max_len, device="meta")
 
     def one(t, ref, spec):
         if isinstance(t, tuple):
             return tuple(one(*leaf) for leaf in zip(t, ref, spec))
         for dim, entry in enumerate(tuple(spec) + (None,) * (t.dim() - len(spec))):
-            if entry != tp_lib.AXIS and tp_lib.AXIS in (entry or ()):
-                raise ValueError(f"a cache dim split over {entry} at prefill")
-            if entry == tp_lib.AXIS and t.shape[dim] == ref.shape[dim]:
-                t = tp_lib.local(tp, t, dim).contiguous()
-            elif entry != tp_lib.AXIS and t.shape[dim] != ref.shape[dim]:
+            n = mesh.axis_size(entry)
+            if n > 1 and t.shape[dim] == ref.shape[dim]:
+                k = t.shape[dim] // n
+                t = t.narrow(dim, mesh.index(entry) * k, k).contiguous()
+            elif entry is None and t.shape[dim] != ref.shape[dim]:
                 t = tp.all_gather(t.contiguous(), dim)
         return t
 

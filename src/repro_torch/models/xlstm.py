@@ -10,8 +10,7 @@ gate, sigmoid forget gate. sLSTM state: the tuple (h, c, n, m), each
 ``exp(-inf) = 0``) gives JAX's values. ``softplus`` is ``logaddexp(x, 0)``
 (`ssm.softplus`), as `jax.nn.softplus`.
 
-Under a mesh context ``tp`` (the prefill and training passes; the decode
-steps are not split) ``w_up`` (``[x_in | gate]``) and ``w_if`` (``[i | f]``)
+Under a mesh context ``tp`` (the prefill and training passes) ``w_up`` (``[x_in | gate]``) and ``w_if`` (``[i | f]``)
 are column-parallel and gathered, their pieces mixing fields. Where a
 rank's ``wq`` / ``wk`` / ``wv`` columns are whole heads the mLSTM runs over
 those heads, and the sLSTM over the heads of its ``w_gates`` columns (a
@@ -19,6 +18,15 @@ head's pre-activations are contiguous: no gather); the norm's sum of
 squares is added over ``model`` and ``w_down`` is row-parallel. Where they
 are not whole heads (4 heads on a ``model`` axis of 16) the products are
 gathered and the recurrence runs whole on every rank.
+
+The decode steps take the cache's layout (`cache_specs`): every state
+split on P, the head's depth, where P divides ``model`` (the heads are too
+few to split), else whole. The products are gathered whole. The mLSTM
+updates its piece of C (B, H, P / model, P) and n on its rows of k; the
+read-out's sums over P (q C and q n) are partial and added over
+``model``. The sLSTM's recurrence mixes every depth of a head, so its four
+states are gathered whole, the cell steps whole on every rank and each
+keeps its piece.
 """
 from __future__ import annotations
 
@@ -146,29 +154,41 @@ def _mlstm_scan(q, k, v, log_i, log_f, chunk: int):
     return ys.movedim(0, 1).reshape(b, sp, h * p)[:, :s], carry
 
 
-def mlstm_step(params, cfg, x, state):
+def mlstm_step(params, cfg, x, state, tp=None):
     """Decode step. x: (B, 1, d); state (C, n, m). Returns ((B, 1, d),
-    (C, n, m)), new tensors."""
+    (C, n, m)), new tensors. Under a mesh context ``tp`` the leaves are
+    this rank's pieces and C (B, H, P', P) and n (B, H, P') its piece of P
+    where they hold one (the module's docstring)."""
     d, h, p = _dims(cfg)
     b = x.shape[0]
     c_st, n_st, m_st = state
-    x_in, gate = (x @ params["w_up"]).chunk(2, dim=-1)
-    q = (x_in[:, 0] @ params["wq"]).reshape(b, h, p) * (p ** -0.5)
-    k = (x_in[:, 0] @ params["wk"]).reshape(b, h, p) * (p ** -0.5)
-    v = (x_in[:, 0] @ params["wv"]).reshape(b, h, p)
-    log_i, log_f = _gates(x[:, 0].float() @ params["w_if"] + params["if_bias"],
-                          h)
+    x = tp_lib.copy_in(tp, x)
+    x_in, gate = tp_lib.cols(tp, x, params["w_up"], 2 * d).chunk(2, dim=-1)
+    proj = lambda w: tp_lib.cols(tp, x_in[:, 0], params[w], d).reshape(b, h, p)
+    q = proj("wq") * (p ** -0.5)
+    k = proj("wk") * (p ** -0.5)
+    v = proj("wv")
+    log_i, log_f = _gates(tp_lib.cols(tp, x[:, 0].float(), params["w_if"],
+                                      2 * h) + params["if_bias"], h)
+    split = tp_lib.split(tp, c_st.shape[-2], p)
+    if split:
+        q, k = q[..., tp.part(p)], k[..., tp.part(p)]
     m_new = torch.maximum(log_f + m_st, log_i)
     f_ = torch.exp(log_f + m_st - m_new)
     i_ = torch.exp(log_i - m_new)
     c_new = f_[..., None, None] * c_st + i_[..., None, None] * (
         k[..., :, None] * v[..., None, :])
     n_new = f_[..., None] * n_st + i_[..., None] * k
-    num = torch.einsum("bhp,bhpr->bhr", q, c_new)
-    den = torch.maximum(torch.abs((q * n_new).sum(dim=-1)), torch.exp(-m_new))
+    # the f32 state promotes q, as jnp.einsum does (a no-op in f32)
+    num = torch.einsum("bhp,bhpr->bhr", q.to(c_new.dtype), c_new)
+    qn = (q * n_new).sum(dim=-1)
+    if split:
+        both = tp_lib.all_sum(tp, torch.cat([num, qn[..., None]], dim=-1))
+        num, qn = both[..., :p], both[..., p]
+    den = torch.maximum(torch.abs(qn), torch.exp(-m_new))
     y = (num / den[..., None]).reshape(b, 1, d).to(x.dtype)
     y = rms_norm(y, params["norm"], cfg.norm_eps) * F.silu(gate)
-    return y @ params["w_down"], (c_new, n_new, m_new)
+    return tp_lib.rows(tp, y, params["w_down"], d), (c_new, n_new, m_new)
 
 
 # ---------------------------------------------------------------------------
@@ -196,7 +216,9 @@ def _slstm_cell(params, cfg, wx_t, state):
     d, _, p = _dims(cfg)
     h = params["r_gates"].shape[0]
     h_prev, c_prev, n_prev, m_prev = state
-    rh = torch.einsum("bhp,hpr->bhr", h_prev, params["r_gates"])    # (B,H,4P)
+    # a decode step's f32 state promotes the weights, as jnp.einsum does
+    rh = torch.einsum("bhp,hpr->bhr", h_prev,
+                      params["r_gates"].to(h_prev.dtype))           # (B,H,4P)
     pre = wx_t.reshape(-1, h, 4 * p) + rh + params["bias"].reshape(h, 4 * p)
     z, i_raw, f_raw, o = pre.float().chunk(4, dim=-1)
     z = torch.tanh(z)
@@ -249,13 +271,25 @@ def slstm_scan(params, cfg, x, tp=None):
     return tp_lib.rows(tp, y, params["w_down"], d), state
 
 
-def slstm_step(params, cfg, x, state):
-    """Decode step. x: (B, 1, d); state (h, c, n, m)."""
+def slstm_step(params, cfg, x, state, tp=None):
+    """Decode step. x: (B, 1, d); state (h, c, n, m). Under a mesh
+    context ``tp`` the leaves are this rank's pieces and each state (B, H,
+    P') its piece of P where it holds one: the pieces are gathered, the
+    cell steps whole and each rank keeps its piece."""
     d, h, p = _dims(cfg)
     b = x.shape[0]
-    state = _slstm_cell(params, cfg, x[:, 0] @ params["w_gates"], state)
+    split = tp_lib.split(tp, state[0].shape[-1], p)
+    if split:
+        whole = tp.all_gather(torch.stack([t.float() for t in state]), -1)
+        state = tuple(t.to(s.dtype) for t, s in zip(whole.unbind(0), state))
+    x = tp_lib.copy_in(tp, x)
+    state = _slstm_cell(params, cfg,
+                        tp_lib.cols(tp, x[:, 0], params["w_gates"], 4 * d),
+                        state)
     y = rms_norm(state[0].reshape(b, 1, d), params["norm"], cfg.norm_eps)
-    return y @ params["w_down"], state
+    if split:
+        state = tuple(t[..., tp.part(p)] for t in state)
+    return tp_lib.rows(tp, y, params["w_down"], d), state
 
 
 __all__ = ["mlstm_chunked", "mlstm_spec", "mlstm_step", "slstm_scan",

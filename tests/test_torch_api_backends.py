@@ -29,6 +29,11 @@ from repro_torch.convert import promips_from_state
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.kernels import ops
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 REL = 1e-5
 CASES = {
     "promips": ("promips", {"m": 8}),

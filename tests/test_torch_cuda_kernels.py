@@ -36,7 +36,14 @@ its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
 (the output is a convex combination of V rows), with cache_len = 0 giving
 the mean of V. Its sums run in an order fixed by the inputs, so repeated
 calls are equal bit for bit; it is one CUDA launch a call and replays
-from a CUDA graph after its inputs change in place.
+from a CUDA graph after its inputs change in place. Its log-sum-exp output
+(``return_lse``) leaves the output bit for bit as it is, is held to
+|d| <= 1e-5 * max(1, |lse|) against the plain version's and is -inf
+exactly where cache_len = 0; the kernel over a sequence cut in two halves
+at their local lengths, merged by the log-sum-exp
+(`attention.combine_pieces`), is held to the whole call's tolerance, and a
+row whose length ends in the first half gets exactly that half's output
+(the empty half weighs 0).
 The serve engine's captured decode step (`serve.engine._DecodeGraph`, at
 the reduced tinyllama config) equals the eager `decode_step` bit for bit
 in its output and cache after the tokens and ``cache_len`` change in
@@ -410,6 +417,64 @@ def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
         if n == 0:                          # every position masked alike
             mean = v[i].mean(dim=0)         # (KH, dh)
             assert bool(((got[i] - mean[:, None]).abs() <= tol[i]).all())
+
+
+@pytest.mark.parametrize("b,kh,g,dh,s,lens", [
+    (4, 4, 8, 64, 512, [1, 37, 300, 512]),        # the serve shape
+    (3, 2, 4, 32, 700, [0, 5, 700]),              # cache_len 0: lse -inf
+    (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+    (2, 16, 1, 64, 4096, [4096, 513]),            # zamba2's shared block, 2 ranks
+    (1, 4, 8, 64, 8192, [0]),                     # a rank's empty piece
+])
+def test_decode_attention_kernel_lse(cuda, b, kh, g, dh, s, lens):
+    rng = np.random.RandomState(b * s + g + 1)
+    q, k, v, cache_len = _attention_inputs(rng, b, kh, g, dh, s, lens, cuda)
+    before = ops.LAUNCHES["decode_attention"]
+    got, lse = ops.decode_attention(q, k, v, cache_len, use_kernels=True,
+                                    return_lse=True)
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    alone = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    want, want_lse = ops.decode_attention(q, k, v, cache_len,
+                                          use_kernels=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, alone)
+    assert lse.shape == (b, kh, g) and lse.dtype == torch.float32
+    empty = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    assert bool(empty.eq(cache_len[:, None, None] <= 0).all())
+    d = (lse - want_lse)[~empty].abs()
+    tol = 1e-5 * torch.clamp(want_lse[~empty].abs(), min=1.0)
+    assert bool((d <= tol).all()), float(d.max()) if d.numel() else 0.0
+
+
+def test_decode_attention_kernel_halves_merged(cuda):
+    """The kernel on each half of the sequence at its local lengths, the
+    halves merged by their log-sum-exps, against the kernel on the whole
+    sequence; rows that end in the first half get its output exactly."""
+    from repro_torch.models import attention
+    rng = np.random.RandomState(7)
+    b, kh, g, dh, s = 4, 4, 8, 64, 8192
+    lens = [8192, 4096, 100, 6000]
+    q, k, v, cache_len = _attention_inputs(rng, b, kh, g, dh, s, lens, cuda)
+    whole = ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    outs, lses = [], []
+    for lo in (0, s // 2):
+        part = torch.clamp(cache_len - lo, 0, s // 2)
+        o, l = ops.decode_attention(q, k[:, lo:lo + s // 2].contiguous(),
+                                    v[:, lo:lo + s // 2].contiguous(), part,
+                                    use_kernels=True, return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    merged = attention.combine_pieces(torch.stack(outs), torch.stack(lses))
+    torch.cuda.synchronize()
+    vmax = v.abs().amax(dim=(1, 3))
+    tol = 1e-5 * vmax.amax(dim=1)[:, None, None, None] + 1e-6
+    assert bool(((merged - whole).abs() <= tol).all()), \
+        float((merged - whole).abs().max())
+    for i, n in enumerate(lens):
+        if n <= s // 2:
+            assert bool(torch.isneginf(lses[1][i]).all())
+            assert torch.equal(merged[i], outs[0][i])
 
 
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):

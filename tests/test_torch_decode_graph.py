@@ -34,6 +34,11 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import DecodeEngine
 from repro_torch.serve import engine as engine_lib
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 ATOL_MODEL = 1e-4
 
 

@@ -4,7 +4,9 @@
 One JAX child process with four host devices compiles reduced cells on a
 2 x 2 mesh (`repro.launch.specs.build_cell`, jitted with its shardings):
 tinyllama-1.1b ``train`` (8 x 64) and qwen2-moe-a2.7b ``prefill`` (8 x 64),
-and writes their ``memory_analysis`` and ``cost_analysis``. Beside it this
+and the ``decode`` cells of tinyllama-1.1b and xlstm-1.3b (8 rows, a
+cache of 64) and zamba2-1.2b (1 row: the context-parallel layout), and
+writes their ``memory_analysis`` and ``cost_analysis``. Beside it this
 process counts the same cells on `mesh.RecordingMesh` ranks.
 
 Held:
@@ -13,7 +15,14 @@ Held:
 - for the dense attention configs, the FLOPs counted on every rank of a
   2 x 2 mesh add up exactly to the one-process count of the same cell; for
   the other families the excess is what the record names as whole on
-  every rank, ``(data x (model - 1))`` times it;
+  every rank, ``(data x (model - 1))`` times it; the same for a decode
+  cell, on the 2 x 2 mesh and on 1 x 4 (where the reduced dense configs'
+  cache splits its head_dim, and h2o-danube's with head_dim 30 its
+  sequence);
+- a production decode cell (tinyllama-1.1b ``decode_32k``, whose cache
+  splits head_dim over ``model``): its scores' all-reduce and the
+  collective bound that follows from it; no committed record of
+  ``results/torch_dryrun`` or ``results/torch_roofline`` is pending;
 - the record's keys are JAX's (the dry run's and `analyse_cell`'s, read
   from the JAX source), and ``model_flops`` follows JAX's formula;
 - one production cell (tinyllama-1.1b ``train_4k`` on 16 x 16) through the
@@ -40,7 +49,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
 TRAIN = ShapeCfg("train", 64, 8, "train")
 PREFILL = ShapeCfg("prefill", 64, 8, "prefill")
-JAX_CELLS = [("tinyllama-1.1b", TRAIN), ("qwen2-moe-a2.7b", PREFILL)]
+DECODE = ShapeCfg("decode", 64, 8, "decode")
+DECODE_B1 = ShapeCfg("decode_b1", 64, 1, "decode")
+JAX_CELLS = [("tinyllama-1.1b", TRAIN), ("qwen2-moe-a2.7b", PREFILL),
+             ("tinyllama-1.1b", DECODE), ("zamba2-1.2b", DECODE_B1),
+             ("xlstm-1.3b", DECODE)]
+JAX_IDS = ["tinyllama-1.1b", "qwen2-moe-a2.7b", "tinyllama-1.1b-decode",
+           "zamba2-1.2b-decode-b1", "xlstm-1.3b-decode"]
 # the FLOP sums run every family at half that sequence
 SUM_CELLS = (ShapeCfg("train", 32, 8, "train"),
              ShapeCfg("prefill", 32, 8, "prefill"))
@@ -50,6 +65,10 @@ WHOLE = {"tinyllama-1.1b": set(), "qwen3-32b": set(), "h2o-danube-3-4b": set(),
          "xlstm-1.3b": set(), "qwen2-moe-a2.7b": {"moe_router"},
          "whisper-base": {"frontend_proj"}, "internvl2-2b": {"frontend_proj"},
          "zamba2-1.2b": {"mamba_cb_scores"}}
+# at decode: every rank routes every token; the sLSTM steps whole
+WHOLE_DECODE = {"qwen2-moe-a2.7b": {"moe_router"},
+                "xlstm-1.3b": {"slstm_recurrence"}}
+SUM_DECODE = ShapeCfg("decode", 32, 8, "decode")
 
 JAX_CHILD = r'''
 import json, sys
@@ -112,7 +131,7 @@ def _record(arch, shape, mesh):
                            cfg=get_config(arch).reduced(), shape=shape)
 
 
-@pytest.mark.parametrize("arch,shape", JAX_CELLS, ids=[a for a, _ in JAX_CELLS])
+@pytest.mark.parametrize("arch,shape", JAX_CELLS, ids=JAX_IDS)
 def test_argument_bytes_equal_jax_memory_analysis(jax_cells, arch, shape):
     rec = _record(arch, shape, _mesh())
     want = _jax_records(jax_cells)[f"{arch}/{shape.name}"]
@@ -147,6 +166,66 @@ def test_rank_flops_add_up_to_the_one_process_count(arch):
         assert set(whole) == WHOLE[arch], whole
         named = sum(whole.values())
         assert 4 * ranks[0] - one == 2 * (2 - 1) * named, (shape.name, whole)
+
+
+@pytest.mark.parametrize("arch", list(WHOLE) + ["h2o-danube-3-4b-d30"])
+def test_rank_decode_flops_add_up_to_the_one_process_count(arch):
+    """A decode step's FLOPs on every rank of a 2 x 2 and of a 1 x 4 mesh
+    add up to the one-process count, plus ``data x (model - 1)`` times what
+    the record names as whole on every rank (`WHOLE_DECODE`); the ranks
+    count the same. h2o-danube with head_dim 30 splits its sequence over
+    ``model`` at 1 x 4."""
+    cfg = get_config(arch.replace("-d30", "")).reduced()
+    if arch.endswith("-d30"):
+        cfg = dataclasses.replace(cfg, head_dim=30)
+    one = dryrun.measure(cfg, SUM_DECODE, _mesh(0, (1, 1)), 1)[0]["flops"]
+    for shape in ((2, 2), (1, 4)):
+        ranks = [dryrun.measure(cfg, SUM_DECODE, _mesh(r, shape), 1)[0]["flops"]
+                 for r in (0, 3)]
+        assert ranks[0] == ranks[1], (shape, ranks)
+        whole = dryrun.whole_on_every_rank(cfg, SUM_DECODE, _mesh(0, shape), 1)
+        assert set(whole) == WHOLE_DECODE.get(arch, set()), whole
+        named = sum(whole.values())
+        assert 4 * ranks[0] - one == shape[0] * (shape[1] - 1) * named, \
+            (shape, whole)
+
+
+def test_production_decode_cell_is_bound_by_its_scores_all_reduce():
+    """tinyllama-1.1b ``decode_32k`` on 16 x 16: KH 4 does not split 16
+    ways, so the cache splits head_dim (64 / 16) and every layer's scores,
+    (8 rows x 32 heads x 32,768 positions) f32 a rank, are all-reduced over
+    ``model``: 22 x 33.6 MB = 738 MB a step at least. The roofline bounds
+    the cell by its collectives, at least 100 times its memory term; the
+    cache piece read a step is 22 x 2 x 8 x 32,768 x 4 x 4 bf16 bytes."""
+    mesh = dryrun.production_mesh(False)
+    rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", multi_pod=False,
+                          mesh=mesh)
+    assert rec["status"] == "ok" and rec["kv_layout"] == "head_dim"
+    scores = 22 * 8 * 32 * 32768 * 4
+    assert rec["collective_bytes_by_axes"]["all-reduce over model"] >= scores
+    roof = roofline.analyse_cell("tinyllama-1.1b", "decode_32k", mesh)
+    assert roof["dominant"] == "collective"
+    assert roof["t_collective_s"] >= 100 * roof["t_memory_s"]
+    cache = 22 * 2 * 8 * 32768 * 4 * 4 * 2
+    assert roof["fused_bytes_per_chip"] >= cache
+
+
+def test_committed_records_have_no_pending_cell():
+    """Every committed dry-run and roofline record is ``ok`` or a
+    full-attention skip, decode cells with their FLOPs and bytes."""
+    n = 0
+    for sub in ("torch_dryrun", "torch_roofline"):
+        for base, _, files in os.walk(os.path.join(ROOT, "results", sub)):
+            for name in files:
+                with open(os.path.join(base, name)) as f:
+                    rec = json.load(f)
+                n += 1
+                assert rec["status"] in ("ok", "skipped(full-attention)"), \
+                    (base, name, rec["status"])
+                if rec["status"] == "ok":
+                    flops = rec.get("hlo_flops", rec.get("hlo_flops_per_chip"))
+                    assert flops > 0, (base, name)
+    assert n == 3 * 10 * 4, n
 
 
 def _returned_keys(path, func):

@@ -49,6 +49,11 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import DecodeEngine
 from repro_torch.train import loop, parity
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 FAMILIES = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b", "internvl2-2b",
             "whisper-base")
 REMAT = {"qwen2-moe-a2.7b": "dots", "moonshot-v1-16b-a3b": "dots",

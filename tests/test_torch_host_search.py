@@ -31,6 +31,11 @@ from repro_torch.core.promips import ProMIPS
 from repro_torch.core.search_device import _group_table
 from repro_torch.data.synthetic import mf_factors
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 # the modules, not the `quick_probe` functions both `core` packages export
 qp = importlib.import_module("repro_torch.core.quick_probe")
 jqp = importlib.import_module("repro.core.quick_probe")

@@ -49,6 +49,11 @@ from repro_torch.robust import recover
 from repro_torch.serve import DecodeEngine
 from repro_torch.stream import MutableProMIPS
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "src", "repro_torch")
 QUICKSTART = os.path.join(ROOT, "examples", "quickstart_torch.py")

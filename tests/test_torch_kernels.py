@@ -21,6 +21,11 @@ from repro.kernels.mips_topk import mips_score as jax_mips_score_pallas
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 REL = 1e-5
 # one compile per shape instead of one per eager op
 _jax_block_mips_ref = jax.jit(jax_ref.block_mips_ref,

@@ -6,7 +6,8 @@ d_model 128, vocab 512), f32, with the JAX parameters of
 Tolerances: `decode_attention`'s plain version within 1e-5 absolute of
 `repro.kernels.ref.decode_attention_ref` and of the Pallas kernel in
 interpret mode (the three sum the softmax in other orders; outputs are
-O(1)); `prefill` logits and caches and eight `decode_step`s (logits and
+O(1)), its log-sum-exp output within 1e-5 of the f64 one, and pieces of a
+sequence merged by it within 1e-5 of the whole; `prefill` logits and caches and eight `decode_step`s (logits and
 the hidden state of ``return_hidden``) within 1e-4 absolute of the JAX
 model (GEMMs and RoPE angles sum in other orders in the two frameworks);
 `params_from_jax` bit for bit.
@@ -27,6 +28,11 @@ from repro_torch.convert import params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.models import attention, layers
 from repro_torch.models import transformer as T
+
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
 
 ATOL_ATTN = 1e-5
 ATOL_MODEL = 1e-4
@@ -71,6 +77,78 @@ def test_decode_attention_plain_matches_jax_ref_and_pallas(b, kh, g, dh, s,
             mean = np.broadcast_to(v[i].mean(axis=0)[:, None, :], (kh, g, dh))
             np.testing.assert_allclose(ours[i].numpy(), mean, rtol=0,
                                        atol=ATOL_ATTN)
+
+
+LSE_CASES = [
+    (3, 2, 4, 32, 700, [1, 350, 700]),
+    (2, 4, 8, 64, 512, [0, 300]),           # cache_len 0: lse -inf
+    (2, 1, 1, 16, 37, [37, 0]),
+    (2, 2, 2, 32, 2100, [2100, 1500]),      # over two of the port's blocks
+]
+
+
+def _lse_f64(q, k, lens):
+    """log sum_t exp(<q, k_t> / sqrt(dh)) over t < len in f64, -inf where
+    len is 0."""
+    dh = q.shape[-1]
+    s = np.einsum("bkgd,btkd->bkgt", q.astype(np.float64),
+                  k.astype(np.float64)) / np.sqrt(dh)
+    mask = np.arange(k.shape[1])[None, :] < lens[:, None]
+    s = np.where(mask[:, None, None, :], s, -np.inf)
+    top = s.max(axis=-1)
+    safe = np.where(np.isfinite(top), top, 0.0)
+    with np.errstate(divide="ignore"):
+        return safe + np.log(np.exp(s - safe[..., None]).sum(axis=-1))
+
+
+@pytest.mark.parametrize("b,kh,g,dh,s,lens", LSE_CASES)
+def test_decode_attention_plain_lse(b, kh, g, dh, s, lens):
+    """``return_lse``: the output unchanged bit for bit, and each row's
+    log-sum-exp within 1e-5 of the f64 one (-inf exactly where cache_len
+    is 0)."""
+    q, k, v, cache_len = _attention_inputs(b, kh, g, dh, s, lens, seed=s + g)
+    args = [torch.from_numpy(a) for a in (q, k, v, cache_len)]
+    out, lse = ops.decode_attention(*args, return_lse=True)
+    assert torch.equal(out, ops.decode_attention(*args))
+    assert lse.dtype == torch.float32 and lse.shape == (b, kh, g)
+    want = _lse_f64(q, k, cache_len)
+    empty = ~np.isfinite(want)
+    assert np.array_equal(np.isneginf(lse.numpy()), empty)
+    np.testing.assert_allclose(lse.numpy()[~empty], want[~empty], rtol=0,
+                               atol=ATOL_ATTN)
+
+
+@pytest.mark.parametrize("cuts", [(350,), (100, 400, 600)],
+                         ids=["halves", "four-pieces"])
+def test_pieces_merged_by_lse_match_the_whole_sequence(cuts):
+    """The sequence cut into pieces, each attended at its local lengths
+    ``clamp(len - first, 0, piece)`` with its log-sum-exp, then merged
+    (`attention.combine_pieces`): within 1e-5 of the whole-sequence
+    plain version and of the JAX reference. A row whose length ends in the
+    first piece gets exactly that piece's output: the empty pieces weigh
+    0."""
+    s = 700
+    q, k, v, cache_len = _attention_inputs(3, 2, 4, 32, s, [1, 350, 700],
+                                           seed=11)
+    args = [torch.from_numpy(a) for a in (q, k, v, cache_len)]
+    whole = ops.decode_attention(*args)
+    bounds = [0, *cuts, s]
+    outs, lses = [], []
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        lens = torch.clamp(args[3] - lo, 0, hi - lo)
+        o, l = ops.decode_attention(args[0], args[1][:, lo:hi].contiguous(),
+                                    args[2][:, lo:hi].contiguous(), lens,
+                                    return_lse=True)
+        outs.append(o)
+        lses.append(l)
+    merged = attention.combine_pieces(torch.stack(outs), torch.stack(lses))
+    assert bool(torch.isfinite(merged).all())
+    np.testing.assert_allclose(merged.numpy(), whole.numpy(), rtol=0,
+                               atol=ATOL_ATTN)
+    want = np.asarray(jax_ref.decode_attention_ref(*(jnp.asarray(a) for a in
+                                                     (q, k, v, cache_len))))
+    np.testing.assert_allclose(merged.numpy(), want, rtol=0, atol=ATOL_ATTN)
+    assert torch.equal(merged[0], outs[0][0])        # length 1: piece 0 alone
 
 
 def test_flash_decode_matches_jax(model):

@@ -32,6 +32,11 @@ from repro_torch.models import transformer as T
 from repro_torch.models.layers import init_mlp
 from repro_torch.models.attention import init_attention
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 MOE = ("qwen2-moe-a2.7b", "moonshot-v1-16b-a3b")
 RTOL = 1e-5
 RTOL_AUX = 1e-6

@@ -23,6 +23,11 @@ from repro.core.quick_probe import quick_probe_batch as jax_quick_probe
 from repro_torch.core.quick_probe import GroupTable, quick_probe_batch
 from repro_torch.kernels import ops, ref
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 C = 0.9
 RTOL = 1e-6
 

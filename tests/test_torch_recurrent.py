@@ -48,6 +48,11 @@ from repro_torch.models import ssm, xlstm
 from repro_torch.models import transformer as T
 from repro_torch.serve import DecodeEngine
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 XLSTM_RTOL = 5e-5          # three times the JAX xLSTM's own spread
 # (arch, layers or None for .reduced()'s)

@@ -64,6 +64,11 @@ from repro_torch.models import ssm, xlstm
 from repro_torch.models import transformer as T
 from repro_torch.train import loop, parity
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 RTOL = 1e-5
 # (arch, layers or None for .reduced()'s)
 CELLS = (("xlstm-1.3b", None), ("xlstm-1.3b", 16), ("zamba2-1.2b", None),

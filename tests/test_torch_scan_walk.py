@@ -55,6 +55,11 @@ from repro_torch.core.index import IndexArrays
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.kernels import ops, ref
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 TILE_ROWS = 256          # rows a segment scores (R in the kernel)
 NEG_INF = float("-inf")
 

@@ -33,6 +33,11 @@ from repro_torch.core.search_device import search_batch
 from repro_torch.core.search_fused import _plan_tile, search_batch_fused
 from repro_torch.data.synthetic import mf_factors
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 REL = 1e-5
 BUILD = dict(m=8, c=0.9, p=0.6, k_p=5, k_sp=8, norm_strata=4, seed=0)
 _jax_graph = jax.jit(

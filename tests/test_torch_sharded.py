@@ -42,6 +42,11 @@ from repro_torch.distributed import (ElasticPolicy, StragglerMonitor,
 from repro_torch.obs import trace
 from repro_torch.robust import EwmaWatchdog
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 REL = 1e-5
 K = 10
 # 2,881 rows in 3 shards of 960, 960 and 961 rows: at page_rows 32 the last

@@ -33,6 +33,11 @@ from repro_torch.core.runtime import RuntimeConfig
 from repro_torch.data.synthetic import mf_factors
 from repro_torch.stream import Compactor, MutableProMIPS, rebuild_base
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 K = 10
 REL = 1e-5
 N, D, RANK = 2400, 48, 12

@@ -56,6 +56,22 @@ step from that state. Tolerances:
 
 On the recording mesh (no process), `build_cell`'s train step at mesh
 (1, 4) moves no whole parameter through a collective.
+
+The split decode (`DECODE`): the same rank processes run `build_cell`'s
+prefill into a cache of the decode cell's length and DECODE_STEPS steps of
+its decode function, fed fixed tokens drawn from a seed, and gather the
+logits and the cache whole; the cells reach every K/V layout of
+`cache_specs` (`sharding.kv_layout`): tinyllama-1.1b's KV heads (2 x 2)
+and head_dim (1 x 4), h2o-danube with head_dim 30 (its sequence over
+``model``, SWA wrapping), zamba2-1.2b at B 1 on 2 x 2 (context
+parallelism with the KV heads, and with head_dim where one KV head does
+not split), the xLSTM's states split on P, qwen2-moe-a2.7b's experts and
+whisper-base's cross attention. The JAX children run `build_cell`'s
+prefill and decode jitted on host meshes of the same shapes from the same
+parameters and inputs. Held: the logits and every cache leaf within 1e-5
+of their largest value against the one-process prefill and `decode_step`
+and against JAX's (the xLSTM's within 5e-5, XLSTM_RTOL: its JAX model
+amplifies f32 rounding past 1e-5).
 """
 import json
 import os
@@ -101,6 +117,25 @@ PREFILL_TOL = 1e-5
 JAX_CELLS = [("qwen3-32b", "2x2"), ("qwen2-moe-a2.7b", "2x2"),
              ("qwen2-moe-e6", "1x4"), ("whisper-base", "2x2"),
              ("zamba2-1.2b", "2x2"), ("xlstm-1.3b", "2x2")]
+# the split decode: (name, arch, overrides, mesh, batch, cache length,
+# prompt, the K/V layout `sharding.kv_layout` names; None: no K/V cache)
+DECODE = [
+    ("tinyllama-heads", "tinyllama-1.1b", {}, "2x2", 4, 40, 12, "heads"),
+    ("tinyllama-head-dim", "tinyllama-1.1b", {}, "1x4", 4, 40, 12, "head_dim"),
+    # SWA: the window of 32 wraps in the second step, the written position
+    # on the fourth rank's piece, then the first's
+    ("h2o-d30-sequence", "h2o-danube-3-4b", {"head_dim": 30}, "1x4", 4, 40,
+     30, "sequence"),
+    ("zamba2-b1-context", "zamba2-1.2b", {}, "2x2", 1, 40, 12,
+     "context+heads"),
+    ("zamba2-kh1-b1-context", "zamba2-1.2b", {"n_kv_heads": 1}, "2x2", 1, 40,
+     12, "context+head_dim"),
+    ("xlstm-p-split", "xlstm-1.3b", {}, "1x4", 4, 40, 12, None),
+    ("qwen2-moe-experts", "qwen2-moe-a2.7b", {}, "1x4", 4, 40, 12, "heads"),
+    ("whisper-cross", "whisper-base", {}, "2x2", 4, 40, 4, "heads"),
+]
+DECODE_STEPS = 3
+DECODE_TOL = {"xlstm_7_1": 5e-5}   # test_torch_recurrent.XLSTM_RTOL
 RECURRENT_RULE = ("zamba2", "xlstm_7_1")     # `train.parity`'s recurrent rule
 JAX_PREFILL_TOL = {"xlstm_7_1": 5e-5}        # test_torch_recurrent.XLSTM_RTOL
 STEP_KW = dict(microbatches=2, remat="full")
@@ -115,6 +150,7 @@ from repro.distributed import checkpoint as ckpt, sharding as S
 from repro.launch import specs
 
 out, cells, f64 = sys.argv[1], json.loads(sys.argv[2]), sys.argv[4] == "f64"
+decode = json.loads(sys.argv[5])
 if f64:
     import jax.numpy as jnp
     jnp.float32 = jnp.float64         # the JAX package's f32 casts read as f64
@@ -164,6 +200,32 @@ for name, arch, over, shape in cells:
     jax.tree_util.tree_map_with_path(lambda path, t: arrays.__setitem__(
         "cache/" + S._path_str(path), np.asarray(t)), cache)
     np.savez(os.path.join(out, f"jax_{name}.npz"), **arrays)
+# the decode cells: build_cell's prefill into a cache of the decode cell's
+# length, then its decode step, both jitted on the host mesh
+for name, arch, over, shape, b, max_len in decode:
+    cfg = dataclasses.replace(get_config(arch).reduced(), **over)
+    mesh = Mesh(devs[:4].reshape(shape), ("data", "model"))
+    tcfg = dataclasses.replace(specs.train_cfg_for(cfg, train, mesh),
+                               microbatches=2)
+    params = ckpt.restore(os.path.join(out, "init_" + name), 0,
+                          specs.state_structs(cfg, tcfg)).params
+    inp = dict(np.load(os.path.join(out, f"dec_in_{name}.npz")))
+    fn, _, in_sh, out_sh = specs.build_cell(
+        cfg, ShapeCfg("tp_dprefill", max_len, b, "prefill"), mesh)
+    batch = {k: inp[k] for k in in_sh[1] if k in inp}
+    batch["labels"] = np.zeros_like(inp["tokens"])
+    cache, _ = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)(params,
+                                                                     batch)
+    fn, _, in_sh, out_sh = specs.build_cell(
+        cfg, ShapeCfg("tp_decode", max_len, b, "decode"), mesh)
+    step = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
+    arrays = {}
+    for i, tok in enumerate(inp["steps"]):
+        logits, cache = step(params, cache, tok)
+        arrays[f"logits{i}"] = np.asarray(logits)
+    jax.tree_util.tree_map_with_path(lambda path, t: arrays.__setitem__(
+        "cache/" + S._path_str(path), np.asarray(t)), cache)
+    np.savez(os.path.join(out, f"jaxdec_{name}.npz"), **arrays)
 '''
 
 CHILD = r'''
@@ -181,7 +243,7 @@ from repro_torch.models import transformer as T
 from repro_torch.train import loop
 
 out, store, families = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
-jax_cells = json.loads(sys.argv[4])
+jax_cells, decode = json.loads(sys.argv[4]), json.loads(sys.argv[5])
 rank = int(os.environ["RANK"])
 dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                         world_size=4, timeout=launch_train.TIMEOUT)
@@ -241,6 +303,39 @@ for name, arch, over, shape in jax_cells:
         np.savez(os.path.join(out, f"step_{name}.npz"),
                  *[t.numpy() for t in whole],
                  **{k: float(m[k]) for k in ("loss", "grad_norm", "lr")})
+
+# build_cell's split decode: its prefill into a cache of the decode cell's
+# length, DECODE_STEPS steps of its decode function, the logits and the cache
+# gathered whole
+def at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+for name, arch, over, shape, b, max_len in decode:
+    cfg = config(arch, over)
+    mesh = make_mesh_compat(tuple(shape), ("data", "model"))
+    pieces = S.shard_tree(params_of(cfg), S.param_specs(params_of(cfg), mesh),
+                          mesh)
+    inp = dict(np.load(os.path.join(out, f"dec_in_{name}.npz")))
+    pfn, _, (_, b_specs), _ = specs.build_cell(
+        cfg, ShapeCfg("tp_dprefill", max_len, b, "prefill"), mesh)
+    dfn, _, (_, c_specs, t_spec), (l_spec, _) = specs.build_cell(
+        cfg, ShapeCfg("tp_decode", max_len, b, "decode"), mesh)
+    arrays = {}
+    with torch.no_grad():
+        cache, _ = pfn(pieces, {k: S.shard(torch.from_numpy(inp[k]), spec, mesh)
+                                for k, spec in b_specs.items() if k in inp})
+        for i, tok in enumerate(inp["steps"]):
+            logits, cache = dfn(pieces, cache,
+                                S.shard(torch.from_numpy(tok), t_spec, mesh))
+            arrays[f"logits{i}"] = S.gather(
+                logits, S.P(t_spec[0], *l_spec[1:]), mesh).numpy()
+    S.tree_map_with_path(lambda path, t: arrays.__setitem__(
+        "cache/" + S._path_str(path), S.gather(t, at(c_specs, path),
+                                               mesh).numpy()), cache)
+    if rank == 0:
+        np.savez(os.path.join(out, f"dec_{name}.npz"), **arrays)
 
 # mesh (4, 1): build_cell's step against the gathering step
 mesh = make_mesh_compat((4, 1), ("data", "model"))
@@ -349,6 +444,44 @@ def _params(cfg):
                          device="cpu")
 
 
+def _decode_cells():
+    """[name, arch, overrides, mesh shape, batch, cache length] of each
+    DECODE entry."""
+    return [[name, arch, over, list(MESHES[mesh]), b, max_len]
+            for name, arch, over, mesh, b, max_len, _, _ in DECODE]
+
+
+def _decode_inputs(cfg, name, b):
+    """A decode cell's inputs, made from a seed: the prompt (and the
+    frontend's input), and the token each step feeds (fixed, not greedy, so
+    that a near-tie cannot fork the runs)."""
+    prompt = {d[0]: d[6] for d in DECODE}[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    inp = {"tokens": rng.integers(0, cfg.vocab, (b, prompt)).astype(np.int32),
+           "steps": rng.integers(0, cfg.vocab, (DECODE_STEPS, b, 1)).astype(
+               np.int32)}
+    key = T.frontend_key(cfg)
+    if key is not None:
+        inp[key] = rng.standard_normal(
+            (b, cfg.frontend_len, cfg.d_model)).astype(np.float32)
+    return inp
+
+
+def _decode_one(cfg, out, name, max_len):
+    """The one-process prefill and decode steps of a decode cell: (the
+    logits of each step, the cache)."""
+    params = _params(cfg)
+    inp = dict(np.load(os.path.join(out, f"dec_in_{name}.npz")))
+    batch = {k: torch.from_numpy(v) for k, v in inp.items() if k != "steps"}
+    logits = []
+    with torch.no_grad():
+        cache, _ = T.prefill(params, cfg, batch, max_len)
+        for tok in inp["steps"]:
+            lg, cache = T.decode_step(params, cfg, cache, torch.from_numpy(tok))
+            logits.append(lg.numpy())
+    return logits, cache
+
+
 def _jax_cells():
     """[name, arch, overrides, mesh shape] of each JAX_CELLS entry."""
     fams = {f[0]: f for f in FAMILIES}
@@ -363,6 +496,13 @@ def ranks(tmp_path_factory):
     for name, arch, over, _ in cells:
         ckpt_lib.save(os.path.join(out, "init_" + name), 0, loop.init_state(
             _params(_config(arch, over)), loop.TrainCfg(**STEP_KW)))
+    decode = _decode_cells()
+    for name, arch, over, _, b, max_len in decode:
+        cfg = _config(arch, over)
+        ckpt_lib.save(os.path.join(out, "init_" + name), 0, loop.init_state(
+            _params(cfg), loop.TrainCfg(**STEP_KW)))
+        np.savez(os.path.join(out, f"dec_in_{name}.npz"),
+                 **_decode_inputs(cfg, name, b))
     store = os.path.join(out, "store")
     jax_env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=4 "
@@ -371,12 +511,15 @@ def ranks(tmp_path_factory):
     tests = os.path.dirname(os.path.abspath(__file__))
     recurrent = [c for c in cells if _config(*c[1:3]).block_pattern
                  in RECURRENT_RULE]
-    children = [_start(JAX_CHILD, [out, json.dumps(cells[i::2]), tests, "f32"],
-                       jax_env) for i in (0, 1)]
-    children.append(_start(JAX_CHILD, [out, json.dumps(recurrent), tests, "f64"],
+    children = [_start(JAX_CHILD, [out, json.dumps(cells[i::2]), tests, "f32",
+                                   json.dumps(decode[i::2])], jax_env)
+                for i in (0, 1)]
+    children.append(_start(JAX_CHILD, [out, json.dumps(recurrent), tests, "f64",
+                                       "[]"],
                            dict(jax_env, JAX_ENABLE_X64="1")))
     children += [
-        _start(CHILD, [out, store, json.dumps(FAMILIES), json.dumps(cells)],
+        _start(CHILD, [out, store, json.dumps(FAMILIES), json.dumps(cells),
+                       json.dumps(decode)],
                dict(env, RANK=str(r), LOCAL_RANK=str(r)))
         for r in range(4)]
     threads = torch.get_num_threads()
@@ -387,6 +530,8 @@ def ranks(tmp_path_factory):
             cfg = _config(arch, over)
             refs[name] = {"all": _one_process(cfg, slice(0, 4)),
                           "prefill": _prefill_one(cfg)}
+        for name, arch, over, _, _, max_len in decode:
+            refs[name] = _decode_one(_config(arch, over), out, name, max_len)
     finally:
         torch.set_num_threads(threads)
         _wait(children)
@@ -527,6 +672,76 @@ def test_split_step_within_parity_of_the_jax_sharded_step(ranks, name,
         assert gap <= bounds[key], (key, gap, bounds[key])
     assert r["excess"] <= 1.0, r
     assert int(got.step) == int(want.step) == 1
+
+
+def _check_decode(got, logits, cache, tol):
+    """A split decode cell's gathered logits and cache (``got``) against
+    ``logits`` (one array a step) and ``cache`` (one array a path): each
+    within ``tol`` of its largest value, bit for bit where zero or not
+    finite (the lengths, an untouched state, a stabiliser at -inf)."""
+    worst = {}
+    for i, want in enumerate(logits):
+        worst[f"logits{i}"] = parity.rel(got[f"logits{i}"], want)
+    for key, want in cache.items():
+        assert got[key].shape == want.shape, (key, got[key].shape, want.shape)
+        if not np.isfinite(want).all() or np.abs(want).max() == 0:
+            np.testing.assert_array_equal(got[key], want, err_msg=key)
+        else:
+            worst[key] = parity.rel(got[key], want)
+    print({k: f"{v:.2e}" for k, v in worst.items()})
+    for key, err in worst.items():
+        assert err <= tol, (key, err, tol)
+
+
+def _cache_arrays(cache):
+    arrays = {}
+    S.tree_map_with_path(lambda path, t: arrays.__setitem__(
+        "cache/" + S._path_str(path), t.numpy()), cache)
+    return arrays
+
+
+@pytest.mark.parametrize("cell", DECODE, ids=[d[0] for d in DECODE])
+def test_split_decode_layout(cell):
+    """Each decode cell reaches the K/V layout it is there for."""
+    name, arch, over, mesh_name, b, max_len, _, layout = cell
+    cfg = _config(arch, over)
+    mesh = Mesh(MESHES[mesh_name], ("data", "model"), rank=None)
+    got = S.kv_layout(cfg, ShapeCfg("tp_decode", max_len, b, "decode"), mesh)
+    assert (got.name if got is not None else None) == layout
+
+
+@pytest.mark.parametrize("cell", DECODE, ids=[d[0] for d in DECODE])
+def test_split_decode_matches_the_whole_compute(ranks, cell):
+    """`build_cell`'s decode function on four gloo ranks (its prefill's
+    cache, then DECODE_STEPS steps) against the one-process prefill and
+    `decode_step`: the logits and every cache leaf gathered whole within
+    1e-5 of their largest value (the xLSTM's within 5e-5, as against
+    JAX)."""
+    out, refs = ranks
+    name, arch, over = cell[:3]
+    cfg = _config(arch, over)
+    logits, cache = refs[name]
+    _check_decode(_load(out, f"dec_{name}.npz"), logits, _cache_arrays(cache),
+                  DECODE_TOL.get(cfg.block_pattern, PREFILL_TOL))
+
+
+@pytest.mark.parametrize("cell", DECODE, ids=[d[0] for d in DECODE])
+def test_split_decode_within_parity_of_the_jax_sharded_decode(ranks, cell):
+    """The port's split decode against `build_cell`'s decode jitted on a JAX
+    host mesh of the same shape (GSPMD's partition of the JAX
+    `decode_step`), from the same parameters and inputs, each from its own
+    package's split prefill: the logits and every cache leaf within 1e-5 of
+    their largest value (the xLSTM's within 5e-5,
+    `test_torch_recurrent.XLSTM_RTOL`: the JAX model amplifies f32
+    rounding past 1e-5)."""
+    out, refs = ranks
+    name, arch, over = cell[:3]
+    cfg = _config(arch, over)
+    ref = _load(out, f"jaxdec_{name}.npz")
+    _check_decode(_load(out, f"dec_{name}.npz"),
+                  [ref[f"logits{i}"] for i in range(DECODE_STEPS)],
+                  {k: v for k, v in ref.items() if k.startswith("cache/")},
+                  DECODE_TOL.get(cfg.block_pattern, PREFILL_TOL))
 
 
 PARTS = ("params", "mu", "nu")

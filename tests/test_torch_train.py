@@ -57,6 +57,11 @@ from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from repro_torch.train import loop, optimizer, parity
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 DENSE = ("tinyllama-1.1b", "phi4-mini-3.8b", "qwen3-32b", "h2o-danube-3-4b")
 NEW = ("phi4-mini-3.8b", "qwen3-32b", "h2o-danube-3-4b")
 RTOL = 1e-5

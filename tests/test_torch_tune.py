@@ -41,6 +41,11 @@ from repro_torch.tune import cache, cutout, space
 from repro_torch.tune import search as tsearch
 from repro_torch.tune.__main__ import main as tune_main
 
+# one intra-op thread: the reduced shapes gain nothing from more, and
+# beside the other test processes idle threads spin (a reduced train
+# run took 25x the CPU time with the default thread count)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COMMITTED = os.path.join(ROOT, "results", "tune", "tuning.json")
 K = 10
