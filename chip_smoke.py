@@ -9,7 +9,8 @@ builds on the host in a child process started before phase 1):
   1. setup: versions, the card's name and power limit, TF32 off, and the
      build of every kernel from src/repro_torch/kernels/csrc/, with each
      kernel's registers and spills from ptxas (a spill fails the run);
-  2. each kernel against its plain PyTorch version on the card, at the main
+  2. each kernel against its plain PyTorch version on the card (decode
+     attention also in bf16 at every shape and at dh 120), at the main
      path's shapes on the n=1M index (B=64, k=10): block_mips on a sparse
      pow2 tile with padding slots, on the dense tile of all 125,000 slots,
      on a round-2 tile with a carried top-k, on a tile with carried hits at
@@ -187,7 +188,10 @@ described at their functions. Then:
       kernel's log-sum-exp), xlstm-1.3b (its states split on P) and
       qwen2-moe-a2.7b (experts split) on 1 x 4, 8 steps; on the 2 ranks
       at full width (mesh 1 x 2), tinyllama-1.1b and zamba2-1.2b, B 8, a
-      cache of 4,096 rows, prompts of 512 tokens, 16 steps. The logits
+      cache of 4,096 rows, prompts of 512 tokens, 16 steps, and
+      h2o-danube-3-4b at 2 layers, B 1 on mesh 2 x 1 (its sequence over
+      the ranks: the log-sum-exp merge through the kernel at dh 120), a
+      cache of 1,024 rows, a prompt of 500 tokens. The logits
       and every cache leaf within 1e-5 of the leaf's largest value (the
       xLSTM's within 5e-5), each greedy token equal or a near-tie, the
       reduced cells' plain path giving the kernel path's tokens,
@@ -201,8 +205,8 @@ described at their functions. Then:
       with `init_params`'s peak held under their bytes + 3 GB) in exact and
       ProMIPS modes, and of internvl2-2b (256 zero patches), whisper-base
       (1,500 zero frames) and moonshot-v1-16b-a3b (12 of its 48 layers) in
-      exact mode: each mode's kernel path four times in turns (eager,
-      graph, graph, eager) with graph = eager bit for bit, the plain path
+      exact mode: each mode's kernel path twice (graph, then eager) with
+      graph = eager bit for bit, the plain path
       once, kernel tokens = plain tokens or a near-tie, `decode_attention`
       once a layer a step, one step profiled on the graph (device time by
       kernel class) and eagerly (by op: the expert einsums, the routing,
@@ -228,6 +232,19 @@ described at their functions. Then:
       from the state its child process wrote (the indexed rows
       held equal to zamba2's embed[:32000] bit for bit; a child process
       builds it anew if they differ).
+  15. the bf16 program (the JAX package's model dtype): `serve.DecodeEngine`
+      on phase 6's traffic in exact mode on bf16 parameters (seed 0) at the
+      full width and depth of qwen3-32b (64 layers, 64 / 8 heads of 128,
+      q/k norms, vocab 151,936: 65.5 GB) and h2o-danube-3-4b (24 layers,
+      32 / 8 heads of 120, SWA: 7.7 GB): the kernel path graph then eager
+      (tokens equal, one step's logits bit for bit), the plain path's
+      tokens equal or parted at a bf16 near-tie, `decode_attention` once a
+      layer a step, every run's peak within the parameters' bytes + 3 GB;
+      the graph step against its weight bytes over the HBM rate. Then
+      `make_train_step` on bf16 parameters: reduced tinyllama-1.1b card =
+      CPU (2 steps, each leaf within twice the CPU step's own bf16 error),
+      and tinyllama-1.1b at full width, 3 steps of 8 x 256 tokens in 2
+      microbatches (every loss finite, the last below the first).
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers as JSON.
 """
@@ -498,7 +515,8 @@ def decode_attention_bound_ms(q, k, cache_len):
     s = k.shape[1]
     n = cache_len.clamp(max=s)
     rows = int(n.masked_fill(n <= 0, s).sum())
-    return _bound(roofline.decode_attention(b, kh, g, dh, rows))
+    return _bound(roofline.decode_attention(b, kh, g, dh, rows,
+                                            q.element_size()))
 
 
 def check_binary_probe(timer, label, codes, q_proj):
@@ -713,40 +731,72 @@ def vocab_probe_table(gen):
     return table, q_proj, q_l1, c, float(val[i] + val[i + 1]) / 2
 
 
+def bf16_ulp(got, want):
+    """One bf16 ulp at the larger magnitude of two tensors, elementwise
+    (2^(e - 8) for a value in [2^(e-1), 2^e))."""
+    import torch
+    top = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(top)
+    return torch.ldexp(torch.ones_like(top), (e - 8).clamp(min=-133))
+
+
 def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
-                           count_launches=False, halves=False):
+                           count_launches=False, halves=False, dtype=None):
     """decode_attention against its plain version on seeded normal inputs
-    (|d| <= 1e-5 max|v| + 1e-6) and against itself (a second call equal bit
-    for bit), timed, with scaled_dot_product_attention (length mask, the G
-    query rows of a KV head as its query-length axis) as the library
-    yardstick. Its log-sum-exp output (``return_lse``, the split decode's
-    merge weight) leaves the output bit for bit as it is and is held to
-    the plain version's within 1e-5 max(1, |lse|), -inf exactly where
-    cache_len is 0. With ``halves``, the kernel on each half of S at its
-    local lengths, merged by the log-sum-exps (`attention.combine_pieces`),
-    against the whole call (the same tolerance); a row that ends in the
-    first half gets exactly that half's output (the empty half weighs 0).
-    ``count_launches`` also holds the call to one CUDA kernel under
-    torch.profiler. Returns the kernel line's record."""
+    (made in f32, then cast to ``dtype``, f32 by default): an f32 output
+    within |d| <= 1e-5 max|v| + 1e-6; a bf16 one, the rounding of an f32
+    value, within one bf16 ulp beyond that bound (both sides round once: an
+    output near zero can lie several of its own ulps away), its f32 value
+    (the log-sum-exp call's output) within the bound itself; and
+    against itself (a second call equal bit for bit), timed, with
+    scaled_dot_product_attention (length mask, the G query rows of a KV
+    head as its query-length axis) as the library yardstick. Its
+    log-sum-exp output (``return_lse``, the split decode's merge weight)
+    comes with the output in f32, which rounded to ``dtype`` is the output
+    alone bit for bit; the log-sum-exp is held to the plain version's
+    within 1e-5 max(1, |lse|) in f32 at dh 32 / 64 / 128 (the earlier
+    bound) and 1e-6 max(1, |lse|) in bf16 or at any other dh, -inf exactly
+    where cache_len is 0. With ``halves``, the kernel on each half of S at
+    its local lengths, merged by the log-sum-exps
+    (`attention.combine_pieces`), against the whole call's f32 output
+    (the f32 tolerance); a row that ends in the first half gets exactly
+    that half's output (the empty half weighs 0). ``count_launches`` also
+    holds the call to one CUDA kernel under torch.profiler. Returns the
+    kernel line's record."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
+    dtype = dtype or torch.float32
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(seed)
-    q = torch.randn((b, kh, g, dh), generator=gen, device=DEVICE)
-    k = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE)
-    v = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE)
+    q = torch.randn((b, kh, g, dh), generator=gen, device=DEVICE).to(dtype)
+    k = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE).to(dtype)
+    v = torch.randn((b, s, kh, dh), generator=gen, device=DEVICE).to(dtype)
     cache_len = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
     args = (q, k, v, cache_len)
     got = ops.decode_attention(*args, use_kernels=True)
     again = ops.decode_attention(*args, use_kernels=True)
     want = ops.decode_attention(*args, use_kernels=False)
     torch.cuda.synchronize()
-    diff = (got - want).abs()
-    tol = 1e-5 * v.abs().amax(dim=(1, 2, 3))[:, None, None, None] + 1e-6
-    require(bool((diff <= tol).all()),
-            f"decode_attention {label}: |d| beyond 1e-5 max|v|+1e-6 by "
-            f"{float((diff - tol).max())}")
+    require(got.dtype == dtype and want.dtype == dtype,
+            f"decode_attention {label}: output dtypes {got.dtype} / "
+            f"{want.dtype}, not {dtype}")
+    diff = (got.float() - want.float()).abs()
+    tol = 1e-5 * v.float().abs().amax(dim=(1, 2, 3))[:, None, None, None] + 1e-6
+    bf16 = dtype == torch.bfloat16
+    if bf16:
+        ulp = bf16_ulp(got, want)
+        ulps = float((diff / ulp).max())
+        over = float((diff - tol - ulp).max())
+        require(over <= 0, f"decode_attention {label}: |d| beyond 1e-5 max|v|"
+                f"+1e-6 + one bf16 ulp by {over:.3g} ({ulps:.3g} ulps at most)")
+        tol_note = (f"tol 1e-5 max|v|+1e-6 + 1 bf16 ulp; {ulps:.3g} bf16 ulps "
+                    f"at most")
+    else:
+        require(bool((diff <= tol).all()),
+                f"decode_attention {label}: |d| beyond 1e-5 max|v|+1e-6 by "
+                f"{float((diff - tol).max())}")
+        tol_note = "tol 1e-5 max|v|+1e-6"
     require(torch.equal(got, again), f"decode_attention {label}: two calls on "
             f"the same input differ in {int((got != again).sum())} entries")
     with_lse, lse = ops.decode_attention(*args, use_kernels=True,
@@ -754,17 +804,25 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
     _, want_lse = ops.decode_attention(*args, use_kernels=False,
                                        return_lse=True)
     torch.cuda.synchronize()
-    require(torch.equal(with_lse, got), f"decode_attention {label}: the output "
-            f"with the log-sum-exp differs from the output alone")
+    require(with_lse.dtype == torch.float32 and torch.equal(
+        with_lse.to(dtype), got), f"decode_attention {label}: the output with "
+            f"the log-sum-exp, rounded to {dtype}, differs from the output alone")
+    if bf16:
+        want32 = ops.decode_attention(*args, use_kernels=False,
+                                      return_lse=True)[0]
+        d32 = float(((with_lse - want32).abs() - tol).max())
+        require(d32 <= 0, f"decode_attention {label}: the f32 output before "
+                f"rounding beyond 1e-5 max|v|+1e-6 by {d32:.3g}")
     empty = torch.isneginf(want_lse)
     require(torch.equal(torch.isneginf(lse), empty),
             f"decode_attention {label}: the log-sum-exp's -inf rows differ")
     lse_d = (lse - want_lse)[~empty].abs()
     lse_err = float(lse_d.max()) if lse_d.numel() else 0.0
-    require(bool((lse_d <= 1e-5 * torch.clamp(want_lse[~empty].abs(),
-                                               min=1.0)).all()),
+    lse_rel = 1e-5 if not bf16 and dh in (32, 64, 128) else 1e-6
+    require(bool((lse_d <= lse_rel * torch.clamp(want_lse[~empty].abs(),
+                                                  min=1.0)).all()),
             f"decode_attention {label}: log-sum-exp |d| {lse_err:.3g}")
-    lse_note = f"; lse max|d| {lse_err:.3g} (tol 1e-5 max(1,|lse|))"
+    lse_note = f"; lse max|d| {lse_err:.3g} (tol {lse_rel:g} max(1,|lse|))"
     if halves:
         from repro_torch.models import attention
         outs, lses = [], []
@@ -777,7 +835,7 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
             lses.append(l)
         merged = attention.combine_pieces(torch.stack(outs), torch.stack(lses))
         torch.cuda.synchronize()
-        md = (merged - got).abs()
+        md = (merged - with_lse).abs()
         require(bool((md <= tol).all()), f"decode_attention {label}: the two "
                 f"halves merged differ from the whole by {float(md.max()):.3g}")
         first = [i for i, n in enumerate(lens) if n <= s // 2]
@@ -805,11 +863,14 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
     def sdpa():
         return F.scaled_dot_product_attention(q, ks, vs, attn_mask=mask)
 
-    lib_err = float((sdpa() - want).abs().max())
+    lib_err = float((sdpa().float() - want.float()).abs().max())
     library_ms = timer.ms(sdpa)
     rec = dict(
         name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
+        # the kernel's template is decode_attention.cuh; each file holds
+        # one dtype's instances
+        source=("src/repro_torch/kernels/csrc/decode_attention_bf16.cu" if bf16
+                else "src/repro_torch/kernels/csrc/decode_attention.cu"),
         replaces="src/repro/kernels/decode_attention.py:66",
         max_abs_err=float(diff.max()),
         ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=True)),
@@ -818,9 +879,10 @@ def check_decode_attention(timer, label, b, s, lens, seed, kh=4, g=8, dh=64,
         plain_ms=timer.ms(lambda: ops.decode_attention(*args, use_kernels=False)),
         library_ms=library_ms)
     rec["bound_ms"], rec["bound_by"] = decode_attention_bound_ms(q, k, cache_len)
+    dname = str(dtype).replace("torch.", "")
     log(f"[kernel decode_attention: {label}] B={b} S={s} KH={kh} G={g} dh={dh} "
-        f"cache_len={lens if len(lens) <= 8 else '...'}: max|d|="
-        f"{rec['max_abs_err']:.3g} (tol 1e-5 max|v|+1e-6), two calls equal bit "
+        f"{dname} cache_len={lens if len(lens) <= 8 else '...'}: max|d|="
+        f"{rec['max_abs_err']:.3g} ({tol_note}), two calls equal bit "
         f"for bit{lse_note}{launches}  device {rec['ms']:.4f} ms "
         f"({100 * rec['bound_ms'] / rec['ms']:.1f}% of the HBM rate; call with "
         f"host {rec['call_ms']:.4f} ms)  plain {rec['plain_ms']:.4f} ms  "
@@ -928,6 +990,8 @@ def phase_kernels_serve(pm, q, timer):
                                4, 512, [1, 37, 300, 512], seed=seed,
                                kh=kh, g=g, dh=dh)
     torch.cuda.empty_cache()
+    da_bf16 = phase_kernels_bf16(timer)
+    torch.cuda.empty_cache()
     # mips_score at the serve search's tile: every vocab row at full budget
     xt = torch.from_numpy(mf_factors(32_000, 2048, 64, decay=0.5,
                                      seed=14)).to(DEVICE)
@@ -971,7 +1035,54 @@ def phase_kernels_serve(pm, q, timer):
                                      norm_tail=RECIPE["norm_tail"],
                                      seed=3)).to(DEVICE)
     sweep_mips_score(timer, [("serve tile", xt), ("stream delta", xd)])
-    return [bp_rec, qp_rec, da_rec]
+    da_rec["variant"] = "f32, the serve shape (B 4, S 512, KH 4, G 8, dh 64)"
+    return [bp_rec, qp_rec, da_rec, *da_bf16]
+
+
+# decode_attention's bf16 records in the kernel line: (the phase 15 cell
+# whose launches they take, KH, G, dh) at B 4, S 512
+BF16_RECORDS = (("serve-qwen3-32b-bf16", 8, 8, 128),
+                ("serve-h2o-danube-3-4b-bf16", 8, 4, 120))
+
+
+def phase_kernels_bf16(timer):
+    """decode_attention in bf16 (the JAX cells' model dtype) at the serve,
+    decode_32k and long_500k shapes and at phases 13 and 14's, and at dh
+    120 (h2o-danube-3-4b) in f32 and bf16; then at phase 15's two serve
+    shapes, whose records (bf16, launches from phase 15's cells) join the
+    kernel line. Each against its plain version: the bf16 output within one
+    bf16 ulp, the f32 one within the f32 bound."""
+    import numpy as np
+    import torch
+    bf = torch.bfloat16
+    serve_lens = [1, 37, 300, 512]
+    check_decode_attention(timer, "serve shape", 4, 512, serve_lens, seed=12,
+                           dtype=bf)
+    lens = [32768, 1, 20000, 4097, 64, 31000, 12345, 27000]
+    check_decode_attention(timer, "decode_32k shape, B 8", 8, 32768, lens,
+                           seed=13, halves=True, dtype=bf)
+    lens = np.random.RandomState(16).randint(1, 32769, 128).tolist()
+    check_decode_attention(timer, "decode_32k shape, B 128", 128, 32768, lens,
+                           seed=17, dtype=bf)
+    check_decode_attention(timer, "long_500k shape", 1, 524288, [524288],
+                           seed=18, dtype=bf)
+    for seed, (kh, g, dh) in enumerate(((16, 1, 128), (8, 2, 128), (8, 1, 64),
+                                        (32, 1, 64)), start=19):
+        check_decode_attention(timer, f"serve shape, KH {kh} G {g} dh {dh}",
+                               4, 512, serve_lens, seed=seed, kh=kh, g=g,
+                               dh=dh, dtype=bf)
+    check_decode_attention(timer, "dh 120", 4, 512, serve_lens, seed=23, kh=8,
+                           g=4, dh=120, halves=True)
+    records = []
+    for seed, (cell, kh, g, dh) in enumerate(BF16_RECORDS, start=24):
+        rec = check_decode_attention(timer, cell.replace("serve-", "") + " shape",
+                                     4, 512, serve_lens, seed=seed, kh=kh, g=g,
+                                     dh=dh, halves=True, dtype=bf)
+        rec["variant"] = (f"bf16, {cell}'s decode shape (B 4, S 512, KH {kh}, "
+                          f"G {g}, dh {dh})")
+        rec["cell"] = cell
+        records.append(rec)
+    return records
 
 
 def block_mips_cases(pm, q):
@@ -2809,13 +2920,14 @@ def serve_run(label, engine, prompts, new, searches, live, meta, cfg):
 
 
 def graph_turns(label, engine, prompts, new, searches, live, meta, cfg,
-                max_captures=1):
-    """The traffic four times on one engine, eager, graph, graph, eager:
-    equal tokens and launches in all four, and at most ``max_captures``
-    captures of each decode variant. Returns the runs."""
+                max_captures=1, turns=(False, True, True, False)):
+    """The traffic once a turn on one engine, eager (False) or through its
+    graphs (True), four turns by default (eager, graph, graph, eager):
+    equal tokens and launches in all, and at most ``max_captures`` captures
+    of each decode variant. Returns the runs."""
     graphs = decode_graphs(engine)
     runs = []
-    for turn, on in enumerate((False, True, True, False)):
+    for turn, on in enumerate(turns):
         use_graphs(engine, graphs, on)
         runs.append(serve_run(f"{label} {'graph' if on else 'eager'} {turn + 1}",
                               engine, prompts, new, searches, live, meta, cfg))
@@ -2826,10 +2938,12 @@ def graph_turns(label, engine, prompts, new, searches, live, meta, cfg,
             f"[serve {label}] the launches differ between graph and eager: "
             f"{[r['counts'] for r in runs]}")
     caps = {name: g.captures for name, g in graphs.items()}
-    log(f"[serve {label}] graph vs eager: tokens equal in all four runs, "
+    med = {on: [f"{r['median_ms']:.3f}" for r, o in zip(runs, turns) if o == on]
+           for on in (True, False)}
+    log(f"[serve {label}] graph vs eager: tokens equal in all {len(runs)} runs, "
         f"launches equal ({runs[0]['counts']}); captures {caps}; graph "
-        f"medians {runs[1]['median_ms']:.3f} / {runs[2]['median_ms']:.3f} ms "
-        f"against eager {runs[0]['median_ms']:.3f} / {runs[3]['median_ms']:.3f}")
+        f"medians {' / '.join(med[True])} ms against eager "
+        f"{' / '.join(med[False])}")
     require(all(n <= max_captures for n in caps.values()),
             f"[serve {label}] a decode variant was captured more than "
             f"{max_captures} times: {caps}")
@@ -4780,7 +4894,13 @@ RANKS_PROBE = ("all_reduce", "broadcast", "all_gather", "all_gather_into_tensor"
 # length). (a) reduced on the 4 ranks, each K/V layout the card can run:
 # KV heads, head_dim, the context-parallel merge through the kernel's
 # log-sum-exp (B 1), the mLSTM / sLSTM states split on P, the experts split;
-# (b) full width on the 2 ranks.
+# (b) full width on the 2 ranks, h2o-danube-3-4b at 2 layers (DECODE_LAYERS)
+# with its sequence cut over the ranks: the merge of the kernel's
+# log-sum-exp at dh 120 (rank 1's half is empty until the decode passes
+# position 512, then both halves weigh in). Two ranks divide its 8 KV heads
+# and its dh 120, so the layout that cuts its sequence in two is the
+# context-parallel one, B 1 over the data axis; decode_32k's, on a model
+# axis of 16, cuts it over model.
 DECODE_REDUCED = (
     ("tinyllama-heads", "tinyllama-1.1b", (2, 2), 4, 64, 16),
     ("tinyllama-head-dim", "tinyllama-1.1b", (1, 4), 4, 64, 16),
@@ -4788,7 +4908,10 @@ DECODE_REDUCED = (
     ("xlstm-p-split", "xlstm-1.3b", (1, 4), 4, 64, 16),
     ("qwen2-moe-experts", "qwen2-moe-a2.7b", (1, 4), 4, 64, 16))
 DECODE_FULL = (("tinyllama-1.1b", "tinyllama-1.1b", (1, 2), 8, 4096, 512),
-               ("zamba2-1.2b", "zamba2-1.2b", (1, 2), 8, 4096, 512))
+               ("zamba2-1.2b", "zamba2-1.2b", (1, 2), 8, 4096, 512),
+               ("h2o-danube-3-4b-context", "h2o-danube-3-4b", (2, 1), 1, 1024,
+                500))
+DECODE_LAYERS = {"h2o-danube-3-4b-context": 2}
 DECODE_STEPS = {"reduced": 8, "full": 16}
 # each leaf within this of its largest value; the xLSTM amplifies f32
 # rounding past 1e-5 (tests/test_torch_recurrent.py XLSTM_RTOL)
@@ -5228,10 +5351,15 @@ def check_split_prefill(tmp, cfg, params, card):
         require(err <= 1e-5, f"[ranks prefill] {key} differs by {err:.3e}")
 
 
-def _decode_cfg(which, arch):
+def _decode_cfg(which, arch, name=None):
+    import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
-    return cfg.reduced() if which == "reduced" else cfg
+    if which == "reduced":
+        return cfg.reduced()
+    if name in DECODE_LAYERS:
+        return dataclasses.replace(cfg, n_layers=DECODE_LAYERS[name])
+    return cfg
 
 
 def _cache_paths(cache):
@@ -5259,7 +5387,7 @@ def decode_references(tmp, which):
     steps = DECODE_STEPS[which]
     out = {}
     for name, arch, _, b, max_len, prompt in cells:
-        cfg = _decode_cfg(which, arch)
+        cfg = _decode_cfg(which, arch, name)
         gen = torch.Generator(device=DEVICE)
         gen.manual_seed(0)
         params = T.init_params(cfg, generator=gen, device=DEVICE)
@@ -5333,7 +5461,7 @@ def rank_split_decode(tmp, which, dev):
         time.sleep(0.2)
     out = {}
     for name, arch, shape, b, max_len, _ in cells:
-        cfg = _decode_cfg(which, arch)
+        cfg = _decode_cfg(which, arch, name)
         tol = DECODE_TOL_XLSTM if cfg.block_pattern == "xlstm_7_1" else DECODE_TOL
         mesh = make_mesh_compat(shape, ("data", "model"))
         gen = torch.Generator(device=dev)
@@ -5444,7 +5572,7 @@ def check_split_decode(tmp, which, results, card):
     out = {}
     for name, arch, shape, b, _, _ in (DECODE_REDUCED if which == "reduced"
                                        else DECODE_FULL):
-        cfg = _decode_cfg(which, arch)
+        cfg = _decode_cfg(which, arch, name)
         ref = torch.load(os.path.join(tmp, f"dec_ref_{name}.pt"),
                          map_location="cpu", mmap=True)
         tol = DECODE_TOL_XLSTM if cfg.block_pattern == "xlstm_7_1" else DECODE_TOL
@@ -5846,9 +5974,10 @@ def finish_host_build(build):
     return index, rec["build_s"]
 
 
-def init_params_peak(cfg):
-    """`init_params` on the card with its peak `max_memory_allocated` over
-    what was resident, held to the parameters' bytes + INIT_SLACK_BYTES."""
+def init_params_peak(cfg, dtype=None):
+    """`init_params` on the card (in ``dtype``, f32 by default) with its peak
+    `max_memory_allocated` over what was resident, held to the parameters'
+    bytes + INIT_SLACK_BYTES."""
     import torch
     from repro_torch.models import transformer as T
     gc.collect()
@@ -5857,7 +5986,8 @@ def init_params_peak(cfg):
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = T.init_params(cfg, seed=SERVE["param_seed"], device=DEVICE)
+    params = T.init_params(cfg, seed=SERVE["param_seed"], device=DEVICE,
+                           dtype=dtype or torch.float32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - resident
@@ -5872,8 +6002,9 @@ def init_params_peak(cfg):
            ("xlstm_7_1", "zamba2") else "")
         + (f", {cfg.frontend} stub of {cfg.frontend_len}" if cfg.frontend_len
            else "")
-        + f", vocab {cfg.vocab} (padded {cfg.vocab_padded}): {n:,} f32 "
-        f"parameters ({nbytes / 1e9:.2f} GB) made on the card in {init_s:.1f} "
+        + f", vocab {cfg.vocab} (padded {cfg.vocab_padded}): {n:,} "
+        f"{str(dtype or torch.float32).replace('torch.', '')} parameters "
+        f"({nbytes / 1e9:.2f} GB) made on the card in {init_s:.1f} "
         f"s; init_params peak {peak / 1e9:.3f} GB over the {resident / 1e9:.3f}"
         f" GB resident (parameters + {(peak - nbytes) / 1e9:.3f} GB)")
     require(peak <= nbytes + INIT_SLACK_BYTES,
@@ -6004,13 +6135,19 @@ def family_config(name, n_layers=None):
     return dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
 
 
+# the kernel path's turns in a serve-families or serve-recurrent cell: graph
+# then eager (every check of graph = eager needs one of each; phase 6's
+# serve cell keeps four turns for its timings)
+FAMILY_TURNS = (True, False)
+
+
 def serve_mode(label, cfg, params, mode, index=None):
-    """One mode of a serve-families cell: the kernel path four times in
-    turns (eager, graph, graph, eager) and the plain path once through its
-    graph, tokens held kernel against plain. Exact mode: one step
-    profiled. Promips mode (over ``index``): the guarantee share held, the
-    pages per searched row, and three retired ids never emitted. Returns
-    the kernel path's second graph run."""
+    """One mode of a serve-families cell: the kernel path in FAMILY_TURNS'
+    turns and the plain path once through its graph, tokens held kernel
+    against plain. Exact mode: one step profiled. Promips mode (over
+    ``index``): the guarantee share held, the pages per searched row, and
+    three retired ids never emitted. Returns the kernel path's graph
+    run."""
     from repro_torch.serve import DecodeEngine
     prompts = serve_prompts(cfg.vocab, SERVE["n_requests"],
                             SERVE["prompt_lens"], SERVE["traffic_seed"])
@@ -6025,7 +6162,8 @@ def serve_mode(label, cfg, params, mode, index=None):
     run_args = (prompts, new, searches, live, meta, cfg)
     engine = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=None,
                           index=index, **eng_kw)
-    turns = graph_turns(f"{label} {mode}/kernels", engine, *run_args)
+    turns = graph_turns(f"{label} {mode}/kernels", engine, *run_args,
+                        turns=FAMILY_TURNS)
     plain = DecodeEngine(params, cfg, logits_mode=mode, use_kernels=False,
                          index=index, **eng_kw)
     prun = serve_run(f"{label} {mode}/plain graph", plain, *run_args)
@@ -6033,19 +6171,20 @@ def serve_mode(label, cfg, params, mode, index=None):
     require(max(caps.values()) == 1 and min(caps.values()) == 0,
             f"[{label} {mode}/plain] captures {caps}, one variant once")
     del plain
-    notes = explain_token_diffs(f"{label} {mode}", params, cfg,
-                                turns[2]["reqs"], prun["reqs"])
+    r = turns[FAMILY_TURNS.index(True)]
+    notes = explain_token_diffs(f"{label} {mode}", params, cfg, r["reqs"],
+                                prun["reqs"])
     log(f"[{label} {mode}] kernel vs plain path: {len(notes)} of "
         f"{len(prompts)} requests differ in tokens"
         + "".join(f"; {n}" for n in notes))
-    r = turns[2]
     if mode == "exact":
         profile_family_step(engine, prompts, label)
         return r
     pages_row = engine.pages / max(engine.searched_rows, 1)
     dense = cfg.vocab_padded * cfg.d_model * 4 // 4096
     log(f"[{label} promips/kernels] {engine.searched_rows} rows searched in "
-        f"four runs: {pages_row:.1f} blocks per row of {meta.page_rows} x "
+        f"{len(FAMILY_TURNS)} runs: {pages_row:.1f} blocks per row of "
+        f"{meta.page_rows} x "
         f"{cfg.d_model} f32 "
         f"({pages_row * meta.page_rows * cfg.d_model * 4 / 4096:.1f} 4-KB "
         f"pages) against the exact mode's dense scan of {dense} 4-KB pages; "
@@ -6265,6 +6404,277 @@ def phase_serve_recurrent(vocab_state, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- phase 15
+
+# the bf16 program (the JAX package's model dtype) at full width and depth:
+# the serve cells (arch; the kernel path's turns, graph first) over phase 6's
+# traffic, and the train cells
+BF16_SERVE = (("qwen3-32b", (True, False)), ("h2o-danube-3-4b", (True, False)))
+BF16_PEAK_SLACK = 3e9          # a serve run's peak: the parameters + this
+BF16_MOVE = 1 + 2.0 ** -7      # one bf16 ulp at 1: the embedding moved by it
+BF16_TRAIN = dict(arch="tinyllama-1.1b", batch=8, seq=256, microbatches=2,
+                  steps=3)
+
+
+def bf16_replay_logits(params, cfg, prompt, out_tokens, t):
+    """The f32 logits after ``out_tokens[:t]`` on the plain path: the
+    prompt's prefill at B 1, then those tokens decoded one by one."""
+    import torch
+    from repro_torch.models import transformer as T
+    tokens = torch.tensor([list(prompt)], dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        cache, lg = T.prefill(params, cfg, {"tokens": tokens},
+                              len(prompt) + t + 1)
+        for tok in out_tokens[:t]:
+            lg, cache = T.decode_step(params, cfg, cache, torch.tensor(
+                [[tok]], dtype=torch.int32, device=DEVICE), use_kernels=False)
+    return lg[0].float()
+
+
+def bf16_path_spread(engine):
+    """The largest logit difference between the kernel and the plain path
+    on one decode step of ``engine`` from the same cache (its cache as its
+    traffic left it, a seeded token batch): how far the two paths' bf16
+    rounding orders move the logits."""
+    import numpy as np
+    import torch
+    from repro_torch.models import transformer as T
+    tok = torch.from_numpy(np.random.RandomState(7).randint(
+        1, engine.cfg.vocab, (engine.b, 1)).astype("int32")).to(DEVICE)
+    out = []
+    for use_kernels in (None, False):
+        cache = {k: tuple(t.clone() for t in v) if isinstance(v, tuple)
+                 else v.clone() for k, v in engine.cache.items()}
+        with torch.no_grad():
+            lg, _ = T.decode_step(engine.params, engine.cfg, cache, tok,
+                                  use_kernels=use_kernels)
+        out.append(lg[:, :engine.cfg.vocab].float())
+    return float((out[0] - out[1]).abs().max())
+
+
+def explain_token_diffs_bf16(label, params, cfg, reqs_a, reqs_b, spread):
+    """Each request's tokens on the kernel path (``reqs_a``) and the plain
+    path (``reqs_b``) in bf16: equal, or the first position where they part
+    is a near-tie at bf16's resolution: the two tokens' logits from a
+    prefill over the shared context (plain path) within twice the bf16
+    noise, the larger of ``spread`` (`bf16_path_spread`) and, at the first
+    request that parts, the plain path's decode (replayed at B 1) from that
+    prefill's logits. Returns the notes."""
+    notes, noise = [], None
+    for i, (ra, rb) in enumerate(zip(reqs_a, reqs_b)):
+        if ra.out_tokens == rb.out_tokens:
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(ra.out_tokens, rb.out_tokens))
+                 if x != y)
+        require(t > 0, f"[{label}] request {i}: the prefill tokens differ "
+                "(prefill runs no kernel)")
+        lf = exact_next_logits(params, cfg, ra.prompt, ra.out_tokens, t).float()
+        if noise is None:
+            lp = bf16_replay_logits(params, cfg, ra.prompt, ra.out_tokens, t)
+            noise = max(spread, float((lf - lp).abs().max()))
+        a, b = ra.out_tokens[t], rb.out_tokens[t]
+        margin = float((lf[a] - lf[b]).abs())
+        require(margin <= 2 * noise,
+                f"[{label}] request {i} parts at token {t}: {a} vs {b} with "
+                f"logit margin {margin} > twice the bf16 noise {noise}")
+        notes.append(f"request {i} token {t}: {a} vs {b}, logit margin "
+                     f"{margin:.3g} (twice the bf16 noise: {2 * noise:.3g})")
+    return notes
+
+
+def serve_bf16_cell(name, turns, card):
+    """A phase 15 serve cell: ``name``'s full config, its bf16 parameters
+    (seed 0) made on the card, phase 6's traffic in exact mode on the
+    kernel path (``turns``: graph and eager, equal tokens and launches, one
+    step's logits graph = eager bit for bit, `decode_attention` once an
+    attention layer a step) and once on the plain path (its tokens equal
+    or parted at a bf16 near-tie); every run's peak within the parameters'
+    bytes + BF16_PEAK_SLACK. Returns the cell's numbers."""
+    import torch
+    from repro_torch.launch import roofline
+    from repro_torch.serve import DecodeEngine
+    t0 = time.perf_counter()
+    cfg = family_config(name)
+    label = f"serve-{name}-bf16"
+    params = init_params_peak(cfg, torch.bfloat16)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompts = serve_prompts(cfg.vocab, SERVE["n_requests"],
+                            SERVE["prompt_lens"], SERVE["traffic_seed"])
+    eng_kw = dict(batch_slots=SERVE["batch_slots"], max_len=SERVE["max_len"],
+                  result_cache=0, device=DEVICE)
+    run_args = (prompts, SERVE["max_new_tokens"], _NoSearch(), None, None, cfg)
+    engine = DecodeEngine(params, cfg, logits_mode="exact", use_kernels=None,
+                          **eng_kw)
+    require(engine.cache["k"].dtype == torch.bfloat16,
+            f"[{label}] the cache is {engine.cache['k'].dtype}, not bf16")
+    runs = graph_turns(f"{label} exact/kernels", engine, *run_args,
+                       turns=turns)
+    spread = bf16_path_spread(engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain = DecodeEngine(params, cfg, logits_mode="exact", use_kernels=False,
+                         **eng_kw)
+    prun = serve_run(f"{label} exact/plain graph", plain, *run_args)
+    del plain
+    graph_run = runs[list(turns).index(True)]
+    notes = explain_token_diffs_bf16(label, params, cfg, graph_run["reqs"],
+                                     prun["reqs"], spread)
+    log(f"[{label}] kernel vs plain path: {len(notes)} of {len(prompts)} "
+        f"requests differ in tokens (the paths' logits {spread:.3g} apart at "
+        f"most on one step from the same cache)"
+        + "".join(f"; {n}" for n in notes))
+    peak = max(r["peak"] for r in (*runs, prun))
+    require(peak <= nbytes + BF16_PEAK_SLACK,
+            f"[{label}] peak {peak} bytes > the parameters' {nbytes} + "
+            f"{BF16_PEAK_SLACK:.0f}")
+    bound_ms = 1e3 * nbytes / roofline.HBM_BW
+    log(f"[{label}] {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim_}, vocab "
+        f"{cfg.vocab}: graph step median {graph_run['median_ms']:.3f} ms, "
+        f"{graph_run['tok_s']:.1f} tokens/s; a step reads the {nbytes / 1e9:.2f}"
+        f" GB of bf16 weights: bound {bound_ms:.2f} ms at "
+        f"{roofline.HBM_BW / 1e12:.2f} TB/s "
+        f"({100 * bound_ms / graph_run['median_ms']:.1f}% of it); peak "
+        f"{peak / 1e9:.2f} GB (the parameters + {(peak - nbytes) / 1e9:.2f}); "
+        f"cell {time.perf_counter() - t0:.1f} s (on {card})")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(counts=graph_run["counts"], steps=graph_run["steps"],
+                step_ms=graph_run["median_ms"], tok_s=graph_run["tok_s"],
+                bound_ms=bound_ms, peak=peak, param_bytes=nbytes)
+
+
+def bf16_step_check(label, new, m, ref, rm, others, card):
+    """A bf16 train step (``new``, metrics ``m``) held to the reference
+    step (``ref``, ``rm``) by the bf16 rule of `tests/test_torch_bf16.py`:
+    the loss, the grad norm and every leaf of params / mu / nu within twice
+    the reference's own bf16 error plus 1e-6, its own error the larger of
+    its distances from ``others`` ((state, metrics) of the same step in f32
+    on the same bf16 weights and with the embedding moved by one bf16 ulp).
+    Returns the largest share of a tolerance used."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.train import parity
+    worst, where = 0.0, None
+
+    def held(what, got, want, alts):
+        nonlocal worst, where
+        tol = 2 * max(parity.rel(a, want) for a in alts) + 1e-6
+        err = parity.rel(got, want)
+        require(err <= tol, f"[{label}] {what} differs by {err:.3e} > {tol:.3e}")
+        if err / tol > worst:
+            worst, where = err / tol, what
+
+    for key in ("loss", "grad_norm"):
+        held(key, m[key], rm[key], [o[1][key] for o in others])
+    names = parity.leaf_names(ref.params)
+    for part in ("params", "mu", "nu"):
+        pick = ((lambda st: st.params) if part == "params"
+                else (lambda st, part=part: getattr(st.opt, part)))
+        leaves = [tree_lib.leaves(pick(st)) for st in
+                  (new, ref, *(o[0] for o in others))]
+        if part != "params":
+            require(all(t.dtype == torch.float32 for t in leaves[0]),
+                    f"[{label}] {part} is not f32")
+        for n, got, want, *alts in zip(names, *leaves):
+            require(got.dtype == want.dtype, f"[{label}] {part} {n} is "
+                    f"{got.dtype}, the reference's {want.dtype}")
+            held(f"{part} {n}", got, want, alts)
+    log(f"[{label}] loss {float(m['loss']):.6f}; every leaf within the bf16 "
+        f"rule, the largest share of a tolerance {worst:.3f} ({where}) (on "
+        f"{card})")
+    return worst
+
+
+def phase_train_bf16(card):
+    """Phase 15's training in bf16. (a) Card = CPU: two `make_train_step`
+    steps of reduced tinyllama-1.1b on bf16 parameters (2 microbatches,
+    f32 accumulation and moments), each card step from the CPU state, held
+    by `bf16_step_check` (the CPU's own bf16 error from the same step in
+    f32 and with the embedding moved by one ulp). (b) tinyllama-1.1b at full
+    width through `make_train_step` on bf16 parameters: BF16_TRAIN's steps
+    of batch 8 x 256 in 2 microbatches, no checkpoint; every loss finite and
+    the last below the first. Returns (b)'s numbers."""
+    import torch
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import loop
+    bf = torch.bfloat16
+    cfg = get_config(BF16_TRAIN["arch"]).reduced()
+    tcfg = loop.TrainCfg(lr=1e-3, warmup=2, total_steps=20, microbatches=2,
+                         remat="full")
+    step = loop.make_train_step(cfg, tcfg)
+    cpu = loop.init_state(T.init_params(cfg, seed=0, device="cpu", dtype=bf),
+                          tcfg)
+    stream = TokenStream(vocab=cfg.vocab, batch=4, seq=48, seed=1)
+    for i in range(2):
+        batch = stream.batch_at(i)
+        f32 = cpu._replace(params=tree_lib.map(lambda t: t.float(), cpu.params))
+        moved = cpu._replace(params=dict(cpu.params,
+                                         embed=cpu.params["embed"] * BF16_MOVE))
+        card_new, cm_card = step(_cpu_to_card(cpu), batch)
+        others = [step(f32, batch), step(moved, batch)]
+        cpu, cm = step(cpu, batch)
+        bf16_step_check(f"train bf16 card = CPU {cfg.name} reduced, step {i}",
+                        card_new, cm_card, cpu, cm, others, card)
+    cfg = get_config(BF16_TRAIN["arch"])
+    tcfg = loop.TrainCfg(lr=3e-4, warmup=10, total_steps=BF16_TRAIN["steps"],
+                         microbatches=BF16_TRAIN["microbatches"], remat="full")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(0)
+    state = loop.init_state(T.init_params(cfg, generator=gen, device=DEVICE,
+                                          dtype=bf), tcfg)
+    step = loop.make_train_step(cfg, tcfg, donate=True)
+    stream = TokenStream(vocab=cfg.vocab, batch=BF16_TRAIN["batch"],
+                         seq=BF16_TRAIN["seq"])
+    losses, times = [], []
+    for i in range(BF16_TRAIN["steps"]):
+        batch = stream.batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = BF16_TRAIN["batch"] * BF16_TRAIN["seq"]
+    med = sorted(times)[len(times) // 2]
+    pbytes = sum(t.numel() * t.element_size()
+                 for t in tree_lib.leaves(state.params))
+    log(f"[train bf16 {cfg.name}] full width, bf16 parameters "
+        f"({pbytes / 1e9:.2f} GB; f32 moments): {len(losses)} steps of "
+        f"{BF16_TRAIN['batch']} x {BF16_TRAIN['seq']} tokens in "
+        f"{BF16_TRAIN['microbatches']} microbatches; losses "
+        f"{[round(x, 6) for x in losses]}; step times "
+        f"{[round(x, 4) for x in times]} s; median {med:.4f} s = "
+        f"{tokens / med:,.0f} tokens/s; peak memory {peak / 2**30:.2f} GiB "
+        f"(max_memory_allocated) (on {card})")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"[train bf16 {cfg.name}] losses {losses}")
+    require(all(t.dtype == bf for t in tree_lib.leaves(state.params)),
+            f"[train bf16 {cfg.name}] a parameter left bf16")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(step_s=med, tokens_s=tokens / med, peak=peak, losses=losses)
+
+
+def phase_bf16(card):
+    """Phase 15: the bf16 program at full width (BF16_SERVE's serve cells,
+    then `phase_train_bf16`). Returns each serve cell's numbers."""
+    out = {}
+    for name, turns in BF16_SERVE:
+        out[f"serve-{name}-bf16"] = serve_bf16_cell(name, turns, card)
+    out["train"] = phase_train_bf16(card)
+    return out
+
+
 def _leaves(tree):
     """The tensors of a parameter or cache tree (dicts and tuples: the
     sLSTM state is a tuple), in order."""
@@ -6422,6 +6832,11 @@ def main() -> int:
         t0 = time.perf_counter()
         recurrent_launches = phase_serve_recurrent(vocab_state, families)
         log(f"[phase 14, serve-recurrent] {time.perf_counter() - t0:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        bf16 = phase_bf16(card)
+        log(f"[phase 15, the bf16 program] {time.perf_counter() - t0:.1f} s")
     finally:
         for child in (build, sharded_build, vocab_build, big_build,
                       *(dataset_build or {}).values()):
@@ -6431,7 +6846,8 @@ def main() -> int:
         shutil.rmtree(families, ignore_errors=True)
     log(f"[launches] the serve-families cells' kernel paths (one traffic run "
         f"each): {family_launches}; the serve-recurrent cells': "
-        f"{recurrent_launches}")
+        f"{recurrent_launches}; the bf16 serve cells': "
+        f"{ {k: v['counts'] for k, v in bf16.items() if 'counts' in v} }")
     log("[launches] one search of each new path: sharded-1M "
         f"{sharded_launches}; sharded-stream-100k (churned) "
         f"{sharded_stream_launches}; durable-stream-1M (state B, logged) "
@@ -6448,14 +6864,16 @@ def main() -> int:
         launches[name] = serve_launches[name]
     for rec in records:
         rec["launches"] = launches[rec["name"]]
-        if rec["name"] == "decode_attention":
+        if "cell" in rec:      # the bf16 records: phase 15's serve cells
+            rec["launches"] = bf16[rec["cell"]]["counts"]["decode_attention"]
+        elif rec["name"] == "decode_attention":
             # on the ranks' pieces in phase 12e's kernel runs (every rank)
             rec["split_decode_launches"] = ranks["decode_launches"]
     # block_mips also serves ops.mips_topk (phase 4b), launched once there
     records[0]["mips_topk_launches"] = topk_launches
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "mips_topk_launches", "split_decode_launches")
+    keys = ("name", "route", "source", "replaces", "variant", "launches",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "mips_topk_launches", "split_decode_launches")
     log(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": [{key: rec[key] for key in keys if key in rec}
                                   for rec in records]}))

@@ -27,9 +27,11 @@ A model's state is its parameter pytree: `params_from_jax` takes the JAX
 `models.transformer.init_params` tree (numpy or JAX arrays) of any
 model (dense, MoE, the vision stub, the encoder-decoder, the xLSTM and the
 Mamba2 hybrid) as the port's parameters, which keep the JAX layouts, so every leaf is
-copied bit for bit. A trainer's state is the JAX `train.loop.TrainState`:
-`train_state_from_jax` carries its parameters, AdamW moments and count,
-error-feedback residuals and step across.
+copied bit for bit, in its own dtype (a bf16 tree stays bf16: the leaves
+travel as their 16-bit patterns, with no `ml_dtypes` in the port). A
+trainer's state is the JAX `train.loop.TrainState`: `train_state_from_jax`
+carries its parameters, AdamW moments and count, error-feedback residuals
+and step across.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from .core.index import IndexArrays, IndexMeta, resolve_device, to_device
 from .core.sharded import MutableShardedProMIPS
 from .distributed.compression import ErrorFeedback
 from .models.transformer import Stacked, check_supported, param_spec
+from . import tree as tree_lib
 from .stream.mutable import MutableProMIPS
 from .train.loop import TrainState
 from .train.optimizer import AdamWState
@@ -147,8 +150,7 @@ def params_from_jax(tree: Mapping, cfg, device="cuda") -> dict:
 
     def convert(node, keys, path):
         if keys is None:
-            arr = np.array(node, copy=True)
-            return torch.from_numpy(arr).to(dev)
+            return tree_lib.leaf_from_numpy(node).to(dev)
         if not isinstance(node, Mapping) or set(node) != set(keys):
             got = sorted(node) if isinstance(node, Mapping) else type(node)
             raise ValueError(f"params{path}: expected keys {sorted(keys)}, "

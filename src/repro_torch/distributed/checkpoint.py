@@ -9,7 +9,10 @@ Layout:
 A step is written into ``step_<N>.tmp`` and moved into place with one
 ``os.replace``, so a reader sees a whole step or none. The manifest's
 ``treedef`` is the string JAX writes for the same tree, and each package
-restores the other's checkpoints of the same `TrainState`. The async mode
+restores the other's checkpoints of the same `TrainState`. A bf16 leaf is
+written as JAX's is: numpy's raw 2-byte records (``|V2``) in
+``arrays.npz`` and ``"bfloat16"`` in the manifest's ``dtypes``, from
+which `restore` reads it back as bf16, bit for bit. The async mode
 copies the leaves to the host first and writes them on a thread, so the
 step loop waits only for the copy, and a later in-place step does not
 reach the checkpoint.
@@ -73,13 +76,12 @@ def save(ckpt_dir: str, step: int, tree: Any, *, blocking: bool = True,
         for t, spec in zip(leaves, spec_leaves):
             whole = gather(t, spec, mesh)
             if mesh.rank == 0:
-                host_leaves.append(whole.detach().to("cpu", copy=True).numpy())
+                host_leaves.append(tree_lib.leaf_to_numpy(whole))
             del whole
     else:
         # a copy even of a CPU tensor: the step loop updates the state in place
-        host_leaves = [t.detach().to("cpu", copy=True).numpy()
-                       if torch.is_tensor(t) else np.array(t, copy=True)
-                       for t in leaves]
+        host_leaves = [tree_lib.leaf_to_numpy(t) for t in leaves]
+    dtypes = [tree_lib.dtype_name(t) for t in leaves]
     treedef = tree_lib.treedef_str(tree)
 
     def _write():
@@ -95,7 +97,7 @@ def save(ckpt_dir: str, step: int, tree: Any, *, blocking: bool = True,
             "treedef": treedef,
             "n_leaves": len(host_leaves),
             "shapes": [list(l.shape) for l in host_leaves],
-            "dtypes": [str(l.dtype) for l in host_leaves],
+            "dtypes": dtypes,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
@@ -158,7 +160,9 @@ def restore(ckpt_dir: str, step: int, target: Any, device="cuda", *,
         raise FileNotFoundError(f"incomplete checkpoint at {path}")
     leaves = tree_lib.leaves(target)
     with open(os.path.join(path, "manifest.json")) as f:
-        n_saved = json.load(f)["n_leaves"]
+        manifest = json.load(f)
+    n_saved = manifest["n_leaves"]
+    saved_dtypes = manifest.get("dtypes", [""] * n_saved)
     if n_saved != len(leaves):
         raise ValueError(f"{path} holds {n_saved} leaves, the target "
                          f"{len(leaves)}")
@@ -166,15 +170,17 @@ def restore(ckpt_dir: str, step: int, target: Any, device="cuda", *,
     with np.load(os.path.join(path, "arrays.npz")) as data:
         for i, want in enumerate(leaves):
             arr = data[f"leaf_{i}"]
-            want_dtype = (str(want.dtype).replace("torch.", "")
-                          if torch.is_tensor(want) else str(np.dtype(want.dtype)))
+            want_dtype = tree_lib.dtype_name(want)
+            # a bf16 leaf is raw 2-byte records, named by the manifest
+            got_dtype = (saved_dtypes[i] if arr.dtype == tree_lib.BF16_RECORD
+                         else str(arr.dtype))
             shape = (tuple(arr.shape) if spec_leaves is None
                      else shard_shape(spec_leaves[i], arr.shape, mesh))
-            if shape != tuple(want.shape) or str(arr.dtype) != want_dtype:
+            if shape != tuple(want.shape) or got_dtype != want_dtype:
                 raise ValueError(
-                    f"{path} leaf_{i}: {arr.dtype}{list(shape)} does not "
+                    f"{path} leaf_{i}: {got_dtype}{list(shape)} does not "
                     f"match the target's {want_dtype}{list(want.shape)}")
-            whole = torch.from_numpy(arr)
+            whole = tree_lib.leaf_from_numpy(arr, got_dtype, copy=False)
             if spec_leaves is not None:
                 whole = shard(whole, spec_leaves[i], mesh).contiguous()
             loaded.append(whole.to(dev))

@@ -141,9 +141,9 @@ def library() -> ctypes.CDLL:
             lib.block_mips_work_bytes.restype = ctypes.c_longlong
             lib.block_mips_launch.restype = i32
             lib.decode_attention_launch.argtypes = (
-                [ptr] * 8 + [i32] * 5 + [ctypes.c_float, ptr])
+                [ptr] * 8 + [i32] * 6 + [ctypes.c_float, ptr])
             lib.decode_attention_launch.restype = i32
-            lib.decode_attention_scratch_floats.argtypes = [i32] * 5
+            lib.decode_attention_scratch_floats.argtypes = [i32] * 6
             lib.decode_attention_scratch_floats.restype = ctypes.c_longlong
             lib.mips_score_launch.argtypes = [ptr] * 4 + [i32] * 4 + [ptr]
             lib.mips_score_launch.restype = i32

@@ -1,680 +1,60 @@
-// One-token GQA attention against a KV cache on Hopper (sm_90a), in one
-// launch:
-//   out[b, kh, g] = softmax_t(<q[b, kh, g], k[b, t, kh]> / sqrt(dh)) . v[b, t, kh]
-// over t < cache_len[b]; positions at or beyond it are masked, so
-// cache_len = 0 gives the mean of V over all S positions. On request the
-// kernel also writes each query row's log-sum-exp of its scaled scores,
-//   lse[b, kh, g] = log sum_t exp(<q[b, kh, g], k[b, t, kh]> / sqrt(dh)),
-// -inf where cache_len <= 0: the weight of a piece of the sequence when the
-// pieces that ranks attend apart are merged (a row with no position of its
-// own weighs exactly 0).
-//
-// Replaces: src/repro/kernels/decode_attention.py::decode_attention (Pallas
-// body `_kernel`): a grid (B, KH, S/bS) that walks S in order and carries the
-// online-softmax state (m, l, acc) in VMEM from one grid step to the next.
-// Its runtime mirror is `models/attention.py::flash_decode`, which every layer
-// of every decode step calls.
-//
-// What bounds it: each (b, kh) pair reads its cache rows below cache_len once
-// (2 * n_b * dh f32 for K and V) and does 4 * dh operations per (position,
-// query row); with G = 8 query rows per KV head that is 4 flops per byte
-// read, far below the card's 20 fp32 flops per byte: bound by bytes.
-//
-// What the design does about it:
-//  * Work in proportion to the cached rows, split evenly. A row is (b, kh,
-//    group of up to 8 query rows); its tiles cover [0, min(cache_len, S)).
-//    Every CTA of a persistent grid (as many as fit the card, at most the
-//    tiles the shapes allow) derives the tile sequence from cache_len on the
-//    device (a prefix sum over B in shared memory) and takes one contiguous
-//    range of it, the same number of tiles for every CTA to within one. A
-//    range may hold the end of one row, whole rows and the start of another:
-//    each (row, CTA) piece is a segment. Positions at or past cache_len are
-//    never read: a ragged tile's tail is zero-filled by cp.async.
-//  * Pipelined tiles. A tile is 16 KB of K and 16 KB of V (4096 / dh
-//    positions); a ring of STAGES tiles is filled by 16-byte cp.async.cg
-//    copies, two tiles ahead, across segment boundaries, so a segment's
-//    epilogue runs while the next segment's first tiles load. K is stored
-//    row-major with its 16-byte chunks XOR-swizzled by position, which makes
-//    the score reads conflict-free; V is read along rows and needs none.
-//  * Shared memory read once per tile. All query rows of a row share the
-//    tile: for the scores a thread holds one position x 16 depths x all of
-//    them (q broadcast from shared memory) and the partial dots are
-//    reduce-scattered over the position's lanes; for P.V a thread holds one
-//    16-byte column chunk x up to 4 rows for a fixed set of positions,
-//    reading the probabilities from shared memory (16 accumulators, so two
-//    CTAs fit an SM at 128 registers without a spill). fp32 fmaf and expf
-//    throughout (no TF32, no tensor cores).
-//  * One launch. A segment that is a whole row writes its output; any other
-//    writes a partial (m, l, acc) to slot row + CTA (unique: along the tile
-//    sequence either the row or the CTA advances), and the CTA that
-//    finishes a row's last segment (a ticket per row, atomicAdd after a
-//    __threadfence) merges the row's partials in CTA order and resets the
-//    ticket for the next call. Every sum runs in an order fixed by the
-//    shapes, cache_len and the grid, so two calls on the same input are
-//    equal bit for bit, and the launcher keeps no state that depends on
-//    device values, so a CUDA graph can capture it.
-//  * The log-sum-exp on request: a second instance of the kernel (template
-//    flag LSE) writes m + log(l) where the row's output is written, on the
-//    same grid, so its output equals the call without it bit for bit.
+// The `decode_attention` kernel's f32 instances and its C interface; the
+// kernel and its design are in decode_attention.cuh.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "decode_attention.cuh"
 
-#include "launch_cache.cuh"
+using namespace da;
 
-namespace {
+namespace da {
 
-constexpr int NT = 256;             // threads per CTA
-constexpr int NWARPS = NT / 32;
-constexpr int STAGES = 3;           // tiles in the cp.async ring
-constexpr int AHEAD = STAGES - 1;   // tiles in flight ahead of the one computed
-constexpr int QBUF = STAGES;        // q buffers: segments live at once at most
-constexpr int TILE_FLOATS = 4096;   // floats of one K (or V) tile: 16 KB
-constexpr int GROUP_MAX = 8;        // query rows per row at most
-constexpr int B_MAX = 4096;         // sequences (the prefix sum is in shared memory)
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int DH>
-struct Geo {
-  static constexpr int T = TILE_FLOATS / DH;  // positions per tile: 128, 64, 32
-  static constexpr int C4 = DH / 4;           // 16-byte chunks per cache row
-  static constexpr int DQ = NT / T;           // score lanes per position: 2, 4, 8
-  static constexpr int JQ = C4 / DQ;          // chunks per score lane: 4
-  static constexpr int R = 8 / DQ;            // positions per quarter warp
-  static constexpr int LQ = NT / C4;          // loader rows per pass
-  static constexpr int LP = T / LQ;           // loader passes: 4
-  static_assert(LQ % R == 0, "the loader's swizzle must not depend on its pass");
-};
-
-// The P.V split of a tile over the CTA: a thread holds one 16-byte column
-// chunk x GR query rows (the rows cut in RS sets, so that a thread holds at
-// most 16 accumulators) for PP positions, one of PQ position groups.
-template <int DH, int GB>
-struct PvGeo {
-  static constexpr int RS = GB >= 4 ? GB / 4 : 1;
-  static constexpr int GR = GB / RS;
-  static constexpr int PQ = NT / (Geo<DH>::C4 * RS);
-  static constexpr int PP = Geo<DH>::T / PQ;
-};
-
-// Shared-memory layout in floats. One ring slot is free while its tile's
-// segment ends (the loader is AHEAD tiles ahead), so the epilogue reduces
-// through it.
-template <int DH, int GB>
-struct Smem {
-  static constexpr int RING = STAGES * 2 * TILE_FLOATS;
-  static constexpr int Q = RING;                              // QBUF * GB * DH
-  static constexpr int S = Q + QBUF * GB * DH;                // T * GB scores
-  static constexpr int WMAX = S + Geo<DH>::T * GB;            // NWARPS * GB
-  static constexpr int MBUF = WMAX + NWARPS * GB;             // 2 * GB
-  static constexpr int ALPHA = MBUF + 2 * GB;                 // GB
-  static constexpr int LS = ALPHA + GB;                       // GB
-  static constexpr int RED_L = LS + GB;                       // NT
-  static constexpr int INTS = RED_L + NT;                     // 2 B + 2 ints
-  static_assert(PvGeo<DH, GB>::PQ * GB * DH <= 2 * TILE_FLOATS, "reduction exceeds a ring slot");
-  static size_t bytes(int B) { return sizeof(float) * (size_t)INTS + sizeof(int) * (2 * B + 2); }
-};
-
-struct Params {
-  const float* q;       // (B, KH, G, DH)
-  const float* k;       // (B, S, KH, DH)
-  const float* v;       // (B, S, KH, DH)
-  const int* lens;      // (B,)
-  float* part_acc;      // (slots, GB, DH)
-  float* part_ml;       // (slots, 2, GB): m then l
-  int* tickets;         // (rows,), zero between calls
-  float* out;           // (B, KH, G, DH)
-  float* lse;           // (B, KH, G) or null
-  int B, S, KH, G, n_rg;
-  float scale;
-};
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0: no global read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n)
-               : "memory");
+cudaError_t make_plan_any(int B, int S, int KH, int G, int DH, int elem_bytes, int* grid,
+                          int* smem) {
+  if (elem_bytes == 2) return make_plan_bf16(B, S, KH, G, DH, grid, smem);
+  if (elem_bytes != 4) return cudaErrorInvalidValue;
+  return make_plan<float>(B, S, KH, G, DH, grid, smem);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+}  // namespace da
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Sum the N partial dots in `sc` over the DQ lanes of a position. While
-// N > 1 each step halves the rows a lane keeps (the lane with bit LVL set
-// keeps the upper half; `rbase` tracks the first kept row); once a lane
-// keeps one row the remaining steps all-reduce it. Either way every kept
-// row ends as the same sum in every lane that keeps it.
-template <int N, int LVL, int DQ>
-__device__ __forceinline__ void reduce_scatter(float* sc, int dq, int& rbase) {
-  if constexpr (LVL < DQ) {
-    if constexpr (N > 1) {
-      constexpr int H = N / 2;
-      const bool up = (dq & LVL) != 0;
-#pragma unroll
-      for (int i = 0; i < H; ++i) {
-        const float send = up ? sc[i] : sc[i + H];
-        const float keep = up ? sc[i + H] : sc[i];
-        sc[i] = keep + __shfl_xor_sync(FULL, send, LVL);
-      }
-      if (up) rbase += H;
-      reduce_scatter<H, LVL * 2, DQ>(sc, dq, rbase);
-    } else {
-      sc[0] += __shfl_xor_sync(FULL, sc[0], LVL);
-      reduce_scatter<1, LVL * 2, DQ>(sc, dq, rbase);
-    }
-  }
-}
-
-// A position in the tile sequence: sequence b, row rloc of b (kh * n_rg +
-// row group), tile t of the row, which has nt tiles.
-struct Cursor {
-  int b, rloc, t, nt;
-  __device__ __forceinline__ void advance(const int* offs, int rows_b) {
-    if (++t < nt) return;
-    t = 0;
-    if (++rloc < rows_b) return;
-    rloc = 0;
-    ++b;
-    nt = (offs[b + 1] - offs[b]) / rows_b;
-  }
-};
-
-// LSE: write each row's log-sum-exp too. Its epilogue needs a register more
-// than 128 where GB is 8: those instances run one CTA an SM, on the grid of
-// the kernel without it (the same tiles, so the same output bit for bit).
-template <int DH, int GB, bool LSE>
-__global__ void __launch_bounds__(NT, LSE && GB == 8 ? 1 : 2) da_kernel(const Params p) {
-  using Gm = Geo<DH>;
-  using Sm = Smem<DH, GB>;
-  constexpr int T = Gm::T, C4 = Gm::C4, DQ = Gm::DQ, JQ = Gm::JQ, R = Gm::R;
-  constexpr int LQ = Gm::LQ, LP = Gm::LP;
-  constexpr int RS = PvGeo<DH, GB>::RS, GR = PvGeo<DH, GB>::GR;
-  constexpr int PQ = PvGeo<DH, GB>::PQ, PP = PvGeo<DH, GB>::PP;
-  constexpr int NOWN = GB >= DQ ? GB / DQ : 1;  // rows a score lane keeps
-  extern __shared__ __align__(16) float smem[];
-  float* s_s = smem + Sm::S;        // [t][g]: scores, then probabilities
-  float* wmax = smem + Sm::WMAX;    // [warp][g]: the tile's max per warp
-  float* m_buf = smem + Sm::MBUF;   // [2][g]: the running max, double-buffered
-  float* alpha_s = smem + Sm::ALPHA;
-  float* l_s = smem + Sm::LS;
-  float* red_l = smem + Sm::RED_L;
-  int* offs = reinterpret_cast<int*>(smem + Sm::INTS);  // B + 1 tile offsets
-  int* nlen = offs + p.B + 1;                            // B cached rows per sequence
-  int* last_flag = nlen + p.B;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rows_b = p.KH * p.n_rg;  // rows per sequence
-
-  // -- the tile sequence: sequence b owns tiles [offs[b], offs[b + 1])
-  for (int b = tid; b < p.B; b += NT) {
-    const int len = p.lens[b];
-    const int n = (len <= 0 || len > p.S) ? p.S : len;
-    nlen[b] = len <= 0 ? -n : n;  // negative: every score is equal (cache_len <= 0)
-    offs[b + 1] = (n + T - 1) / T * rows_b;
-  }
-  if (tid == 0) offs[0] = 0;
-  __syncthreads();
-  if (warp == 0) {
-    const int per = (p.B + 31) / 32;
-    const int lo = 1 + lane * per, hi = min(lo + per, p.B + 1);
-    int sum = 0;
-    for (int i = lo; i < hi; ++i) sum += offs[i];
-    int incl = sum;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(FULL, incl, o);
-      if (lane >= o) incl += y;
-    }
-    int run = incl - sum;
-    for (int i = lo; i < hi; ++i) {
-      run += offs[i];
-      offs[i] = run;
-    }
-  }
-  __syncthreads();
-  // every CTA below `grid` gets at least one tile, so the CTAs that share a
-  // row are consecutive and all write partials
-  const long long total = offs[p.B];
-  const int grid = (int)min((long long)gridDim.x, total);
-  if ((int)blockIdx.x >= grid) return;  // uniform over the CTA
-  const int g_lo = (int)(total * blockIdx.x / grid);
-  const int steps = (int)(total * (blockIdx.x + 1) / grid) - g_lo;
-  // the CTA whose range holds tile g
-  auto cta_of = [&](long long g) { return (int)(((g + 1) * grid - 1) / total); };
-
-  Cursor cur;  // the tile computed
-  {
-    int lo = 0, hi = p.B;  // offs[lo] <= g_lo < offs[hi]
-    while (hi - lo > 1) {
-      const int mid = (lo + hi) >> 1;
-      if (offs[mid] <= g_lo) lo = mid; else hi = mid;
-    }
-    cur.b = lo;
-    cur.nt = (offs[lo + 1] - offs[lo]) / rows_b;
-    const int local = g_lo - offs[lo];
-    cur.rloc = local / cur.nt;
-    cur.t = local % cur.nt;
-  }
-  // loader rows lq + i * LQ and 16-byte column lc
-  const int lq = tid / C4, lc = tid % C4;
-  const int ld_soff = 4 * (lq * C4 + (lc ^ ((lq % R) * DQ)));  // swizzled K chunk
-  const size_t pos_stride = (size_t)p.KH * DH;
-
-  // load tile `step` at cursor `ld`, the start of segment `ls` or inside it
-  auto load_tile = [&](int step, const Cursor& ld, int ls) {
-    const int slot = step % STAGES;
-    float* ks = smem + slot * 2 * TILE_FLOATS;
-    float* vs = ks + TILE_FLOATS;
-    const int kh = ld.rloc / p.n_rg;
-    const int n = abs(nlen[ld.b]);
-    const int t0 = ld.t * T;
-    const int nv = min(T, n - t0);
-    const size_t base = ((size_t)ld.b * p.S + t0 + lq) * pos_stride + (size_t)kh * DH + 4 * lc;
-#pragma unroll
-    for (int i = 0; i < LP; ++i) {
-      const int r = lq + i * LQ;
-      const bool ok = r < nv;
-      const size_t off = ok ? base + (size_t)i * LQ * pos_stride : 0;
-      cp_async16(ks + ld_soff + i * LQ * DH, p.k + off, ok);
-      cp_async16(vs + 4 * (r * C4 + lc), p.v + off, ok);
-    }
-    if (ld.t == 0 || step == 0) {  // a segment starts: its query rows
-      float* qs = smem + Sm::Q + (ls % QBUF) * GB * DH;
-      const int g0 = (ld.rloc % p.n_rg) * GB;
-      const int gn = min(GB, p.G - g0);
-      const float* qrow = p.q + (((size_t)ld.b * p.KH + kh) * p.G + g0) * DH;
-      for (int i = tid; i < GB * C4; i += NT) {
-        const bool ok = i / C4 < gn;
-        cp_async16(qs + 4 * i, ok ? qrow + 4 * i : p.q, ok);
-      }
-    }
-  };
-  {
-    Cursor ld = cur;
-    int ls = 0;
-#pragma unroll
-    for (int s = 0; s < AHEAD; ++s) {
-      if (s < steps) {
-        if (s > 0) {
-          ld.advance(offs, rows_b);
-          ls += ld.t == 0;
-        }
-        load_tile(s, ld, ls);
-      }
-      cp_async_commit();
-    }
-  }
-
-  // score lanes: position sp of the tile, depth lane dq
-  const int sp = tid / DQ, dq = tid % DQ;
-  const int swz = (sp % R) * DQ;
-  const int eg = tid % GB;  // the query row of this thread's probabilities
-  // P.V: position group pq, column chunk dc, query rows gh * GR ...
-  const int gh = tid % RS, dc = tid / RS % C4, pq = tid / (RS * C4);
-  float acc[GR][4];  // zero at every segment's start (reset by the epilogue)
-#pragma unroll
-  for (int g = 0; g < GR; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-  float lsum = 0.f;
-  int seg = -1;
-
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<AHEAD - 1>();
-    __syncthreads();  // tile `step` landed; the previous tile is consumed
-    const bool first = cur.t == 0 || step == 0;
-    const bool last = cur.t == cur.nt - 1 || step == steps - 1;
-    if (first) ++seg;
-    if (step + AHEAD < steps) {  // the loader's cursor and segment, AHEAD tiles on
-      Cursor ld = cur;
-      int ls = seg;
-#pragma unroll
-      for (int j = 0; j < AHEAD; ++j) {
-        ld.advance(offs, rows_b);
-        ls += ld.t == 0;
-      }
-      load_tile(step + AHEAD, ld, ls);
-    }
-    cp_async_commit();
-    const int slot = step % STAGES;
-    const float* ks = smem + slot * 2 * TILE_FLOATS;
-    const float* vs = ks + TILE_FLOATS;
-    const float* q_s = smem + Sm::Q + (seg % QBUF) * GB * DH;
-    const int n = nlen[cur.b];
-    const int nv = min(T, abs(n) - cur.t * T);
-    const float qscale = n < 0 ? 0.f : p.scale;  // cache_len <= 0: equal scores
-
-    // -- scores of position sp for all GB rows over this lane's depths
-    float sc[GB];
-#pragma unroll
-    for (int g = 0; g < GB; ++g) sc[g] = 0.f;
-    const float* kr = ks + sp * DH;
-#pragma unroll
-    for (int jj = 0; jj < JQ; ++jj) {
-      const int c = jj * DQ + dq;
-      const float4 kv = *reinterpret_cast<const float4*>(kr + 4 * (c ^ swz));
-#pragma unroll
-      for (int g = 0; g < GB; ++g) {
-        const float4 qv = *reinterpret_cast<const float4*>(q_s + g * DH + 4 * c);
-        sc[g] = fmaf(qv.x, kv.x, sc[g]);
-        sc[g] = fmaf(qv.y, kv.y, sc[g]);
-        sc[g] = fmaf(qv.z, kv.z, sc[g]);
-        sc[g] = fmaf(qv.w, kv.w, sc[g]);
-      }
-    }
-    int rbase = 0;
-    reduce_scatter<GB, 1, DQ>(sc, dq, rbase);
-    float mx[NOWN];
-#pragma unroll
-    for (int i = 0; i < NOWN; ++i) {
-      // a zero-filled position past cache_len is masked
-      sc[i] = sp < nv ? sc[i] * qscale : -INFINITY;
-      mx[i] = sc[i];
-    }
-#pragma unroll
-    for (int o = DQ; o < 32; o <<= 1)
-#pragma unroll
-      for (int i = 0; i < NOWN; ++i) mx[i] = fmaxf(mx[i], __shfl_xor_sync(FULL, mx[i], o));
-    if (dq < GB) {
-#pragma unroll
-      for (int i = 0; i < NOWN; ++i) {
-        s_s[sp * GB + rbase + i] = sc[i];
-        if (lane < DQ) wmax[warp * GB + rbase + i] = mx[i];
-      }
-    }
-    __syncthreads();
-
-    // -- online softmax: the new max, the rescale, the probabilities
-    {
-      const float m_old = first ? -INFINITY : m_buf[(step & 1) * GB + eg];
-      float m_new = m_old;
-#pragma unroll
-      for (int w = 0; w < NWARPS; ++w) m_new = fmaxf(m_new, wmax[w * GB + eg]);
-      const float alpha = expf(m_old - m_new);  // 0 on a segment's first tile
-      float ps = 0.f;
-      for (int e = tid; e < T * GB; e += NT) {
-        const float pe = expf(s_s[e] - m_new);
-        s_s[e] = pe;
-        ps += pe;
-      }
-      lsum = fmaf(alpha, lsum, ps);
-      if (tid < GB) {
-        m_buf[((step + 1) & 1) * GB + tid] = m_new;
-        alpha_s[tid] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // -- P.V for this thread's column chunk and rows over its positions
-    {
-      float a[GR];
-      bool rescale = false;
-#pragma unroll
-      for (int g = 0; g < GR; ++g) {
-        a[g] = alpha_s[gh * GR + g];
-        rescale |= a[g] != 1.f;
-      }
-      if (rescale) {
-#pragma unroll
-        for (int g = 0; g < GR; ++g)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[g][c] *= a[g];
-      }
-#pragma unroll 2  // fully unrolled, the GB = 8 kernels spill at 128 registers
-      for (int i = 0; i < PP; ++i) {
-        const int t = pq + i * PQ;
-        const float4 vv = *reinterpret_cast<const float4*>(vs + t * DH + 4 * dc);
-        float pr[GR];
-        if constexpr (GR == 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(s_s + t * GB + gh * GR);
-          pr[0] = p4.x; pr[1] = p4.y; pr[2] = p4.z; pr[3] = p4.w;
-        } else {
-#pragma unroll
-          for (int g = 0; g < GR; ++g) pr[g] = s_s[t * GB + g];
-        }
-#pragma unroll
-        for (int g = 0; g < GR; ++g) {
-          acc[g][0] = fmaf(pr[g], vv.x, acc[g][0]);
-          acc[g][1] = fmaf(pr[g], vv.y, acc[g][1]);
-          acc[g][2] = fmaf(pr[g], vv.z, acc[g][2]);
-          acc[g][3] = fmaf(pr[g], vv.w, acc[g][3]);
-        }
-      }
-    }
-
-    if (last) {
-      // -- the segment ends: reduce over the P.V position groups through
-      // this tile's ring slot (the loader refills it only after the next
-      // step's barrier) and over the softmax sums
-      __syncthreads();  // every thread is done with the slot's V
-      float* red = smem + slot * 2 * TILE_FLOATS;
-#pragma unroll
-      for (int g = 0; g < GR; ++g)
-        *reinterpret_cast<float4*>(red + (pq * GB + gh * GR + g) * DH + 4 * dc) =
-            make_float4(acc[g][0], acc[g][1], acc[g][2], acc[g][3]);
-      red_l[tid] = lsum;
-#pragma unroll
-      for (int g = 0; g < GR; ++g) acc[g][0] = acc[g][1] = acc[g][2] = acc[g][3] = 0.f;
-      lsum = 0.f;
-      __syncthreads();
-      if (tid < GB) {
-        float l = 0.f;
-        for (int i = tid; i < NT; i += GB) l += red_l[i];
-        l_s[tid] = l;
-      }
-      __syncthreads();
-      const int kh = cur.rloc / p.n_rg, g0 = (cur.rloc % p.n_rg) * GB;
-      const int gn = min(GB, p.G - g0);
-      const int row = cur.b * rows_b + cur.rloc;
-      const long long row_tile0 = offs[cur.b] + (long long)cur.rloc * cur.nt;
-      const int c_first = cta_of(row_tile0), c_last = cta_of(row_tile0 + cur.nt - 1);
-      float* orow = p.out + (((size_t)cur.b * p.KH + kh) * p.G + g0) * DH;
-      if (c_first == c_last) {  // the whole row: normalize and write the output
-        for (int o = tid; o < gn * DH; o += NT) {
-          const int g = o / DH, d = o % DH;
-          float s = 0.f;
-          for (int t = 0; t < PQ; ++t) s += red[(t * GB + g) * DH + d];
-          orow[o] = s / fmaxf(l_s[g], 1e-30f);
-        }
-        if (LSE && tid < gn)
-          p.lse[(orow - p.out) / DH + tid] =
-              nlen[cur.b] < 0 ? -INFINITY : m_buf[((step + 1) & 1) * GB + tid] + logf(l_s[tid]);
-      } else {
-        const size_t slot_p = (size_t)row + blockIdx.x;
-        for (int o = tid; o < GB * DH; o += NT) {
-          const int g = o / DH, d = o % DH;
-          float s = 0.f;
-          for (int t = 0; t < PQ; ++t) s += red[(t * GB + g) * DH + d];
-          p.part_acc[slot_p * GB * DH + o] = s;
-        }
-        if (tid < GB) {
-          p.part_ml[slot_p * 2 * GB + tid] = m_buf[((step + 1) & 1) * GB + tid];
-          p.part_ml[slot_p * 2 * GB + GB + tid] = l_s[tid];
-        }
-        __threadfence();
-        __syncthreads();
-        if (tid == 0) {
-          const int done = atomicAdd(p.tickets + row, 1);
-          const bool fin = done == c_last - c_first;
-          if (fin) p.tickets[row] = 0;  // every segment has counted: ready for the next call
-          *last_flag = fin;
-        }
-        __syncthreads();
-        if (*last_flag) {
-          // -- the row's last segment: merge its partials in CTA order. SETS
-          // thread sets each fold a contiguous run of them with an online
-          // rescale (one pass over device memory), then the runs are folded
-          // in set order.
-          __threadfence();
-          const int nc = c_last - c_first + 1;
-          const float* pm = p.part_ml + ((size_t)row + c_first) * 2 * GB;  // [c][m, l][g]
-          constexpr int O4 = GB * C4, SETS = NT / O4 > 0 ? NT / O4 : 1;
-          const int o4 = tid % O4, set = tid / O4, g = o4 / C4;
-          float4* red4 = reinterpret_cast<float4*>(red);        // [set][o4]
-          float2* red_ml = reinterpret_cast<float2*>(red4 + SETS * O4);
-          if (set < SETS) {
-            const int per = (nc + SETS - 1) / SETS;
-            const int lo = min(nc, set * per), hi = min(nc, lo + per);
-            const float4* pa =
-                reinterpret_cast<const float4*>(p.part_acc) + ((size_t)row + c_first) * O4 + o4;
-            float m = -INFINITY, l = 0.f;
-            float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-            for (int c = lo; c < hi; ++c) {
-              const float mc = __ldcg(pm + c * 2 * GB + g);
-              const float lc = __ldcg(pm + c * 2 * GB + GB + g);
-              const float4 x = __ldcg(pa + (size_t)c * O4);
-              const float mn = fmaxf(m, mc);
-              const float a = expf(m - mn), w = expf(mc - mn);
-              l = fmaf(a, l, w * lc);
-              acc4.x = fmaf(a, acc4.x, w * x.x);
-              acc4.y = fmaf(a, acc4.y, w * x.y);
-              acc4.z = fmaf(a, acc4.z, w * x.z);
-              acc4.w = fmaf(a, acc4.w, w * x.w);
-              m = mn;
-            }
-            red4[set * O4 + o4] = acc4;
-            red_ml[set * O4 + o4] = make_float2(m, l);
-          }
-          __syncthreads();
-          if (tid < O4 && g < gn) {
-            float mm = -INFINITY;
-            for (int k = 0; k < SETS; ++k) mm = fmaxf(mm, red_ml[k * O4 + o4].x);
-            float l = 0.f;
-            float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
-            for (int k = 0; k < SETS; ++k) {
-              const float2 ml = red_ml[k * O4 + o4];
-              const float w = expf(ml.x - mm);  // 0 for an empty run
-              const float4 x = red4[k * O4 + o4];
-              l = fmaf(w, ml.y, l);
-              acc4.x = fmaf(w, x.x, acc4.x);
-              acc4.y = fmaf(w, x.y, acc4.y);
-              acc4.z = fmaf(w, x.z, acc4.z);
-              acc4.w = fmaf(w, x.w, acc4.w);
-            }
-            const float iv = 1.f / fmaxf(l, 1e-30f);
-            reinterpret_cast<float4*>(orow)[o4] =
-                make_float4(acc4.x * iv, acc4.y * iv, acc4.z * iv, acc4.w * iv);
-            if (LSE && o4 % C4 == 0)
-              p.lse[(orow - p.out) / DH + g] = nlen[cur.b] < 0 ? -INFINITY : mm + logf(l);
-          }
-        }
-      }
-    }
-    cur.advance(offs, rows_b);
-  }
-  cp_async_wait<0>();  // leave no copy in flight at exit
-}
-
-int group_rows(int G) { return G > 4 ? GROUP_MAX : G > 2 ? 4 : G; }
-
-bool valid_shape(int B, int S, int KH, int G, int DH) {
-  if (B < 1 || B > B_MAX || S < 1 || KH < 1 || G < 1 || G > 32 ||
-      (DH != 32 && DH != 64 && DH != 128))
-    return false;
-  const int gb = group_rows(G), t = TILE_FLOATS / DH;
-  // tile indices and output offsets are ints
-  return (long long)B * KH * ((G + gb - 1) / gb) * ((S + t - 1) / t) < (1LL << 31) &&
-         (long long)B * KH * G * DH < (1LL << 31);
-}
-
-// The grid: as many CTAs as fit the card at once, at most one per tile the
-// shapes allow. A function of the shapes and the device only. No CTA waits
-// for another, so an instance that fits fewer an SM runs it in waves.
-template <int DH, int GB>
-cudaError_t plan(int B, int S, int KH, int G, int* grid, int* smem) {
-  static LaunchCache cache, cache_lse;
-  *smem = static_cast<int>(Smem<DH, GB>::bytes(B));
-  int blocks = 0, lse_blocks = 0;
-  cudaError_t e = resident_blocks(cache, da_kernel<DH, GB, false>, NT, *smem, &blocks);
-  if (e != cudaSuccess) return e;
-  // the log-sum-exp instance needs its own shared-memory attribute; its grid
-  // is the one above
-  e = resident_blocks(cache_lse, da_kernel<DH, GB, true>, NT, *smem, &lse_blocks);
-  if (e != cudaSuccess) return e;
-  if (blocks < 1 || lse_blocks < 1) return cudaErrorInvalidConfiguration;
-  const int t = Geo<DH>::T;
-  const long long tiles = (long long)B * KH * ((G + GB - 1) / GB) * ((S + t - 1) / t);
-  *grid = static_cast<int>(tiles < blocks ? tiles : blocks);
-  return cudaSuccess;
-}
-
-template <int DH>
-cudaError_t plan_dh(int B, int S, int KH, int G, int* grid, int* smem) {
-  switch (group_rows(G)) {
-    case 1: return plan<DH, 1>(B, S, KH, G, grid, smem);
-    case 2: return plan<DH, 2>(B, S, KH, G, grid, smem);
-    case 4: return plan<DH, 4>(B, S, KH, G, grid, smem);
-    default: return plan<DH, 8>(B, S, KH, G, grid, smem);
-  }
-}
-
-cudaError_t make_plan(int B, int S, int KH, int G, int DH, int* grid, int* smem) {
-  if (!valid_shape(B, S, KH, G, DH)) return cudaErrorInvalidValue;
-  switch (DH) {
-    case 32: return plan_dh<32>(B, S, KH, G, grid, smem);
-    case 64: return plan_dh<64>(B, S, KH, G, grid, smem);
-    default: return plan_dh<128>(B, S, KH, G, grid, smem);
-  }
-}
-
-template <int DH, bool LSE>
-void launch_gb(const Params& p, int gb, int grid, int smem, cudaStream_t stream) {
-  switch (gb) {
-    case 1: da_kernel<DH, 1, LSE><<<grid, NT, smem, stream>>>(p); break;
-    case 2: da_kernel<DH, 2, LSE><<<grid, NT, smem, stream>>>(p); break;
-    case 4: da_kernel<DH, 4, LSE><<<grid, NT, smem, stream>>>(p); break;
-    default: da_kernel<DH, 8, LSE><<<grid, NT, smem, stream>>>(p); break;
-  }
-}
-
-template <int DH>
-void launch_dh(const Params& p, int gb, int grid, int smem, cudaStream_t stream) {
-  if (p.lse != nullptr)
-    launch_gb<DH, true>(p, gb, grid, smem, stream);
-  else
-    launch_gb<DH, false>(p, gb, grid, smem, stream);
-}
-
-}  // namespace
 
 // Floats of partial-state scratch a call needs, (rows + grid) slots of
-// GB * (DH + 2), or -1 for shapes the kernel does not take (or a runtime
-// error). A function of the shapes and the current device only, so the
-// scratch can be allocated without a host sync.
-extern "C" long long decode_attention_scratch_floats(int B, int S, int KH, int G, int DH) {
+// GB * (DHP + 2) (DHP the padded row width), or -1 for shapes the kernel does
+// not take (or a runtime error). A function of the shapes, the element size
+// and the current device only, so the scratch can be allocated without a
+// host sync.
+extern "C" long long decode_attention_scratch_floats(int B, int S, int KH, int G, int DH,
+                                                     int elem_bytes) {
   int grid = 0, smem = 0;
-  if (make_plan(B, S, KH, G, DH, &grid, &smem) != cudaSuccess) return -1;
+  if (make_plan_any(B, S, KH, G, DH, elem_bytes, &grid, &smem) != cudaSuccess) return -1;
   const int gb = group_rows(G);
+  const int dhp = row_chunks(DH, elem_bytes) * 16 / elem_bytes;
   const long long rows = (long long)B * KH * ((G + gb - 1) / gb);
-  return (rows + grid) * gb * (DH + 2);
+  return (rows + grid) * gb * (dhp + 2);
 }
 
-// q (B, KH, G, DH) f32; k, v (B, S, KH, DH) f32; lens (B,) i32; out (B, KH, G,
-// DH) f32; lse (B, KH, G) f32, or null for none. `part` holds decode_attention_scratch_floats(...) floats; `tickets`
-// at least B * KH * G ints, all zero (the kernel leaves them zero). Takes DH in
-// {32, 64, 128}, 1 <= G <= 32 and B <= 4096. Returns the launch error, or 0.
-extern "C" int decode_attention_launch(const float* q, const float* k, const float* v,
-                                       const int* lens, float* part, int* tickets, float* out,
-                                       float* lse,
-                                       int B, int S, int KH, int G, int DH, float scale,
-                                       void* stream_handle) {
+// q (B, KH, G, DH); k, v (B, S, KH, DH), all f32 (elem_bytes 4) or all bf16
+// (elem_bytes 2); lens (B,) i32; out (B, KH, G, DH) in their dtype, or f32
+// when lse is given; lse (B, KH, G) f32, or null for none. `part` holds
+// decode_attention_scratch_floats(...) floats; `tickets` at least B * KH * G
+// ints, all zero (the kernel leaves them zero). Takes DH a multiple of 8 from
+// 8 to 128, 1 <= G <= 32 and B <= 4096. Returns the launch error, or 0.
+extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
+                                       const int* lens, float* part, int* tickets, void* out,
+                                       float* lse, int B, int S, int KH, int G, int DH,
+                                       int elem_bytes, float scale, void* stream_handle) {
   int grid = 0, smem = 0;
-  const cudaError_t e = make_plan(B, S, KH, G, DH, &grid, &smem);
+  const cudaError_t e = make_plan_any(B, S, KH, G, DH, elem_bytes, &grid, &smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int gb = group_rows(G);
   const size_t rows = (size_t)B * KH * ((G + gb - 1) / gb);
+  const int dhp = row_chunks(DH, elem_bytes) * 16 / elem_bytes;
   Params p;
   p.q = q;
   p.k = k;
   p.v = v;
   p.lens = lens;
   p.part_acc = part;
-  p.part_ml = part + (rows + grid) * gb * DH;
+  p.part_ml = part + (rows + grid) * gb * dhp;
   p.tickets = tickets;
   p.out = out;
   p.lse = lse;
@@ -683,12 +63,12 @@ extern "C" int decode_attention_launch(const float* q, const float* k, const flo
   p.KH = KH;
   p.G = G;
   p.n_rg = (G + gb - 1) / gb;
+  p.dh = DH;
+  p.cr = DH * elem_bytes / 16;
   p.scale = scale;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  switch (DH) {
-    case 32: launch_dh<32>(p, gb, grid, smem, stream); break;
-    case 64: launch_dh<64>(p, gb, grid, smem, stream); break;
-    default: launch_dh<128>(p, gb, grid, smem, stream); break;
-  }
+  const cudaError_t le = elem_bytes == 2 ? launch_bf16(p, gb, grid, smem, stream)
+                                          : launch<float>(p, gb, grid, smem, stream);
+  if (le != cudaSuccess) return static_cast<int>(le);
   return static_cast<int>(cudaGetLastError());
 }

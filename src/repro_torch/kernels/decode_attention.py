@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA `decode_attention` kernel (`csrc/decode_attention.cu`):
+"""Wrapper of the CUDA `decode_attention` kernel (`csrc/decode_attention.cuh`):
 one-token GQA attention against a KV cache with a per-sequence length, the
-port of `repro.kernels.decode_attention.decode_attention`. Its plain version
-is `ref.decode_attention_ref` (the arithmetic of `flash_decode`);
-`ops.decode_attention` picks between them by device. On request the same
-launch also writes each query row's log-sum-exp (``return_lse``), with which
-the pieces of a sequence split over ranks are merged
-(`models.attention.merge_pieces`); the output is the same bit for bit
-either way.
+port of `repro.kernels.decode_attention.decode_attention`. Like it, the
+kernel takes f32 or bf16 inputs, computes in f32 and writes q's dtype, at
+any head width dh that is a multiple of 8 up to 128. Its
+plain version is `ref.decode_attention_ref` (the arithmetic of
+`flash_decode`); `ops.decode_attention` picks between them by device. On
+request the same launch also writes each query row's log-sum-exp
+(``return_lse``), with which the pieces of a sequence split over ranks are
+merged (`models.attention.merge_pieces`); the output then stays in f32 for
+the merge, and rounded to q's dtype it equals the output alone bit for
+bit.
 
 One launch per call, with no host sync: the partial-state scratch is sized
 from the shapes alone, and the per-row tickets with which the kernel's CTAs
@@ -29,7 +32,8 @@ import torch
 from . import build
 from .build import require
 
-HEAD_DIMS = (32, 64, 128)
+DTYPES = (torch.float32, torch.bfloat16)
+DH_MAX = 128
 B_MAX = 4096          # the kernel's prefix sum over B lives in shared memory
 
 _tickets: dict = {}      # device index -> int32 tensor, all zero between calls
@@ -38,14 +42,17 @@ _last_stream: dict = {}  # device index -> stream of the previous eager call
 
 
 @functools.lru_cache(maxsize=None)
-def _scratch_floats(index: int, b: int, s: int, kh: int, g: int, dh: int) -> int:
+def _scratch_floats(index: int, b: int, s: int, kh: int, g: int, dh: int,
+                    elem_bytes: int) -> int:
     """Partial-state floats for these shapes on device ``index`` (the grid,
-    and with it the slot count, depends on the device's SMs)."""
+    and with it the slot count, depends on the device's SMs and on the
+    instance, which the element size picks)."""
     with torch.cuda.device(index):
-        n = build.library().decode_attention_scratch_floats(b, s, kh, g, dh)
+        n = build.library().decode_attention_scratch_floats(b, s, kh, g, dh,
+                                                            elem_bytes)
     if n < 0:
         raise ValueError(f"decode_attention kernel does not take B={b}, S={s}, "
-                         f"KH={kh}, G={g}, dh={dh}")
+                         f"KH={kh}, G={g}, dh={dh}, {elem_bytes}-byte elements")
     return n
 
 
@@ -76,26 +83,33 @@ def _serialize(dev: torch.device, stream, capturing: bool) -> None:
 
 
 def decode_attention(q, k, v, cache_len, return_lse: bool = False):
-    """Launch the kernel on CUDA tensors: q (B, KH, G, dh) f32, k and v
-    (B, S, KH, dh) f32, cache_len (B,) int32 -> (B, KH, G, dh) f32; with
-    ``return_lse`` also the (B, KH, G) f32 log-sum-exp of each row's scaled
-    scores (-inf where cache_len <= 0). Takes dh in {32, 64, 128}, G <= 32
-    and B <= 4096."""
+    """Launch the kernel on CUDA tensors: q (B, KH, G, dh), k and v
+    (B, S, KH, dh), all f32 or all bf16, cache_len (B,) int32 ->
+    (B, KH, G, dh) in q's dtype; with ``return_lse`` the output in f32 and
+    the (B, KH, G) f32 log-sum-exp of each row's scaled scores (-inf where
+    cache_len <= 0). Takes dh a multiple of 8 up to 128, G <= 32 and
+    B <= 4096; raises ValueError on anything else."""
     if not q.is_cuda:
         raise ValueError(f"decode_attention kernel needs CUDA tensors, got "
                          f"{q.device}")
     dev = q.device
     b, kh, g, dh = q.shape
     s = k.shape[1]
-    for name, t, dtype, shape in (("q", q, torch.float32, (b, kh, g, dh)),
-                                  ("k", k, torch.float32, (b, s, kh, dh)),
-                                  ("v", v, torch.float32, (b, s, kh, dh)),
+    if q.dtype not in DTYPES:
+        raise ValueError(f"decode_attention kernel takes q/k/v in {DTYPES}, "
+                         f"got {q.dtype}")
+    for name, t, dtype, shape in (("q", q, q.dtype, (b, kh, g, dh)),
+                                  ("k", k, q.dtype, (b, s, kh, dh)),
+                                  ("v", v, q.dtype, (b, s, kh, dh)),
                                   ("cache_len", cache_len, torch.int32, (b,))):
         require("decode_attention", name, t, dtype, shape, dev)
-    if dh not in HEAD_DIMS or not 1 <= g <= 32 or not 1 <= b <= B_MAX or s < 1:
-        raise ValueError(f"decode_attention kernel takes dh in {HEAD_DIMS}, "
-                         f"1 <= G <= 32, 1 <= B <= {B_MAX} and S >= 1; got "
-                         f"dh={dh}, G={g}, B={b}, S={s}")
+    # a multiple of 8: a bf16 row is whole 16-byte chunks
+    if (not 8 <= dh <= DH_MAX or dh % 8 or not 1 <= g <= 32
+            or not 1 <= b <= B_MAX or s < 1):
+        raise ValueError(f"decode_attention kernel takes dh a multiple of 8 "
+                         f"from 8 to {DH_MAX}, 1 <= G <= 32, 1 <= B <= "
+                         f"{B_MAX} and S >= 1; got dh={dh}, G={g}, B={b}, "
+                         f"S={s}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte aligned")
@@ -103,18 +117,21 @@ def decode_attention(q, k, v, cache_len, return_lse: bool = False):
     tickets = _ticket_array(dev, b * kh * g, capturing)
     stream = torch.cuda.current_stream(dev)
     _serialize(dev, stream, capturing)
-    part = torch.empty(_scratch_floats(dev.index, b, s, kh, g, dh),
+    elem_bytes = q.element_size()
+    part = torch.empty(_scratch_floats(dev.index, b, s, kh, g, dh, elem_bytes),
                        dtype=torch.float32,
                        device=dev)
-    out = torch.empty_like(q)
-    lse = q.new_empty((b, kh, g)) if return_lse else None
+    out = torch.empty(q.shape, dtype=torch.float32 if return_lse else q.dtype,
+                      device=dev)
+    lse = (torch.empty((b, kh, g), dtype=torch.float32, device=dev)
+           if return_lse else None)
     lib = build.library()
     with torch.cuda.device(dev):
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_len.data_ptr(),
             part.data_ptr(), tickets.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b, s, kh, g, dh,
-            ctypes.c_float(dh ** -0.5), stream.cuda_stream)
+            elem_bytes, ctypes.c_float(dh ** -0.5), stream.cuda_stream)
     build.check(err, "decode_attention")
     build.count_launch("decode_attention")
     return (out, lse) if return_lse else out

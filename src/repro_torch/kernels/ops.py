@@ -164,9 +164,10 @@ def decode_attention(q, k, v, cache_len, *,
                      return_lse: bool = False):
     """One-token GQA attention against a KV cache: q (B, KH, G, dh), k and v
     (B, S, KH, dh), cache_len (B,) -> (B, KH, G, dh), and with
-    ``return_lse`` each row's (B, KH, G) log-sum-exp; see
-    `ref.decode_attention_ref`. The kernel takes f32 and dh in
-    {32, 64, 128}."""
+    ``return_lse`` the output in f32 and each row's (B, KH, G) log-sum-exp;
+    see `ref.decode_attention_ref`. The kernel takes f32 or bf16 and dh a
+    multiple of 8 up to 128, and raises on anything else (there is no plain
+    fallback on the card)."""
     if _use_kernel(q, use_kernels, "decode_attention"):
         return _decode_attention.decode_attention(
             q, k, v, cache_len.to(torch.int32).contiguous(),

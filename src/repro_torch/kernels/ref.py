@@ -362,10 +362,13 @@ def decode_attention_ref(q, k, v, cache_len, block: int = 1024,
     positions, positions at or past ``cache_len[b]`` masked with -1e30.
 
     q (B, KH, G, dh); k, v (B, S, KH, dh); cache_len (B,) -> (B, KH, G, dh)
-    in q's dtype; with ``return_lse`` also the (B, KH, G) f32 log-sum-exp of
-    each row's scaled scores, m + log(l) of the online softmax, -inf where
-    cache_len <= 0 (the kernel's: such a row weighs nothing in a merge). The cache has S positions and no more: with cache_len = 0
-    every score is -1e30 and the result is the mean of V over S, as
+    in q's dtype (computed in f32, as the JAX function); with ``return_lse``
+    the output in f32 (the pieces of a split sequence are merged before
+    it is rounded) and the (B, KH, G) f32 log-sum-exp of each row's scaled
+    scores, m + log(l) of the online softmax, -inf where cache_len <= 0
+    (the kernel's: such a row weighs nothing in a merge). The cache has S
+    positions and no more: with cache_len = 0 every score is -1e30 and the
+    result is the mean of V over S, as
     `repro.kernels.ref.decode_attention_ref` gives (`flash_decode` pads S to
     its block and would divide by the padded length instead)."""
     b, kh, g, dh = q.shape
@@ -389,9 +392,9 @@ def decode_attention_ref(q, k, v, cache_len, block: int = 1024,
         l = alpha * l + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bkgt,btkd->bkgd", p, vb)
         m = m_new
-    out = (acc / torch.clamp(l, min=1e-30)[..., None]).to(q.dtype)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
     if not return_lse:
-        return out
+        return out.to(q.dtype)
     empty = (lens <= 0)[:, None, None]
     lse = torch.where(empty, torch.full_like(m, -torch.inf), m + torch.log(l))
     return out, lse

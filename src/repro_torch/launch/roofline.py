@@ -90,12 +90,15 @@ def quick_probe_select(b: int, g: int, m: int) -> dict:
     return cost(float(b) * g * (2 * m + 10), nbytes)
 
 
-def decode_attention(b: int, kh: int, g: int, dh: int, rows: int) -> dict:
-    """One-token GQA attention (`decode_attention.cu`) over ``rows`` cached
+def decode_attention(b: int, kh: int, g: int, dh: int, rows: int,
+                     elem_bytes: int = 4) -> dict:
+    """One-token GQA attention (`decode_attention.cuh`) over ``rows`` cached
     positions in all (the sum over the batch of each sequence's length):
-    K and V of those rows read once, q read and the output written once;
-    2 dh flops for the score and 2 dh for P.V per (position, query row)."""
-    nbytes = 2 * rows * kh * dh * 4 + 2 * b * kh * g * dh * 4 + b * 4
+    K and V of those rows read once, q read and the output written once, at
+    ``elem_bytes`` an element (4 for f32, 2 for bf16); 2 dh flops for the
+    score and 2 dh for P.V per (position, query row), in f32."""
+    nbytes = (2 * rows * kh * dh * elem_bytes + 2 * b * kh * g * dh * elem_bytes
+              + b * 4)
     return cost(float(rows) * kh * g * 4 * dh, nbytes)
 
 

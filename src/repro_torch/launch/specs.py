@@ -7,8 +7,9 @@ Nothing here allocates: the structs are tensors on the ``meta`` device
 production mesh is abstract (`mesh.make_production_mesh`). The parameter
 structs carry JAX's bf16 `model_dtype` (the leaves the port keeps in their
 own dtype, as the JAX ones, keep it); the optimizer state is f32, as in
-JAX. The port trains in f32: the structs give shapes and layouts, and a
-cell run on the ranks takes real f32 tensors.
+JAX. The cell functions follow the dtype of the tensors they are given:
+real bf16 parameters (`init_params(..., dtype=model_dtype(cfg))`) run the
+JAX cells' program, f32 ones the f32 program.
 """
 from __future__ import annotations
 

@@ -279,7 +279,9 @@ def flash_decode(q, k_cache, v_cache, cache_len, *,
         out = merge_pieces(tp, layout.seq_axes, out, lse)
     if layout.split == "head_dim":
         out = tp.all_gather(out.contiguous(), -1)
-    return out.reshape(b, h, -1)
+    # the pieces in f32 to here: one rounding to q's dtype, where the JAX
+    # `flash_decode` rounds
+    return out.reshape(b, h, -1).to(q.dtype)
 
 
 def _head_dim_piece(tp, qg, k_cache, v_cache, lens):
@@ -288,7 +290,7 @@ def _head_dim_piece(tp, qg, k_cache, v_cache, lens):
     valid positions of the piece. The scores' partial dots summed over
     ``model``, positions at or past ``lens`` masked with -1e30 as
     `flash_decode`'s; P.V on this rank's depths. Returns (out (B, KH, G,
-    dh / model), lse (B, KH, G), -inf where lens is 0)."""
+    dh / model) f32, lse (B, KH, G), -inf where lens is 0)."""
     scale = (qg.shape[-1] * tp.size) ** -0.5
     scores = torch.einsum("bkgd,btkd->bkgt", qg.float() * scale,
                           k_cache.float())
@@ -303,7 +305,7 @@ def _head_dim_piece(tp, qg, k_cache, v_cache, lens):
         l, min=1e-30)[..., None]
     lse = torch.where((lens <= 0)[:, None, None], torch.full_like(m, -torch.inf),
                       m + torch.log(l))
-    return out.to(qg.dtype), lse
+    return out, lse
 
 
 def merge_pieces(tp, axes, out, lse):
@@ -311,11 +313,11 @@ def merge_pieces(tp, axes, out, lse):
     ``axes``, from each rank's normalised ``out`` (..., dh) over its piece
     and the piece's ``lse`` (...): the pieces gathered (one collective) and
     added in piece order with weights exp(lse - max lse), so every rank
-    holds the same result. A piece whose lse is -inf (no position of its
-    own) weighs exactly 0."""
+    holds the same result, in f32. A piece whose lse is -inf (no position
+    of its own) weighs exactly 0."""
     both = torch.cat([out.float(), lse[..., None]], dim=-1)[None]
     both = tp.all_gather(both.contiguous(), 0, axes=axes)
-    return combine_pieces(both[..., :-1], both[..., -1]).to(out.dtype)
+    return combine_pieces(both[..., :-1], both[..., -1])
 
 
 def combine_pieces(outs, lses):

@@ -141,10 +141,12 @@ def mamba_chunked(params, cfg, x, *, chunk: int = 256, tp=None):
 def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
     """The chunked SSD scan of xs (B, S, H, P) with B / C (B, S, N) and the
     raw dt (B, S, H): (y (B, S, H, P) f32 with the D skip, final h). The
-    state is f32, so bf16 inputs go in as f32 (jnp's einsum promotes them
-    there)."""
+    state is f32, so bf16 inputs meet it as f32 (jnp's einsum promotes them
+    there), but C.B is taken in the inputs' dtype, as the JAX einsum of
+    the two takes it (in bf16 its output is rounded to bf16 before the f32
+    kernel G)."""
     b, s, h, p = xs.shape
-    xs, bmat, cmat = xs.float(), bmat.float(), cmat.float()
+    xs = xs.float()
     n = bmat.shape[-1]
     dt = softplus(dt.float() + dt_bias)                             # (B,S,H)
     a = torch.exp(-torch.exp(a_log)[None, None] * dt)               # (0, 1)
@@ -157,6 +159,7 @@ def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
     xs = xs.reshape(b, nchunk, chunk, h, p)
     bmat = bmat.reshape(b, nchunk, chunk, n)
     cmat = cmat.reshape(b, nchunk, chunk, n)
+    bmat_in, cmat_in, bmat, cmat = bmat, cmat, bmat.float(), cmat.float()
     dt = dt.reshape(b, nchunk, chunk, h)
     a = a.reshape(b, nchunk, chunk, h)
 
@@ -166,7 +169,7 @@ def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
                                    device=xs.device))[None, :, :, None]
 
     def body(hstate, blk):
-        xs_c, b_c, c_c, dt_c, cum_c = blk
+        xs_c, b_in, c_in, b_c, c_c, dt_c, cum_c = blk   # b_c, c_c f32
         total = cum_c[:, -1]                                       # (B,H)
         # inter-chunk: y_inter[t] = C_t . (decay(0..t) * h_in)
         y_inter = torch.einsum("bln,bhpn->blhp", c_c, hstate) * torch.exp(
@@ -174,7 +177,7 @@ def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
         # intra-chunk: causal kernel G[t,s] = exp(cum[t]-cum[s]) dt[s]
         rel = cum_c[:, :, None, :] - cum_c[:, None, :, :]          # (B,L,L,H)
         g = _intra_kernel(rel, causal, dt_c)
-        scores = torch.einsum("bln,bmn->blm", c_c, b_c)            # (B,L,L)
+        scores = torch.einsum("bln,bmn->blm", c_in, b_in)          # (B,L,L)
         # "blm,blmh,bmhp->blhp" in two steps: no (B, L, L, H, P) temporary
         w = (scores[..., None] * g).permute(0, 3, 1, 2)            # (B,H,L,L)
         y_intra = torch.matmul(w, xs_c.permute(0, 2, 1, 3)).permute(0, 2, 1, 3)
@@ -186,7 +189,8 @@ def _ssd(xs, bmat, cmat, dt, a_log, dt_bias, d_skip, chunk: int):
         return h_new, y_inter + y_intra
 
     h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=xs.device)
-    blks = tuple(t.movedim(1, 0) for t in (xs, bmat, cmat, dt, cum))
+    blks = tuple(t.movedim(1, 0) for t in (xs, bmat_in, cmat_in, bmat, cmat,
+                                             dt, cum))
     h_fin, ys = _scan(body, h0, blks)
     y = ys.movedim(0, 1).reshape(b, sp, h, p)[:, :s]
     y = y + d_skip[None, None, :, None] * xs.reshape(b, sp, h, p)[:, :s]

@@ -102,22 +102,24 @@ def mlstm_chunked(params, cfg, x, *, chunk: int = 256, tp=None):
 def _mlstm_scan(q, k, v, log_i, log_f, chunk: int):
     """The chunked mLSTM over q, k, v (B, S, H, P) and the log gates
     (B, S, H): (y (B, S, H P) f32, final (C, n, m)). The carry is f32, so
-    bf16 inputs go in as f32 (jnp's einsum promotes them there)."""
+    bf16 inputs meet it as f32 (jnp's einsum promotes them there), but q.k
+    is taken in the inputs' dtype, as the JAX einsum of the two takes it
+    (in bf16 its output is rounded to bf16 before the f32 weights)."""
     b, s, h, p = q.shape
-    q, k, v = q.float(), k.float(), v.float()
     nchunk = -(-s // chunk)
     sp = nchunk * chunk
     if sp != s:
         q, k, v, log_i, log_f = (_pad_time(t, sp)
                                  for t in (q, k, v, log_i, log_f))
     blks = tuple(t.reshape(b, nchunk, chunk, *t.shape[2:]).movedim(1, 0)
-                 for t in (q, k, v, log_i, log_f))
+                 for t in (q, k, q.float(), k.float(), v.float(), log_i,
+                           log_f))
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=q.device))[None, :, :, None]
 
     def body(carry, blk):
         c_st, n_st, m_st = carry      # (B,H,P,P), (B,H,P), (B,H)
-        q_c, k_c, v_c, li_c, lf_c = blk
+        q_in, k_in, q_c, k_c, v_c, li_c, lf_c = blk    # q_c, k_c, v_c f32
         cumf = torch.cumsum(lf_c, dim=1)                             # (B,L,H)
         # stabiliser: running max of (cumf + m_in) vs intra log weights
         log_in = cumf + m_st[:, None]                  # decay of the carry-in
@@ -130,7 +132,7 @@ def _mlstm_scan(q, k, v, log_i, log_f, chunk: int):
         n_inter = torch.einsum("blhp,bhp->blh", q_c, n_st) * e_in
         # intra-chunk
         w = torch.exp(intra - m_new[:, :, None, :])                  # (B,L,L,H)
-        scores = torch.einsum("blhp,bmhp->blmh", q_c, k_c) * w
+        scores = torch.einsum("blhp,bmhp->blmh", q_in, k_in) * w
         y_intra = torch.einsum("blmh,bmhr->blhr", scores, v_c)
         n_intra = scores.sum(dim=2)                                  # (B,L,H)
         denom = torch.maximum(torch.abs(n_inter + n_intra), torch.exp(-m_new))
@@ -282,6 +284,12 @@ def slstm_step(params, cfg, x, state, tp=None):
     if split:
         whole = tp.all_gather(torch.stack([t.float() for t in state]), -1)
         state = tuple(t.to(s.dtype) for t, s in zip(whole.unbind(0), state))
+    # h in the activations' dtype: the JAX cache's h takes the cell's output
+    # dtype after a step (the port's cache buffer keeps its f32 allocation
+    # and holds the same values), so from the second step on JAX computes
+    # h @ r_gates in that dtype. At the first step h is zero and either
+    # dtype gives the same bits.
+    state = (state[0].to(x.dtype), *state[1:])
     x = tp_lib.copy_in(tp, x)
     state = _slstm_cell(params, cfg,
                         tp_lib.cols(tp, x[:, 0], params["w_gates"], 4 * d),

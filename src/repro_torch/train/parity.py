@@ -42,7 +42,8 @@ FLIP_MARGIN = 127 * GRAD_TOL
 
 
 def _np(leaves):
-    return [t.detach().cpu().numpy().astype(np.float64) if torch.is_tensor(t)
+    # a bf16 tensor widens exactly to f64 (numpy has no bfloat16)
+    return [t.detach().cpu().double().numpy() if torch.is_tensor(t)
             else np.asarray(t, dtype=np.float64) for t in leaves]
 
 

@@ -6,10 +6,21 @@ flattens a dict by its sorted keys, a NamedTuple in field order, and None
 as a node without leaves. The optimizer sums its global norm over the
 leaves in that order, and a checkpoint numbers its arrays in it, so the
 port flattens the same way.
+
+A leaf crosses to the host and back (`leaf_to_numpy`, `leaf_from_numpy`)
+bit for bit in every dtype, bf16 included, with numpy alone: numpy has no
+bfloat16 of its own, so a bf16 leaf travels as its 16-bit patterns.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+# numpy's record of a bfloat16 array written to an ``.npy`` (the dtype of
+# `ml_dtypes`, which JAX uses, is not one numpy can name): raw 2-byte records
+BF16_RECORD = np.dtype("V2")
 
 
 def _is_namedtuple(node) -> bool:
@@ -83,3 +94,38 @@ def treedef_str(tree) -> str:
 
 
 __all__ = ["leaves", "map", "treedef_str", "unflatten"]
+
+
+def leaf_to_numpy(t) -> np.ndarray:
+    """A host copy of ``t`` (a tensor, or anything numpy takes) as a numpy
+    array; a bf16 tensor as its 2-byte records (`BF16_RECORD`), what numpy
+    writes for a JAX bfloat16 array."""
+    if not torch.is_tensor(t):
+        return np.array(t, copy=True)
+    host = t.detach().to("cpu", copy=True)
+    if host.dtype == torch.bfloat16:
+        return host.view(torch.int16).numpy().view(BF16_RECORD)
+    return host.numpy()
+
+
+def dtype_name(t) -> str:
+    """The dtype's name as the JAX package writes it (``"bfloat16"``,
+    ``"float32"``, ...), for a tensor or a numpy / JAX array."""
+    if torch.is_tensor(t):
+        return str(t.dtype).replace("torch.", "")
+    return str(np.dtype(t.dtype))
+
+
+def leaf_from_numpy(arr, dtype_hint: str = "", copy: bool = True) -> torch.Tensor:
+    """A CPU tensor holding ``arr`` bit for bit (a copy unless ``copy`` is
+    False and ``arr`` is a writable numpy array the tensor may share): an
+    array whose dtype is named ``bfloat16`` (JAX's, from `ml_dtypes`), or
+    raw 2-byte records with ``dtype_hint`` ``"bfloat16"`` (a checkpoint's
+    leaf), becomes a bf16 tensor of the same 16-bit patterns."""
+    arr = np.array(arr, copy=True) if copy else np.asarray(arr)
+    if not arr.flags.c_contiguous:
+        arr = arr.copy()
+    if arr.dtype.name == "bfloat16" or (arr.dtype == BF16_RECORD
+                                        and dtype_hint == "bfloat16"):
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)

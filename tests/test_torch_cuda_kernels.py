@@ -34,13 +34,20 @@ a truncating cap, and each replay counts the kernels its graphs hold.
 `decode_attention` sums scores, the softmax and P.V in another order than
 its blocked plain version: held to |d| <= 1e-5 * max|v| + 1e-6 per row
 (the output is a convex combination of V rows), with cache_len = 0 giving
-the mean of V. Its sums run in an order fixed by the inputs, so repeated
+the mean of V, at every head width it takes (a multiple of 8 up to 128:
+dh 120 runs the dh-128 geometry with its last columns zero-filled). In bf16
+(the f32 arithmetic inside, the output rounded to bf16) kernel and plain
+version are within one bf16 ulp beyond the f32 bound of each other (an
+output near zero can lie several of its own ulps away), the output is
+bf16, and a dh it does not take, a mixed or another dtype raises
+ValueError. Its sums run in an order fixed by the inputs, so repeated
 calls are equal bit for bit; it is one CUDA launch a call and replays
 from a CUDA graph after its inputs change in place. Its log-sum-exp output
-(``return_lse``) leaves the output bit for bit as it is, is held to
-|d| <= 1e-5 * max(1, |lse|) against the plain version's and is -inf
-exactly where cache_len = 0; the kernel over a sequence cut in two halves
-at their local lengths, merged by the log-sum-exp
+(``return_lse``) comes with the output in f32, which rounded to the
+input dtype is the output alone bit for bit; it is held to
+|d| <= 1e-5 * max(1, |lse|) against the plain version's (1e-6 in bf16 and
+at dh 120) and is -inf exactly where cache_len = 0; the kernel over a
+sequence cut in two halves at their local lengths, merged by the log-sum-exp
 (`attention.combine_pieces`), is held to the whole call's tolerance, and a
 row whose length ends in the first half gets exactly that half's output
 (the empty half weighs 0).
@@ -377,9 +384,10 @@ def test_binary_probe_lb_kernel_rejects_what_it_does_not_take(cuda):
                             use_kernels=True)
 
 
-def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
+def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda, dtype=torch.float32):
     def t(shape):
-        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype)
     return (t((b, kh, g, dh)), t((b, s, kh, dh)), t((b, s, kh, dh)),
             torch.tensor(lens, dtype=torch.int32, device=cuda))
 
@@ -400,6 +408,11 @@ def _attention_inputs(rng, b, kh, g, dh, s, lens, cuda):
     (4, 16, 1, 128, 512, [1, 41, 300, 512]),      # qwen2-moe / moonshot decode
     (4, 8, 2, 128, 512, [297, 300, 311, 512]),    # internvl2 decode (256 patches)
     (4, 32, 1, 64, 512, [25, 41, 300, 512]),      # zamba2's shared attention
+    (4, 8, 4, 120, 512, [1, 37, 300, 512]),       # h2o-danube-3-4b decode, dh 120
+    (8, 8, 4, 120, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+    (3, 2, 8, 8, 700, [0, 5, 700]),               # dh 8, the smallest
+    (2, 2, 5, 40, 3000, [2999, 1025]),            # dh 40 in the dh-64 geometry
+    (2, 4, 8, 96, 9000, [9000, 4500]),            # dh 96 in the dh-128 geometry
 ])
 def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
     rng = np.random.RandomState(b * s + g)
@@ -425,6 +438,7 @@ def test_decode_attention_kernel(cuda, b, kh, g, dh, s, lens):
     (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
     (2, 16, 1, 64, 4096, [4096, 513]),            # zamba2's shared block, 2 ranks
     (1, 4, 8, 64, 8192, [0]),                     # a rank's empty piece
+    (4, 8, 4, 120, 4096, [4096, 513, 0, 2000]),   # h2o-danube-3-4b, 2 ranks
 ])
 def test_decode_attention_kernel_lse(cuda, b, kh, g, dh, s, lens):
     rng = np.random.RandomState(b * s + g + 1)
@@ -443,8 +457,77 @@ def test_decode_attention_kernel_lse(cuda, b, kh, g, dh, s, lens):
     assert torch.equal(torch.isneginf(lse), empty)
     assert bool(empty.eq(cache_len[:, None, None] <= 0).all())
     d = (lse - want_lse)[~empty].abs()
-    tol = 1e-5 * torch.clamp(want_lse[~empty].abs(), min=1.0)
+    rel = 1e-5 if dh in (32, 64, 128) else 1e-6
+    tol = rel * torch.clamp(want_lse[~empty].abs(), min=1.0)
     assert bool((d <= tol).all()), float(d.max()) if d.numel() else 0.0
+
+
+def _bf16_ulp(got, want):
+    """One bf16 ulp at the larger magnitude of the two, elementwise."""
+    top = torch.maximum(got.float().abs(), want.float().abs())
+    _, e = torch.frexp(top)
+    return torch.ldexp(torch.ones_like(top), (e - 8).clamp(min=-133))
+
+
+BF16_SHAPES = [
+    (4, 4, 8, 64, 512, [1, 37, 300, 512]),        # the serve shape
+    (4, 8, 8, 128, 512, [1, 37, 300, 512]),       # qwen3-32b decode
+    (4, 8, 4, 120, 512, [1, 37, 300, 512]),       # h2o-danube-3-4b decode
+    (3, 2, 4, 32, 700, [0, 5, 700]),              # dh 32: the dh-64 geometry
+    (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+    (2, 2, 32, 128, 5000, [5000, 2500]),          # G = 32, dh 128
+    (2, 1, 12, 120, 3000, [3000, 100]),           # G = 12, dh 120
+    (1, 4, 8, 64, 524288, [524288]),              # long_500k
+    (4, 16, 1, 128, 512, [1, 41, 300, 512]),      # qwen2-moe / moonshot decode
+    (4, 32, 1, 64, 512, [25, 41, 300, 512]),      # zamba2's shared attention
+]
+
+
+@pytest.mark.parametrize("b,kh,g,dh,s,lens", BF16_SHAPES)
+def test_decode_attention_kernel_bf16(cuda, b, kh, g, dh, s, lens):
+    """bf16 q/k/v: the output bf16, each side the rounding of an f32 value
+    (f32 inside, rounded once), so within one bf16 ulp beyond the f32 bound
+    of each other; two calls equal bit for bit."""
+    rng = np.random.RandomState(b * s + g + 2)
+    args = _attention_inputs(rng, b, kh, g, dh, s, lens, cuda, torch.bfloat16)
+    before = ops.LAUNCHES["decode_attention"]
+    got = ops.decode_attention(*args, use_kernels=True)
+    want = ops.decode_attention(*args, use_kernels=False)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["decode_attention"] == before + 1
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == args[0].shape
+    vmax = args[2].float().abs().amax(dim=(1, 3))
+    tol = 1e-5 * vmax.amax(dim=1)[:, None, None, None] + 1e-6
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= tol + _bf16_ulp(got, want)).all())
+    assert torch.equal(ops.decode_attention(*args, use_kernels=True), got)
+
+
+@pytest.mark.parametrize("b,kh,g,dh,s,lens", [
+    (4, 8, 4, 120, 4096, [4096, 513, 0, 2000]),   # h2o-danube-3-4b, 2 ranks
+    (8, 4, 8, 64, 32768, [32768, 1, 20000, 4097, 64, 65, 31000, 12345]),
+    (2, 16, 1, 128, 4096, [4096, 513]),
+])
+def test_decode_attention_kernel_lse_bf16(cuda, b, kh, g, dh, s, lens):
+    """The log-sum-exp instance in bf16: its f32 output rounds to the
+    output alone bit for bit, and the log-sum-exp is within 1e-6
+    max(1, |lse|) of the plain version's, -inf where cache_len = 0."""
+    rng = np.random.RandomState(b * s + g + 3)
+    args = _attention_inputs(rng, b, kh, g, dh, s, lens, cuda, torch.bfloat16)
+    got, lse = ops.decode_attention(*args, use_kernels=True, return_lse=True)
+    alone = ops.decode_attention(*args, use_kernels=True)
+    want, want_lse = ops.decode_attention(*args, use_kernels=False,
+                                          return_lse=True)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.float32
+    assert torch.equal(got.to(torch.bfloat16), alone)
+    vmax = args[2].float().abs().amax(dim=(1, 3))
+    tol = 1e-5 * vmax.amax(dim=1)[:, None, None, None] + 1e-6
+    assert bool(((got - want).abs() <= tol).all())
+    empty = torch.isneginf(want_lse)
+    assert torch.equal(torch.isneginf(lse), empty)
+    d = (lse - want_lse)[~empty].abs()
+    assert bool((d <= 1e-6 * torch.clamp(want_lse[~empty].abs(), min=1.0)).all())
 
 
 def test_decode_attention_kernel_halves_merged(cuda):
@@ -479,15 +562,21 @@ def test_decode_attention_kernel_halves_merged(cuda):
 
 def test_decode_attention_kernel_rejects_what_it_does_not_take(cuda):
     rng = np.random.RandomState(0)
-    q, k, v, cache_len = _attention_inputs(rng, 2, 2, 4, 48, 10, [3, 4], cuda)
-    with pytest.raises(ValueError):      # dh 48
-        ops.decode_attention(q, k, v, cache_len, use_kernels=True)
+    for dh in (36, 136):                 # not a multiple of 8; past 128
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, cache_len = _attention_inputs(rng, 2, 2, 4, dh, 10, [3, 4],
+                                                   cuda, dtype)
+            with pytest.raises(ValueError, match="multiple of 8"):
+                ops.decode_attention(q, k, v, cache_len, use_kernels=True)
     q, k, v, cache_len = _attention_inputs(rng, 2, 2, 4, 32, 10, [3, 4], cuda)
     with pytest.raises(ValueError):      # not contiguous
         ops.decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
                              v, cache_len, use_kernels=True)
-    with pytest.raises(ValueError):      # bf16
+    with pytest.raises(ValueError):      # bf16 q with f32 k / v
         ops.decode_attention(q.bfloat16(), k, v, cache_len, use_kernels=True)
+    with pytest.raises(ValueError):      # f16
+        ops.decode_attention(q.half(), k.half(), v.half(), cache_len,
+                             use_kernels=True)
 
 
 def test_decode_attention_kernel_is_deterministic(cuda):

@@ -1,7 +1,9 @@
 """The port stands apart from the JAX package and defaults to the card.
 
-- `repro_torch` imports neither `jax` nor any `repro` module (checked in a
-  fresh interpreter, and by reading the sources and `chip_smoke.py`);
+- `repro_torch` imports neither `jax` nor any `repro` module, nor
+  `ml_dtypes` (JAX's bfloat16: the port carries bf16 leaves as their 16-bit
+  patterns), checked in a fresh interpreter and by reading the sources and
+  `chip_smoke.py`;
 - its entry points (search, stream, `api.build`, the model and the serve
   engine) run on the card by default and raise without one instead of
   falling back to the CPU;
@@ -72,7 +74,8 @@ def test_import_pulls_in_neither_jax_nor_repro():
         f"for name in {_modules()!r}:\n"
         "    importlib.import_module(name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
@@ -101,7 +104,8 @@ def _imports_neither_jax_nor_repro(path, module):
         "import runpy, sys\n"
         f"runpy.run_path({path!r}, run_name='not_main')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'repro' or m.startswith('repro.')]\n"
+        "       or m == 'repro' or m.startswith('repro.')\n"
+        "       or m == 'ml_dtypes' or m.startswith('ml_dtypes.')]\n"
         "print(bad)\n"
         f"sys.exit(1 if bad or {module!r} not in sys.modules else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -125,7 +129,8 @@ def test_serve_examples_pull_in_neither_jax_nor_repro(path, module):
 
 def test_sources_do_not_name_jax_or_repro():
     pattern = re.compile(r"^\s*(import\s+jax|from\s+jax|import\s+repro\b|"
-                         r"from\s+repro[.\s])", re.M)
+                         r"from\s+repro[.\s]|import\s+ml_dtypes|"
+                         r"from\s+ml_dtypes)", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py"), QUICKSTART, TRAIN_LM,
              SERVE_LM, RECSYS]
     for root, _, names in os.walk(PKG):

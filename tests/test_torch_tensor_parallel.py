@@ -72,6 +72,19 @@ parameters and inputs. Held: the logits and every cache leaf within 1e-5
 of their largest value against the one-process prefill and `decode_step`
 and against JAX's (the xLSTM's within 5e-5, XLSTM_RTOL: its JAX model
 amplifies f32 rounding past 1e-5).
+
+`build_cell` at the JAX cells' model dtype (`BF16`): the same rank processes
+run its train step (one step, 2 microbatches), its prefill and two steps of
+its decode function on bf16 parameters (qwen3-32b on 2 x 2: the KV heads
+split; h2o-danube with head_dim 30 on 1 x 4: its sequence over ``model``),
+and this process the same one-process steps in bf16, in f32 on the same
+bf16 weights and in bf16 with the embedding moved by one bf16 ulp. Held:
+the parameters stay bf16, the moments f32, the logits f32 and the K/V
+cache bf16, and the loss, the grad norm, every leaf of the state, the
+logits and the cache lie within twice the one-process bf16 compute's own
+error (its larger distance from the other two) plus 1e-6 of it
+(`tests/test_torch_bf16.py`'s rule: the split adds its partial sums in
+bf16, as GSPMD's partition of the JAX program does).
 """
 import json
 import os
@@ -135,6 +148,12 @@ DECODE = [
     ("whisper-cross", "whisper-base", {}, "2x2", 4, 40, 4, "heads"),
 ]
 DECODE_STEPS = 3
+# build_cell at bf16: (name, arch, overrides, mesh, batch, cache length)
+BF16 = [("qwen3-bf16", "qwen3-32b", {}, "2x2", 4, 40),
+        ("danube-bf16-sequence", "h2o-danube-3-4b", {"head_dim": 30}, "1x4",
+         4, 40)]
+BF16_STEPS = 2
+BF16_MOVE = 1 + 2.0 ** -7      # one bf16 ulp at 1: the embedding moved by it
 DECODE_TOL = {"xlstm_7_1": 5e-5}   # test_torch_recurrent.XLSTM_RTOL
 RECURRENT_RULE = ("zamba2", "xlstm_7_1")     # `train.parity`'s recurrent rule
 JAX_PREFILL_TOL = {"xlstm_7_1": 5e-5}        # test_torch_recurrent.XLSTM_RTOL
@@ -244,6 +263,7 @@ from repro_torch.train import loop
 
 out, store, families = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
 jax_cells, decode = json.loads(sys.argv[4]), json.loads(sys.argv[5])
+bf16_cells = json.loads(sys.argv[6])
 rank = int(os.environ["RANK"])
 dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
                         world_size=4, timeout=launch_train.TIMEOUT)
@@ -336,6 +356,54 @@ for name, arch, over, shape, b, max_len in decode:
                                                mesh).numpy()), cache)
     if rank == 0:
         np.savez(os.path.join(out, f"dec_{name}.npz"), **arrays)
+
+# build_cell at bf16: one train step, the prefill and BF16_STEPS decode
+# steps on bf16 parameters, gathered whole
+for name, arch, over, shape, b, max_len in bf16_cells:
+    cfg = config(arch, over)
+    mesh = make_mesh_compat(tuple(shape), ("data", "model"))
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.bfloat16)
+    fn, _, (st_specs, _), _ = specs.build_cell(cfg, train, mesh,
+                                               microbatch_override=2)
+    tcfg = dataclasses.replace(specs.train_cfg_for(cfg, train, mesh),
+                               microbatches=2)
+    state = S.shard_tree(loop.init_state(params, tcfg), st_specs, mesh)
+    new, m = fn(state, lm_batch(cfg, train))
+    arrays = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+    dtypes = {}
+    for i, t in enumerate(tree_lib.leaves(S.gather_tree(new, st_specs, mesh))):
+        arrays[f"state{i}"] = t.float().numpy()
+        dtypes[f"state{i}"] = str(t.dtype)
+    pieces = S.shard_tree(params, S.param_specs(params, mesh), mesh)
+    inp = dict(np.load(os.path.join(out, f"bf16_in_{name}.npz")))
+    pfn, _, (_, b_specs), (pc_specs, pl_spec) = specs.build_cell(
+        cfg, ShapeCfg("tp_dprefill", max_len, b, "prefill"), mesh)
+    dfn, _, (_, c_specs, t_spec), (l_spec, _) = specs.build_cell(
+        cfg, ShapeCfg("tp_decode", max_len, b, "decode"), mesh)
+    with torch.no_grad():
+        cache, logits = pfn(pieces, {k: S.shard(torch.from_numpy(inp[k]), spec,
+                                                mesh)
+                                     for k, spec in b_specs.items() if k in inp})
+        arrays["prefill"] = S.gather(logits, S.P(b_specs["tokens"][0],
+                                                 *pl_spec[1:]), mesh).numpy()
+        for i, tok in enumerate(inp["steps"]):
+            logits, cache = dfn(pieces, cache,
+                                S.shard(torch.from_numpy(tok), t_spec, mesh))
+            arrays[f"logits{i}"] = S.gather(
+                logits, S.P(t_spec[0], *l_spec[1:]), mesh).numpy()
+            dtypes[f"logits{i}"] = str(logits.dtype)
+
+    def keep(path, t):
+        key = "cache/" + S._path_str(path)
+        arrays[key] = S.gather(t, at(c_specs, path), mesh).float().numpy()
+        dtypes[key] = str(t.dtype)
+
+    S.tree_map_with_path(keep, cache)
+    if rank == 0:
+        np.savez(os.path.join(out, f"bf16_{name}.npz"), **arrays)
+        with open(os.path.join(out, f"bf16_{name}.json"), "w") as f:
+            json.dump(dtypes, f)
 
 # mesh (4, 1): build_cell's step against the gathering step
 mesh = make_mesh_compat((4, 1), ("data", "model"))
@@ -482,6 +550,48 @@ def _decode_one(cfg, out, name, max_len):
     return logits, cache
 
 
+def _bf16_cells():
+    """[name, arch, overrides, mesh shape, batch, cache length] of each
+    BF16 entry."""
+    return [[name, arch, over, list(MESHES[mesh]), b, max_len]
+            for name, arch, over, mesh, b, max_len in BF16]
+
+
+def _bf16_one(cfg, out, name, max_len):
+    """A bf16 cell's one-process results, the same arrays the ranks save
+    (the state after one train step, the prefill's logits, each decode
+    step's logits, the cache), in bf16 and, to measure its own error, in
+    f32 on the same bf16 weights and with the embedding moved by one bf16
+    ulp: {"bf16" | "f32" | "moved": arrays}."""
+    params = T.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.bfloat16)
+    runs = {"bf16": params,
+            "f32": tree_lib.map(lambda t: t.float(), params),
+            "moved": dict(params, embed=params["embed"] * BF16_MOVE)}
+    inp = dict(np.load(os.path.join(out, f"bf16_in_{name}.npz")))
+    # build_cell's (`specs.train_cfg_for`) with 2 microbatches
+    tcfg = loop.TrainCfg(microbatches=2, remat="full")
+    step = loop.make_train_step(cfg, tcfg)
+    refs = {}
+    for key, p in runs.items():
+        new, m = step(loop.init_state(p, tcfg), lm_batch(cfg, TRAIN))
+        arrays = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        arrays.update({f"state{i}": t.float().numpy()
+                       for i, t in enumerate(tree_lib.leaves(new))})
+        with torch.no_grad():
+            cache, logits = T.prefill(p, cfg, {"tokens": torch.from_numpy(
+                inp["tokens"])}, max_len)
+            arrays["prefill"] = logits.numpy()
+            for i, tok in enumerate(inp["steps"]):
+                logits, cache = T.decode_step(p, cfg, cache,
+                                              torch.from_numpy(tok))
+                arrays[f"logits{i}"] = logits.numpy()
+        S.tree_map_with_path(lambda path, t: arrays.__setitem__(
+            "cache/" + S._path_str(path), t.float().numpy()), cache)
+        refs[key] = arrays
+    return refs
+
+
 def _jax_cells():
     """[name, arch, overrides, mesh shape] of each JAX_CELLS entry."""
     fams = {f[0]: f for f in FAMILIES}
@@ -503,6 +613,13 @@ def ranks(tmp_path_factory):
             _params(cfg), loop.TrainCfg(**STEP_KW)))
         np.savez(os.path.join(out, f"dec_in_{name}.npz"),
                  **_decode_inputs(cfg, name, b))
+    for name, arch, over, _, b, _ in BF16:
+        cfg = _config(arch, over)
+        rng = np.random.default_rng(sum(map(ord, name)))
+        np.savez(os.path.join(out, f"bf16_in_{name}.npz"),
+                 tokens=rng.integers(0, cfg.vocab, (b, 12)).astype(np.int32),
+                 steps=rng.integers(0, cfg.vocab, (BF16_STEPS, b, 1)).astype(
+                     np.int32))
     store = os.path.join(out, "store")
     jax_env = dict(os.environ, PYTHONPATH=SRC, JAX_PLATFORMS="cpu",
                    XLA_FLAGS="--xla_force_host_platform_device_count=4 "
@@ -519,7 +636,7 @@ def ranks(tmp_path_factory):
                            dict(jax_env, JAX_ENABLE_X64="1")))
     children += [
         _start(CHILD, [out, store, json.dumps(FAMILIES), json.dumps(cells),
-                       json.dumps(decode)],
+                       json.dumps(decode), json.dumps(_bf16_cells())],
                dict(env, RANK=str(r), LOCAL_RANK=str(r)))
         for r in range(4)]
     threads = torch.get_num_threads()
@@ -532,6 +649,8 @@ def ranks(tmp_path_factory):
                           "prefill": _prefill_one(cfg)}
         for name, arch, over, _, _, max_len in decode:
             refs[name] = _decode_one(_config(arch, over), out, name, max_len)
+        for name, arch, over, _, _, max_len in _bf16_cells():
+            refs[name] = _bf16_one(_config(arch, over), out, name, max_len)
     finally:
         torch.set_num_threads(threads)
         _wait(children)
@@ -791,3 +910,36 @@ def test_split_step_moves_no_whole_parameter():
     moved = [e for e in mesh.events if e[1] in whole]
     assert not moved, moved
     assert mesh.counts["all-reduce"] > 0, mesh.counts
+
+
+@pytest.mark.parametrize("cell", BF16, ids=[c[0] for c in BF16])
+def test_build_cell_runs_in_bf16_on_the_ranks(ranks, cell):
+    """`build_cell`'s train, prefill and decode functions at bf16 on the
+    four ranks against the one-process bf16 compute, by
+    `tests/test_torch_bf16.py`'s rule (the module's docstring)."""
+    out, refs = ranks
+    name, arch, over = cell[:3]
+    got = _load(out, f"bf16_{name}.npz")
+    with open(os.path.join(out, f"bf16_{name}.json")) as f:
+        dtypes = json.load(f)
+    ref = refs[name]
+    want = tree_lib.leaves(loop.init_state(T.init_params(
+        _config(arch, over), generator=torch.Generator().manual_seed(0),
+        device="cpu", dtype=torch.bfloat16), loop.TrainCfg()))
+    for i, t in enumerate(want):
+        assert dtypes[f"state{i}"] == str(t.dtype), i
+    assert any(dtypes[f"state{i}"] == "torch.bfloat16" for i in range(len(want)))
+    for key, dtype in dtypes.items():
+        if key.startswith("logits"):
+            assert dtype == "torch.float32", key
+        if key.startswith("cache/") and key.split("/")[-1] in ("k", "v"):
+            assert dtype == "torch.bfloat16", key
+    worst = {}
+    for key, mine in got.items():
+        own = max(parity.rel(ref[alt][key], ref["bf16"][key])
+                  for alt in ("f32", "moved"))
+        err = parity.rel(mine, ref["bf16"][key])
+        worst[key] = (err, 2 * own + 1e-6)
+    print({k: f"{e:.2e}/{t:.2e}" for k, (e, t) in worst.items()})
+    for key, (err, tol) in worst.items():
+        assert err <= tol, (key, err, tol)
